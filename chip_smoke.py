@@ -17,15 +17,29 @@ Phases, one line each; any failure raises and the script exits non-zero:
    encode against the plain version run in fp64 on the same card tensor,
    decode, cycle consistency, the bench-shape decode, card vs CPU decode,
    streaming decode, and the launch counts of both kernels;
-6. timings (CUDA events) of kernel vs plain, labelled with the card.
+6. timings (CUDA events) of kernel vs plain, labelled with the card;
+7. the training path, ``HiFiGANTrainer(...).run()`` at full width (HiFi-GAN
+   v2 with weight norm, MPD base, MSD base, 16 x 8192-sample segments): K4
+   (the trainable log-mel) vs its plain version, six steps with checkpoints,
+   a resume from step 3 that replays steps 4-6, one step on the card against
+   the same step on the CPU, the log-mel launch counts of the run, and
+   timings.
 
-The line before the last is a JSON object with one entry per kernel; the last
-line is ``{"ok": true, "device": {...}}``.
+The line before the last is a JSON object with one entry per kernel, each
+with its time, its plain version's, the least time the card could take for
+the same work (``bound_ms``, from the shapes, at the H100's published peaks)
+and the time of one PyTorch call computing the same function where there is
+one (``library_ms``; none exists for these three). The last line is
+``{"ok": true, "device": {...}}``.
 """
 
+import itertools
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -36,6 +50,19 @@ MEL_TOL = 1e-4                    # log-mel kernel vs plain (tests/test_pallas.p
 STAGE_TOL = 2e-5                  # one stage vs plain (tests/test_pallas.py:187)
 DECODE_TOL = 2e-4                 # card decode vs CPU decode (tests/test_pallas.py:151)
 STREAM_TOL = 1e-5                 # streaming interior vs whole decode
+GRAD_TOL = 1e-4                   # K4 gradient vs plain (tests/test_pallas.py:305)
+RESUME_RTOL = 1e-5                # resumed run's logged losses vs the first run's
+CARD_CPU_RTOL = 1e-4              # one training step's losses, card vs CPU
+CARD_CPU_GRAD_TOL = 1e-3          # ||g_card - g_cpu|| / ||g_cpu|| per parameter
+SEG = 8192                        # training segment (examples/hifi_gan.py:348)
+BATCH = 16
+LOSSES = ('loss', 'disc_loss', 'adv', 'feature_matching', 'mel_l1')
+
+# H100 SXM published peaks (NVIDIA data sheet, 700 W): fp32 outside the
+# tensor cores, fp64 on the tensor cores (the faster fp64 route), HBM3
+PEAK_FP32 = 67e12
+PEAK_FP64 = 67e12
+HBM_BYTES_PER_S = 3.35e12
 
 
 def log(phase, **fields):
@@ -91,12 +118,294 @@ def paired_ms(plain, kernel, iters):
     return (k1 + k2) / 2, (p1 + p2) / 2, (k1, k2), (p1, p2)
 
 
+def bound(fp32_flops, fp64_flops, nbytes):
+    """(ms, 'operations' or 'bytes'): the larger of the operations over the
+    card's peak rates for their type and the bytes over its memory rate."""
+    ops_s = fp32_flops / PEAK_FP32 + fp64_flops / PEAK_FP64
+    bytes_s = nbytes / HBM_BYTES_PER_S
+    return max(ops_s, bytes_s) * 1e3, 'operations' if ops_s >= bytes_s else 'bytes'
+
+
+def stage_work(x, args):
+    """(fp32 FLOPs, bytes) of one fused generator stage on input x: the
+    transposed conv, every resblock conv and conv_post at their algorithmic
+    MACs per output position; x, the weights and the output moved once."""
+    n, c_in, t_in = x.shape
+    c, u = c_in // 2, args['upsample_rate']
+    positions = n * t_in * u
+    w_up = args['up_weight']
+    macs = c_in * c * w_up.shape[2] // u
+    weights = w_up.numel() + args['up_bias'].numel()
+    for block in args['blocks']:
+        for w, b, _ in block:
+            macs += w.shape[0] * w.shape[1] * w.shape[2]
+            weights += w.numel() + b.numel()
+    c_out = c
+    if args['conv_post'] is not None:
+        w, b = args['conv_post']
+        macs += w.shape[1] * w.shape[2]
+        weights += w.numel() + b.numel()
+        c_out = 1
+    return 2.0 * macs * positions, 4.0 * (x.numel() + weights + n * c_out * t_in * u)
+
+
+def logmel_work(b, t, n_bins, n_mels=80, n_fft=1024, hop=256):
+    """(fp32 FLOPs, fp64 FLOPs, bytes) of the HiFi-GAN log-mel of (b, t)
+    samples: the direct windowed DFT over the used bins in fp64 (2 FMAs per
+    sample, bin and frame), the mel projection in fp32; the waveform read and
+    the log-mel written once."""
+    frames = 1 + (t + n_fft - hop - n_fft) // hop
+    dft = 2.0 * 2 * n_bins * n_fft * frames * b
+    mel = 2.0 * n_mels * n_bins * frames * b
+    return mel, dft, 4.0 * (b * t + b * n_mels * frames)
+
+
+class ToneStream:
+    """Batches of harmonic tones drawn from the global np.random (the
+    StreamRecorder pattern of tests/test_trainer.py:107): a checkpoint holds
+    that state, so a resumed run replays the same batches."""
+
+    def __init__(self, n_batches, batch=BATCH, samples=SEG):
+        self.n_batches, self.batch, self.samples = n_batches, batch, samples
+
+    def __iter__(self):
+        for _ in range(self.n_batches):
+            yield [tones(np.random, self.batch, self.samples)]
+
+
+def build_gan(device, seed):
+    """HiFi-GAN v2 with weight norm, MPD base and MSD base, initialised from
+    ``seed`` with the JAX init, on ``device``."""
+    import torch
+    from pytorch_sound_tpu_torch.models import build_model
+    from pytorch_sound_tpu_torch.models.vocoders import discriminators  # noqa: F401
+    from pytorch_sound_tpu_torch.models.vocoders.hifi_gan import init_params
+    gen = torch.Generator().manual_seed(seed)
+    return [init_params(build_model(arch), gen).to(device)
+            for arch in ('hifi_gan_v2', 'hifi_gan_mpd_base', 'hifi_gan_msd_base')]
+
+
+def make_trainer(models, device, save_dir, **kw):
+    """A HiFiGANTrainer at the JAX recipe's settings (AdamW 2e-4, betas 0.8 /
+    0.99, no clip) that records every logged scalar."""
+    from pytorch_sound_tpu_torch.examples.hifi_gan import HiFiGANTrainer
+    from pytorch_sound_tpu_torch.trainer import LogType, adamw
+
+    class Recorder(HiFiGANTrainer):
+        def console_log(self, tag, meta, step):
+            self.logged.append((tag, step, {k: float(np.asarray(v))
+                                            for k, (v, t) in meta.items()
+                                            if t == LogType.SCALAR}))
+            super().console_log(tag, meta, step)
+
+    gen, mpd, msd = models
+    trainer = Recorder(gen, mpd, msd, adamw(gen.parameters(), 2e-4, 0.8, 0.99),
+                       adamw(itertools.chain(mpd.parameters(), msd.parameters()),
+                             2e-4, 0.8, 0.99),
+                       kw.pop('train', None), kw.pop('valid', None),
+                       save_dir=save_dir, save_prefix='hifi_gan', seed=kw.pop('seed', 1),
+                       device=device, **kw)
+    trainer.logged = []
+    return trainer
+
+
+def train_path(dev, card):
+    """Phase 7: returns the JSON entry of K4 and the training path's K2
+    launches."""
+    import torch
+    from pytorch_sound_tpu_torch.ops import mel as mel_ops
+    from pytorch_sound_tpu_torch.ops.cuda import logmel as lm
+
+    # 7.1 K4 vs its plain version at the training shape. Forward on tones
+    #     against the plain version in fp64. Gradient of sum(sin(mel)) on
+    #     white noise (the signal of tests/test_pallas.py:286) against
+    #     autograd of the fp32 plain version, absolute; on tones, whose
+    #     quiet bands drive the gradient to ~1e3 through 1/mel, relative to
+    #     its largest entry.
+    rng = np.random.default_rng(7)
+    tonal = torch.from_numpy(tones(rng, BATCH, SEG)).to(dev)
+    noise = torch.from_numpy((rng.standard_normal((BATCH, SEG)) * 0.2)
+                             .astype(np.float32)).to(dev)
+    mel = lm.fused_hifigan_mel_trainable(tonal)
+    fwd_err = max_err(mel.double(), mel_ops.hifigan_mel_spectrogram(tonal.double()))
+
+    def grad(fn, wav):
+        w = wav.clone().requires_grad_(True)
+        torch.sum(torch.sin(fn(w))).backward()
+        return w.grad
+
+    grad_err = max_err(grad(lm.fused_hifigan_mel_trainable, noise),
+                       grad(mel_ops.hifigan_mel_spectrogram, noise))
+    g_ref = grad(mel_ops.hifigan_mel_spectrogram, tonal)
+    tone_rel = max_err(grad(lm.fused_hifigan_mel_trainable, tonal), g_ref) \
+        / float(g_ref.abs().max())
+    torch.cuda.synchronize()
+    log('k4', shape=tuple(tonal.shape), mel=tuple(mel.shape),
+        fwd_tones_vs_fp64='%.3g' % fwd_err, grad_noise_vs_plain='%.3g' % grad_err,
+        grad_tones_rel='%.3g' % tone_rel, grad_tones_max='%.4g' % float(g_ref.abs().max()))
+    assert mel.shape == (BATCH, 80, SEG // 256) and fwd_err <= MEL_TOL, fwd_err
+    assert grad_err <= GRAD_TOL and tone_rel <= GRAD_TOL, (grad_err, tone_rel)
+
+    # 7.2 the main path: HiFiGANTrainer(...).run() at full width, 6 steps,
+    #     checkpoints at 3 and 6, deterministic cuDNN for the resume check
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    lm.fused_log_mel.launches = 0
+    lm.fused_hifigan_mel_trainable.launches = 0
+    steps, valid_batches = 0, 0
+    work = tempfile.mkdtemp(prefix='chip_smoke_train_')
+    try:
+        first_dir, resume_dir = os.path.join(work, 'first'), os.path.join(work, 'resume')
+        t0 = time.perf_counter()
+        run1 = make_trainer(build_gan(dev, 0), dev, first_dir, train=ToneStream(4),
+                            valid=ToneStream(2), max_step=6, valid_max_step=2,
+                            save_interval=3, log_interval=1)
+        n_params = sum(p.numel() for m in (run1.generator, run1.mpd, run1.msd)
+                       for p in m.parameters())
+        best = run1.run()
+        torch.cuda.synchronize()
+        steps, valid_batches = steps + 6, valid_batches + 4
+        train1 = {s: m for tag, s, m in run1.logged if tag == 'train'}
+        for s in range(1, 7):
+            log('train', step=s, **{k: '%.6f' % train1[s][k] for k in LOSSES})
+        assert sorted(train1) == list(range(1, 7)), sorted(train1)
+        assert all(np.isfinite(m[k]) for m in train1.values() for k in LOSSES), train1
+        assert np.isfinite(best), best
+        ckpt = os.path.join(first_dir, 'models', 'hifi_gan', 'Generator')
+        assert sorted(os.listdir(ckpt)) == ['step_000003.chkpt', 'step_000006.chkpt'], \
+            os.listdir(ckpt)
+        log('run', params=n_params, steps=6, seconds='%.1f' % (time.perf_counter() - t0),
+            best_valid_mel_l1='%.6f' % best, checkpoints=','.join(sorted(os.listdir(ckpt))))
+
+        # 7.3 resume from the step-3 checkpoint alone; steps 4-6 replay
+        rckpt = os.path.join(resume_dir, 'models', 'hifi_gan', 'Generator')
+        os.makedirs(rckpt)
+        shutil.copy(os.path.join(ckpt, 'step_000003.chkpt'), rckpt)
+        del run1
+        run2 = make_trainer(build_gan(dev, 0), dev, resume_dir, train=ToneStream(4),
+                            valid=ToneStream(2), max_step=6, valid_max_step=2,
+                            save_interval=3, log_interval=1, seed=99)
+        run2.run()
+        torch.cuda.synchronize()
+        steps, valid_batches = steps + 3, valid_batches + 2
+        train2 = {s: m for tag, s, m in run2.logged if tag == 'train'}
+        assert sorted(train2) == [4, 5, 6], sorted(train2)
+        worst = max(abs(train2[s][k] - train1[s][k]) / max(abs(train1[s][k]), 1e-30)
+                    for s in (4, 5, 6) for k in LOSSES)
+        log('resume', steps='4-6', worst_rel_diff='%.3g' % worst)
+        assert worst <= RESUME_RTOL, worst
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    launches = {'logmel': lm.fused_log_mel.launches,
+                'logmel_trainable': lm.fused_hifigan_mel_trainable.launches}
+    torch.backends.cudnn.deterministic = False
+
+    # 7.5 every step and valid batch ran K2 twice (mel_real, and the fake's
+    #     mel through K4) and K4 once
+    log('counts', logmel=launches['logmel'], logmel_trainable=launches['logmel_trainable'],
+        train_steps=steps, valid_batches=valid_batches)
+    assert launches['logmel'] == 2 * (steps + valid_batches) > 0, launches
+    assert launches['logmel_trainable'] == steps + valid_batches, launches
+
+    # 7.4 one step on the card against the same step on the CPU, from the
+    #     same parameters and a 2 x 8192 batch. Both generator phases start
+    #     from the CPU's updated critics: Adam's first update moves every
+    #     entry by about +-lr whatever its gradient's size, so entries with
+    #     near-zero gradients may step apart between two correct runs.
+    trainers = []
+    for device in ('cpu', dev):
+        t = make_trainer(build_gan(device, 1), device,
+                         tempfile.mkdtemp(prefix='chip_smoke_step_'),
+                         max_step=1, valid_max_step=1, save_interval=1, log_interval=1)
+        shutil.rmtree(t.save_dir, ignore_errors=True)
+        trainers.append(t)
+    real = [t.to_device([tones(np.random.default_rng(5), 2, SEG)])[0][:, None, :]
+            for t in trainers]
+    d_loss = [t.disc_phase(r) for t, r in zip(trainers, real)]
+    for key in ('mpd', 'msd'):
+        getattr(trainers[1], key).load_state_dict(getattr(trainers[0], key).state_dict())
+    results = []
+    for t, r, (d, mel_real) in zip(trainers, real, d_loss):
+        g_loss, (adv, fm, mel_l1, _) = t.gen_phase(r, mel_real)
+        losses = dict(zip(LOSSES, (float(x) for x in (g_loss, d, adv, fm, mel_l1))))
+        grads = {'%s.%s' % (name, k): p.grad.detach().cpu()
+                 for name, m in (('gen', t.generator), ('mpd', t.mpd), ('msd', t.msd))
+                 for k, p in m.named_parameters()}
+        results.append((losses, grads))
+    (cpu_loss, cpu_grads), (card_loss, card_grads) = results
+    loss_rel = max(abs(card_loss[k] - cpu_loss[k]) / abs(cpu_loss[k]) for k in LOSSES)
+    grad_rel = {k: float((card_grads[k] - g).norm() / g.norm()) for k, g in cpu_grads.items()}
+    worst_grad = max(grad_rel, key=grad_rel.get)
+    log('card_cpu', losses=' '.join('%s=%.6f/%.6f' % (k, card_loss[k], cpu_loss[k])
+                                    for k in LOSSES),
+        worst_loss_rel='%.3g' % loss_rel, worst_grad_rel='%.3g' % grad_rel[worst_grad],
+        worst_grad_param=worst_grad, params=len(grad_rel))
+    assert loss_rel <= CARD_CPU_RTOL, (card_loss, cpu_loss)
+    assert grad_rel[worst_grad] <= CARD_CPU_GRAD_TOL, (worst_grad, grad_rel[worst_grad])
+    del trainers, results
+
+    # 7.6 timings: the full-width step and its phases, K4 vs plain
+    trainer = make_trainer(build_gan(dev, 0), dev, tempfile.mkdtemp(prefix='chip_smoke_t_'),
+                           max_step=1, valid_max_step=1, save_interval=1, log_interval=1)
+    shutil.rmtree(trainer.save_dir, ignore_errors=True)
+    real = torch.from_numpy(tones(np.random.default_rng(6), BATCH, SEG)).to(dev)[:, None, :]
+    for _ in range(2):
+        trainer._train_step([real[:, 0]], is_logging=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    n_timed = 6
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3 * n_timed)]
+    t0 = time.perf_counter()
+    for i in range(n_timed):
+        ev[3 * i].record()
+        _, mel_real = trainer.disc_phase(real)
+        ev[3 * i + 1].record()
+        trainer.gen_phase(real, mel_real)
+        ev[3 * i + 2].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    disc_ms = [ev[3 * i].elapsed_time(ev[3 * i + 1]) for i in range(n_timed)]
+    gen_ms = [ev[3 * i + 1].elapsed_time(ev[3 * i + 2]) for i in range(n_timed)]
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    log('time', card=repr(card), what='train_step_16x8192',
+        steps_per_s='%.3f' % (n_timed / wall), step_ms='%.2f' % (wall / n_timed * 1e3),
+        disc_phase_ms='/'.join('%.2f' % x for x in disc_ms),
+        gen_phase_ms='/'.join('%.2f' % x for x in gen_ms),
+        peak_memory_gb='%.2f' % peak_gb)
+    del trainer
+
+    def fwd_bwd(fn):
+        w = tonal.clone().requires_grad_(True)
+        fn(w).sum().backward()
+
+    fwd_k, fwd_p, fwd_kr, fwd_pr = paired_ms(
+        lambda: mel_ops.hifigan_mel_spectrogram(tonal),
+        lambda: lm.fused_hifigan_mel_trainable(tonal), 20)
+    fb_k, fb_p, _, _ = paired_ms(lambda: fwd_bwd(mel_ops.hifigan_mel_spectrogram),
+                                 lambda: fwd_bwd(lm.fused_hifigan_mel_trainable), 20)
+    _, cos_b, _ = lm._constants(22050, 1024, 1024, 80, 0.0, 8000.0, str(dev))
+    bound_ms, bound_by = bound(*logmel_work(BATCH, SEG, cos_b.shape[1]))
+    log('time', card=repr(card), what='k4_16x8192', fwd_ms='%.4f' % fwd_k,
+        plain_fwd_ms='%.4f' % fwd_p, bwd_ms='%.4f' % (fb_k - fwd_k),
+        plain_bwd_ms='%.4f' % (fb_p - fwd_p), fwd_ms_runs='%.4f,%.4f' % fwd_kr,
+        plain_fwd_ms_runs='%.4f,%.4f' % fwd_pr, fwd_bound_ms='%.4f' % bound_ms,
+        bound_by=bound_by)
+    return launches['logmel'], {
+        'name': 'logmel_trainable', 'route': 'cuda', 'source': lm.SOURCE,
+        'replaces': 'pytorch_sound_tpu/ops/pallas/logmel.py:275',
+        'launches': launches['logmel_trainable'], 'max_abs_err': grad_err,
+        'fwd_max_abs_err': fwd_err, 'ms': fwd_k, 'plain_ms': fwd_p,
+        'bwd_ms': fb_k - fwd_k, 'plain_bwd_ms': fb_p - fwd_p,
+        'bound_ms': bound_ms, 'bound_by': bound_by, 'library_ms': None}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke: no CUDA device is available')
 
     from pytorch_sound_tpu_torch.interface.hifi_gan import InterfaceHifiGAN
+    from pytorch_sound_tpu_torch.models.vocoders.hifi_gan import generator_apply_fused
     from pytorch_sound_tpu_torch.ops import mel as mel_ops
     from pytorch_sound_tpu_torch.ops.cuda import _build
     from pytorch_sound_tpu_torch.ops.cuda import gen_stage as gs
@@ -258,7 +567,7 @@ def main():
             lambda: mel_ops.hifigan_mel_spectrogram(enc_wav),
             lambda: lm.fused_hifigan_mel(enc_wav), 20)
         dec_k, dec_p, dec_kr, dec_pr = paired_ms(
-            lambda: plain_decode(bench_mel), lambda: gen(bench_mel), 10)
+            lambda: plain_decode(bench_mel), lambda: generator_apply_fused(gen, bench_mel), 10)
         stage_in = [gen.conv_pre(bench_mel)]
         for i in range(3):
             stage_in.append(gs.generator_stage_reference(stage_in[-1], **gen.stage_args(i)))
@@ -268,6 +577,9 @@ def main():
             for i, x in enumerate(stage_in)]
         st_k = sum(k for k, _ in per_stage)
         st_p = sum(p for _, p in per_stage)
+        st_work = [stage_work(x, gen.stage_args(i)) for i, x in enumerate(stage_in)]
+        st_bound, st_bound_by = bound(sum(f for f, _ in st_work), 0.0,
+                                      sum(b for _, b in st_work))
         stream_ms = cuda_ms(lambda: iface.decode_streaming(long_mel), 5)
     dec_samples = 32 * 256 * UP
     log('time', card=repr(card), what='encode_16x2s',
@@ -284,16 +596,27 @@ def main():
     log('time', card=repr(card), what='stream_1x4096',
         kernel_samples_per_s='%.0f' % (4096 * UP / stream_ms * 1e3),
         kernel_ms='%.4f' % stream_ms)
+    _, cos_b, _ = lm._constants(SR, 1024, 1024, 80, 0.0, 8000.0, str(dev))
+    enc_bound, enc_bound_by = bound(*logmel_work(*enc_wav.shape, cos_b.shape[1]))
+    log('bound', card=repr(card), decode_stages_ms='%.4f' % st_bound,
+        decode_bound_by=st_bound_by, encode_ms='%.4f' % enc_bound,
+        encode_bound_by=enc_bound_by)
+
+    # 7. the training path
+    train_logmel, k4_entry = train_path(dev, card)
 
     print(json.dumps({'kernels': [
         {'name': 'gen_stage', 'route': 'cuda', 'source': gs.SOURCE,
          'replaces': 'pytorch_sound_tpu/ops/pallas/gen_stage.py:282',
          'launches': launches['gen_stage'], 'max_abs_err': errs['gen_stage'],
-         'ms': st_k, 'plain_ms': st_p},
+         'ms': st_k, 'plain_ms': st_p, 'bound_ms': st_bound, 'bound_by': st_bound_by,
+         'library_ms': None},
         {'name': 'logmel', 'route': 'cuda', 'source': lm.SOURCE,
          'replaces': 'pytorch_sound_tpu/ops/pallas/logmel.py:157',
-         'launches': launches['logmel'], 'max_abs_err': errs['logmel'],
-         'ms': enc_k, 'plain_ms': enc_p},
+         'launches': launches['logmel'] + train_logmel, 'max_abs_err': errs['logmel'],
+         'ms': enc_k, 'plain_ms': enc_p, 'bound_ms': enc_bound, 'bound_by': enc_bound_by,
+         'library_ms': None},
+        k4_entry,
     ]}), flush=True)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': name,
                                              'count': torch.cuda.device_count()}}),

@@ -7,7 +7,9 @@ where only PyTorch is installed.
 
 What runs today is the HiFi-GAN serving path (``interface.hifi_gan``): the
 log-mel encode and the v2 generator decode, with hand-written CUDA kernels for
-the fused generator stage and the log-mel frontend (``ops/cuda``, ``csrc/``).
+the fused generator stage and the log-mel frontend (``ops/cuda``, ``csrc/``);
+and HiFi-GAN adversarial training (``examples.hifi_gan.HiFiGANTrainer`` on
+``trainer.Trainer``, the MPD / MSD critics, the trainable log-mel K4).
 """
 
 __version__ = '0.1.0'

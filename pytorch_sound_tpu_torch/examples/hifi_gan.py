@@ -1,0 +1,185 @@
+"""HiFi-GAN vocoder training: the full adversarial recipe on one card.
+
+Counterpart of ``pytorch_sound_tpu/examples/hifi_gan.py`` with the semantics
+of its split step: a discriminator phase, then a generator phase against the
+updated critics, each with its own NaN/Inf guard. The objective is the
+paper's (arXiv 2010.05646): LSGAN adversarial (MPD + MSD), feature matching
+(x2) and L1 mel reconstruction (x45). The reconstruction mel of the fake runs
+through K4, :func:`~pytorch_sound_tpu_torch.ops.cuda.logmel.fused_hifigan_mel_trainable`
+(the log-mel kernel forward, the composite's VJP backward); the real mel
+through the log-mel kernel itself.
+
+The JAX recipe's ``main`` reads dataset metas whose loaders are not ported
+yet; feed :class:`HiFiGANTrainer` any iterables of ``(wav (N, T),)`` batches.
+The MSD's folded form, bf16 critics and the grouped-conv kernel routes wait
+for later work.
+"""
+
+from typing import List, Tuple
+
+import torch
+
+from pytorch_sound_tpu_torch.models.vocoders import discriminators  # noqa: F401 (registers)
+from pytorch_sound_tpu_torch.models.vocoders.hifi_gan import load_jax_params
+from pytorch_sound_tpu_torch.ops import gan as gan_ops
+from pytorch_sound_tpu_torch.ops.cuda.logmel import (fused_hifigan_mel,
+                                                     fused_hifigan_mel_trainable)
+from pytorch_sound_tpu_torch.trainer import LogType, Trainer, clip_grads
+from pytorch_sound_tpu_torch.utils.checkpoint import load_msgpack
+from pytorch_sound_tpu_torch.utils.commons import log
+
+LAMBDA_FM = 2.0
+LAMBDA_MEL = 45.0
+
+
+class HiFiGANTrainer(Trainer):
+    """Adversarial trainer over a generator and the MPD / MSD critics.
+
+    ``gen_optimizer`` updates the generator (and is the base trainer's
+    ``optimizer``: a ``scheduler`` and ``grad_clip`` / ``grad_norm`` apply to
+    it), ``disc_optimizer`` both critics, e.g.
+    ``adamw(chain(mpd.parameters(), msd.parameters()), 2e-4, 0.8, 0.99)``.
+    Checkpoints hold the three state dicts under 'gen', 'mpd' and 'msd'.
+
+    ``generator_warm_start``: path to a folded generator msgpack (such as the
+    bundled checkpoint) to fine-tune from; the generator must be built with
+    ``use_weight_norm=False``.
+    """
+
+    def __init__(self, generator: torch.nn.Module, mpd: torch.nn.Module,
+                 msd: torch.nn.Module, gen_optimizer: torch.optim.Optimizer,
+                 disc_optimizer: torch.optim.Optimizer, *args,
+                 generator_warm_start: str = None, **kwargs):
+        super().__init__(generator, gen_optimizer, *args, **kwargs)
+        self.generator = self.model
+        self.mpd = mpd.to(self.device)
+        self.msd = msd.to(self.device)
+        self.gen_optimizer = gen_optimizer
+        self.disc_optimizer = disc_optimizer
+        self.generator_warm_start = generator_warm_start
+
+    def init_params(self, batch):
+        n = sum(p.numel() for m in (self.generator, self.mpd, self.msd)
+                for p in m.parameters())
+        log('HiFi-GAN gen+mpd+msd initialized. Total {} params.'.format(n))
+        if self.generator_warm_start:
+            self.generator.load_state_dict(
+                load_jax_params(load_msgpack(self.generator_warm_start)))
+            log('generator warm-started from {}'.format(self.generator_warm_start))
+
+    # -- checkpoints ----------------------------------------------------------
+
+    def model_state(self):
+        return {'gen': self.generator.state_dict(), 'mpd': self.mpd.state_dict(),
+                'msd': self.msd.state_dict()}
+
+    def load_model_state(self, state):
+        for key, module in (('gen', self.generator), ('mpd', self.mpd), ('msd', self.msd)):
+            module.load_state_dict(state[key])
+
+    def optim_state(self):
+        return dict(super().optim_state(), disc=self.disc_optimizer.state_dict())
+
+    def load_optim_state(self, state):
+        super().load_optim_state(state)
+        self.disc_optimizer.load_state_dict(state['disc'])
+
+    # -- losses ---------------------------------------------------------------
+
+    @staticmethod
+    def _apply_both(disc: torch.nn.Module, real: torch.Tensor, fake: torch.Tensor
+                    ) -> Tuple[gan_ops.DiscOut, gan_ops.DiscOut]:
+        """One critic pass over cat([real, fake]) instead of two (the critics
+        have no cross-batch ops); returns (real_outs, fake_outs)."""
+        n = real.shape[0]
+        both = disc(torch.cat([real, fake], dim=0))
+        real_outs = [(s[:n], [f[:n] for f in feats]) for s, feats in both]
+        fake_outs = [(s[n:], [f[n:] for f in feats]) for s, feats in both]
+        return real_outs, fake_outs
+
+    def disc_loss(self, real: torch.Tensor, fake: torch.Tensor) -> torch.Tensor:
+        mpd_real, mpd_fake = self._apply_both(self.mpd, real, fake)
+        msd_real, msd_fake = self._apply_both(self.msd, real, fake)
+        return (gan_ops.discriminator_loss(mpd_real, mpd_fake)
+                + gan_ops.discriminator_loss(msd_real, msd_fake))
+
+    def gen_loss(self, real: torch.Tensor, mel_real: torch.Tensor
+                 ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        """(loss, [adv, fm, mel_l1, fake]); the real audio's critic passes
+        carry no gradient (feature-matching targets only)."""
+        fake = self.generator(mel_real)
+        mel_fake = fused_hifigan_mel_trainable(fake[:, 0])
+        mel_l1 = torch.mean(torch.abs(mel_fake - mel_real))
+        with torch.no_grad():
+            mpd_real = self.mpd(real)
+            msd_real = self.msd(real)
+        mpd_fake = self.mpd(fake)
+        msd_fake = self.msd(fake)
+        adv = (gan_ops.generator_adversarial_loss(mpd_fake)
+               + gan_ops.generator_adversarial_loss(msd_fake))
+        fm = (gan_ops.feature_matching_loss(mpd_real, mpd_fake)
+              + gan_ops.feature_matching_loss(msd_real, msd_fake))
+        return adv + LAMBDA_FM * fm + LAMBDA_MEL * mel_l1, [adv, fm, mel_l1, fake]
+
+    # -- the split step -------------------------------------------------------
+
+    def disc_phase(self, real: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Critics against a fake made without gradient; returns
+        (d_loss, mel_real). A non-finite loss leaves the critics and their
+        optimizer state as they were."""
+        with torch.no_grad():
+            mel_real = fused_hifigan_mel(real[:, 0])
+            fake = self.generator(mel_real)
+        self.disc_optimizer.zero_grad(set_to_none=True)
+        d_loss = self.disc_loss(real, fake)
+        if bool(torch.isfinite(d_loss)):
+            d_loss.backward()
+            self.disc_optimizer.step()
+        return d_loss.detach(), mel_real
+
+    def gen_phase(self, real: torch.Tensor, mel_real: torch.Tensor):
+        """Generator against the updated critics, which compute no weight
+        gradient here; returns (g_loss, [adv, fm, mel_l1, fake]). A
+        non-finite loss leaves the generator and its optimizer state as they
+        were."""
+        critics = (self.mpd, self.msd)
+        for m in critics:
+            m.requires_grad_(False)
+        try:
+            self.gen_optimizer.zero_grad(set_to_none=True)
+            g_loss, parts = self.gen_loss(real, mel_real)
+            if bool(torch.isfinite(g_loss)):
+                g_loss.backward()
+                clip_grads(self.generator.parameters(), self.grad_clip, self.grad_norm)
+                self.gen_optimizer.step()
+                if self.scheduler is not None:
+                    self.scheduler.step()
+        finally:
+            for m in critics:
+                m.requires_grad_(True)
+        return g_loss.detach(), [p.detach() for p in parts]
+
+    def _train_step(self, batch, is_logging: bool):
+        real = batch[0][:, None, :]
+        d_loss, mel_real = self.disc_phase(real)
+        g_loss, (adv, fm, mel_l1, fake) = self.gen_phase(real, mel_real)
+        meta = {}
+        if is_logging:
+            meta = {
+                'loss': (g_loss, LogType.SCALAR),
+                'disc_loss': (d_loss, LogType.SCALAR),
+                'adv': (adv, LogType.SCALAR),
+                'feature_matching': (fm, LogType.SCALAR),
+                'mel_l1': (mel_l1, LogType.SCALAR),
+                'fake_audio': (fake[0, 0], LogType.AUDIO),
+            }
+        return g_loss, meta
+
+    @torch.no_grad()
+    def _eval_step(self, batch):
+        real = batch[0][:, None, :]
+        mel_real = fused_hifigan_mel(real[:, 0])
+        fake = self.generator(mel_real)
+        mel_l1 = torch.mean(torch.abs(fused_hifigan_mel_trainable(fake[:, 0]) - mel_real))
+        return mel_l1, {'loss': (mel_l1, LogType.SCALAR),
+                        'mel_l1': (mel_l1, LogType.SCALAR)}

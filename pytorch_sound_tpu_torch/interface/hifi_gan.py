@@ -4,7 +4,9 @@ Counterpart of ``pytorch_sound_tpu/interface/hifi_gan.py``, with the same
 ``AudioParameters``, checkpoint paths, 2D-encode / 3D-decode contract and
 streaming arithmetic. On a CUDA device, encode runs the fused log-mel kernel
 and decode runs ``conv_pre`` followed by one fused generator-stage kernel per
-upsample stage; on the CPU both run their plain PyTorch versions.
+upsample stage (``generator_apply_fused`` on a decoder built with folded
+weights, ``use_weight_norm=False``, as the JAX interface builds it); on the
+CPU both run their plain PyTorch versions.
 """
 
 import os
@@ -16,7 +18,8 @@ import torch.nn.functional as F
 
 from pytorch_sound_tpu_torch.interface import Interface
 from pytorch_sound_tpu_torch.models import build_model
-from pytorch_sound_tpu_torch.models.vocoders.hifi_gan import load_jax_params  # registers
+from pytorch_sound_tpu_torch.models.vocoders.hifi_gan import (  # registers
+    generator_apply_fused, load_jax_params)
 from pytorch_sound_tpu_torch.ops.cuda.logmel import fused_hifigan_mel
 from pytorch_sound_tpu_torch.utils.checkpoint import load_msgpack
 
@@ -101,7 +104,7 @@ class InterfaceHifiGAN(Interface):
              'num_mels', 'fmin', 'fmax')})
         if params is None:
             params = self._load_params(chk_path or CHECKPOINTS[model_name])
-        self.decoder = build_model(model_name)
+        self.decoder = build_model(model_name, extra_kwargs={'use_weight_norm': False})
         self.decoder.load_state_dict(load_jax_params(params))
         self.decoder.to(self.device).eval().requires_grad_(False)
 
@@ -130,7 +133,7 @@ class InterfaceHifiGAN(Interface):
     def decode(self, mel_tensor: Array) -> torch.Tensor:
         if mel_tensor.ndim != 3:
             raise AssertionError('3D tensor (N, C, T) is needed')
-        return self.decoder(self._tensor(mel_tensor))
+        return generator_apply_fused(self.decoder, self._tensor(mel_tensor))
 
     @torch.inference_mode()
     def decode_streaming(self, mel_tensor: Array, chunk_frames: int = 256,
@@ -162,7 +165,7 @@ class InterfaceHifiGAN(Interface):
         windows = padded.unfold(2, width, chunk_frames)  # (n, c, k, width)
         windows = windows.permute(0, 2, 1, 3).reshape(n * k, c, width)
 
-        pieces = [self.decoder(windows[i:i + max_batch].contiguous())
+        pieces = [generator_apply_fused(self.decoder, windows[i:i + max_batch].contiguous())
                   for i in range(0, n * k, max_batch)]
         wav = torch.cat(pieces, dim=0)                  # (n*k, 1, width*up)
         wav = wav[..., ctx * up: (ctx + chunk_frames) * up]

@@ -1,22 +1,27 @@
-"""HiFi-GAN generator (arXiv 2010.05646) in PyTorch, inference form.
+"""HiFi-GAN generator (arXiv 2010.05646) in PyTorch, training and inference.
 
 Counterpart of ``pytorch_sound_tpu/models/vocoders/hifi_gan.py``: the same
-architecture registry names (hifi_gan_v1/v2/v3) and conv geometry. Weights are
-held folded (weight norm removed, as the JAX package's inference interface
-does); the state-dict keys are the JAX parameter tree's paths joined with '.'
-(``conv_pre.weight``, ``ups_0.weight``, ``resblocks_3.convs1_0.weight``) in
-the same torch layouts, so the bundled flax checkpoint loads 1:1 through
+architecture registry names (hifi_gan_v1/v2/v3), conv geometry and weight
+normalization. The state-dict keys are the JAX parameter tree's paths joined
+with '.' in the same torch layouts: ``conv_pre.v`` / ``conv_pre.g`` /
+``conv_pre.bias`` with weight norm (``use_weight_norm=True``, the default, as
+in the JAX archs), ``conv_pre.weight`` / ``conv_pre.bias`` folded. The bundled
+flax checkpoint (folded) and the JAX trainer's (g, v) trees load through
 :func:`load_jax_params`.
 
-With ResBlock1 (v1, v2) every upsample stage runs as one
-:func:`~pytorch_sound_tpu_torch.ops.cuda.gen_stage.generator_stage` call: the
-fused CUDA kernel on the card, the plain version on the CPU. ``conv_pre`` runs
-through ``F.conv1d`` on both, as the JAX v2 path leaves it to XLA. ResBlock2
-(v3) has no fused kernel in the JAX package either and runs plain PyTorch.
+Two forward paths, split as the JAX package splits them:
+
+- :meth:`Generator.forward` runs layer by layer (cuDNN ``F.conv1d`` /
+  ``F.conv_transpose1d`` on the card) and is differentiable: the training
+  path, as JAX ``Generator.__call__`` leaves every conv to XLA.
+- :func:`generator_apply_fused` is the inference path of the interface: with
+  ResBlock1 (v1, v2) every upsample stage runs as one
+  :func:`~pytorch_sound_tpu_torch.ops.cuda.gen_stage.generator_stage` call,
+  the fused CUDA kernel on the card and its plain version on the CPU.
 """
 
 from collections import OrderedDict
-from typing import Any, Dict, Sequence
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -25,32 +30,114 @@ from torch import nn
 
 from pytorch_sound_tpu_torch.models import register_model, register_model_architecture
 from pytorch_sound_tpu_torch.ops.cuda.gen_stage import generator_stage, get_padding
+from pytorch_sound_tpu_torch.utils.checkpoint import tree_to_state_dict
+
+INIT_STD = 0.01           # the JAX package's kernel init, N(0, 0.01)
+
+
+def weight_norm(g: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``g * v / sqrt(sum(v², all dims but 0) + 1e-12)``, the JAX formula
+    (``torch.nn.utils.weight_norm`` has no 1e-12 and other parameter names)."""
+    dims = tuple(range(1, v.ndim))
+    return g * v / torch.sqrt(torch.sum(v * v, dim=dims, keepdim=True) + 1e-12)
+
+
+class _WNConv(nn.Module):
+    """Parameters of a conv with optional weight norm over dim 0 of ``shape``:
+    ``v``, ``g`` (shape[0], 1, ...) and ``bias``, or ``weight`` and ``bias``."""
+
+    def __init__(self, shape: Tuple[int, ...], n_bias: int, use_weight_norm: bool):
+        super().__init__()
+        self.use_weight_norm = use_weight_norm
+        if use_weight_norm:
+            self.v = nn.Parameter(torch.empty(shape))
+            self.g = nn.Parameter(torch.empty((shape[0],) + (1,) * (len(shape) - 1)))
+        else:
+            self.weight = nn.Parameter(torch.empty(shape))
+        self.bias = nn.Parameter(torch.empty(n_bias))
+        self.reset_parameters()
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        """The JAX init: kernel ~ N(0, 0.01), g = its norm, bias = 0. Draws on
+        the CPU from ``generator`` (the global one when None)."""
+        kernel = self.v if self.use_weight_norm else self.weight
+        draw = torch.randn(kernel.shape, generator=generator) * INIT_STD
+        kernel.copy_(draw)
+        if self.use_weight_norm:
+            dims = tuple(range(1, draw.ndim))
+            self.g.copy_(torch.sqrt(torch.sum(draw * draw, dim=dims, keepdim=True)))
+        self.bias.zero_()
+
+    def folded_weight(self) -> torch.Tensor:
+        """The conv weight: ``weight_norm(g, v)`` or the plain weight."""
+        return weight_norm(self.g, self.v) if self.use_weight_norm else self.weight
+
+
+class WNConv1d(_WNConv):
+    """Conv1d, weight (C_out, C_in / groups, K), weight norm per output channel."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int = 1, dilation: int = 1, padding: int = 0,
+                 groups: int = 1, use_weight_norm: bool = True):
+        super().__init__((out_channels, in_channels // groups, kernel_size),
+                         out_channels, use_weight_norm)
+        self.in_channels, self.out_channels = in_channels, out_channels
+        self.kernel_size, self.stride, self.dilation = kernel_size, stride, dilation
+        self.padding, self.groups = padding, groups
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv1d(x, self.folded_weight(), self.bias, stride=self.stride,
+                        padding=self.padding, dilation=self.dilation, groups=self.groups)
+
+
+class WNConvTranspose1d(_WNConv):
+    """ConvTranspose1d, weight (C_in, C_out, K); ``g`` is per *input* channel
+    (dim 0), as torch and the JAX package hold it."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int, padding: int = 0, use_weight_norm: bool = True):
+        super().__init__((in_channels, out_channels, kernel_size), out_channels,
+                         use_weight_norm)
+        self.in_channels, self.out_channels = in_channels, out_channels
+        self.kernel_size, self.stride, self.padding = kernel_size, stride, padding
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv_transpose1d(x, self.folded_weight(), self.bias,
+                                  stride=self.stride, padding=self.padding)
 
 
 class ResBlock1(nn.Module):
-    """Weights of two 3-conv stacks with dilations: per round
-    x += conv2(lrelu(conv1(lrelu(x)))). It has no forward of its own:
-    :func:`generator_stage` runs a stage's ResBlock1s from :meth:`convs`."""
+    """Two 3-conv stacks with dilations: per round
+    x += conv2(lrelu(conv1(lrelu(x)))), slope 0.1."""
 
     def __init__(self, channels: int, kernel_size: int = 3,
-                 dilation: Sequence[int] = (1, 3, 5)):
+                 dilation: Sequence[int] = (1, 3, 5), use_weight_norm: bool = True):
         super().__init__()
         self.dilation = tuple(dilation)
         for j, d in enumerate(self.dilation):
-            self.add_module('convs1_%d' % j, nn.Conv1d(
+            self.add_module('convs1_%d' % j, WNConv1d(
                 channels, channels, kernel_size, dilation=d,
-                padding=get_padding(kernel_size, d)))
-            self.add_module('convs2_%d' % j, nn.Conv1d(
-                channels, channels, kernel_size,
-                padding=get_padding(kernel_size, 1)))
+                padding=get_padding(kernel_size, d), use_weight_norm=use_weight_norm))
+            self.add_module('convs2_%d' % j, WNConv1d(
+                channels, channels, kernel_size, padding=get_padding(kernel_size, 1),
+                use_weight_norm=use_weight_norm))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for j in range(len(self.dilation)):
+            xt = getattr(self, 'convs1_%d' % j)(F.leaky_relu(x, 0.1))
+            xt = getattr(self, 'convs2_%d' % j)(F.leaky_relu(xt, 0.1))
+            x = xt + x
+        return x
 
     def convs(self):
-        """(weight, bias, dilation) of each conv, in execution order."""
+        """(weight, bias, dilation) of each conv in execution order, for the
+        fused stage."""
         out = []
         for j, d in enumerate(self.dilation):
             for name, dil in (('convs1_%d' % j, d), ('convs2_%d' % j, 1)):
                 conv = getattr(self, name)
-                out.append((conv.weight, conv.bias, dil))
+                out.append((conv.folded_weight(), conv.bias, dil))
         return out
 
 
@@ -58,13 +145,13 @@ class ResBlock2(nn.Module):
     """Single dilated convs: per conv x += conv(lrelu(x))."""
 
     def __init__(self, channels: int, kernel_size: int = 3,
-                 dilation: Sequence[int] = (1, 3)):
+                 dilation: Sequence[int] = (1, 3), use_weight_norm: bool = True):
         super().__init__()
         self.dilation = tuple(dilation)
         for j, d in enumerate(self.dilation):
-            self.add_module('convs_%d' % j, nn.Conv1d(
+            self.add_module('convs_%d' % j, WNConv1d(
                 channels, channels, kernel_size, dilation=d,
-                padding=get_padding(kernel_size, d)))
+                padding=get_padding(kernel_size, d), use_weight_norm=use_weight_norm))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for j in range(len(self.dilation)):
@@ -82,41 +169,28 @@ class Generator(nn.Module):
                  upsample_initial_channel: int = 512,
                  resblock_kernel_sizes: Sequence[int] = (3, 7, 11),
                  resblock_dilation_sizes: Sequence[Sequence[int]] = ((1, 3, 5),) * 3,
-                 in_channels: int = 80):
+                 in_channels: int = 80, use_weight_norm: bool = True):
         super().__init__()
         self.resblock = resblock
         self.upsample_rates = tuple(upsample_rates)
         self.num_kernels = len(resblock_kernel_sizes)
         res_cls = ResBlock1 if resblock == '1' else ResBlock2
         ch = upsample_initial_channel
-        self.conv_pre = nn.Conv1d(in_channels, ch, 7, padding=3)
+        wn = use_weight_norm
+        self.conv_pre = WNConv1d(in_channels, ch, 7, padding=3, use_weight_norm=wn)
         for i, (u, k) in enumerate(zip(upsample_rates, upsample_kernel_sizes)):
-            self.add_module('ups_%d' % i, nn.ConvTranspose1d(
-                ch, ch // 2, k, u, padding=(k - u) // 2))
+            self.add_module('ups_%d' % i, WNConvTranspose1d(
+                ch, ch // 2, k, u, padding=(k - u) // 2, use_weight_norm=wn))
             ch //= 2
             for j, (rk, rd) in enumerate(zip(resblock_kernel_sizes,
                                              resblock_dilation_sizes)):
                 self.add_module('resblocks_%d' % (i * self.num_kernels + j),
-                                res_cls(ch, rk, rd))
-        self.conv_post = nn.Conv1d(ch, 1, 7, padding=3)
-
-    def stage_args(self, i: int) -> Dict[str, Any]:
-        """Keyword arguments of :func:`generator_stage` for upsample stage i
-        (ResBlock1 only); the last stage carries conv_post."""
-        up = getattr(self, 'ups_%d' % i)
-        blocks = [getattr(self, 'resblocks_%d' % (i * self.num_kernels + j)).convs()
-                  for j in range(self.num_kernels)]
-        last = i == len(self.upsample_rates) - 1
-        return dict(up_weight=up.weight, up_bias=up.bias, blocks=blocks,
-                    upsample_rate=self.upsample_rates[i],
-                    conv_post=(self.conv_post.weight, self.conv_post.bias) if last else None)
+                                res_cls(ch, rk, rd, use_weight_norm=wn))
+        self.conv_post = WNConv1d(ch, 1, 7, padding=3, use_weight_norm=wn)
 
     def forward(self, mel: torch.Tensor) -> torch.Tensor:
+        """Layer by layer, differentiable (JAX ``Generator.__call__``)."""
         x = self.conv_pre(mel)
-        if self.resblock == '1':
-            for i in range(len(self.upsample_rates)):
-                x = generator_stage(x, **self.stage_args(i))
-            return x           # conv_post + tanh are part of the last stage
         for i in range(len(self.upsample_rates)):
             x = getattr(self, 'ups_%d' % i)(F.leaky_relu(x, 0.1))
             xs = None
@@ -125,6 +199,57 @@ class Generator(nn.Module):
                 xs = out if xs is None else xs + out
             x = xs / self.num_kernels
         return torch.tanh(self.conv_post(F.leaky_relu(x, 0.01)))
+
+    def stage_args(self, i: int) -> Dict[str, Any]:
+        """Keyword arguments of :func:`generator_stage` for upsample stage i
+        (ResBlock1 only); the last stage carries conv_post."""
+        up = getattr(self, 'ups_%d' % i)
+        blocks = [getattr(self, 'resblocks_%d' % (i * self.num_kernels + j)).convs()
+                  for j in range(self.num_kernels)]
+        last = i == len(self.upsample_rates) - 1
+        post = (self.conv_post.folded_weight(), self.conv_post.bias) if last else None
+        return dict(up_weight=up.folded_weight(), up_bias=up.bias, blocks=blocks,
+                    upsample_rate=self.upsample_rates[i], conv_post=post)
+
+
+def generator_apply_fused(gen: Generator, mel: torch.Tensor) -> torch.Tensor:
+    """Inference forward equal to ``gen(mel)`` (JAX ``generator_apply_fused``).
+
+    With ResBlock1, ``conv_pre`` runs through ``F.conv1d`` (as the JAX v2 path
+    leaves it to XLA) and each upsample stage is one fused
+    :func:`generator_stage` call, conv_post + tanh folded into the last: the
+    CUDA kernel on a card tensor, its plain version on a CPU tensor. ResBlock2
+    (v3) has no fused kernel in either package and runs ``gen(mel)``. Not
+    differentiable on the card.
+    """
+    if gen.resblock != '1':
+        return gen(mel)
+    x = gen.conv_pre(mel)
+    for i in range(len(gen.upsample_rates)):
+        x = generator_stage(x, **gen.stage_args(i))
+    return x        # conv_post + tanh are part of the last stage
+
+
+def init_params(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Re-draw every weight-normed or plain conv of ``module`` with the JAX
+    init (kernel ~ N(0, 0.01), g = its norm, bias = 0) from ``generator``, in
+    module order, so a seed gives the same parameters on any device."""
+    for m in module.modules():
+        if isinstance(m, _WNConv):
+            m.reset_parameters(generator)
+    return module
+
+
+@torch.no_grad()
+def init_weights(module: nn.Module, generator: torch.Generator,
+                 mean: float = 0.0, std: float = 0.01) -> nn.Module:
+    """Re-draw every conv kernel (a >= 2-D ``weight`` or ``v``) from
+    N(mean, std), drawn on the CPU from ``generator`` (JAX ``init_weights``,
+    the reference's module hook); ``g`` and biases are left as they are."""
+    for name, param in module.named_parameters():
+        if name.split('.')[-1] in ('weight', 'v') and param.ndim >= 2:
+            param.copy_(mean + std * torch.randn(param.shape, generator=generator))
+    return module
 
 
 def fold_weight_norm_params(params: Dict[str, Any]) -> Dict[str, Any]:
@@ -147,26 +272,53 @@ def fold_weight_norm_params(params: Dict[str, Any]) -> Dict[str, Any]:
     return fold(params)
 
 
-def load_jax_params(params: Dict[str, Any]) -> 'OrderedDict[str, torch.Tensor]':
-    """JAX parameter tree (numpy leaves) -> state dict of this Generator.
+def apply_weight_norm(params: Dict[str, Any]) -> Dict[str, Any]:
+    """Split every plain >= 2-D 'weight' of a numpy parameter tree into a
+    (g, v) pair, g the norm over all dims but 0 and v the weight itself — the
+    inverse of :func:`fold_weight_norm_params` (JAX ``apply_weight_norm``).
+    Existing (g, v) pairs stay as they are."""
+    def split(node):
+        if isinstance(node, dict):
+            if 'weight' in node and 'g' not in node:
+                w = np.asarray(node['weight'], dtype=np.float32)
+                out = {k: split(val) for k, val in node.items() if k != 'weight'}
+                if w.ndim >= 2:
+                    out['g'] = np.sqrt(np.sum(w * w, axis=tuple(range(1, w.ndim)),
+                                              keepdims=True))
+                    out['v'] = w
+                else:
+                    out['weight'] = w
+                return out
+            return {k: split(val) for k, val in node.items()}
+        return node
+    return split(params)
 
-    Accepts the folded tree of a checkpoint or the (g, v) tree that the JAX
-    ``Generator.init`` makes (folded here), with or without the top-level
-    'params' key.
+
+def load_jax_params(params: Dict[str, Any], weight_norm: bool = False
+                    ) -> 'OrderedDict[str, torch.Tensor]':
+    """JAX parameter tree (numpy leaves) -> state dict of a Generator (or a
+    critic: the trees share the naming).
+
+    Accepts a folded tree (the bundled checkpoint) or a (g, v) tree (JAX
+    ``Module.init``, the JAX trainer), with or without the top-level 'params'
+    key. ``weight_norm=False`` folds (g, v) pairs into 'weight' for a
+    ``use_weight_norm=False`` target; ``True`` keeps them as they are (and
+    splits plain weights) for a weight-normed one.
     """
     tree = params['params'] if 'params' in params else params
-    state = OrderedDict()
+    tree = apply_weight_norm(tree) if weight_norm else fold_weight_norm_params(tree)
+    return tree_to_state_dict(tree)
 
-    def walk(node, prefix):
-        for key, val in node.items():
-            name = prefix + str(key)
-            if isinstance(val, dict):
-                walk(val, name + '.')
-            else:
-                state[name] = torch.tensor(np.asarray(val, dtype=np.float32))
 
-    walk(fold_weight_norm_params(tree), '')
-    return state
+def load_jax_trainer_params(params: Dict[str, Any], gen_weight_norm: bool = True
+                            ) -> Dict[str, 'OrderedDict[str, torch.Tensor]']:
+    """The JAX ``HiFiGANTrainer`` parameter tree ``{'gen', 'mpd', 'msd'}`` ->
+    the three port state dicts under the same keys. The critics always carry
+    weight norm; the generator's (g, v) pairs are kept for a weight-normed
+    generator and folded for a ``use_weight_norm=False`` one."""
+    return {'gen': load_jax_params(params['gen'], weight_norm=gen_weight_norm),
+            'mpd': load_jax_params(params['mpd'], weight_norm=True),
+            'msd': load_jax_params(params['msd'], weight_norm=True)}
 
 
 #
@@ -182,6 +334,7 @@ def hifi_gan_v1():
         'upsample_initial_channel': 512,
         'resblock_kernel_sizes': (3, 7, 11),
         'resblock_dilation_sizes': ((1, 3, 5), (1, 3, 5), (1, 3, 5)),
+        'use_weight_norm': True,
     }
 
 
@@ -194,6 +347,7 @@ def hifi_gan_v2():
         'upsample_initial_channel': 128,
         'resblock_kernel_sizes': (3, 7, 11),
         'resblock_dilation_sizes': ((1, 3, 5), (1, 3, 5), (1, 3, 5)),
+        'use_weight_norm': True,
     }
 
 
@@ -206,4 +360,5 @@ def hifi_gan_v3():
         'upsample_initial_channel': 256,
         'resblock_kernel_sizes': (3, 5, 7),
         'resblock_dilation_sizes': ((1, 2), (2, 6), (3, 12)),
+        'use_weight_norm': True,
     }

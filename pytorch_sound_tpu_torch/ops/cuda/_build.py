@@ -1,9 +1,9 @@
 """Build and load the package's CUDA kernels.
 
-All ``csrc/*.cu`` sources are compiled by ``nvcc`` into one shared library
-with a plain C interface, on first use, into ``csrc/build/`` (listed in
-``.gitignore``) under a name keyed by a hash of the sources and flags, and
-loaded with ``ctypes``. Nothing here runs at import: the CPU test suite
+All ``csrc/*.cu`` sources are compiled by ``nvcc`` (one process per source,
+in parallel) and linked into one shared library with a plain C interface, on
+first use, into ``csrc/build/`` (listed in ``.gitignore``) under a name keyed
+by a hash of the sources and flags, and loaded with ``ctypes``. Nothing here runs at import: the CPU test suite
 imports every module on a machine without ``nvcc``.
 
 Each C entry point launches on the stream it is given and returns
@@ -21,7 +21,7 @@ from typing import Optional
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), '..', '..', 'csrc')
 BUILD_DIR = os.path.join(CSRC, 'build')
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
-              '-shared', '-Xcompiler', '-fPIC']
+              '-Xcompiler', '-fPIC']
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -72,19 +72,43 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, 'libpstt_%s.so' % digest.hexdigest()[:16])
 
 
+def _run(procs):
+    """Wait for every (cmd, Popen); raise on the first that failed."""
+    failed = None
+    for cmd, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0 and failed is None:
+            failed = 'nvcc failed (%d):\n%s\n%s' % (proc.returncode, ' '.join(cmd), err)
+    if failed:
+        raise RuntimeError(failed)
+
+
 def build() -> str:
-    """Compile the kernels unless a library for these sources exists."""
+    """Compile the kernels unless a library for these sources exists: one
+    nvcc per source, all started together, then one link."""
     out = library_path()
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = '%s.%d.tmp' % (out, os.getpid())
-    cmd = [_nvcc(), *NVCC_FLAGS, '-o', tmp,
-           *[s for s in sources() if s.endswith('.cu')]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError('nvcc failed (%d):\n%s\n%s' % (
-            proc.returncode, ' '.join(cmd), proc.stderr))
+    tag = '%s.%d' % (out, os.getpid())
+    nvcc = _nvcc()
+    objs, procs = [], []
+    for i, src in enumerate(s for s in sources() if s.endswith('.cu')):
+        obj = '%s.%d.o' % (tag, i)
+        cmd = [nvcc, *NVCC_FLAGS, '-c', '-o', obj, src]
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.PIPE, text=True)))
+        objs.append(obj)
+    try:
+        _run(procs)
+        tmp = tag + '.tmp'
+        cmd = [nvcc, '-shared', *NVCC_FLAGS, '-o', tmp, *objs]
+        _run([(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True))])
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     os.replace(tmp, out)      # atomic: concurrent builders race harmlessly
     return out
 

@@ -7,7 +7,8 @@ spectrum never reaches device memory.
 
 The wrapper dispatches on the tensor's device: on the CPU it runs the plain
 version (:func:`pytorch_sound_tpu_torch.ops.mel.log_mel`), on a CUDA tensor it
-launches the kernel or raises.
+launches the kernel or raises. :func:`fused_hifigan_mel_trainable` (K4) wraps
+the same kernel in an autograd function for the training loss.
 """
 
 import functools
@@ -105,3 +106,47 @@ def fused_hifigan_mel(wav: torch.Tensor, sampling_rate: int = 22050,
         wav, sampling_rate, num_mels, n_fft, window_size, hop_size,
         mel_min=fmin, mel_max=fmax, pad=(n_fft - hop_size) // 2,
         power_eps=1e-9, log_floor=1e-5)
+
+
+class _TrainableMel(torch.autograd.Function):
+    """K4's forward is the log-mel kernel; its backward is autograd of the
+    composite formula, recomputed from the saved waveform."""
+
+    @staticmethod
+    def forward(ctx, wav):
+        ctx.save_for_backward(wav)
+        out = fused_hifigan_mel(wav)
+        if wav.device.type == 'cuda':
+            fused_hifigan_mel_trainable.launches += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        wav, = ctx.saved_tensors
+        with torch.enable_grad():
+            w = wav.detach().requires_grad_(True)
+            mel = mel_ops.hifigan_mel_spectrogram(w)
+            dwav, = torch.autograd.grad(mel, w, grad)
+        return dwav
+
+
+def fused_hifigan_mel_trainable(wav: torch.Tensor, precision: str = 'highest'
+                                ) -> torch.Tensor:
+    """Differentiable HiFi-GAN mel (JAX ``fused_hifigan_mel_trainable``,
+    ``ops/pallas/logmel.py:274``): wav (B, T) float32 -> (B, 80, frames).
+
+    Forward: :func:`fused_hifigan_mel`, the log-mel kernel on a CUDA tensor
+    (counted in ``fused_log_mel.launches`` and, per call, in this function's
+    ``launches``), the plain version on a CPU tensor. Backward: the VJP of the
+    plain composite ``ops.mel.hifigan_mel_spectrogram`` at the saved
+    waveform, recomputed under autograd. That is the JAX package's own design
+    (its ``_fhm_bwd`` is XLA's autodiff of the same formula; it has no
+    backward kernel), not a plain version standing in for a kernel. Only
+    ``precision='highest'`` exists: the kernel's DFT is fp64.
+    """
+    if precision != 'highest':
+        raise ValueError("precision must be 'highest', got %r" % (precision,))
+    return _TrainableMel.apply(wav)
+
+
+fused_hifigan_mel_trainable.launches = 0

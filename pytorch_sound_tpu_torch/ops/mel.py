@@ -3,7 +3,8 @@
 Counterpart of ``pytorch_sound_tpu/ops/mel.py``. These functions are the plain
 version of the log-mel kernel (``ops/cuda/logmel.py``): the CPU path of
 ``InterfaceHifiGAN.encode`` and the reference the kernel is held against on
-the card. Filterbanks and windows come from :mod:`.filters`, the JAX
+the card. Autograd of :func:`hifigan_mel_spectrogram` is also the backward of
+the trainable log-mel (K4), as in the JAX package. Filterbanks and windows come from :mod:`.filters`, the JAX
 package's numpy formulas.
 """
 

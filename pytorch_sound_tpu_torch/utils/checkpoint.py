@@ -5,13 +5,16 @@ floats, nil and bool — plus flax's extension types: code 1 (an ndarray, whose
 payload is itself a msgpack ``(shape, dtype name, raw bytes)`` triple) and
 code 3 (a numpy scalar, the same payload). Returns nested dicts of numpy
 arrays, as ``flax.serialization.msgpack_restore`` does. Neither ``msgpack``
-nor ``flax`` is needed.
+nor ``flax`` is needed. :func:`tree_to_state_dict` turns such a tree into a
+torch state dict.
 """
 
 import struct
-from typing import Any, Tuple
+from collections import OrderedDict
+from typing import Any, Dict, Tuple
 
 import numpy as np
+import torch
 
 _EXT_NDARRAY = 1
 _EXT_NPSCALAR = 3
@@ -119,3 +122,22 @@ def msgpack_restore(data: bytes) -> Any:
 def load_msgpack(path: str) -> Any:
     with open(path, 'rb') as f:
         return msgpack_restore(f.read())
+
+
+def tree_to_state_dict(tree: Dict[str, Any]) -> 'OrderedDict[str, torch.Tensor]':
+    """Nested dicts of numpy arrays -> a flat float32 state dict whose keys
+    are the tree's paths joined with '.' (``conv_pre.v``,
+    ``period_2.conv_0.bias``): the JAX parameter tree's names are the port's
+    module paths."""
+    state = OrderedDict()
+
+    def walk(node, prefix):
+        for key, val in node.items():
+            name = prefix + str(key)
+            if isinstance(val, dict):
+                walk(val, name + '.')
+            else:
+                state[name] = torch.tensor(np.asarray(val, dtype=np.float32))
+
+    walk(tree, '')
+    return state

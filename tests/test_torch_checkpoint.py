@@ -82,7 +82,7 @@ def test_load_jax_params_round_trips_folded_and_weight_norm_trees(arch):
     assert 'g' in params['params']['conv_pre'] and 'v' in params['params']['conv_pre']
     folded = jax.tree_util.tree_map(np.asarray, jax_hg.fold_weight_norm_params(params))
 
-    model = build_model(arch, extra_kwargs=extra)
+    model = build_model(arch, extra_kwargs=dict(extra, use_weight_norm=False))
     for tree in (params, folded):
         state = torch_hg.load_jax_params(tree)
         model.load_state_dict(state)                 # strict: same key set
@@ -94,7 +94,7 @@ def test_load_jax_params_round_trips_folded_and_weight_norm_trees(arch):
 
 
 def test_state_dict_keys_are_jax_paths():
-    model = build_model('hifi_gan_v2')
+    model = build_model('hifi_gan_v2', extra_kwargs={'use_weight_norm': False})
     keys = set(model.state_dict())
     assert {'conv_pre.weight', 'ups_0.weight', 'resblocks_3.convs1_0.weight',
             'resblocks_11.convs2_2.bias', 'conv_post.bias'} <= keys

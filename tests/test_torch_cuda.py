@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain versions on a card.
+"""The port's CUDA kernels (K1, and K2 through K4) against their plain
+versions on a card.
 
 Every test here is marked ``cuda`` and skips without a CUDA device. On a
 machine with one:
@@ -61,3 +62,27 @@ def test_stage_kernel_matches_plain(card, c, u, k_up, post):
     assert gs.generator_stage.launches == before + 1
     assert out.shape == ref.shape == (3, 1 if post else c, t_in * u)
     assert float((out - ref).abs().max()) <= STAGE_TOL
+
+
+def test_trainable_mel_kernel_matches_plain(card):
+    """K4 at the training shape (16 x 8192): the forward launches the log-mel
+    kernel once and matches the plain version; the gradient of sum(sin(mel))
+    matches autograd of the plain version on white noise."""
+    from pytorch_sound_tpu_torch.ops import mel as mel_ops
+    from pytorch_sound_tpu_torch.ops.cuda import logmel as lm
+    rng = np.random.default_rng(12)
+    wav = torch.from_numpy((rng.standard_normal((16, 8192)) * 0.2).astype(np.float32)).to(card)
+    grads = []
+    for fn in (lm.fused_hifigan_mel_trainable, mel_ops.hifigan_mel_spectrogram):
+        w = wav.clone().requires_grad_(True)
+        before = (lm.fused_log_mel.launches, lm.fused_hifigan_mel_trainable.launches)
+        mel = fn(w)
+        torch.sum(torch.sin(mel)).backward()
+        grads.append((mel.detach(), w.grad))
+        if fn is lm.fused_hifigan_mel_trainable:
+            assert (lm.fused_log_mel.launches, lm.fused_hifigan_mel_trainable.launches) == (
+                before[0] + 1, before[1] + 1)
+    (mel_k, g_k), (mel_p, g_p) = grads
+    assert mel_k.shape == (16, 80, 32)
+    assert float((mel_k - mel_p).abs().max()) <= 1e-4
+    assert float((g_k - g_p).abs().max()) <= 1e-4

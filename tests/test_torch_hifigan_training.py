@@ -1,0 +1,163 @@
+"""The port's HiFiGANTrainer on the CPU: one split step against the JAX
+package's ``HiFiGANTrainer(split_step=True)`` from the same converted
+parameters and batch, the run loop's checkpoint layout, the generator warm
+start and the per-phase NaN guard (mirrors tests/test_hifigan_training.py)."""
+
+import itertools
+import os
+
+import jax
+
+jax.config.update('jax_platforms', 'cpu')
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+import optax  # noqa: E402
+import torch  # noqa: E402
+
+from pytorch_sound_tpu.examples.hifi_gan import HiFiGANTrainer as JaxHiFiGANTrainer  # noqa: E402
+from pytorch_sound_tpu.models import build_model as jax_build_model  # noqa: E402
+import pytorch_sound_tpu.models.vocoders.discriminators  # noqa: E402,F401
+import pytorch_sound_tpu.models.vocoders.hifi_gan  # noqa: E402,F401
+from pytorch_sound_tpu.ops import mel as jax_mel  # noqa: E402
+from pytorch_sound_tpu_torch.examples.hifi_gan import HiFiGANTrainer  # noqa: E402
+from pytorch_sound_tpu_torch.interface.hifi_gan import CHECKPOINTS  # noqa: E402
+from pytorch_sound_tpu_torch.models import build_model  # noqa: E402
+from pytorch_sound_tpu_torch.models.vocoders.hifi_gan import (  # noqa: E402
+    load_jax_trainer_params)
+from pytorch_sound_tpu_torch.trainer import adamw  # noqa: E402
+from pytorch_sound_tpu_torch.utils.checkpoint import load_msgpack  # noqa: E402
+
+LR = 2e-4
+TINY_GEN = ('hifi_gan_v3', {'upsample_initial_channel': 32})
+LOSS_TOL = 1e-4        # relative, each of the five logged losses
+PARAM_TOL = 1e-5       # params after the step where |JAX grad| > 1e-6
+LOSSES = ('loss', 'disc_loss', 'adv', 'feature_matching', 'mel_l1')
+
+
+def port_trainer(tmp_path, gen=None, train=None, valid=None, **kw):
+    gen = gen if gen is not None else build_model(TINY_GEN[0], extra_kwargs=TINY_GEN[1])
+    mpd, msd = build_model('hifi_gan_mpd_small'), build_model('hifi_gan_msd_small')
+    kw.setdefault('max_step', 1)
+    return HiFiGANTrainer(
+        gen, mpd, msd, adamw(gen.parameters(), LR, 0.8, 0.99),
+        adamw(itertools.chain(mpd.parameters(), msd.parameters()), LR, 0.8, 0.99),
+        train, valid, valid_max_step=1, save_interval=kw.pop('save_interval', 10),
+        log_interval=1, save_dir=str(tmp_path), save_prefix='gan_test', seed=13,
+        device='cpu', **kw)
+
+
+def flat(tree, prefix=''):
+    out = {}
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            out.update(flat(val, prefix + key + '.'))
+        else:
+            out[prefix + key] = np.asarray(val)
+    return out
+
+
+def params_of(t):
+    return {key: {k: v.detach().clone() for k, v in sd.items()}
+            for key, sd in t.model_state().items()}
+
+
+def test_split_step_matches_jax(tmp_path):
+    rng = np.random.default_rng(11)
+    batch = (rng.standard_normal((2, 2048)) * 0.2).astype(np.float32)
+
+    jt = JaxHiFiGANTrainer(
+        jax_build_model(TINY_GEN[0], extra_kwargs=TINY_GEN[1]),
+        jax_build_model('hifi_gan_mpd_small'), jax_build_model('hifi_gan_msd_small'),
+        optax.adamw(LR, b1=0.8, b2=0.99), optax.adamw(LR, b1=0.8, b2=0.99), None, None,
+        max_step=1, valid_max_step=1, save_interval=10 ** 9, log_interval=10 ** 9,
+        save_dir=str(tmp_path / 'jax'), save_prefix='s', seed=13, split_step=True)
+    jt._ensure_initialized([jnp.asarray(batch)])
+    p0 = jax.tree_util.tree_map(np.array, jt.params)
+
+    # the JAX step and its two phases' gradients (the generator's against the
+    # updated critics, as the split step takes them)
+    p1, _, _, meta = jt._get_train_step()(
+        jax.tree_util.tree_map(jnp.asarray, p0), jt.opt_state, [jnp.asarray(batch)],
+        is_logging=True)
+    ref_losses = {k: float(meta[k].value) for k in LOSSES}
+    p1 = jax.tree_util.tree_map(np.array, p1)
+    wav = jnp.asarray(batch)
+    real, mel_real = wav[:, None, :], jax_mel.hifigan_mel_spectrogram(wav)
+    fake = jt.generator.apply(p0['gen'], mel_real)
+    d_grads = jax.jit(jax.grad(lambda dp: jt._disc_loss(dp, real, fake)))(
+        {'mpd': p0['mpd'], 'msd': p0['msd']})
+    g_grads = jax.jit(jax.grad(lambda gp: jt._gen_loss(
+        gp, {'mpd': p1['mpd'], 'msd': p1['msd']}, real, mel_real)[0]))(p0['gen'])
+    ref_grads = {'gen': flat(g_grads['params']), 'mpd': flat(d_grads['mpd']['params']),
+                 'msd': flat(d_grads['msd']['params'])}
+
+    t = port_trainer(tmp_path / 'port')
+    for key, sd in load_jax_trainer_params(p0).items():
+        getattr(t, {'gen': 'generator'}.get(key, key)).load_state_dict(sd)
+    _, meta = t._train_step(t.to_device([batch]), is_logging=True)
+    for key in LOSSES:
+        got = float(meta[key][0])
+        assert abs(got - ref_losses[key]) <= LOSS_TOL * abs(ref_losses[key]), (
+            key, got, ref_losses[key])
+    assert all(p.requires_grad for m in (t.mpd, t.msd) for p in m.parameters())
+
+    got, want = params_of(t), load_jax_trainer_params(p1)
+    for family in ('gen', 'mpd', 'msd'):
+        assert got[family].keys() == want[family].keys() == ref_grads[family].keys()
+        for key, ref in want[family].items():
+            diff = np.abs(got[family][key].numpy() - ref.numpy())
+            live = np.abs(ref_grads[family][key]) > 1e-6
+            assert float(diff[live].max(initial=0.0)) <= PARAM_TOL, (family, key)
+            assert float(diff.max()) <= 2 * LR + 1e-7, (family, key)
+
+
+def tones(seed, n=4, samples=2048):
+    rng = np.random.default_rng(seed)
+    t = np.arange(samples) / 22050
+    return [[np.stack([0.4 * np.sin(2 * np.pi * rng.uniform(100, 300) * t)] * 2)
+             .astype(np.float32)] for _ in range(n)]
+
+
+def test_run_writes_checkpoint_at_jax_layout(tmp_path):
+    t = port_trainer(tmp_path, train=tones(2), valid=tones(3), max_step=2, save_interval=2)
+    best = t.run()
+    assert np.isfinite(best) and t.step == 2
+    ckpt_dir = os.path.join(str(tmp_path), 'models', 'gan_test', 'Generator')
+    path = os.path.join(ckpt_dir, 'step_000002.chkpt')
+    assert os.path.exists(path)
+    assert os.path.exists(os.path.join(str(tmp_path), 'models', 'gan_test',
+                                       'Generator.best.chkpt'))
+    state = torch.load(path, weights_only=True)
+    assert set(state['model']) == {'gen', 'mpd', 'msd'} and state['step'] == 2
+    assert set(state['optim']) == {'optimizer', 'scheduler', 'disc'}
+
+
+def test_generator_warm_start(tmp_path):
+    """Fine-tuning from the bundled (folded) v2 checkpoint."""
+    rng = np.random.default_rng(3)
+    batch = [(rng.standard_normal((2, 2048)) * 0.2).astype(np.float32)]
+    gen = build_model('hifi_gan_v2', extra_kwargs={'use_weight_norm': False})
+    t = port_trainer(tmp_path, gen=gen, train=[batch],
+                     generator_warm_start=CHECKPOINTS['hifi_gan_v2'])
+    t._ensure_initialized(batch)
+    ref = load_msgpack(CHECKPOINTS['hifi_gan_v2'])['params']
+    np.testing.assert_array_equal(t.generator.conv_pre.weight.detach().numpy(),
+                                  ref['conv_pre']['weight'])
+    np.testing.assert_array_equal(t.generator.resblocks_7.convs2_1.bias.detach().numpy(),
+                                  ref['resblocks_7']['convs2_1']['bias'])
+
+
+def test_nan_batch_leaves_parameters_unchanged(tmp_path):
+    """A non-finite loss skips each phase's update: the critics, the
+    generator and both optimizers' states stay as they were."""
+    t = port_trainer(tmp_path)
+    before = params_of(t)
+    nan = np.full((2, 2048), np.nan, dtype=np.float32)
+    loss, _ = t._train_step(t.to_device([nan]), is_logging=False)
+    assert not bool(torch.isfinite(loss))
+    after = params_of(t)
+    for family, sd in before.items():
+        for key, val in sd.items():
+            assert torch.equal(val, after[family][key]), (family, key)
+    assert not t.gen_optimizer.state and not t.disc_optimizer.state

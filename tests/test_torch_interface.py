@@ -179,7 +179,7 @@ def test_v3_matches_jax_resblock2():
         lambda s: (rng.standard_normal(s.shape) * 0.1).astype(np.float32),
         jax.eval_shape(jgen.init, jax.random.PRNGKey(0), jnp.asarray(mel)))
     ref = np.asarray(jgen.apply(params, jnp.asarray(mel)))
-    gen = build_model('hifi_gan_v3', extra_kwargs=extra)
+    gen = build_model('hifi_gan_v3', extra_kwargs=dict(extra, use_weight_norm=False))
     gen.load_state_dict(load_jax_params(params))
     with torch.no_grad():
         out = gen(torch.from_numpy(mel)).numpy()

@@ -1,5 +1,6 @@
 """The port imports torch and never jax, flax or the JAX package; its CUDA
-modules import without nvcc (the kernels build at their first CUDA launch)."""
+modules import without nvcc (the kernels build at their first CUDA launch).
+The serving path and the training path each run in a fresh interpreter."""
 
 import os
 import subprocess
@@ -26,10 +27,46 @@ assert not loaded, loaded
 '''
 
 
-def test_port_loads_neither_jax_nor_the_jax_package():
+TRAIN_SCRIPT = r'''
+import itertools, sys, tempfile
+import numpy as np
+import torch
+from pytorch_sound_tpu_torch.examples.hifi_gan import HiFiGANTrainer
+from pytorch_sound_tpu_torch.models import build_model
+from pytorch_sound_tpu_torch.models.vocoders import discriminators  # noqa: F401
+from pytorch_sound_tpu_torch.ops.cuda import _build
+from pytorch_sound_tpu_torch.trainer import Trainer, adamw  # noqa: F401
+gen = build_model('hifi_gan_v3', extra_kwargs={'upsample_initial_channel': 16})
+mpd, msd = build_model('hifi_gan_mpd_small'), build_model('hifi_gan_msd_small')
+wav = (np.random.default_rng(0).standard_normal((2, 2048)) * 0.1).astype(np.float32)
+with tempfile.TemporaryDirectory() as tmp:
+    t = HiFiGANTrainer(gen, mpd, msd, adamw(gen.parameters(), 2e-4, 0.8, 0.99),
+                       adamw(itertools.chain(mpd.parameters(), msd.parameters()), 2e-4),
+                       [[wav]], [[wav]], max_step=1, valid_max_step=1, save_interval=1,
+                       log_interval=1, save_dir=tmp, seed=1, device='cpu')
+    assert np.isfinite(t.run()) and t.step == 1
+assert _build._lib is None, 'the kernel library must not load on the CPU path'
+loaded = sorted(m for m in sys.modules
+                if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'pytorch_sound_tpu'))
+print('LOADED', loaded)
+assert not loaded, loaded
+'''
+
+
+def _run(script):
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [ROOT] + [p for p in os.environ.get('PYTHONPATH', '').split(os.pathsep) if p]))
-    proc = subprocess.run([sys.executable, '-c', SCRIPT], cwd=ROOT, env=env,
+    proc = subprocess.run([sys.executable, '-c', script], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert 'LOADED []' in proc.stdout
+
+
+def test_port_loads_neither_jax_nor_the_jax_package():
+    _run(SCRIPT)
+
+
+def test_training_path_loads_neither_jax_nor_the_jax_package():
+    """The trainer, the critics and HiFiGANTrainer: one CPU step with tiny
+    models, a validation and a checkpoint."""
+    _run(TRAIN_SCRIPT)

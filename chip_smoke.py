@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's HiFi-GAN serving path once on one GPU.
+"""Drive the PyTorch/CUDA port's HiFi-GAN serving and training paths once on
+one GPU.
 
     python3 chip_smoke.py
 
@@ -23,13 +24,22 @@ Phases, one line each; any failure raises and the script exits non-zero:
    (the trainable log-mel) vs its plain version, six steps with checkpoints,
    a resume from step 3 that replays steps 4-6, one step on the card against
    the same step on the CPU, the log-mel launch counts of the run, and
-   timings.
+   timings;
+8. the K6 training route, every critic conv and generator upsample on the
+   grouped-conv kernels: each kernel (forward, dx, dw) against its plain
+   version on every conv of MPD base and MSD base at the critic phase's
+   32 x 8192 inputs and at v2's four upsamples, one line per layer with its
+   times (kernel / plain / cuDNN); ``HiFiGANTrainer(...).run()`` at full
+   width for 3 steps and a validation batch with the launch counts the
+   models' routes give; card vs CPU and kernel route vs cuDNN route, one
+   step each; the kernel route's step time beside phase 7's.
 
 The line before the last is a JSON object with one entry per kernel, each
 with its time, its plain version's, the least time the card could take for
 the same work (``bound_ms``, from the shapes, at the H100's published peaks)
 and the time of one PyTorch call computing the same function where there is
-one (``library_ms``; none exists for these three). The last line is
+one (``library_ms``: cuDNN's convolution and its backward for K6; none
+exists for the other three). The last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -51,6 +61,8 @@ STAGE_TOL = 2e-5                  # one stage vs plain (tests/test_pallas.py:187
 DECODE_TOL = 2e-4                 # card decode vs CPU decode (tests/test_pallas.py:151)
 STREAM_TOL = 1e-5                 # streaming interior vs whole decode
 GRAD_TOL = 1e-4                   # K4 gradient vs plain (tests/test_pallas.py:305)
+GC_FWD_TOL = 1e-5                 # K6 forward: max abs error / the plain version's max abs
+GC_GRAD_TOL = 1e-4                # K6 dx and dw, the same ratio (dw sums up to 262,144 terms)
 RESUME_RTOL = 1e-5                # resumed run's logged losses vs the first run's
 CARD_CPU_RTOL = 1e-4              # one training step's losses, card vs CPU
 CARD_CPU_GRAD_TOL = 1e-3          # ||g_card - g_cpu|| / ||g_cpu|| per parameter
@@ -173,16 +185,21 @@ class ToneStream:
             yield [tones(np.random, self.batch, self.samples)]
 
 
-def build_gan(device, seed):
+def build_gan(device, seed, kernel=False):
     """HiFi-GAN v2 with weight norm, MPD base and MSD base, initialised from
-    ``seed`` with the JAX init, on ``device``."""
+    ``seed`` with the JAX init, on ``device``. ``kernel=True`` builds the K6
+    route: every critic conv (``build_critics(msd_kernel=8, mpd_kernel=True)``)
+    and the generator's upsamples (``ups_backend='cuda'``) on the grouped-conv
+    kernels; the parameters are the same as the cuDNN route's."""
     import torch
+    from pytorch_sound_tpu_torch.examples.hifi_gan import build_critics
     from pytorch_sound_tpu_torch.models import build_model
-    from pytorch_sound_tpu_torch.models.vocoders import discriminators  # noqa: F401
     from pytorch_sound_tpu_torch.models.vocoders.hifi_gan import init_params
     gen = torch.Generator().manual_seed(seed)
-    return [init_params(build_model(arch), gen).to(device)
-            for arch in ('hifi_gan_v2', 'hifi_gan_mpd_base', 'hifi_gan_msd_base')]
+    route = 'cuda' if kernel else 'cudnn'
+    models = [build_model('hifi_gan_v2', extra_kwargs={'ups_backend': route}),
+              *build_critics(msd_kernel=8 if kernel else -1, mpd_kernel=kernel)]
+    return [init_params(m, gen).to(device) for m in models]
 
 
 def make_trainer(models, device, save_dir, **kw):
@@ -209,9 +226,71 @@ def make_trainer(models, device, save_dir, **kw):
     return trainer
 
 
+def split_step_pair(specs):
+    """One split step for each ``(device, kernel_route)`` of ``specs`` from the
+    same parameters and a 2 x 8192 batch, held against the first. Both
+    generator phases start from the first trainer's updated critics: Adam's
+    first update moves every entry by about +-lr whatever its gradient's size,
+    so entries with near-zero gradients may step apart between two correct
+    runs. Returns (worst loss rel diff, (worst grad rel diff, its name), the
+    losses, the parameter count)."""
+    trainers = []
+    for device, kernel in specs:
+        t = make_trainer(build_gan(device, 1, kernel), device,
+                         tempfile.mkdtemp(prefix='chip_smoke_step_'),
+                         max_step=1, valid_max_step=1, save_interval=1, log_interval=1)
+        shutil.rmtree(t.save_dir, ignore_errors=True)
+        trainers.append(t)
+    real = [t.to_device([tones(np.random.default_rng(5), 2, SEG)])[0][:, None, :]
+            for t in trainers]
+    d_loss = [t.disc_phase(r) for t, r in zip(trainers, real)]
+    for key in ('mpd', 'msd'):
+        getattr(trainers[1], key).load_state_dict(getattr(trainers[0], key).state_dict())
+    results = []
+    for t, r, (d, mel_real) in zip(trainers, real, d_loss):
+        g_loss, (adv, fm, mel_l1, _) = t.gen_phase(r, mel_real)
+        losses = dict(zip(LOSSES, (float(x) for x in (g_loss, d, adv, fm, mel_l1))))
+        grads = {'%s.%s' % (name, k): p.grad.detach().cpu()
+                 for name, m in (('gen', t.generator), ('mpd', t.mpd), ('msd', t.msd))
+                 for k, p in m.named_parameters()}
+        results.append((losses, grads))
+    (ref_loss, ref_grads), (got_loss, got_grads) = results
+    loss_rel = max(abs(got_loss[k] - ref_loss[k]) / abs(ref_loss[k]) for k in LOSSES)
+    grad_rel = {k: float((got_grads[k] - g).norm() / g.norm()) for k, g in ref_grads.items()}
+    worst = max(grad_rel, key=grad_rel.get)
+    shown = ' '.join('%s=%.6f/%.6f' % (k, got_loss[k], ref_loss[k]) for k in LOSSES)
+    return loss_rel, (grad_rel[worst], worst), shown, len(grad_rel)
+
+
+def time_train_steps(trainer, real, n_timed):
+    """Two warm-up steps, then ``n_timed`` split steps: (steps/s by the host
+    clock ending in a synchronize, per-step ms, disc / gen phase ms by CUDA
+    events, peak GB)."""
+    import torch
+    dev = real.device
+    for _ in range(2):
+        trainer._train_step([real[:, 0]], is_logging=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3 * n_timed)]
+    t0 = time.perf_counter()
+    for i in range(n_timed):
+        ev[3 * i].record()
+        _, mel_real = trainer.disc_phase(real)
+        ev[3 * i + 1].record()
+        trainer.gen_phase(real, mel_real)
+        ev[3 * i + 2].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    disc_ms = [ev[3 * i].elapsed_time(ev[3 * i + 1]) for i in range(n_timed)]
+    gen_ms = [ev[3 * i + 1].elapsed_time(ev[3 * i + 2]) for i in range(n_timed)]
+    return (n_timed / wall, wall / n_timed * 1e3, disc_ms, gen_ms,
+            torch.cuda.max_memory_allocated(dev) / 1e9)
+
+
 def train_path(dev, card):
-    """Phase 7: returns the JSON entry of K4 and the training path's K2
-    launches."""
+    """Phase 7: returns the training path's K2 launches, the cuDNN route's
+    step timing (``time_train_steps``) and the JSON entry of K4."""
     import torch
     from pytorch_sound_tpu_torch.ops import mel as mel_ops
     from pytorch_sound_tpu_torch.ops.cuda import logmel as lm
@@ -308,67 +387,23 @@ def train_path(dev, card):
     assert launches['logmel_trainable'] == steps + valid_batches, launches
 
     # 7.4 one step on the card against the same step on the CPU, from the
-    #     same parameters and a 2 x 8192 batch. Both generator phases start
-    #     from the CPU's updated critics: Adam's first update moves every
-    #     entry by about +-lr whatever its gradient's size, so entries with
-    #     near-zero gradients may step apart between two correct runs.
-    trainers = []
-    for device in ('cpu', dev):
-        t = make_trainer(build_gan(device, 1), device,
-                         tempfile.mkdtemp(prefix='chip_smoke_step_'),
-                         max_step=1, valid_max_step=1, save_interval=1, log_interval=1)
-        shutil.rmtree(t.save_dir, ignore_errors=True)
-        trainers.append(t)
-    real = [t.to_device([tones(np.random.default_rng(5), 2, SEG)])[0][:, None, :]
-            for t in trainers]
-    d_loss = [t.disc_phase(r) for t, r in zip(trainers, real)]
-    for key in ('mpd', 'msd'):
-        getattr(trainers[1], key).load_state_dict(getattr(trainers[0], key).state_dict())
-    results = []
-    for t, r, (d, mel_real) in zip(trainers, real, d_loss):
-        g_loss, (adv, fm, mel_l1, _) = t.gen_phase(r, mel_real)
-        losses = dict(zip(LOSSES, (float(x) for x in (g_loss, d, adv, fm, mel_l1))))
-        grads = {'%s.%s' % (name, k): p.grad.detach().cpu()
-                 for name, m in (('gen', t.generator), ('mpd', t.mpd), ('msd', t.msd))
-                 for k, p in m.named_parameters()}
-        results.append((losses, grads))
-    (cpu_loss, cpu_grads), (card_loss, card_grads) = results
-    loss_rel = max(abs(card_loss[k] - cpu_loss[k]) / abs(cpu_loss[k]) for k in LOSSES)
-    grad_rel = {k: float((card_grads[k] - g).norm() / g.norm()) for k, g in cpu_grads.items()}
-    worst_grad = max(grad_rel, key=grad_rel.get)
-    log('card_cpu', losses=' '.join('%s=%.6f/%.6f' % (k, card_loss[k], cpu_loss[k])
-                                    for k in LOSSES),
-        worst_loss_rel='%.3g' % loss_rel, worst_grad_rel='%.3g' % grad_rel[worst_grad],
-        worst_grad_param=worst_grad, params=len(grad_rel))
-    assert loss_rel <= CARD_CPU_RTOL, (card_loss, cpu_loss)
-    assert grad_rel[worst_grad] <= CARD_CPU_GRAD_TOL, (worst_grad, grad_rel[worst_grad])
-    del trainers, results
+    #     same parameters and a 2 x 8192 batch (split_step_pair)
+    loss_rel, (grad_rel, worst_grad), shown, n_params = split_step_pair(
+        [('cpu', False), (dev, False)])
+    log('card_cpu', losses=shown, worst_loss_rel='%.3g' % loss_rel,
+        worst_grad_rel='%.3g' % grad_rel, worst_grad_param=worst_grad, params=n_params)
+    assert loss_rel <= CARD_CPU_RTOL, (loss_rel, shown)
+    assert grad_rel <= CARD_CPU_GRAD_TOL, (worst_grad, grad_rel)
 
     # 7.6 timings: the full-width step and its phases, K4 vs plain
     trainer = make_trainer(build_gan(dev, 0), dev, tempfile.mkdtemp(prefix='chip_smoke_t_'),
                            max_step=1, valid_max_step=1, save_interval=1, log_interval=1)
     shutil.rmtree(trainer.save_dir, ignore_errors=True)
     real = torch.from_numpy(tones(np.random.default_rng(6), BATCH, SEG)).to(dev)[:, None, :]
-    for _ in range(2):
-        trainer._train_step([real[:, 0]], is_logging=False)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    n_timed = 6
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3 * n_timed)]
-    t0 = time.perf_counter()
-    for i in range(n_timed):
-        ev[3 * i].record()
-        _, mel_real = trainer.disc_phase(real)
-        ev[3 * i + 1].record()
-        trainer.gen_phase(real, mel_real)
-        ev[3 * i + 2].record()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    disc_ms = [ev[3 * i].elapsed_time(ev[3 * i + 1]) for i in range(n_timed)]
-    gen_ms = [ev[3 * i + 1].elapsed_time(ev[3 * i + 2]) for i in range(n_timed)]
-    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    step_time = time_train_steps(trainer, real, 6)
+    steps_s, step_ms, disc_ms, gen_ms, peak_gb = step_time
     log('time', card=repr(card), what='train_step_16x8192',
-        steps_per_s='%.3f' % (n_timed / wall), step_ms='%.2f' % (wall / n_timed * 1e3),
+        steps_per_s='%.3f' % steps_s, step_ms='%.2f' % step_ms,
         disc_phase_ms='/'.join('%.2f' % x for x in disc_ms),
         gen_phase_ms='/'.join('%.2f' % x for x in gen_ms),
         peak_memory_gb='%.2f' % peak_gb)
@@ -390,13 +425,245 @@ def train_path(dev, card):
         plain_bwd_ms='%.4f' % (fb_p - fwd_p), fwd_ms_runs='%.4f,%.4f' % fwd_kr,
         plain_fwd_ms_runs='%.4f,%.4f' % fwd_pr, fwd_bound_ms='%.4f' % bound_ms,
         bound_by=bound_by)
-    return launches['logmel'], {
+    return launches['logmel'], step_time, {
         'name': 'logmel_trainable', 'route': 'cuda', 'source': lm.SOURCE,
         'replaces': 'pytorch_sound_tpu/ops/pallas/logmel.py:275',
         'launches': launches['logmel_trainable'], 'max_abs_err': grad_err,
         'fwd_max_abs_err': fwd_err, 'ms': fwd_k, 'plain_ms': fwd_p,
         'bwd_ms': fb_k - fwd_k, 'plain_bwd_ms': fb_p - fwd_p,
         'bound_ms': bound_ms, 'bound_by': bound_by, 'library_ms': None}
+
+
+def conv_macs(n, cout, cg, k, stride, padding, dilation, t_in, t_out):
+    """Multiply-adds of a conv over the taps that land inside the input (those
+    in the zero padding need no work); its dx and dw are the same products."""
+    pos = (np.arange(t_out)[:, None] * stride + dilation * np.arange(k)[None, :] - padding)
+    return float(n * cout * cg) * float(np.count_nonzero((pos >= 0) & (pos < t_in)))
+
+
+def expected_gc_launches(gen, mpd, msd, steps, valid_batches):
+    """Launches of the grouped-conv entry points (forward, dx, dw) in
+    ``steps`` split steps and ``valid_batches`` validation batches, from the
+    models' routes. Per critic stack with k layers on the kernels: the critic
+    phase runs the forward over real + fake, dw of every layer and dx of every
+    layer but the first (the waveform carries no gradient); the generator
+    phase runs the forward over real (no gradient) and over the fake, and dx
+    of every layer (the fake carries the generator's gradient) but no dw (the
+    critics are frozen). Each upsample on the kernels runs dx (its forward)
+    in both phases' generator passes and each validation batch, and in its
+    backward the forward kernel (dx) and dw."""
+    fwd = dx = dw = 0
+    for disc in (mpd, msd):
+        for sub in disc.children():
+            convs = [getattr(sub, 'conv_%d' % i) for i in range(sub.n_layers)] + [sub.conv_post]
+            on = [c.backend == 'cuda' for c in convs]
+            fwd, dw, dx = fwd + 3 * sum(on), dw + sum(on), dx + 2 * sum(on) - on[0]
+    ups = sum(getattr(gen, 'ups_%d' % i).backend == 'cuda'
+              for i in range(len(gen.upsample_rates)))
+    return (steps * (fwd + ups), steps * (dx + 2 * ups) + valid_batches * ups,
+            steps * (dw + ups))
+
+
+def capture_layers(gen, mpd, msd, real, mel):
+    """Every critic conv with its real input in the critic phase (the 32 x
+    8192 real + fake batch through the cuDNN route, each layer fed by the one
+    before it) and every generator upsample with its input (16 x 8192 output):
+    [(name, module, input)]."""
+    import torch
+    from pytorch_sound_tpu_torch.models.vocoders.hifi_gan import (WNConv1d,
+                                                                  WNConvTranspose1d)
+    layers, hooks = [], []
+    for family, model in (('gen', gen), ('mpd', mpd), ('msd', msd)):
+        for name, m in model.named_modules():
+            if isinstance(m, (WNConv1d, WNConvTranspose1d)) and \
+                    (family != 'gen' or name.startswith('ups_')):
+                hooks.append(m.register_forward_pre_hook(
+                    lambda mod, inp, _n='%s.%s' % (family, name):
+                    layers.append((_n, mod, inp[0].contiguous()))))
+    with torch.no_grad():
+        fake = gen(mel)
+        both = torch.cat([real, fake], dim=0)
+        mpd(both)
+        msd(both)
+    for h in hooks:
+        h.remove()
+    return layers
+
+
+def kernel_route(dev, card, cudnn_step):
+    """Phase 8: the K6 training route. Returns the JSON entries of the three
+    grouped-conv kernels."""
+    import torch
+    import torch.nn.functional as F
+    from pytorch_sound_tpu_torch.models.vocoders.hifi_gan import WNConvTranspose1d
+    from pytorch_sound_tpu_torch.ops.cuda import grouped_conv as gc
+    from pytorch_sound_tpu_torch.ops.cuda import logmel as lm
+
+    # 8.1 each entry point against its plain version on every conv of MPD base
+    #     and MSD base at the critic phase's 32 x 8192 inputs, and at v2's four
+    #     upsamples (16 x 8192 output), from seeded cotangents
+    gen, mpd, msd = build_gan(dev, 0)
+    real = torch.from_numpy(tones(np.random.default_rng(8), BATCH, SEG)).to(dev)[:, None, :]
+    with torch.no_grad():
+        mel = lm.fused_hifigan_mel(real[:, 0])
+    layers = capture_layers(gen, mpd, msd, real, mel)
+    del gen, mpd, msd
+    rng = torch.Generator(device=dev).manual_seed(9)
+    errs = {'fwd': 0.0, 'dx': 0.0, 'dw': 0.0}
+    times = {e: [0.0, 0.0, 0.0] for e in errs}     # kernel, plain, library ms
+    work = {e: [0.0, 0.0] for e in errs}           # FLOPs, bytes
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    for name, m, x in layers:
+        w, b = m.folded_weight().detach(), m.bias.detach()
+        if isinstance(m, WNConvTranspose1d):
+            # ConvTranspose1d is the mirror conv's dx; its backward the
+            # mirror's forward and dw with input and cotangent swapped
+            n, _, t = x.shape
+            conf = dict(stride=m.stride, padding=m.padding)
+            t_up = (t - 1) * m.stride + m.kernel_size - 2 * m.padding
+            gz = torch.randn((n, m.out_channels, t_up), generator=rng, device=dev)
+            calls = {
+                'dx': (lambda: gc.conv1d_input_grad(x, w, t_up, b, **conf),
+                       lambda: gc.conv_transpose1d_reference(x, w, b, **conf),
+                       lambda: F.conv_transpose1d(x, w, b, **conf)),
+                'fwd': (lambda: gc.conv1d_forward(gz, w, **conf),
+                        lambda: gc.grouped_conv1d_reference(gz, w, **conf),
+                        lambda: F.conv1d(gz, w, **conf)),
+                'dw': (lambda: gc.conv1d_weight_grad(gz, x, w.shape, **conf),
+                       lambda: gc.conv1d_weight_grad_reference(gz, x, w.shape, **conf),
+                       lambda: torch.ops.aten.convolution_backward(
+                           x, gz, w, None, [m.stride], [m.padding], [1], False, [0], 1,
+                           [False, True, False])[1])}
+            macs = conv_macs(n, m.in_channels, m.out_channels, m.kernel_size, m.stride,
+                             m.padding, 1, t_up, t)
+            moved = {'dx': x.numel() + w.numel() + b.numel() + gz.numel(),
+                     'fwd': gz.numel() + w.numel() + x.numel(),
+                     'dw': gz.numel() + x.numel() + w.numel()}
+            geometry = '%d->%d k%d u%d T%d' % (m.in_channels, m.out_channels,
+                                              m.kernel_size, m.stride, t)
+        else:
+            n, _, t = x.shape
+            conf = dict(stride=m.stride, padding=m.padding, groups=m.groups,
+                        dilation=m.dilation)
+            slope = m.fused_slope
+            y = gc.grouped_conv1d_reference(x, w, b, slope=slope, **conf)
+            gy = torch.randn(y.shape, generator=rng, device=dev)
+            conv_args = [m.stride], [m.padding], [m.dilation], False, [0], m.groups
+            calls = {
+                'fwd': (lambda: gc.conv1d_forward(x, w, b, slope=slope, **conf),
+                        lambda: gc.grouped_conv1d_reference(x, w, b, slope=slope, **conf),
+                        lambda: F.conv1d(x, w, b, **conf)),
+                'dx': (lambda: gc.conv1d_input_grad(gy, w, t, **conf),
+                       lambda: gc.conv1d_input_grad_reference(gy, w, t, **conf),
+                       lambda: torch.ops.aten.convolution_backward(
+                           gy, x, w, None, *conv_args, [True, False, False])[0]),
+                'dw': (lambda: gc.conv1d_weight_grad(x, gy, w.shape, **conf),
+                       lambda: gc.conv1d_weight_grad_reference(x, gy, w.shape, **conf),
+                       lambda: torch.ops.aten.convolution_backward(
+                           gy, x, w, None, *conv_args, [False, True, False])[1])}
+            macs = conv_macs(n, m.out_channels, m.in_channels // m.groups, m.kernel_size,
+                             m.stride, m.padding, m.dilation, t, y.shape[2])
+            moved = {'fwd': x.numel() + w.numel() + b.numel() + y.numel(),
+                     'dx': gy.numel() + w.numel() + x.numel(),
+                     'dw': x.numel() + gy.numel() + w.numel()}
+            geometry = '%d->%d k%d s%d g%d d%d T%d' % (m.in_channels, m.out_channels,
+                                                       m.kernel_size, m.stride, m.groups,
+                                                       m.dilation, t)
+        line = {}
+        for entry, (kernel, plain, library) in calls.items():
+            got, ref = kernel(), plain()
+            torch.cuda.synchronize()
+            assert got.shape == ref.shape, (name, entry, got.shape, ref.shape)
+            err = rel(got, ref)
+            errs[entry] = max(errs[entry], err)
+            line[entry] = '%.3g' % err
+            assert err <= (GC_FWD_TOL if entry == 'fwd' else GC_GRAD_TOL), (name, entry, err)
+            k_ms, p_ms = paired_ms(plain, kernel, 3)[:2]
+            l_ms = cuda_ms(library, 3)
+            for i, v in enumerate((k_ms, p_ms, l_ms)):
+                times[entry][i] += v
+            work[entry][0] += 2.0 * macs
+            work[entry][1] += 4.0 * moved[entry]
+            line[entry + '_ms'] = '%.3f/%.3f/%.3f' % (k_ms, p_ms, l_ms)
+        log('k6', layer=name, geometry=geometry, batch=n, **line)
+    del layers
+    bounds = {e: bound(f, 0.0, nb) for e, (f, nb) in work.items()}
+    log('time', card=repr(card), what='k6_layers_one_call_each',
+        **{'%s_ms' % e: '%.3f' % times[e][0] for e in errs},
+        **{'%s_plain_ms' % e: '%.3f' % times[e][1] for e in errs},
+        **{'%s_cudnn_ms' % e: '%.3f' % times[e][2] for e in errs},
+        **{'%s_bound_ms' % e: '%.3f(%s)' % bounds[e] for e in errs},
+        **{'%s_gflop' % e: '%.1f' % (work[e][0] / 1e9) for e in errs})
+
+    # 8.2 the main path on the kernel route: HiFiGANTrainer(...).run() at
+    #     full width, 3 steps and one validation batch, launch counts from zero
+    counters = (gc.conv1d_forward, gc.conv1d_input_grad, gc.conv1d_weight_grad)
+    for c in counters:
+        c.launches = 0
+    work_dir = tempfile.mkdtemp(prefix='chip_smoke_k6_')
+    try:
+        models = build_gan(dev, 0, kernel=True)
+        t0 = time.perf_counter()
+        run = make_trainer(models, dev, work_dir, train=ToneStream(3), valid=ToneStream(1),
+                           max_step=3, valid_max_step=1, save_interval=3, log_interval=1)
+        best = run.run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = tuple(c.launches for c in counters)
+        train = {s: m for tag, s, m in run.logged if tag == 'train'}
+        for s in sorted(train):
+            log('train', route='k6', step=s, **{k: '%.6f' % train[s][k] for k in LOSSES})
+        assert sorted(train) == [1, 2, 3], sorted(train)
+        assert all(np.isfinite(m[k]) for m in train.values() for k in LOSSES), train
+        assert np.isfinite(best), best
+        want = expected_gc_launches(*models, steps=3, valid_batches=1)
+    finally:
+        shutil.rmtree(work_dir, ignore_errors=True)
+    log('counts', route='k6', fwd=launches[0], dx=launches[1], dw=launches[2],
+        expected='%d/%d/%d' % want, train_steps=3, valid_batches=1,
+        seconds='%.1f' % seconds, best_valid_mel_l1='%.6f' % best)
+    assert launches == want and min(launches) > 0, (launches, want)
+    del run, models
+
+    # 8.3 card vs CPU on the kernel route (the CPU runs the plain versions)
+    loss_rel, (grad_rel, worst), shown, n_params = split_step_pair(
+        [('cpu', True), (dev, True)])
+    log('card_cpu', route='k6', losses=shown, worst_loss_rel='%.3g' % loss_rel,
+        worst_grad_rel='%.3g' % grad_rel, worst_grad_param=worst, params=n_params)
+    assert loss_rel <= CARD_CPU_RTOL and grad_rel <= CARD_CPU_GRAD_TOL, (loss_rel, worst, grad_rel)
+
+    # 8.4 kernel route vs cuDNN route, both on the card
+    loss_rel, (grad_rel, worst), shown, n_params = split_step_pair(
+        [(dev, False), (dev, True)])
+    log('k6_cudnn', losses=shown, worst_loss_rel='%.3g' % loss_rel,
+        worst_grad_rel='%.3g' % grad_rel, worst_grad_param=worst, params=n_params)
+    assert loss_rel <= CARD_CPU_RTOL and grad_rel <= CARD_CPU_GRAD_TOL, (loss_rel, worst, grad_rel)
+
+    # 8.5 the kernel route's full-width step beside phase 7.6's cuDNN route
+    trainer = make_trainer(build_gan(dev, 0, kernel=True), dev,
+                           tempfile.mkdtemp(prefix='chip_smoke_t_'),
+                           max_step=1, valid_max_step=1, save_interval=1, log_interval=1)
+    shutil.rmtree(trainer.save_dir, ignore_errors=True)
+    real = torch.from_numpy(tones(np.random.default_rng(6), BATCH, SEG)).to(dev)[:, None, :]
+    steps_s, step_ms, disc_ms, gen_ms, peak_gb = time_train_steps(trainer, real, 4)
+    del trainer
+    log('time', card=repr(card), what='train_step_16x8192_k6',
+        steps_per_s='%.3f' % steps_s, step_ms='%.2f' % step_ms,
+        disc_phase_ms='/'.join('%.2f' % x for x in disc_ms),
+        gen_phase_ms='/'.join('%.2f' % x for x in gen_ms),
+        peak_memory_gb='%.2f' % peak_gb, cudnn_steps_per_s='%.3f' % cudnn_step[0],
+        cudnn_step_ms='%.2f' % cudnn_step[1], cudnn_peak_memory_gb='%.2f' % cudnn_step[4])
+    replaces = {'fwd': 'pytorch_sound_tpu/ops/pallas/grouped_conv.py:414',
+                'dx': 'pytorch_sound_tpu/ops/pallas/grouped_conv.py:414',
+                'dw': 'pytorch_sound_tpu/ops/pallas/grouped_conv.py:763'}
+    return [{'name': 'grouped_conv_' + e, 'route': 'cuda', 'source': gc.SOURCE,
+             'replaces': replaces[e], 'launches': launches[i], 'max_abs_err': errs[e],
+             'ms': times[e][0], 'plain_ms': times[e][1], 'bound_ms': bounds[e][0],
+             'bound_by': bounds[e][1], 'library_ms': times[e][2]}
+            for i, e in enumerate(('fwd', 'dx', 'dw'))]
 
 
 def main():
@@ -603,7 +870,10 @@ def main():
         encode_bound_by=enc_bound_by)
 
     # 7. the training path
-    train_logmel, k4_entry = train_path(dev, card)
+    train_logmel, cudnn_step, k4_entry = train_path(dev, card)
+
+    # 8. the K6 training route
+    k6_entries = kernel_route(dev, card, cudnn_step)
 
     print(json.dumps({'kernels': [
         {'name': 'gen_stage', 'route': 'cuda', 'source': gs.SOURCE,
@@ -617,6 +887,7 @@ def main():
          'ms': enc_k, 'plain_ms': enc_p, 'bound_ms': enc_bound, 'bound_by': enc_bound_by,
          'library_ms': None},
         k4_entry,
+        *k6_entries,
     ]}), flush=True)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': name,
                                              'count': torch.cuda.device_count()}}),

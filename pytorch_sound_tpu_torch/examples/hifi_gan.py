@@ -11,15 +11,18 @@ through the log-mel kernel itself.
 
 The JAX recipe's ``main`` reads dataset metas whose loaders are not ported
 yet; feed :class:`HiFiGANTrainer` any iterables of ``(wav (N, T),)`` batches.
-The MSD's folded form, bf16 critics and the grouped-conv kernel routes wait
-for later work.
+:func:`build_critics` builds the recipe's critics on its conv routes
+(``main(msd_pallas=..., mpd_pallas=...)``): cuDNN by default, the
+grouped-conv kernels (K6) on request. The MSD's folded form and bf16 critics
+wait for later work.
 """
 
 from typing import List, Tuple
 
 import torch
 
-from pytorch_sound_tpu_torch.models.vocoders import discriminators  # noqa: F401 (registers)
+from pytorch_sound_tpu_torch.models import build_model
+from pytorch_sound_tpu_torch.models.vocoders import discriminators
 from pytorch_sound_tpu_torch.models.vocoders.hifi_gan import load_jax_params
 from pytorch_sound_tpu_torch.ops import gan as gan_ops
 from pytorch_sound_tpu_torch.ops.cuda.logmel import (fused_hifigan_mel,
@@ -30,6 +33,21 @@ from pytorch_sound_tpu_torch.utils.commons import log
 
 LAMBDA_FM = 2.0
 LAMBDA_MEL = 45.0
+
+
+def build_critics(msd_kernel: int = -1, mpd_kernel: bool = False
+                  ) -> Tuple[discriminators.MultiPeriodDiscriminator,
+                             discriminators.MultiScaleDiscriminator]:
+    """(MPD base, MSD base) as the JAX recipe's ``main`` builds them
+    (``pytorch_sound_tpu/examples/hifi_gan.py:383-394``). ``msd_kernel=N >= 0``
+    puts the first N of the MSD's 8 conv layers on the grouped-conv kernels
+    (``'cuda'``), the rest on cuDNN; ``mpd_kernel=True`` puts all 6 MPD layers
+    there. -1 / False keep every conv on cuDNN."""
+    n = max(msd_kernel, 0)
+    mpd_backends = ('cuda' if mpd_kernel else 'cudnn',) * discriminators.PERIOD_LAYERS
+    msd_backends = ('cuda',) * n + ('cudnn',) * (discriminators.SCALE_LAYERS - n)
+    return (build_model('hifi_gan_mpd_base', extra_kwargs={'backends': mpd_backends}),
+            build_model('hifi_gan_msd_base', extra_kwargs={'backends': msd_backends}))
 
 
 class HiFiGANTrainer(Trainer):

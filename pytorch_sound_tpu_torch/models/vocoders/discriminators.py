@@ -12,9 +12,12 @@ are (N, P, C, H) where the JAX package's are (N, P, H, C), a scale
 discriminator's (N, C, T) where JAX's are (N, T, C); the scores have the JAX
 order. The losses are element-wise means, so the layout is free.
 
-Every conv runs through cuDNN (``F.conv1d``), as the JAX package's default
-backends leave them to XLA. ``msd_apply_folded``, bf16 critics and the
-grouped-conv kernel routes are not ported yet.
+Each conv takes its backend from ``backends``, one entry per layer (the body
+layers, then conv_post), as in the JAX package: ``'cudnn'`` (the default,
+``F.conv1d``, as the JAX defaults leave the convs to XLA) or ``'cuda'``, the
+grouped-conv kernels (K6) for forward, dx and dw with the leaky_relu fused
+into the forward (JAX ``'pallas'``). ``msd_apply_folded`` and bf16 critics
+are not ported yet.
 """
 
 from typing import List, Sequence, Tuple
@@ -27,7 +30,18 @@ from pytorch_sound_tpu_torch.models import register_model, register_model_archit
 from pytorch_sound_tpu_torch.models.vocoders.hifi_gan import WNConv1d
 
 SLOPE = 0.1
+PERIOD_LAYERS = 6         # 5 body layers + conv_post (JAX PeriodDiscriminator.backends)
+SCALE_LAYERS = 8          # 7 body layers + conv_post (JAX ScaleDiscriminator.backends)
 DiscOut = Tuple[torch.Tensor, List[torch.Tensor]]
+
+
+def _layer_backends(backends: Sequence[str], n: int) -> Tuple[str, ...]:
+    """The backends of n conv layers, the body layers then conv_post: the
+    first n entries, as the JAX critics index theirs (a period stack with
+    fewer channels uses the first of its 6)."""
+    if len(backends) < n:
+        raise ValueError('%d conv layers need %d backends, got %r' % (n, n, backends))
+    return tuple(backends[:n])
 
 
 class PeriodDiscriminator(nn.Module):
@@ -40,19 +54,23 @@ class PeriodDiscriminator(nn.Module):
     """
 
     def __init__(self, period: int, kernel_size: int = 5, stride: int = 3,
-                 channels: Sequence[int] = (32, 128, 512, 1024)):
+                 channels: Sequence[int] = (32, 128, 512, 1024),
+                 backends: Sequence[str] = ('cudnn',) * PERIOD_LAYERS):
         super().__init__()
         self.period = period
         self.n_layers = len(channels) + 1
+        backends = _layer_backends(backends, self.n_layers + 1)
         kpad = (kernel_size - 1) // 2
         in_ch = 1
         for i, ch in enumerate(channels):
-            self.add_module('conv_%d' % i, WNConv1d(in_ch, ch, kernel_size,
-                                                    stride=stride, padding=kpad))
+            self.add_module('conv_%d' % i, WNConv1d(
+                in_ch, ch, kernel_size, stride=stride, padding=kpad,
+                fused_slope=SLOPE, backend=backends[i]))
             in_ch = ch
-        self.add_module('conv_%d' % len(channels),
-                        WNConv1d(in_ch, channels[-1], kernel_size, padding=kpad))
-        self.conv_post = WNConv1d(channels[-1], 1, 3, padding=1)
+        self.add_module('conv_%d' % len(channels), WNConv1d(
+            in_ch, channels[-1], kernel_size, padding=kpad, fused_slope=SLOPE,
+            backend=backends[len(channels)]))
+        self.conv_post = WNConv1d(channels[-1], 1, 3, padding=1, backend=backends[-1])
 
     def forward(self, x: torch.Tensor) -> DiscOut:
         n, c, t = x.shape
@@ -71,7 +89,7 @@ class PeriodDiscriminator(nn.Module):
 
         features = []
         for i in range(self.n_layers):
-            x = F.leaky_relu(getattr(self, 'conv_%d' % i)(x), SLOPE)
+            x = getattr(self, 'conv_%d' % i)(x)
             features.append(feat(x))
         x = self.conv_post(x)
         features.append(feat(x))
@@ -98,19 +116,22 @@ class ScaleDiscriminator(nn.Module):
     """Grouped long-kernel conv1d stack over the raw wave; ``width`` scales
     the channel counts (1.0 = the paper's 128..1024 stack)."""
 
-    def __init__(self, width: float = 1.0):
+    def __init__(self, width: float = 1.0,
+                 backends: Sequence[str] = ('cudnn',) * SCALE_LAYERS):
         super().__init__()
         layout = scale_disc_layout(width)
         self.n_layers = len(layout)
+        backends = _layer_backends(backends, self.n_layers + 1)
         for i, (ic, oc, k, s, g, p) in enumerate(layout):
-            self.add_module('conv_%d' % i, WNConv1d(ic, oc, k, stride=s,
-                                                    padding=p, groups=g))
-        self.conv_post = WNConv1d(layout[-1][1], 1, 3, padding=1)
+            self.add_module('conv_%d' % i, WNConv1d(
+                ic, oc, k, stride=s, padding=p, groups=g, fused_slope=SLOPE,
+                backend=backends[i]))
+        self.conv_post = WNConv1d(layout[-1][1], 1, 3, padding=1, backend=backends[-1])
 
     def forward(self, x: torch.Tensor) -> DiscOut:
         features = []
         for i in range(self.n_layers):
-            x = F.leaky_relu(getattr(self, 'conv_%d' % i)(x), SLOPE)
+            x = getattr(self, 'conv_%d' % i)(x)
             features.append(x)
         x = self.conv_post(x)
         features.append(x)
@@ -122,11 +143,13 @@ class MultiPeriodDiscriminator(nn.Module):
     """Period discriminators at the paper's prime periods."""
 
     def __init__(self, periods: Sequence[int] = (2, 3, 5, 7, 11),
-                 channels: Sequence[int] = (32, 128, 512, 1024)):
+                 channels: Sequence[int] = (32, 128, 512, 1024),
+                 backends: Sequence[str] = ('cudnn',) * PERIOD_LAYERS):
         super().__init__()
         self.periods = tuple(periods)
         for p in self.periods:
-            self.add_module('period_%d' % p, PeriodDiscriminator(p, channels=channels))
+            self.add_module('period_%d' % p, PeriodDiscriminator(
+                p, channels=channels, backends=backends))
 
     def forward(self, x: torch.Tensor) -> List[DiscOut]:
         return [getattr(self, 'period_%d' % p)(x) for p in self.periods]
@@ -136,11 +159,12 @@ class MultiPeriodDiscriminator(nn.Module):
 class MultiScaleDiscriminator(nn.Module):
     """Scale discriminators on the wave and its average-pooled octaves."""
 
-    def __init__(self, n_scales: int = 3, width: float = 1.0):
+    def __init__(self, n_scales: int = 3, width: float = 1.0,
+                 backends: Sequence[str] = ('cudnn',) * SCALE_LAYERS):
         super().__init__()
         self.n_scales = n_scales
         for i in range(n_scales):
-            self.add_module('scale_%d' % i, ScaleDiscriminator(width))
+            self.add_module('scale_%d' % i, ScaleDiscriminator(width, backends))
 
     def forward(self, x: torch.Tensor) -> List[DiscOut]:
         outs = []
@@ -154,19 +178,20 @@ class MultiScaleDiscriminator(nn.Module):
 
 @register_model_architecture('hifi_gan_mpd', 'hifi_gan_mpd_base')
 def hifi_gan_mpd_base():
-    return {'periods': (2, 3, 5, 7, 11), 'channels': (32, 128, 512, 1024)}
+    return {'periods': (2, 3, 5, 7, 11), 'channels': (32, 128, 512, 1024),
+            'backends': ('cudnn',) * PERIOD_LAYERS}
 
 
 @register_model_architecture('hifi_gan_mpd', 'hifi_gan_mpd_small')
 def hifi_gan_mpd_small():
-    return {'periods': (2, 3), 'channels': (8, 16)}
+    return {'periods': (2, 3), 'channels': (8, 16), 'backends': ('cudnn',) * PERIOD_LAYERS}
 
 
 @register_model_architecture('hifi_gan_msd', 'hifi_gan_msd_base')
 def hifi_gan_msd_base():
-    return {'n_scales': 3, 'width': 1.0}
+    return {'n_scales': 3, 'width': 1.0, 'backends': ('cudnn',) * SCALE_LAYERS}
 
 
 @register_model_architecture('hifi_gan_msd', 'hifi_gan_msd_small')
 def hifi_gan_msd_small():
-    return {'n_scales': 2, 'width': 0.0625}
+    return {'n_scales': 2, 'width': 0.0625, 'backends': ('cudnn',) * SCALE_LAYERS}

@@ -12,8 +12,9 @@ flax checkpoint (folded) and the JAX trainer's (g, v) trees load through
 Two forward paths, split as the JAX package splits them:
 
 - :meth:`Generator.forward` runs layer by layer (cuDNN ``F.conv1d`` /
-  ``F.conv_transpose1d`` on the card) and is differentiable: the training
-  path, as JAX ``Generator.__call__`` leaves every conv to XLA.
+  ``F.conv_transpose1d`` on the card, or the upsample layers on the
+  grouped-conv kernels with ``ups_backend='cuda'``) and is differentiable:
+  the training path, as JAX ``Generator.__call__`` leaves every conv to XLA.
 - :func:`generator_apply_fused` is the inference path of the interface: with
   ResBlock1 (v1, v2) every upsample stage runs as one
   :func:`~pytorch_sound_tpu_torch.ops.cuda.gen_stage.generator_stage` call,
@@ -30,9 +31,11 @@ from torch import nn
 
 from pytorch_sound_tpu_torch.models import register_model, register_model_architecture
 from pytorch_sound_tpu_torch.ops.cuda.gen_stage import generator_stage, get_padding
+from pytorch_sound_tpu_torch.ops.cuda.grouped_conv import conv_transpose1d, grouped_conv1d
 from pytorch_sound_tpu_torch.utils.checkpoint import tree_to_state_dict
 
 INIT_STD = 0.01           # the JAX package's kernel init, N(0, 0.01)
+BACKENDS = ('cudnn', 'cuda')    # F.conv1d / the grouped-conv kernels (K6)
 
 
 def weight_norm(g: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -40,6 +43,12 @@ def weight_norm(g: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     (``torch.nn.utils.weight_norm`` has no 1e-12 and other parameter names)."""
     dims = tuple(range(1, v.ndim))
     return g * v / torch.sqrt(torch.sum(v * v, dim=dims, keepdim=True) + 1e-12)
+
+
+def _check_backend(backend: str) -> str:
+    if backend not in BACKENDS:
+        raise ValueError('conv backend must be one of %s, got %r' % (BACKENDS, backend))
+    return backend
 
 
 class _WNConv(nn.Module):
@@ -75,36 +84,56 @@ class _WNConv(nn.Module):
 
 
 class WNConv1d(_WNConv):
-    """Conv1d, weight (C_out, C_in / groups, K), weight norm per output channel."""
+    """Conv1d, weight (C_out, C_in / groups, K), weight norm per output channel.
+
+    ``fused_slope`` applies leaky_relu to the output (JAX ``fused_slope``).
+    ``backend``: ``'cudnn'`` runs ``F.conv1d``; ``'cuda'`` runs
+    :func:`~pytorch_sound_tpu_torch.ops.cuda.grouped_conv.grouped_conv1d`,
+    the grouped-conv kernels (K6) for the forward, dx and dw on the card and
+    their plain versions on the CPU, with the slope fused into the forward
+    kernel (JAX ``backend='pallas'``).
+    """
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, dilation: int = 1, padding: int = 0,
-                 groups: int = 1, use_weight_norm: bool = True):
+                 groups: int = 1, use_weight_norm: bool = True,
+                 fused_slope: Optional[float] = None, backend: str = 'cudnn'):
         super().__init__((out_channels, in_channels // groups, kernel_size),
                          out_channels, use_weight_norm)
         self.in_channels, self.out_channels = in_channels, out_channels
         self.kernel_size, self.stride, self.dilation = kernel_size, stride, dilation
         self.padding, self.groups = padding, groups
+        self.fused_slope, self.backend = fused_slope, _check_backend(backend)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv1d(x, self.folded_weight(), self.bias, stride=self.stride,
-                        padding=self.padding, dilation=self.dilation, groups=self.groups)
+        if self.backend == 'cuda':
+            return grouped_conv1d(x, self.folded_weight(), self.bias, stride=self.stride,
+                                  padding=self.padding, groups=self.groups,
+                                  dilation=self.dilation, slope=self.fused_slope)
+        out = F.conv1d(x, self.folded_weight(), self.bias, stride=self.stride,
+                       padding=self.padding, dilation=self.dilation, groups=self.groups)
+        return out if self.fused_slope is None else F.leaky_relu(out, self.fused_slope)
 
 
 class WNConvTranspose1d(_WNConv):
     """ConvTranspose1d, weight (C_in, C_out, K); ``g`` is per *input* channel
-    (dim 0), as torch and the JAX package hold it."""
+    (dim 0), as torch and the JAX package hold it. ``backend='cuda'`` runs
+    :func:`~pytorch_sound_tpu_torch.ops.cuda.grouped_conv.conv_transpose1d`
+    (K6: the input-gradient kernel of the mirror conv forward)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 stride: int, padding: int = 0, use_weight_norm: bool = True):
+                 stride: int, padding: int = 0, use_weight_norm: bool = True,
+                 backend: str = 'cudnn'):
         super().__init__((in_channels, out_channels, kernel_size), out_channels,
                          use_weight_norm)
         self.in_channels, self.out_channels = in_channels, out_channels
         self.kernel_size, self.stride, self.padding = kernel_size, stride, padding
+        self.backend = _check_backend(backend)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv_transpose1d(x, self.folded_weight(), self.bias,
-                                  stride=self.stride, padding=self.padding)
+        conv = conv_transpose1d if self.backend == 'cuda' else F.conv_transpose1d
+        return conv(x, self.folded_weight(), self.bias, stride=self.stride,
+                    padding=self.padding)
 
 
 class ResBlock1(nn.Module):
@@ -161,7 +190,11 @@ class ResBlock2(nn.Module):
 
 @register_model('hifi_gan')
 class Generator(nn.Module):
-    """mel (N, 80, T) -> wav (N, 1, T * prod(upsample_rates))."""
+    """mel (N, 80, T) -> wav (N, 1, T * prod(upsample_rates)).
+
+    ``ups_backend='cuda'`` runs the upsample layers (``ups_*``) on the
+    grouped-conv kernels (K6), the port's spelling of the JAX package's
+    ``PSTPU_GC_DENSE_PALLAS=1`` route; the other convs stay on cuDNN."""
 
     def __init__(self, resblock: str = '1',
                  upsample_rates: Sequence[int] = (8, 8, 2, 2),
@@ -169,7 +202,8 @@ class Generator(nn.Module):
                  upsample_initial_channel: int = 512,
                  resblock_kernel_sizes: Sequence[int] = (3, 7, 11),
                  resblock_dilation_sizes: Sequence[Sequence[int]] = ((1, 3, 5),) * 3,
-                 in_channels: int = 80, use_weight_norm: bool = True):
+                 in_channels: int = 80, use_weight_norm: bool = True,
+                 ups_backend: str = 'cudnn'):
         super().__init__()
         self.resblock = resblock
         self.upsample_rates = tuple(upsample_rates)
@@ -180,7 +214,8 @@ class Generator(nn.Module):
         self.conv_pre = WNConv1d(in_channels, ch, 7, padding=3, use_weight_norm=wn)
         for i, (u, k) in enumerate(zip(upsample_rates, upsample_kernel_sizes)):
             self.add_module('ups_%d' % i, WNConvTranspose1d(
-                ch, ch // 2, k, u, padding=(k - u) // 2, use_weight_norm=wn))
+                ch, ch // 2, k, u, padding=(k - u) // 2, use_weight_norm=wn,
+                backend=ups_backend))
             ch //= 2
             for j, (rk, rd) in enumerate(zip(resblock_kernel_sizes,
                                              resblock_dilation_sizes)):
@@ -335,6 +370,7 @@ def hifi_gan_v1():
         'resblock_kernel_sizes': (3, 7, 11),
         'resblock_dilation_sizes': ((1, 3, 5), (1, 3, 5), (1, 3, 5)),
         'use_weight_norm': True,
+        'ups_backend': 'cudnn',
     }
 
 
@@ -348,6 +384,7 @@ def hifi_gan_v2():
         'resblock_kernel_sizes': (3, 7, 11),
         'resblock_dilation_sizes': ((1, 3, 5), (1, 3, 5), (1, 3, 5)),
         'use_weight_norm': True,
+        'ups_backend': 'cudnn',
     }
 
 
@@ -361,4 +398,5 @@ def hifi_gan_v3():
         'resblock_kernel_sizes': (3, 5, 7),
         'resblock_dilation_sizes': ((1, 2), (2, 6), (3, 12)),
         'use_weight_norm': True,
+        'ups_backend': 'cudnn',
     }

@@ -42,6 +42,21 @@ SIGNATURES = {
         _P, _P, _I, _P, _I,                 # cos, sin, n_bins, mel, n_mels
         _F, _F, _F, _F, _F,                 # power_eps, log_floor, log_offset, lo, hi
         _P],                                # stream
+    'grouped_conv_forward': [
+        _P, _P, _P, _P,                     # x, w, bias, y
+        _I, _I, _I, _I, _I,                 # n, cin, t_in, cout, t_out
+        _I, _I, _I, _I, _I,                 # k, stride, pad, dilation, groups
+        _I, _F, _P],                        # has_slope, slope, stream
+    'grouped_conv_input_grad': [
+        _P, _P, _P, _P,                     # gy, w, bias, dx
+        _I, _I, _I, _I, _I,                 # n, cin, t_in, cout, t_out
+        _I, _I, _I, _I, _I,                 # k, stride, pad, dilation, groups
+        _I, _F, _P],                        # has_slope, slope, stream
+    'grouped_conv_weight_grad': [
+        _P, _P, _P, _P,                     # x, gy, dw, scratch
+        _I, _I, _I, _I, _I,                 # n, cin, t_in, cout, t_out
+        _I, _I, _I, _I, _I,                 # k, stride, pad, dilation, groups
+        _I, _P],                            # splits, stream
 }
 
 _lock = threading.Lock()

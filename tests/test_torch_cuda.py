@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (K1, and K2 through K4) against their plain
-versions on a card.
+"""The port's CUDA kernels (K1, K2 through K4, and the grouped-conv kernels
+K6) against their plain versions on a card.
 
 Every test here is marked ``cuda`` and skips without a CUDA device. On a
 machine with one:
@@ -86,3 +86,66 @@ def test_trainable_mel_kernel_matches_plain(card):
     assert mel_k.shape == (16, 80, 32)
     assert float((mel_k - mel_p).abs().max()) <= 1e-4
     assert float((g_k - g_p).abs().max()) <= 1e-4
+
+
+GC_FWD_TOL = 1e-5     # max abs error over the plain version's max abs
+GC_GRAD_TOL = 1e-4    # the same ratio for dx and dw (dw sums N x T_out terms)
+
+
+@pytest.mark.parametrize('n,ci,co,k,s,g,p,t', [
+    (4, 1, 128, 15, 1, 1, 7, 8192),       # MSD L0: one input channel
+    (4, 128, 128, 41, 2, 4, 20, 8192),    # MSD L1
+    (4, 256, 512, 41, 4, 8, 20, 2049),    # MSD L3 at scale 2, odd length
+    (4, 1024, 1024, 41, 1, 8, 20, 129),   # MSD L5
+    (4, 1024, 1024, 5, 1, 1, 2, 129),     # MSD L6 (dense k5)
+    (4, 1024, 1, 3, 1, 1, 1, 129),        # conv_post: one output channel
+    (44, 1, 32, 5, 3, 1, 2, 745),         # MPD L0 at period 11
+    (44, 512, 1024, 5, 3, 1, 2, 28),      # MPD L3 at period 11
+])
+def test_grouped_conv_kernels_match_plain(card, n, ci, co, k, s, g, p, t):
+    """The three grouped-conv kernels (forward with bias and slope, dx, dw)
+    against their plain versions at critic geometries; dw is bit-identical
+    on a rerun."""
+    from pytorch_sound_tpu_torch.ops.cuda import grouped_conv as gc
+    rng = np.random.default_rng(n + ci + co + k + t)
+
+    def arr(*shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale)
+                                .astype(np.float32)).to(card)
+
+    x, w, b = arr(n, ci, t), arr(co, ci // g, k, scale=(ci // g * k) ** -0.5), arr(co)
+    conf = dict(stride=s, padding=p, groups=g)
+    before = (gc.conv1d_forward.launches, gc.conv1d_input_grad.launches,
+              gc.conv1d_weight_grad.launches)
+    y = gc.conv1d_forward(x, w, b, slope=0.1, **conf)
+    y_ref = gc.grouped_conv1d_reference(x, w, b, slope=0.1, **conf)
+    gy = arr(*y_ref.shape)
+    dx = gc.conv1d_input_grad(gy, w, t, **conf)
+    dx_ref = gc.conv1d_input_grad_reference(gy, w, t, **conf)
+    dw = gc.conv1d_weight_grad(x, gy, w.shape, **conf)
+    dw_ref = gc.conv1d_weight_grad_reference(x, gy, w.shape, **conf)
+    assert torch.equal(dw, gc.conv1d_weight_grad(x, gy, w.shape, **conf))
+    assert (gc.conv1d_forward.launches, gc.conv1d_input_grad.launches,
+            gc.conv1d_weight_grad.launches) == (before[0] + 1, before[1] + 1, before[2] + 2)
+    for got, ref, tol in ((y, y_ref, GC_FWD_TOL), (dx, dx_ref, GC_GRAD_TOL),
+                          (dw, dw_ref, GC_GRAD_TOL)):
+        assert got.shape == ref.shape
+        assert float((got - ref).abs().max() / ref.abs().max()) <= tol
+
+
+def test_conv_transpose_kernel_matches_plain(card):
+    """ConvTranspose1d (the dx kernel of the mirror conv) forward and its
+    backward (forward and dw kernels) at v2's first upsample, 16 x 32 frames."""
+    from pytorch_sound_tpu_torch.ops.cuda import grouped_conv as gc
+    rng = np.random.default_rng(21)
+    x0, w0, b0 = (torch.from_numpy((rng.standard_normal(s) * 0.1).astype(np.float32)).to(card)
+                  for s in ((16, 128, 32), (128, 64, 16), (64,)))
+    outs = []
+    for fn in (gc.conv_transpose1d, gc.conv_transpose1d_reference):
+        x, w, b = (a.clone().requires_grad_(True) for a in (x0, w0, b0))
+        y = fn(x, w, b, stride=8, padding=4)
+        torch.sin(y).sum().backward()
+        outs.append((y.detach(), x.grad, w.grad, b.grad))
+    for got, ref in zip(*outs):
+        assert got.shape == ref.shape
+        assert float((got - ref).abs().max() / ref.abs().max()) <= GC_GRAD_TOL

@@ -53,8 +53,11 @@ def flat(tree, prefix=''):
     return out
 
 
-def port_model(arch, params):
-    model = build_model(arch)
+def port_model(arch, params, route='cudnn'):
+    """The port's critic with every conv on ``route``: 'cudnn' (F.conv1d) or
+    'cuda' (the grouped-conv autograd functions, on the CPU through their
+    plain forward, dx and dw)."""
+    model = build_model(arch, extra_kwargs={'backends': (route,) * 8})
     model.load_state_dict(load_jax_params(params, weight_norm=True))
     return model
 
@@ -70,15 +73,19 @@ def wav(seed, shape):
 
 CASES = [('hifi_gan_mpd_small', (2, 1, 2048)), ('hifi_gan_msd_small', (2, 1, 2048)),
          ('hifi_gan_mpd_base', (1, 1, 1024)), ('hifi_gan_msd_base', (1, 1, 1024))]
+# each case on both conv routes; the cuDNN route keeps the ids it always had
+ROUTE_CASES = [pytest.param(arch, shape, route,
+                            id='%s-shape%d%s' % (arch, i, '' if route == 'cudnn' else '-cuda'))
+               for route in ('cudnn', 'cuda') for i, (arch, shape) in enumerate(CASES)]
 
 
-@pytest.mark.parametrize('arch,shape', CASES)
-def test_critic_matches_jax(arch, shape):
+@pytest.mark.parametrize('arch,shape,route', ROUTE_CASES)
+def test_critic_matches_jax(arch, shape, route):
     x = wav(len(arch), shape)
     jmod = jax_build_model(arch)
     params = jax_params(jmod, jnp.asarray(x), seed=len(arch) + 1)
     ref = jax.jit(jmod.apply)(params, jnp.asarray(x))
-    model = port_model(arch, params)
+    model = port_model(arch, params, route)
     with torch.no_grad():
         got = model(torch.from_numpy(x))
     assert len(got) == len(ref)
@@ -92,8 +99,8 @@ def test_critic_matches_jax(arch, shape):
             np.testing.assert_allclose(a, np.asarray(b), atol=FWD_TOL, rtol=0)
 
 
-@pytest.mark.parametrize('arch,shape', CASES)
-def test_critic_grads_match_jax(arch, shape):
+@pytest.mark.parametrize('arch,shape,route', ROUTE_CASES)
+def test_critic_grads_match_jax(arch, shape, route):
     """d/d(every g, v, bias) of LSGAN + feature matching between two inputs."""
     x1, x2 = wav(1, shape), wav(2, shape)
     jmod = jax_build_model(arch)
@@ -105,7 +112,7 @@ def test_critic_grads_match_jax(arch, shape):
 
     ref_loss, ref_grads = jax.jit(jax.value_and_grad(jax_loss))(params)
     ref_grads = flat(ref_grads['params'])
-    model = port_model(arch, params)
+    model = port_model(arch, params, route)
     a, b = model(torch.from_numpy(x1)), model(torch.from_numpy(x2))
     loss = gan_ops.discriminator_loss(a, b) + gan_ops.feature_matching_loss(a, b)
     loss.backward()

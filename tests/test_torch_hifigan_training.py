@@ -35,9 +35,13 @@ PARAM_TOL = 1e-5       # params after the step where |JAX grad| > 1e-6
 LOSSES = ('loss', 'disc_loss', 'adv', 'feature_matching', 'mel_l1')
 
 
-def port_trainer(tmp_path, gen=None, train=None, valid=None, **kw):
-    gen = gen if gen is not None else build_model(TINY_GEN[0], extra_kwargs=TINY_GEN[1])
-    mpd, msd = build_model('hifi_gan_mpd_small'), build_model('hifi_gan_msd_small')
+def port_trainer(tmp_path, gen=None, train=None, valid=None, route='cudnn', **kw):
+    """A tiny HiFiGANTrainer on the CPU; ``route='cuda'`` puts the critics'
+    convs and the generator's upsamples on the grouped-conv functions."""
+    gen = gen if gen is not None else build_model(
+        TINY_GEN[0], extra_kwargs=dict(TINY_GEN[1], ups_backend=route))
+    mpd, msd = (build_model(arch, extra_kwargs={'backends': (route,) * 8})
+                for arch in ('hifi_gan_mpd_small', 'hifi_gan_msd_small'))
     kw.setdefault('max_step', 1)
     return HiFiGANTrainer(
         gen, mpd, msd, adamw(gen.parameters(), LR, 0.8, 0.99),
@@ -110,6 +114,35 @@ def test_split_step_matches_jax(tmp_path):
             live = np.abs(ref_grads[family][key]) > 1e-6
             assert float(diff[live].max(initial=0.0)) <= PARAM_TOL, (family, key)
             assert float(diff.max()) <= 2 * LR + 1e-7, (family, key)
+
+
+def test_kernel_route_step_matches_cudnn_route(tmp_path):
+    """One split step with every critic conv and generator upsample on the
+    grouped-conv functions (their plain forward, dx and dw on the CPU) equals
+    the cuDNN route's step from the same parameters and batch: the five
+    losses, every gradient and every updated parameter within 1e-5."""
+    batch = (np.random.default_rng(12).standard_normal((2, 2048)) * 0.2).astype(np.float32)
+    trainers = [port_trainer(tmp_path / route, route=route) for route in ('cudnn', 'cuda')]
+    trainers[1].load_model_state(trainers[0].model_state())
+    assert trainers[1].generator.ups_0.backend == 'cuda'
+    assert {m.backend for m in trainers[1].msd.modules() if hasattr(m, 'backend')} == {'cuda'}
+    results = []
+    for t in trainers:
+        _, meta = t._train_step(t.to_device([batch]), is_logging=True)
+        grads = {'%s.%s' % (f, k): p.grad.detach().clone()
+                 for f, m in (('gen', t.generator), ('mpd', t.mpd), ('msd', t.msd))
+                 for k, p in m.named_parameters()}
+        results.append(({k: float(meta[k][0]) for k in LOSSES}, grads, params_of(t)))
+    (loss_a, grad_a, after_a), (loss_b, grad_b, after_b) = results
+    for k in LOSSES:
+        assert abs(loss_b[k] - loss_a[k]) <= 1e-5 * abs(loss_a[k]), (k, loss_a[k], loss_b[k])
+    for k, g in grad_a.items():
+        err = float((grad_b[k] - g).norm() / max(float(g.norm()), 1e-30))
+        assert err <= 1e-5, (k, err)
+    for family, sd in after_a.items():
+        for k, v in sd.items():
+            err = float((after_b[family][k] - v).norm() / max(float(v.norm()), 1e-30))
+            assert err <= 1e-5, (family, k, err)
 
 
 def tones(seed, n=4, samples=2048):

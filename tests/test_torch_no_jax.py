@@ -34,10 +34,13 @@ import torch
 from pytorch_sound_tpu_torch.examples.hifi_gan import HiFiGANTrainer
 from pytorch_sound_tpu_torch.models import build_model
 from pytorch_sound_tpu_torch.models.vocoders import discriminators  # noqa: F401
-from pytorch_sound_tpu_torch.ops.cuda import _build
+from pytorch_sound_tpu_torch.ops.cuda import _build, grouped_conv
 from pytorch_sound_tpu_torch.trainer import Trainer, adamw  # noqa: F401
-gen = build_model('hifi_gan_v3', extra_kwargs={'upsample_initial_channel': 16})
-mpd, msd = build_model('hifi_gan_mpd_small'), build_model('hifi_gan_msd_small')
+route = sys.argv[1]          # 'cudnn', or 'cuda': the grouped-conv functions
+gen = build_model('hifi_gan_v3', extra_kwargs={'upsample_initial_channel': 16,
+                                               'ups_backend': route})
+mpd, msd = (build_model(arch, extra_kwargs={'backends': (route,) * 8})
+            for arch in ('hifi_gan_mpd_small', 'hifi_gan_msd_small'))
 wav = (np.random.default_rng(0).standard_normal((2, 2048)) * 0.1).astype(np.float32)
 with tempfile.TemporaryDirectory() as tmp:
     t = HiFiGANTrainer(gen, mpd, msd, adamw(gen.parameters(), 2e-4, 0.8, 0.99),
@@ -46,6 +49,8 @@ with tempfile.TemporaryDirectory() as tmp:
                        log_interval=1, save_dir=tmp, seed=1, device='cpu')
     assert np.isfinite(t.run()) and t.step == 1
 assert _build._lib is None, 'the kernel library must not load on the CPU path'
+assert (grouped_conv.conv1d_forward.launches, grouped_conv.conv1d_input_grad.launches,
+        grouped_conv.conv1d_weight_grad.launches) == (0, 0, 0)
 loaded = sorted(m for m in sys.modules
                 if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'pytorch_sound_tpu'))
 print('LOADED', loaded)
@@ -53,10 +58,10 @@ assert not loaded, loaded
 '''
 
 
-def _run(script):
+def _run(script, *args):
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [ROOT] + [p for p in os.environ.get('PYTHONPATH', '').split(os.pathsep) if p]))
-    proc = subprocess.run([sys.executable, '-c', script], cwd=ROOT, env=env,
+    proc = subprocess.run([sys.executable, '-c', script, *args], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert 'LOADED []' in proc.stdout
@@ -69,4 +74,11 @@ def test_port_loads_neither_jax_nor_the_jax_package():
 def test_training_path_loads_neither_jax_nor_the_jax_package():
     """The trainer, the critics and HiFiGANTrainer: one CPU step with tiny
     models, a validation and a checkpoint."""
-    _run(TRAIN_SCRIPT)
+    _run(TRAIN_SCRIPT, 'cudnn')
+
+
+def test_kernel_route_loads_neither_jax_nor_the_jax_package():
+    """The same step with the critics' convs and the generator's upsamples
+    on the grouped-conv functions: their module loads without JAX, and on
+    the CPU they build no kernel and count no launch."""
+    _run(TRAIN_SCRIPT, 'cuda')

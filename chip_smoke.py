@@ -32,14 +32,23 @@ Phases, one line each; any failure raises and the script exits non-zero:
    times (kernel / plain / cuDNN); ``HiFiGANTrainer(...).run()`` at full
    width for 3 steps and a validation batch with the launch counts the
    models' routes give; card vs CPU and kernel route vs cuDNN route, one
-   step each; the kernel route's step time beside phase 7's.
+   step each; the kernel route's step time beside phase 7's;
+9. HiFi-GAN v1 serving on weights from a seed (``init_params`` with a
+   ``torch.Generator`` seeded 0, folded): the generator-stage kernel against
+   its plain version on each of v1's four stages (the 256- and 128-channel
+   stages in the kernel's cluster layout, conv_pre folded into stage 0) and
+   the resblock-stage kernel (K3) on each stage's resblock input, at 2 x 61
+   and 16 x 256 frames; the main path ``InterfaceHifiGAN('hifi_gan_v1',
+   params=..., device='cuda')``: encode, the 16 x 256 decode, card vs CPU,
+   the ``full_stage=False`` route (K3) against the full-stage decode,
+   streaming, the launch counts; timings.
 
 The line before the last is a JSON object with one entry per kernel, each
 with its time, its plain version's, the least time the card could take for
 the same work (``bound_ms``, from the shapes, at the H100's published peaks)
 and the time of one PyTorch call computing the same function where there is
 one (``library_ms``: cuDNN's convolution and its backward for K6; none
-exists for the other three). The last line is
+exists for the others). The last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -140,14 +149,20 @@ def bound(fp32_flops, fp64_flops, nbytes):
 
 def stage_work(x, args):
     """(fp32 FLOPs, bytes) of one fused generator stage on input x: the
-    transposed conv, every resblock conv and conv_post at their algorithmic
-    MACs per output position; x, the weights and the output moved once."""
-    n, c_in, t_in = x.shape
-    c, u = c_in // 2, args['upsample_rate']
+    folded conv_pre (per input position), the transposed conv, every resblock
+    conv and conv_post at their algorithmic MACs per output position; x, the
+    weights and the output moved once."""
+    n, _, t_in = x.shape
+    u, w_up = args['upsample_rate'], args['up_weight']
+    c_in, c = w_up.shape[:2]
     positions = n * t_in * u
-    w_up = args['up_weight']
     macs = c_in * c * w_up.shape[2] // u
     weights = w_up.numel() + args['up_bias'].numel()
+    pre_macs = 0
+    if args.get('conv_pre') is not None:
+        w, b = args['conv_pre']
+        pre_macs = w.numel() * n * t_in
+        weights += w.numel() + b.numel()
     for block in args['blocks']:
         for w, b, _ in block:
             macs += w.shape[0] * w.shape[1] * w.shape[2]
@@ -158,7 +173,20 @@ def stage_work(x, args):
         macs += w.shape[1] * w.shape[2]
         weights += w.numel() + b.numel()
         c_out = 1
-    return 2.0 * macs * positions, 4.0 * (x.numel() + weights + n * c_out * t_in * u)
+    return (2.0 * (macs * positions + pre_macs),
+            4.0 * (x.numel() + weights + n * c_out * t_in * u))
+
+
+def resblock_work(x, blocks):
+    """(fp32 FLOPs, bytes) of one resblock stage on x (N, C, T): every conv
+    at its MACs per position; x, the weights and the output moved once."""
+    macs = weights = 0
+    for block in blocks:
+        for w, b, _ in block:
+            macs += w.numel()
+            weights += w.numel() + b.numel()
+    positions = x.shape[0] * x.shape[2]
+    return 2.0 * macs * positions, 4.0 * (2 * x.numel() + weights)
 
 
 def logmel_work(b, t, n_bins, n_mels=80, n_fft=1024, hop=256):
@@ -170,6 +198,18 @@ def logmel_work(b, t, n_bins, n_mels=80, n_fft=1024, hop=256):
     dft = 2.0 * 2 * n_bins * n_fft * frames * b
     mel = 2.0 * n_mels * n_bins * frames * b
     return mel, dft, 4.0 * (b * t + b * n_mels * frames)
+
+
+def logmel_bwd_work(b, t, n_mels=80, n_fft=1024, hop=256):
+    """(fp32 FLOPs, bytes) of K4's backward on (b, t) samples, autograd of the
+    composite: the forward recomputed (a real FFT of each frame, 2.5 n log2 n
+    FLOPs, and the mel projection) and its adjoint (the mel projection
+    transposed and the adjoint real FFT); the waveform and the mel's
+    gradient read and the waveform's gradient written once."""
+    frames = 1 + (t + n_fft - hop - n_fft) // hop
+    fft = 2.5 * n_fft * np.log2(n_fft)
+    mel = 2.0 * n_mels * (n_fft // 2 + 1)
+    return 2 * (fft + mel) * frames * b, 4.0 * (2 * b * t + b * n_mels * frames)
 
 
 class ToneStream:
@@ -420,18 +460,21 @@ def train_path(dev, card):
                                  lambda: fwd_bwd(lm.fused_hifigan_mel_trainable), 20)
     _, cos_b, _ = lm._constants(22050, 1024, 1024, 80, 0.0, 8000.0, str(dev))
     bound_ms, bound_by = bound(*logmel_work(BATCH, SEG, cos_b.shape[1]))
+    bwd_flops, bwd_bytes = logmel_bwd_work(BATCH, SEG)
+    bwd_bound_ms, bwd_bound_by = bound(bwd_flops, 0.0, bwd_bytes)
     log('time', card=repr(card), what='k4_16x8192', fwd_ms='%.4f' % fwd_k,
         plain_fwd_ms='%.4f' % fwd_p, bwd_ms='%.4f' % (fb_k - fwd_k),
         plain_bwd_ms='%.4f' % (fb_p - fwd_p), fwd_ms_runs='%.4f,%.4f' % fwd_kr,
         plain_fwd_ms_runs='%.4f,%.4f' % fwd_pr, fwd_bound_ms='%.4f' % bound_ms,
-        bound_by=bound_by)
+        bound_by=bound_by, bwd_bound_ms='%.5f' % bwd_bound_ms, bwd_bound_by=bwd_bound_by)
     return launches['logmel'], step_time, {
         'name': 'logmel_trainable', 'route': 'cuda', 'source': lm.SOURCE,
         'replaces': 'pytorch_sound_tpu/ops/pallas/logmel.py:275',
         'launches': launches['logmel_trainable'], 'max_abs_err': grad_err,
         'fwd_max_abs_err': fwd_err, 'ms': fwd_k, 'plain_ms': fwd_p,
         'bwd_ms': fb_k - fwd_k, 'plain_bwd_ms': fb_p - fwd_p,
-        'bound_ms': bound_ms, 'bound_by': bound_by, 'library_ms': None}
+        'bound_ms': bound_ms, 'bound_by': bound_by, 'bwd_bound_ms': bwd_bound_ms,
+        'bwd_bound_by': bwd_bound_by, 'library_ms': None}
 
 
 def conv_macs(n, cout, cg, k, stride, padding, dilation, t_in, t_out):
@@ -666,6 +709,193 @@ def kernel_route(dev, card, cudnn_step):
             for i, e in enumerate(('fwd', 'dx', 'dw'))]
 
 
+def state_tree(module):
+    """A module's state dict as a JAX-style parameter tree of numpy arrays
+    (the keys' '.'-separated paths as nested dicts), as ``params=`` takes it."""
+    tree = {}
+    for key, val in module.state_dict().items():
+        *path, leaf = key.split('.')
+        node = tree
+        for name in path:
+            node = node.setdefault(name, {})
+        node[leaf] = val.detach().cpu().numpy()
+    return tree
+
+
+def v1_serving(dev, card, rng):
+    """Phase 9: HiFi-GAN v1 serving. Returns the K1 launches of its stages at
+    C <= 64, K1's worst error there, and the JSON entries of the wide K1
+    stages and of K3."""
+    import torch
+    import torch.nn.functional as F
+    from pytorch_sound_tpu_torch.interface.hifi_gan import InterfaceHifiGAN
+    from pytorch_sound_tpu_torch.models import build_model
+    from pytorch_sound_tpu_torch.models.vocoders.hifi_gan import (generator_apply_fused,
+                                                                  init_params)
+    from pytorch_sound_tpu_torch.ops.cuda import gen_stage as gs
+    from pytorch_sound_tpu_torch.ops.cuda import logmel as lm
+
+    # the port's JAX init from a seed (kernels ~ N(0, 0.01), g their norm),
+    # handed over as a (g, v) tree; the interface folds it
+    tree = state_tree(init_params(build_model('hifi_gan_v1'), torch.Generator().manual_seed(0)))
+    iface = InterfaceHifiGAN('hifi_gan_v1', params=tree, device='cuda')
+    gen = iface.decoder
+    n_params = sum(p.numel() for p in gen.parameters())
+    errs = {'wide': 0.0, 'narrow': 0.0, 'resblock': 0.0}
+
+    def held(kind, ker, ref, **fields):
+        """Log a kernel output against its plain version and hold it to
+        STAGE_TOL of the plain version's max abs (the weights are seeded)."""
+        torch.cuda.synchronize()
+        err, ref_max = max_err(ker, ref), float(ref.abs().max())
+        errs[kind] = max(errs[kind], err)
+        log('v1_' + kind, shape=tuple(ker.shape), max_abs_err='%.3g' % err,
+            ref_max='%.3g' % ref_max, rel='%.3g' % (err / ref_max), **fields)
+        assert ker.shape == ref.shape and err <= STAGE_TOL * ref_max, (kind, fields, err)
+
+    def upsampled(x, i):
+        """Stage i's resblock input from its stage input (the mel on stage 0)."""
+        h = gen.conv_pre(x) if i == 0 else x
+        return getattr(gen, 'ups_%d' % i)(F.leaky_relu(h, 0.1))
+
+    # 9.1 / 9.2 each stage against its plain version, fed the plain output of
+    #     the stage before; K3 on each stage's resblock input
+    with torch.inference_mode():
+        for batch, frames in ((2, 61), (BATCH, 256)):
+            mel = iface.encode(tones(rng, batch, frames * UP))[..., :frames].contiguous()
+            x = mel
+            for i in range(4):
+                args = gen.stage_args(i, fold_conv_pre=i == 0)
+                ref = gs.generator_stage_reference(x, **args)
+                held('wide' if i < 2 else 'narrow', gs.generator_stage(x, **args), ref,
+                     batch=batch, frames=frames, stage=i, conv_pre=i == 0)
+                h = upsampled(x, i)
+                held('resblock', gs.resblock_stage(h, args['blocks']),
+                     gs.resblock_stage_reference(h, args['blocks']),
+                     batch=batch, frames=frames, stage=i)
+                x = ref
+
+    # 9.3 the main path, counters from zero
+    gs.generator_stage.launches = gs.generator_stage.wide_launches = 0
+    gs.resblock_stage.launches = 0
+    lm.fused_log_mel.launches = 0
+    encodes = decoded = split = 0
+    bench_mel = iface.encode(tones(rng, BATCH, 256 * UP))[..., :256].contiguous()
+    wav = iface.decode(bench_mel)
+    card_slice = iface.decode(bench_mel[:2, :, :64])
+    with torch.inference_mode():
+        wav_split = generator_apply_fused(gen, bench_mel, full_stage=False)
+    encodes, decoded, split = encodes + 1, decoded + 2, split + 1
+    torch.cuda.synchronize()
+    assert wav.shape == wav_split.shape == (BATCH, 1, 256 * UP), wav.shape
+    assert bool(torch.isfinite(wav).all()) and float(wav.abs().max()) <= 1.0
+    cpu_slice = InterfaceHifiGAN('hifi_gan_v1', params=tree, device='cpu').decode(
+        bench_mel[:2, :, :64].cpu())
+    # the seeded weights put the waveform near 1e-4, so each comparison is
+    # also held relative to the reference's max abs
+    err_cpu = max_err(card_slice.cpu(), cpu_slice)
+    err_split = max_err(wav_split, wav)
+    rel_cpu = err_cpu / float(cpu_slice.abs().max())
+    rel_split = err_split / float(wav.abs().max())
+    log('v1_decode', params=n_params, mel=tuple(bench_mel.shape), wav=tuple(wav.shape),
+        wav_max='%.4g' % float(wav.abs().max()), card_vs_cpu_max_abs_err='%.3g' % err_cpu,
+        card_vs_cpu_rel='%.3g' % rel_cpu, cpu_max='%.4g' % float(cpu_slice.abs().max()),
+        resblock_route_vs_full_max_abs_err='%.3g' % err_split,
+        resblock_route_vs_full_rel='%.3g' % rel_split)
+    assert max(err_cpu, err_split, rel_cpu, rel_split) <= DECODE_TOL, \
+        (err_cpu, err_split, rel_cpu, rel_split)
+
+    long_mel = iface.encode(tones(rng, 1, 4096 * UP))[..., :4096].contiguous()
+    streamed = iface.decode_streaming(long_mel, chunk_frames=256, overlap_frames=32)
+    whole = iface.decode(long_mel)
+    encodes, decoded = encodes + 1, decoded + 2
+    torch.cuda.synchronize()
+    assert streamed.shape == whole.shape == (1, 1, 4096 * UP)
+    edge = 10 * UP
+    err = max_err(streamed[..., edge:-edge], whole[..., edge:-edge])
+    rel = err / float(whole.abs().max())
+    log('v1_stream', mel=tuple(long_mel.shape), interior_max_abs_err='%.3g' % err,
+        interior_rel='%.3g' % rel, wav_max='%.4g' % float(whole.abs().max()))
+    assert err <= STREAM_TOL and rel <= STREAM_TOL, (err, rel)
+
+    # every decoded batch ran K1 four times, the two wide stages in the
+    # cluster layout; the resblock route ran K3 once per stage
+    launches = {'gen_stage': gs.generator_stage.launches,
+                'gen_stage_wide': gs.generator_stage.wide_launches,
+                'resblock_stage': gs.resblock_stage.launches,
+                'logmel': lm.fused_log_mel.launches}
+    log('counts', path='v1', decoded_batches=decoded, resblock_route_batches=split,
+        encodes=encodes, **launches)
+    assert launches['gen_stage'] == 4 * decoded > 0, launches
+    assert launches['gen_stage_wide'] == 2 * decoded, launches
+    assert launches['resblock_stage'] == 4 * split > 0, launches
+    assert launches['logmel'] == encodes, launches
+
+    # 9.4 timings, kernel and plain in turns, 3 timed calls each
+    def plain_decode(m):
+        x = m
+        for i in range(4):
+            x = gs.generator_stage_reference(x, **gen.stage_args(i, fold_conv_pre=i == 0))
+        return x
+
+    with torch.inference_mode():
+        dec_k, dec_p, dec_kr, dec_pr = paired_ms(
+            lambda: plain_decode(bench_mel), lambda: generator_apply_fused(gen, bench_mel), 3)
+        # the plain versions of both routes are the same layers
+        split_k, split_p, _, _ = paired_ms(
+            lambda: plain_decode(bench_mel),
+            lambda: generator_apply_fused(gen, bench_mel, full_stage=False), 3)
+        stage_in, res_in = [bench_mel], []
+        for i in range(4):
+            res_in.append(upsampled(stage_in[-1], i))
+            if i < 3:
+                stage_in.append(gs.generator_stage_reference(
+                    stage_in[-1], **gen.stage_args(i, fold_conv_pre=i == 0)))
+        per_stage = [paired_ms(
+            lambda x=x, i=i: gs.generator_stage_reference(x, **gen.stage_args(i, i == 0)),
+            lambda x=x, i=i: gs.generator_stage(x, **gen.stage_args(i, i == 0)), 3)[:2]
+            for i, x in enumerate(stage_in)]
+        per_res = [paired_ms(
+            lambda h=h, i=i: gs.resblock_stage_reference(h, gen.stage_blocks(i)),
+            lambda h=h, i=i: gs.resblock_stage(h, gen.stage_blocks(i)), 3)[:2]
+            for i, h in enumerate(res_in)]
+        stream_ms = cuda_ms(lambda: iface.decode_streaming(long_mel), 3)
+        wide_work = [stage_work(x, gen.stage_args(i, i == 0)) for i, x in enumerate(stage_in)]
+        res_work = [resblock_work(h, gen.stage_blocks(i)) for i, h in enumerate(res_in)]
+    wide_bound = bound(sum(f for f, _ in wide_work[:2]), 0.0, sum(b for _, b in wide_work[:2]))
+    all_bound = bound(sum(f for f, _ in wide_work), 0.0, sum(b for _, b in wide_work))
+    res_bound = bound(sum(f for f, _ in res_work), 0.0, sum(b for _, b in res_work))
+    dec_samples = BATCH * 256 * UP
+    log('time', card=repr(card), what='v1_decode_16x256',
+        kernel_samples_per_s='%.0f' % (dec_samples / dec_k * 1e3),
+        plain_samples_per_s='%.0f' % (dec_samples / dec_p * 1e3),
+        kernel_ms='%.3f,%.3f' % dec_kr, plain_ms='%.3f,%.3f' % dec_pr,
+        per_stage_kernel_ms='/'.join('%.3f' % k for k, _ in per_stage),
+        per_stage_plain_ms='/'.join('%.3f' % p for _, p in per_stage),
+        stages_bound_ms='%.3f' % all_bound[0], bound_by=all_bound[1],
+        gflop='%.1f' % (sum(f for f, _ in wide_work) / 1e9))
+    log('time', card=repr(card), what='v1_resblock_route_16x256',
+        kernel_ms='%.3f' % split_k, plain_ms='%.3f' % split_p,
+        per_stage_k3_ms='/'.join('%.3f' % k for k, _ in per_res),
+        per_stage_plain_ms='/'.join('%.3f' % p for _, p in per_res),
+        k3_bound_ms='%.3f' % res_bound[0], bound_by=res_bound[1])
+    log('time', card=repr(card), what='v1_stream_1x4096',
+        kernel_samples_per_s='%.0f' % (4096 * UP / stream_ms * 1e3),
+        kernel_ms='%.3f' % stream_ms)
+    narrow = launches['gen_stage'] - launches['gen_stage_wide']
+    return narrow, errs['narrow'], [
+        {'name': 'gen_stage_wide', 'route': 'cuda', 'source': gs.SOURCE,
+         'replaces': 'pytorch_sound_tpu/ops/pallas/gen_stage.py:282',
+         'launches': launches['gen_stage_wide'], 'max_abs_err': errs['wide'],
+         'ms': per_stage[0][0] + per_stage[1][0], 'plain_ms': per_stage[0][1] + per_stage[1][1],
+         'bound_ms': wide_bound[0], 'bound_by': wide_bound[1], 'library_ms': None},
+        {'name': 'resblock_stage', 'route': 'cuda', 'source': gs.SOURCE,
+         'replaces': 'pytorch_sound_tpu/ops/pallas/resblock.py:155',
+         'launches': launches['resblock_stage'], 'max_abs_err': errs['resblock'],
+         'ms': sum(k for k, _ in per_res), 'plain_ms': sum(p for _, p in per_res),
+         'bound_ms': res_bound[0], 'bound_by': res_bound[1], 'library_ms': None}]
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -875,10 +1105,14 @@ def main():
     # 8. the K6 training route
     k6_entries = kernel_route(dev, card, cudnn_step)
 
+    # 9. HiFi-GAN v1 serving
+    v1_narrow, v1_narrow_err, v1_entries = v1_serving(dev, card, rng)
+
     print(json.dumps({'kernels': [
         {'name': 'gen_stage', 'route': 'cuda', 'source': gs.SOURCE,
          'replaces': 'pytorch_sound_tpu/ops/pallas/gen_stage.py:282',
-         'launches': launches['gen_stage'], 'max_abs_err': errs['gen_stage'],
+         'launches': launches['gen_stage'] + v1_narrow,
+         'max_abs_err': max(errs['gen_stage'], v1_narrow_err),
          'ms': st_k, 'plain_ms': st_p, 'bound_ms': st_bound, 'bound_by': st_bound_by,
          'library_ms': None},
         {'name': 'logmel', 'route': 'cuda', 'source': lm.SOURCE,
@@ -888,6 +1122,7 @@ def main():
          'library_ms': None},
         k4_entry,
         *k6_entries,
+        *v1_entries,
     ]}), flush=True)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': name,
                                              'count': torch.cuda.device_count()}}),

@@ -3,10 +3,11 @@
 Counterpart of ``pytorch_sound_tpu/interface/hifi_gan.py``, with the same
 ``AudioParameters``, checkpoint paths, 2D-encode / 3D-decode contract and
 streaming arithmetic. On a CUDA device, encode runs the fused log-mel kernel
-and decode runs ``conv_pre`` followed by one fused generator-stage kernel per
-upsample stage (``generator_apply_fused`` on a decoder built with folded
-weights, ``use_weight_norm=False``, as the JAX interface builds it); on the
-CPU both run their plain PyTorch versions.
+and decode runs one fused generator-stage kernel per upsample stage, with
+``conv_pre`` before the first (v2) or folded into it (v1)
+(``generator_apply_fused`` on a decoder built with folded weights,
+``use_weight_norm=False``, as the JAX interface builds it); on the CPU both
+run their plain PyTorch versions.
 """
 
 import os
@@ -21,7 +22,7 @@ from pytorch_sound_tpu_torch.models import build_model
 from pytorch_sound_tpu_torch.models.vocoders.hifi_gan import (  # registers
     generator_apply_fused, load_jax_params)
 from pytorch_sound_tpu_torch.ops.cuda.logmel import fused_hifigan_mel
-from pytorch_sound_tpu_torch.utils.checkpoint import load_msgpack
+from pytorch_sound_tpu_torch.utils.checkpoint import convert_state_dict, load_msgpack
 
 Array = Union[np.ndarray, torch.Tensor]
 
@@ -72,10 +73,12 @@ class InterfaceHifiGAN(Interface):
     """wav <-> mel <-> wav with a pretrained HiFi-GAN.
 
     model_name in ['hifi_gan_v1', 'hifi_gan_v2', 'hifi_gan_v3'] (only the v2
-    checkpoint is bundled; pass ``chk_path`` for a flax .msgpack checkpoint,
-    or ``params``, a JAX parameter tree of numpy arrays). ``device`` defaults
-    to 'cuda' and raises when no card is present; pass ``device='cpu'`` for
-    the plain PyTorch path. Only ``precision='highest'`` (fp32) exists.
+    checkpoint is bundled; pass ``chk_path`` for a flax .msgpack checkpoint
+    or a torch ``.pt`` one, or ``params``, a JAX parameter tree of numpy
+    arrays). ``device`` defaults to 'cuda' and raises when no card is
+    present; pass ``device='cpu'`` for the plain PyTorch path. Only
+    ``precision='highest'`` (fp32) exists. v1 and v2 decode through one fused
+    stage kernel per upsample stage; v1's conv_pre is folded into its first.
 
     Example::
 
@@ -110,14 +113,14 @@ class InterfaceHifiGAN(Interface):
 
     @staticmethod
     def _load_params(path: str):
-        if path.endswith('.pt'):
-            raise NotImplementedError('torch .pt checkpoints are not read yet; '
-                                      'convert with python -m '
-                                      'pytorch_sound_tpu.scripts.convert_hifigan')
+        """A flax ``.msgpack`` tree, or a torch HiFi-GAN ``.pt`` checkpoint
+        (its ``'generator'`` entry when present) converted to one."""
         if not os.path.exists(path):
-            raise AssertionError(
-                '{} does not exist; convert a torch checkpoint with '
-                'python -m pytorch_sound_tpu.scripts.convert_hifigan'.format(path))
+            raise AssertionError('{} does not exist; pass chk_path (a .msgpack or a '
+                                 'torch .pt checkpoint) or params'.format(path))
+        if path.endswith('.pt'):
+            chkpt = torch.load(path, map_location='cpu', weights_only=True)
+            return convert_state_dict(chkpt.get('generator', chkpt))
         return load_msgpack(path)
 
     def _tensor(self, x: Array) -> torch.Tensor:
@@ -142,9 +145,9 @@ class InterfaceHifiGAN(Interface):
         """Batched chunked decode for arbitrarily long mels.
 
         The mel is split into ``chunk_frames`` windows with ``overlap_frames``
-        of context on each side (the v2 generator's receptive field is ~25 mel
-        frames); all chunks are stacked into the batch axis and decoded in
-        groups of ``max_batch``. Context samples are trimmed before
+        of context on each side (the v1 and v2 generators' receptive field is
+        ~25 mel frames); all chunks are stacked into the batch axis and
+        decoded in groups of ``max_batch``. Context samples are trimmed before
         reassembly. The sequence extremes are zero-padded; with sufficient
         overlap the interior matches :meth:`decode`, and only the outermost
         ~9 frames at each end differ (a chunk feeds zero mel frames through

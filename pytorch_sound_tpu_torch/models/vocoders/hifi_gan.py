@@ -18,7 +18,11 @@ Two forward paths, split as the JAX package splits them:
 - :func:`generator_apply_fused` is the inference path of the interface: with
   ResBlock1 (v1, v2) every upsample stage runs as one
   :func:`~pytorch_sound_tpu_torch.ops.cuda.gen_stage.generator_stage` call,
-  the fused CUDA kernel on the card and its plain version on the CPU.
+  the fused CUDA kernel on the card and its plain version on the CPU
+  (``conv_pre`` folded into v1's 256-channel stage 0). With
+  ``full_stage=False`` the upsamples run through ``F.conv_transpose1d`` and
+  each stage's resblock mean through
+  :func:`~pytorch_sound_tpu_torch.ops.cuda.gen_stage.resblock_stage`.
 """
 
 from collections import OrderedDict
@@ -30,7 +34,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from pytorch_sound_tpu_torch.models import register_model, register_model_architecture
-from pytorch_sound_tpu_torch.ops.cuda.gen_stage import generator_stage, get_padding
+from pytorch_sound_tpu_torch.ops.cuda.gen_stage import (generator_stage, get_padding,
+                                                        resblock_stage)
 from pytorch_sound_tpu_torch.ops.cuda.grouped_conv import conv_transpose1d, grouped_conv1d
 from pytorch_sound_tpu_torch.utils.checkpoint import tree_to_state_dict
 
@@ -235,33 +240,61 @@ class Generator(nn.Module):
             x = xs / self.num_kernels
         return torch.tanh(self.conv_post(F.leaky_relu(x, 0.01)))
 
-    def stage_args(self, i: int) -> Dict[str, Any]:
+    def stage_blocks(self, i: int):
+        """The (weight, bias, dilation) lists of upsample stage i's resblocks
+        (ResBlock1 only), one per block."""
+        return [getattr(self, 'resblocks_%d' % (i * self.num_kernels + j)).convs()
+                for j in range(self.num_kernels)]
+
+    def stage_args(self, i: int, fold_conv_pre: bool = False) -> Dict[str, Any]:
         """Keyword arguments of :func:`generator_stage` for upsample stage i
-        (ResBlock1 only); the last stage carries conv_post."""
+        (ResBlock1 only); the last stage carries conv_post, and stage 0 carries
+        conv_pre with ``fold_conv_pre`` (its input is then the mel)."""
         up = getattr(self, 'ups_%d' % i)
-        blocks = [getattr(self, 'resblocks_%d' % (i * self.num_kernels + j)).convs()
-                  for j in range(self.num_kernels)]
         last = i == len(self.upsample_rates) - 1
         post = (self.conv_post.folded_weight(), self.conv_post.bias) if last else None
-        return dict(up_weight=up.folded_weight(), up_bias=up.bias, blocks=blocks,
-                    upsample_rate=self.upsample_rates[i], conv_post=post)
+        pre = (self.conv_pre.folded_weight(), self.conv_pre.bias) \
+            if fold_conv_pre and i == 0 else None
+        return dict(up_weight=up.folded_weight(), up_bias=up.bias,
+                    blocks=self.stage_blocks(i), upsample_rate=self.upsample_rates[i],
+                    conv_post=post, conv_pre=pre)
+
+    def folds_conv_pre(self, mel_channels: int) -> bool:
+        """Whether the fused path folds conv_pre into stage 0: the JAX rule,
+        ResBlock1 with a wide stage 0 (C_out = upsample_initial_channel / 2
+        > 128, HiFi-GAN v1) and mel channels <= 128."""
+        return (self.resblock == '1' and self.conv_pre.out_channels // 2 > 128
+                and mel_channels <= 128)
 
 
-def generator_apply_fused(gen: Generator, mel: torch.Tensor) -> torch.Tensor:
+def generator_apply_fused(gen: Generator, mel: torch.Tensor,
+                          full_stage: bool = True) -> torch.Tensor:
     """Inference forward equal to ``gen(mel)`` (JAX ``generator_apply_fused``).
 
-    With ResBlock1, ``conv_pre`` runs through ``F.conv1d`` (as the JAX v2 path
-    leaves it to XLA) and each upsample stage is one fused
-    :func:`generator_stage` call, conv_post + tanh folded into the last: the
-    CUDA kernel on a card tensor, its plain version on a CPU tensor. ResBlock2
-    (v3) has no fused kernel in either package and runs ``gen(mel)``. Not
-    differentiable on the card.
+    With ResBlock1 and ``full_stage=True`` each upsample stage is one fused
+    :func:`generator_stage` call, conv_post + tanh folded into the last:
+    the CUDA kernel on a card tensor, its plain version on a CPU tensor.
+    ``conv_pre`` folds into stage 0 where :meth:`Generator.folds_conv_pre`
+    says so (v1), and otherwise runs through ``F.conv1d`` (as the JAX v2 path
+    leaves it to XLA). ``full_stage=False`` runs conv_pre, leaky_relu and each
+    upsample as layers (``F.conv1d`` / ``F.conv_transpose1d``, as JAX leaves
+    them to XLA) and each stage's resblock mean through :func:`resblock_stage`
+    (the kernel with its upsample off), then leaky_relu(0.01), conv_post and
+    tanh. ResBlock2 (v3) has no fused kernel in either package and runs
+    ``gen(mel)``. Not differentiable on the card.
     """
     if gen.resblock != '1':
         return gen(mel)
-    x = gen.conv_pre(mel)
+    if not full_stage:
+        x = gen.conv_pre(mel)
+        for i in range(len(gen.upsample_rates)):
+            x = getattr(gen, 'ups_%d' % i)(F.leaky_relu(x, 0.1))
+            x = resblock_stage(x, gen.stage_blocks(i))
+        return torch.tanh(gen.conv_post(F.leaky_relu(x, 0.01)))
+    fold = gen.folds_conv_pre(mel.shape[1])
+    x = mel.contiguous() if fold else gen.conv_pre(mel)
     for i in range(len(gen.upsample_rates)):
-        x = generator_stage(x, **gen.stage_args(i))
+        x = generator_stage(x, **gen.stage_args(i, fold_conv_pre=fold))
     return x        # conv_post + tanh are part of the last stage
 
 

@@ -36,6 +36,11 @@ SIGNATURES = {
         _P, _P,                             # up weight, up bias
         _I, _PI, _PI, _PI, _PP, _PP,        # n_blocks, rounds, k, d, w, b
         _P, _P, _I,                         # post weight, post bias, post_k
+        _P, _P, _I, _I,                     # pre weight, pre bias, c_mel, pre_k
+        _P],                                # stream
+    'resblock_stage_forward': [
+        _P, _P, _I, _I, _I,                 # x, out, n, c, t
+        _I, _PI, _PI, _PI, _PP, _PP,        # n_blocks, rounds, k, d, w, b
         _P],                                # stream
     'logmel_forward': [
         _P, _P, _I, _I, _I, _I, _I, _I,     # wav, out, b, t, pad, n_fft, hop, frames

@@ -1,17 +1,26 @@
-"""Fused HiFi-GAN upsample stage: wrapper of the CUDA kernel ``csrc/gen_stage.cu``.
+"""Fused HiFi-GAN upsample stage and resblock stage: wrappers of the CUDA
+kernel ``csrc/gen_stage.cu``.
 
-Counterpart of ``pytorch_sound_tpu/ops/pallas/gen_stage.py``
-(``fused_generator_stage``). One stage of the generator, whole:
+Counterparts of ``pytorch_sound_tpu/ops/pallas/gen_stage.py``
+(``fused_generator_stage``, K1) and ``pytorch_sound_tpu/ops/pallas/resblock.py``
+(``fused_resblock_stage``, K3):
 
-    leaky_relu(0.1) -> ConvTranspose1d(2C -> C, stride u) -> mean of the
-    ResBlock1 stacks [-> leaky_relu(0.01) -> conv_post -> tanh on the last stage]
+- :func:`generator_stage`, one stage of the generator, whole:
+  [conv_pre on stage 0 ->] leaky_relu(0.1) -> ConvTranspose1d(2C -> C,
+  stride u) -> mean of the ResBlock1 stacks [-> leaky_relu(0.01) ->
+  conv_post -> tanh on the last stage];
+- :func:`resblock_stage`, the same kernel with the upsample off: the mean of
+  the ResBlock1 stacks of (N, C, T), every conv masked to [0, T).
 
-:func:`generator_stage` dispatches on the tensor's device: on the CPU it runs
-the plain version :func:`generator_stage_reference`, on a CUDA tensor it
-launches the kernel or raises. The kernel takes C <= 64 (HiFi-GAN v2's four
-stages) and resblock kernel sizes 3, 7 and 11; v1's 128- and 256-channel
-stages do not fit its shared-memory layout. The kernel's entry point picks
-its time tile from the card's shared memory per block.
+Each dispatches on the tensor's device: on the CPU it runs its plain version
+(:func:`generator_stage_reference`, :func:`resblock_stage_reference`), on a
+CUDA tensor it launches the kernel or raises. The kernel takes C <= 64 (a
+multiple of 8; one thread block per time tile), C = 128 and C = 256 (HiFi-GAN
+v1's wide stages; a thread-block cluster of C / 32 blocks per time tile), and
+resblock kernel sizes 3, 7 and 11; C = 512 is refused, as the JAX
+``stage_eligible`` refuses it, and conv_post folds only into a stage of C <=
+64 (HiFi-GAN's last stages). The kernel's entry points pick their time tile
+from the card's shared memory per block.
 
 A stage's resblocks are given as ``blocks``: one list per ResBlock1 of
 ``(weight (C, C, k), bias (C,), dilation)`` triples in execution order
@@ -27,12 +36,14 @@ from pytorch_sound_tpu_torch.ops.cuda import _build
 
 SOURCE = 'pytorch_sound_tpu_torch/csrc/gen_stage.cu'
 HALO = 64          # >= one-sided receptive field: 60 for k<=11, d<=5, + 3 for conv_post
-MAX_CHANNELS = 64
+MAX_CHANNELS = 64      # the single-block layout
+WIDE_CHANNELS = (128, 256)   # the cluster layout (C / 32 blocks per tile)
 MAX_BLOCKS = 8         # the kernel's plan capacity (HiFi-GAN v1 / v2 use 3 blocks
 MAX_CONVS = 32         # of 6 convs)
 KERNEL_SIZES = (3, 7, 11)   # resblock kernel sizes the kernel is compiled for
 
 Conv = Tuple[torch.Tensor, torch.Tensor, int]
+Pair = Tuple[torch.Tensor, torch.Tensor]
 
 
 def get_padding(kernel_size: int, dilation: int = 1) -> int:
@@ -50,22 +61,33 @@ def resblock1(x: torch.Tensor, convs: Sequence[Conv]) -> torch.Tensor:
     return x
 
 
-def generator_stage_reference(x: torch.Tensor, up_weight: torch.Tensor,
-                              up_bias: torch.Tensor, blocks: Sequence[Sequence[Conv]],
-                              upsample_rate: int,
-                              conv_post: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-                              ) -> torch.Tensor:
-    """Plain PyTorch stage: x (N, 2C, T) -> (N, C, uT), or (N, 1, uT) with
-    ``conv_post = (weight (1, C, k), bias (1,))`` on the last stage."""
-    k_up = up_weight.shape[-1]
-    x = F.leaky_relu(x, 0.1)
-    x = F.conv_transpose1d(x, up_weight, up_bias, stride=upsample_rate,
-                           padding=(k_up - upsample_rate) // 2)
+def resblock_stage_reference(x: torch.Tensor, blocks: Sequence[Sequence[Conv]]
+                             ) -> torch.Tensor:
+    """Plain PyTorch resblock stage: the mean of the ResBlock1 stacks of x
+    (N, C, T) -> (N, C, T); each conv's zero padding is the [0, T) mask."""
     xs = None
     for convs in blocks:
         out = resblock1(x, convs)
         xs = out if xs is None else xs + out
-    x = xs / len(blocks)
+    return xs / len(blocks)
+
+
+def generator_stage_reference(x: torch.Tensor, up_weight: torch.Tensor,
+                              up_bias: torch.Tensor, blocks: Sequence[Sequence[Conv]],
+                              upsample_rate: int, conv_post: Optional[Pair] = None,
+                              conv_pre: Optional[Pair] = None) -> torch.Tensor:
+    """Plain PyTorch stage: x (N, 2C, T) -> (N, C, uT), or (N, 1, uT) with
+    ``conv_post = (weight (1, C, k), bias (1,))`` on the last stage. With
+    ``conv_pre = (weight (2C, C_mel, k), bias (2C,))``, x is the mel
+    (N, C_mel, T) and conv_pre runs first."""
+    if conv_pre is not None:
+        w, b = conv_pre
+        x = F.conv1d(x, w, b, padding=(w.shape[-1] - 1) // 2)
+    k_up = up_weight.shape[-1]
+    x = F.leaky_relu(x, 0.1)
+    x = F.conv_transpose1d(x, up_weight, up_bias, stride=upsample_rate,
+                           padding=(k_up - upsample_rate) // 2)
+    x = resblock_stage_reference(x, blocks)
     if conv_post is not None:
         w, b = conv_post
         x = torch.tanh(F.conv1d(F.leaky_relu(x, 0.01), w, b,
@@ -73,36 +95,19 @@ def generator_stage_reference(x: torch.Tensor, up_weight: torch.Tensor,
     return x
 
 
-def check_stage(x: torch.Tensor, up_weight: torch.Tensor, up_bias: torch.Tensor,
-                blocks: Sequence[Sequence[Conv]], upsample_rate: int,
-                conv_post: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
-    """Raise ValueError on anything the kernel does not take."""
-    if x.ndim != 3:
-        raise ValueError('stage input must be (N, 2C, T), got %s' % (tuple(x.shape),))
-    n, c_in, t_in = x.shape
-    c_up, c, k_up = up_weight.shape
-    u = upsample_rate
-    if c_up != c_in or c_in != 2 * c or tuple(up_bias.shape) != (c,):
-        raise ValueError('stage takes 2C -> C channels: x %s, up weight %s'
-                         % (tuple(x.shape), tuple(up_weight.shape)))
-    if c > MAX_CHANNELS or c % 8:
-        raise ValueError('stage kernel takes C <= %d, a multiple of 8; got C = %d'
-                         % (MAX_CHANNELS, c))
-    if n < 1 or t_in < 1:
-        raise ValueError('empty stage input %s' % (tuple(x.shape),))
-    if (k_up - u) % 2 or not 0 <= (k_up - u) // 2 < u or HALO % u:
-        raise ValueError('unsupported upsample geometry u=%d k=%d' % (u, k_up))
+def _check_width(c: int):
+    if not (c <= MAX_CHANNELS and c % 8 == 0 or c in WIDE_CHANNELS):
+        raise ValueError('stage kernel takes C <= %d (a multiple of 8) or C in %s; got C = %d'
+                         % (MAX_CHANNELS, WIDE_CHANNELS, c))
+
+
+def _check_blocks(c: int, blocks: Sequence[Sequence[Conv]], post_half: int = 0):
+    """Raise ValueError on resblocks the kernel does not take; return their
+    tensors."""
     if not 1 <= len(blocks) <= MAX_BLOCKS or sum(map(len, blocks)) > MAX_CONVS:
         raise ValueError('stage kernel takes 1..%d blocks and <= %d convs'
                          % (MAX_BLOCKS, MAX_CONVS))
-    post_half = 0
-    tensors = [x, up_weight, up_bias]
-    if conv_post is not None:
-        w, b = conv_post
-        if w.shape[:2] != (1, c) or w.shape[2] % 2 == 0 or tuple(b.shape) != (1,):
-            raise ValueError('conv_post must be (1, C, odd k), got %s' % (tuple(w.shape),))
-        post_half = (w.shape[2] - 1) // 2
-        tensors += [w, b]
+    tensors = []
     for convs in blocks:
         if not convs or len(convs) % 2:
             raise ValueError('a ResBlock1 runs whole rounds of two convs')
@@ -117,44 +122,134 @@ def check_stage(x: torch.Tensor, up_weight: torch.Tensor, up_bias: torch.Tensor,
         if reach + post_half > HALO:
             raise ValueError('receptive field %d exceeds the %d-sample halo'
                              % (reach + post_half, HALO))
+    return tensors
+
+
+def _check_tensors(x: torch.Tensor, tensors):
     for t in tensors:
         if t.dtype != torch.float32 or not t.is_contiguous() or t.device != x.device:
             raise ValueError('stage kernel takes contiguous float32 tensors on one device')
 
 
+def check_stage(x: torch.Tensor, up_weight: torch.Tensor, up_bias: torch.Tensor,
+                blocks: Sequence[Sequence[Conv]], upsample_rate: int,
+                conv_post: Optional[Pair] = None, conv_pre: Optional[Pair] = None):
+    """Raise ValueError on anything the kernel does not take."""
+    if x.ndim != 3:
+        raise ValueError('stage input must be (N, 2C, T), got %s' % (tuple(x.shape),))
+    n, c_in, t_in = x.shape
+    c_up, c, k_up = up_weight.shape
+    u = upsample_rate
+    tensors = [x, up_weight, up_bias]
+    if conv_pre is not None:
+        w, b = conv_pre
+        if w.ndim != 3 or w.shape[1] != c_in or w.shape[2] % 2 == 0 \
+                or tuple(b.shape) != (w.shape[0],):
+            raise ValueError('conv_pre must be (2C, C_mel, odd k) over the mel input: '
+                             'weight %s, x %s' % (tuple(w.shape), tuple(x.shape)))
+        c_in = w.shape[0]
+        tensors += [w, b]
+    if c_up != c_in or c_in != 2 * c or tuple(up_bias.shape) != (c,):
+        raise ValueError('stage takes 2C -> C channels: x %s, up weight %s'
+                         % (tuple(x.shape), tuple(up_weight.shape)))
+    _check_width(c)
+    if n < 1 or t_in < 1:
+        raise ValueError('empty stage input %s' % (tuple(x.shape),))
+    if (k_up - u) % 2 or not 0 <= (k_up - u) // 2 < u or HALO % u:
+        raise ValueError('unsupported upsample geometry u=%d k=%d' % (u, k_up))
+    post_half = 0
+    if conv_post is not None:
+        w, b = conv_post
+        if w.shape[:2] != (1, c) or w.shape[2] % 2 == 0 or tuple(b.shape) != (1,):
+            raise ValueError('conv_post must be (1, C, odd k), got %s' % (tuple(w.shape),))
+        if c > MAX_CHANNELS:
+            raise ValueError('conv_post folds into a stage of C <= %d only' % MAX_CHANNELS)
+        post_half = (w.shape[2] - 1) // 2
+        tensors += [w, b]
+    tensors += _check_blocks(c, blocks, post_half)
+    _check_tensors(x, tensors)
+
+
+def check_resblock_stage(x: torch.Tensor, blocks: Sequence[Sequence[Conv]]):
+    """Raise ValueError on anything the kernel's resblock mode does not take."""
+    if x.ndim != 3 or x.shape[0] < 1 or x.shape[2] < 1:
+        raise ValueError('resblock stage input must be (N, C, T), got %s' % (tuple(x.shape),))
+    c = x.shape[1]
+    _check_width(c)
+    _check_tensors(x, [x] + _check_blocks(c, blocks))
+
+
+def _device(x: torch.Tensor, name: str) -> bool:
+    """True for a CUDA tensor, False for a CPU one; raise on any other."""
+    if x.device.type not in ('cpu', 'cuda'):
+        raise RuntimeError('%s runs on cpu or cuda, not %s' % (name, x.device))
+    return x.device.type == 'cuda'
+
+
+def _plan_args(blocks: Sequence[Sequence[Conv]]):
+    convs = [conv for block in blocks for conv in block]
+    return (len(blocks), _build.int_array([len(b) // 2 for b in blocks]),
+            _build.int_array([w.shape[2] for w, _, _ in convs]),
+            _build.int_array([d for _, _, d in convs]),
+            _build.ptr_array([w for w, _, _ in convs]),
+            _build.ptr_array([b for _, b, _ in convs]))
+
+
 def generator_stage(x: torch.Tensor, up_weight: torch.Tensor, up_bias: torch.Tensor,
                     blocks: Sequence[Sequence[Conv]], upsample_rate: int,
-                    conv_post: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                    conv_post: Optional[Pair] = None, conv_pre: Optional[Pair] = None
                     ) -> torch.Tensor:
-    """One generator stage: the plain version on the CPU, the kernel on CUDA."""
-    if x.device.type == 'cpu':
+    """One generator stage: the plain version on the CPU, the kernel on CUDA.
+    ``launches`` counts every launch; ``wide_launches`` those of the cluster
+    layout (C > 64)."""
+    if not _device(x, 'generator_stage'):
         return generator_stage_reference(x, up_weight, up_bias, blocks,
-                                         upsample_rate, conv_post)
-    if x.device.type != 'cuda':
-        raise RuntimeError('generator_stage runs on cpu or cuda, not %s' % x.device)
-    check_stage(x, up_weight, up_bias, blocks, upsample_rate, conv_post)
+                                         upsample_rate, conv_post, conv_pre)
+    check_stage(x, up_weight, up_bias, blocks, upsample_rate, conv_post, conv_pre)
     n, _, t_in = x.shape
     c, k_up = up_weight.shape[1], up_weight.shape[2]
-    convs = [conv for block in blocks for conv in block]
     post_w, post_b = conv_post if conv_post is not None else (None, None)
+    pre_w, pre_b = conv_pre if conv_pre is not None else (None, None)
     out = torch.empty((n, 1 if conv_post is not None else c, t_in * upsample_rate),
                       dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         code = _build.library().gen_stage_forward(
             x.data_ptr(), out.data_ptr(), n, c, t_in, upsample_rate, k_up,
-            up_weight.data_ptr(), up_bias.data_ptr(),
-            len(blocks), _build.int_array([len(b) // 2 for b in blocks]),
-            _build.int_array([w.shape[2] for w, _, _ in convs]),
-            _build.int_array([d for _, _, d in convs]),
-            _build.ptr_array([w for w, _, _ in convs]),
-            _build.ptr_array([b for _, b, _ in convs]),
+            up_weight.data_ptr(), up_bias.data_ptr(), *_plan_args(blocks),
             post_w.data_ptr() if post_w is not None else None,
             post_b.data_ptr() if post_b is not None else None,
             post_w.shape[2] if post_w is not None else 0,
+            pre_w.data_ptr() if pre_w is not None else None,
+            pre_b.data_ptr() if pre_b is not None else None,
+            pre_w.shape[1] if pre_w is not None else 0,
+            pre_w.shape[2] if pre_w is not None else 0,
             torch.cuda.current_stream().cuda_stream)
     _build.check(code, 'gen_stage_forward')
     generator_stage.launches += 1
+    if c > MAX_CHANNELS:
+        generator_stage.wide_launches += 1
     return out
 
 
 generator_stage.launches = 0
+generator_stage.wide_launches = 0
+
+
+def resblock_stage(x: torch.Tensor, blocks: Sequence[Sequence[Conv]]) -> torch.Tensor:
+    """The mean of the ResBlock1 stacks of x (N, C, T) -> (N, C, T): the plain
+    version on the CPU, the kernel with its upsample off on CUDA."""
+    if not _device(x, 'resblock_stage'):
+        return resblock_stage_reference(x, blocks)
+    check_resblock_stage(x, blocks)
+    n, c, t = x.shape
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        code = _build.library().resblock_stage_forward(
+            x.data_ptr(), out.data_ptr(), n, c, t, *_plan_args(blocks),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(code, 'resblock_stage_forward')
+    resblock_stage.launches += 1
+    return out
+
+
+resblock_stage.launches = 0

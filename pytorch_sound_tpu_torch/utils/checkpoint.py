@@ -6,12 +6,14 @@ payload is itself a msgpack ``(shape, dtype name, raw bytes)`` triple) and
 code 3 (a numpy scalar, the same payload). Returns nested dicts of numpy
 arrays, as ``flax.serialization.msgpack_restore`` does. Neither ``msgpack``
 nor ``flax`` is needed. :func:`tree_to_state_dict` turns such a tree into a
-torch state dict.
+torch state dict, and :func:`convert_state_dict` turns a torch HiFi-GAN
+generator state dict (the published ``.pt`` checkpoints) into such a tree.
 """
 
+import re
 import struct
 from collections import OrderedDict
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -141,3 +143,33 @@ def tree_to_state_dict(tree: Dict[str, Any]) -> 'OrderedDict[str, torch.Tensor]'
 
     walk(tree, '')
     return state
+
+
+def convert_state_dict(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
+    """torch HiFi-GAN generator state dict -> ``{'params': tree}`` of float32
+    numpy arrays under the JAX package's paths (the port's copy of the
+    mapping of ``pytorch_sound_tpu/scripts/convert_hifigan.py``):
+    ``ups.0.*`` -> ``ups_0``; ``resblocks.2.convs1.1.*`` ->
+    ``resblocks_2/convs1_1``; ``weight_g`` / ``weight_v`` -> the tree's
+    ``g`` / ``v``, which ``load_jax_params`` folds with the JAX formula
+    (``g * v / sqrt(sum(v²) + 1e-12)``) as the JAX converter does.
+    """
+    leaves_named = {'weight_g': 'g', 'weight_v': 'v'}
+    params: Dict[str, Any] = {}
+    for key, val in state_dict.items():
+        parts = key.split('.')
+        names = []
+        i = 0
+        while i < len(parts) - 1:
+            if i + 1 < len(parts) - 1 and re.fullmatch(r'\d+', parts[i + 1]):
+                names.append('%s_%s' % (parts[i], parts[i + 1]))
+                i += 2
+            else:
+                names.append(parts[i])
+                i += 1
+        node = params
+        for name in names:
+            node = node.setdefault(name, {})
+        arr = val.detach().cpu().numpy() if isinstance(val, torch.Tensor) else np.asarray(val)
+        node[leaves_named.get(parts[-1], parts[-1])] = arr.astype(np.float32)
+    return {'params': params}

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (K1, K2 through K4, and the grouped-conv kernels
-K6) against their plain versions on a card.
+"""The port's CUDA kernels (K1 in both layouts, K3, K2 through K4, and the
+grouped-conv kernels K6) against their plain versions on a card.
 
 Every test here is marked ``cuda`` and skips without a CUDA device. On a
 machine with one:
@@ -62,6 +62,54 @@ def test_stage_kernel_matches_plain(card, c, u, k_up, post):
     assert gs.generator_stage.launches == before + 1
     assert out.shape == ref.shape == (3, 1 if post else c, t_in * u)
     assert float((out - ref).abs().max()) <= STAGE_TOL
+
+
+def _stage_weights(card, rng, c):
+    def w(*shape, scale):
+        return torch.from_numpy(
+            (rng.standard_normal(shape) * scale).astype(np.float32)).to(card)
+    blocks = [[(w(c, c, k, scale=1 / np.sqrt(c * k)), w(c, scale=0.05), dil)
+               for d in (1, 3, 5) for dil in (d, 1)] for k in gs.KERNEL_SIZES]
+    return w, blocks
+
+
+@pytest.mark.parametrize('c,pre', [
+    (128, False),          # v1 stage 1
+    (256, True),           # v1 stage 0, conv_pre folded
+    (256, False),
+])
+def test_wide_stage_kernel_matches_plain(card, c, pre):
+    """The cluster layout (C / 32 blocks per tile) over several tiles and a
+    ragged last one; relative to the plain version's max abs, as the seeded
+    weights set the scale."""
+    rng = np.random.default_rng(c + pre)
+    w, blocks = _stage_weights(card, rng, c)
+    args = dict(up_weight=w(2 * c, c, 16, scale=0.05), up_bias=w(c, scale=0.1),
+                blocks=blocks, upsample_rate=8,
+                conv_pre=(w(2 * c, 80, 7, scale=0.05), w(2 * c, scale=0.1)) if pre else None)
+    x = w(2, 80 if pre else 2 * c, 75, scale=1.0)
+    before = (gs.generator_stage.launches, gs.generator_stage.wide_launches)
+    out = gs.generator_stage(x, **args)
+    ref = gs.generator_stage_reference(x, **args)
+    assert (gs.generator_stage.launches, gs.generator_stage.wide_launches) == (
+        before[0] + 1, before[1] + 1)
+    assert out.shape == ref.shape == (2, c, 600)
+    assert float((out - ref).abs().max()) <= STAGE_TOL * float(ref.abs().max())
+
+
+@pytest.mark.parametrize('c,n,t', [(32, 4, 3000), (64, 2, 1500), (128, 2, 700),
+                                   (256, 2, 530)])
+def test_resblock_kernel_matches_plain(card, c, n, t):
+    """K3 (the stage kernel with its upsample off) in both layouts."""
+    rng = np.random.default_rng(c + t)
+    w, blocks = _stage_weights(card, rng, c)
+    x = w(n, c, t, scale=1.0)
+    before = gs.resblock_stage.launches
+    out = gs.resblock_stage(x, blocks)
+    ref = gs.resblock_stage_reference(x, blocks)
+    assert gs.resblock_stage.launches == before + 1
+    assert out.shape == ref.shape
+    assert float((out - ref).abs().max()) <= STAGE_TOL * float(ref.abs().max())
 
 
 def test_trainable_mel_kernel_matches_plain(card):

@@ -3,8 +3,9 @@ stage (``fused_generator_stage``, interpret mode on the CPU).
 
 The CUDA kernel itself runs only on a card (``chip_smoke.py`` holds it against
 the plain version there); here the plain version and the wrapper's CPU
-dispatch are held to the reference, at the JAX suite's tolerance (2e-5,
-tests/test_pallas.py:187), and the wrapper's argument checks are exercised.
+dispatch are held to the reference, at the JAX suite's tolerances (2e-5,
+tests/test_pallas.py:187; 2e-4 at C = 256, tests/test_pallas.py:283), and the
+wrapper's argument checks are exercised.
 """
 
 import jax
@@ -35,6 +36,13 @@ def _stage_params(rng, c, k_up, last):
         for which in (1, 2) for r in range(3)} for j, k in enumerate(KERNELS)}
     post = {'weight': w(1, c, 7, scale=0.3), 'bias': w(1, scale=0.1)} if last else None
     return up, stage, post
+
+
+def _pre_params(rng, c, c_mel=80, k=7):
+    """conv_pre weights (2C, C_mel, k) shaped as the JAX parameter tree."""
+    return {'weight': (rng.standard_normal((2 * c, c_mel, k)) / np.sqrt(c_mel * k))
+            .astype(np.float32),
+            'bias': (rng.standard_normal(2 * c) * 0.1).astype(np.float32)}
 
 
 def _torch_args(up, stage, post, u):
@@ -72,6 +80,30 @@ def test_stage_matches_pallas(c, u, k_up, last, n, t_in, tile_t):
     np.testing.assert_array_equal(wrapped, out)
 
 
+@pytest.mark.parametrize('c,n,t_in,fold_pre,tol', [
+    (128, 2, 12, False, 2e-5),     # v1 stage 1 geometry (u 8, k 16)
+    (256, 1, 9, True, 2e-4),       # v1 stage 0 with conv_pre folded in
+])
+def test_wide_stage_matches_pallas(c, n, t_in, fold_pre, tol):
+    """v1's wide stages, which the kernel runs in its cluster layout: the
+    plain version and the wrapper's CPU dispatch against the JAX kernel; at C
+    = 256 x is the raw mel and conv_pre (80 -> 512, k 7) runs in the stage."""
+    rng = np.random.default_rng(c + t_in)
+    up, stage, _ = _stage_params(rng, c, 16, False)
+    pre = _pre_params(rng, c) if fold_pre else None
+    x = rng.standard_normal((n, 80 if fold_pre else 2 * c, t_in)).astype(np.float32)
+    ref = np.asarray(fused_generator_stage(x, up, stage, c, 8, 16, KERNELS, DILATIONS,
+                                           conv_pre=pre))
+    args = _torch_args(up, stage, None, 8)
+    if fold_pre:
+        args['conv_pre'] = (torch.from_numpy(pre['weight']), torch.from_numpy(pre['bias']))
+    out = gs.generator_stage_reference(torch.from_numpy(x), **args).numpy()
+    assert out.shape == ref.shape == (n, c, t_in * 8)
+    np.testing.assert_allclose(out, ref, atol=tol)
+    wrapped = gs.generator_stage(torch.from_numpy(x), **args).numpy()
+    np.testing.assert_array_equal(wrapped, out)
+
+
 def test_plan_and_halo_match_jax():
     """The stage kernel runs each ResBlock1's convs in the order the model
     lists them, which is the JAX kernel's static schedule."""
@@ -96,9 +128,10 @@ def test_check_stage_rejects_what_the_kernel_does_not_take():
     args = _torch_args(*_stage_params(rng, 8, 4, True), 2)
     x = torch.zeros((2, 16, 5))
     gs.check_stage(x, **args)                         # the v2 last stage: accepted
-    with pytest.raises(ValueError, match='C <= 64'):
-        wide = _torch_args(*_stage_params(rng, 128, 16, False), 8)
-        gs.check_stage(torch.zeros((1, 256, 3)), **wide)
+    with pytest.raises(ValueError, match='C <= 64'):     # C = 512, as JAX refuses it
+        gs.check_stage(torch.zeros((1, 1024, 3)), **dict(
+            args, up_weight=torch.zeros((1024, 512, 16)), up_bias=torch.zeros(512),
+            upsample_rate=8))
     with pytest.raises(ValueError, match='2C -> C'):
         gs.check_stage(torch.zeros((2, 15, 5)), **args)
     with pytest.raises(ValueError, match='float32'):
@@ -122,3 +155,29 @@ def test_check_stage_takes_hifigan_kernel_sizes_only(k):
     odd = dict(args, blocks=[[(torch.zeros((8, 8, k)), b, 1) for _, b, _ in args['blocks'][0]]])
     with pytest.raises(ValueError, match='k in'):
         gs.check_stage(torch.zeros((2, 16, 5)), **odd)
+
+
+def test_check_stage_takes_wide_widths_and_conv_pre():
+    """C = 128 and 256 are accepted (the cluster layout); conv_pre must map
+    the mel's channels to the stage's 2C input channels with an odd kernel."""
+    rng = np.random.default_rng(3)
+    for c in gs.WIDE_CHANNELS:
+        up, stage, _ = _stage_params(rng, c, 16, False)
+        args = _torch_args(up, stage, None, 8)
+        gs.check_stage(torch.zeros((1, 2 * c, 3)), **args)
+    pre = (torch.zeros((512, 80, 7)), torch.zeros(512))
+    gs.check_stage(torch.zeros((1, 80, 3)), **args, conv_pre=pre)
+    with pytest.raises(ValueError, match='conv_pre'):
+        gs.check_stage(torch.zeros((1, 81, 3)), **args, conv_pre=pre)
+    with pytest.raises(ValueError, match='conv_pre'):
+        gs.check_stage(torch.zeros((1, 80, 3)), **args,
+                       conv_pre=(torch.zeros((512, 80, 6)), torch.zeros(512)))
+    with pytest.raises(ValueError, match='2C -> C'):
+        gs.check_stage(torch.zeros((1, 80, 3)), **args,
+                       conv_pre=(torch.zeros((256, 80, 7)), torch.zeros(256)))
+    with pytest.raises(ValueError, match='C <= 64'):
+        wide = _torch_args(*_stage_params(rng, 96, 16, False)[:2], None, 8)
+        gs.check_stage(torch.zeros((1, 192, 3)), **wide)
+    with pytest.raises(ValueError, match='conv_post folds'):
+        gs.check_stage(torch.zeros((1, 512, 3)), **dict(
+            args, conv_post=(torch.zeros((1, 256, 7)), torch.zeros(1))))

@@ -1,7 +1,8 @@
 """The port's HiFi-GAN interface at full v2 width on the bundled checkpoint,
-on the CPU, against the JAX package's interface (flax) and its fused Pallas
-generator (interpret mode); and the contract tests of tests/test_vocoder.py
-mirrored for the port."""
+and at full v1 width on seeded weights, on the CPU, against the JAX package's
+interface (flax) and its fused Pallas generator (interpret mode); torch
+``.pt`` checkpoints against the JAX converter; and the contract tests of
+tests/test_vocoder.py mirrored for the port."""
 
 import jax
 
@@ -14,10 +15,12 @@ import torch  # noqa: E402
 
 from pytorch_sound_tpu.interface.hifi_gan import InterfaceHifiGAN as JaxInterface  # noqa: E402
 from pytorch_sound_tpu.models import build_model as jax_build_model  # noqa: E402
-from pytorch_sound_tpu.models.vocoders.hifi_gan import generator_apply_fused  # noqa: E402
+from pytorch_sound_tpu.models.vocoders.hifi_gan import (  # noqa: E402
+    fold_weight_norm_params as jax_fold, generator_apply_fused)
 from pytorch_sound_tpu_torch.interface.hifi_gan import (  # noqa: E402
     AudioParameters, CHECKPOINTS, InterfaceHifiGAN)
 from pytorch_sound_tpu_torch.models import build_model  # noqa: E402
+from pytorch_sound_tpu_torch.models.vocoders import hifi_gan as port_hg  # noqa: E402
 from pytorch_sound_tpu_torch.utils.checkpoint import load_msgpack  # noqa: E402
 
 
@@ -34,6 +37,146 @@ def jax_iface():
 def _mel(seed, shape):
     rng = np.random.default_rng(seed)
     return (rng.standard_normal(shape) * 2 - 4).astype(np.float32)
+
+
+def _seeded_tree(shapes, seed):
+    """Fill a JAX (g, v) parameter tree of shapes from a seed: each kernel v
+    ~ N(0, 1 / fan-in), g its norm (so the folded weight is v), biases ~
+    N(0, 0.05); activations stay O(1) through v1's 512-channel stages."""
+    rng = np.random.default_rng(seed)
+
+    def fill(node):
+        if 'v' in node:
+            shape = node['v'].shape
+            v = (rng.standard_normal(shape) / np.sqrt(np.prod(shape[1:]))).astype(np.float32)
+            return {'v': v, 'g': np.sqrt(np.sum(v * v, axis=(1, 2), keepdims=True)),
+                    'bias': (rng.standard_normal(node['bias'].shape) * 0.05).astype(np.float32)}
+        return {k: fill(val) for k, val in node.items()}
+    return fill(shapes)
+
+
+@pytest.fixture(scope='module')
+def v1_case():
+    """HiFi-GAN v1 at full width: a (g, v) tree shaped by JAX
+    ``Generator.init`` (eval_shape, no init compile) and filled from a seed,
+    a 2 x 80 x 19 mel, and the flax decode of the folded tree."""
+    mel = _mel(19, (2, 80, 19))
+    jgen = jax_build_model('hifi_gan_v1')
+    tree = _seeded_tree(jax.eval_shape(jgen.init, jax.random.PRNGKey(0), jnp.asarray(mel)), 4)
+    folded = jax_fold(tree)
+    jgen_folded = jax_build_model('hifi_gan_v1', extra_kwargs={'use_weight_norm': False})
+    ref = np.asarray(jgen_folded.apply(folded, jnp.asarray(mel)))
+    return tree, folded, jgen_folded, mel, ref
+
+
+def test_v1_decode_matches_flax(v1_case):
+    """v1 through the port's interface (``params=`` a (g, v) tree, folded on
+    load): every stage one generator-stage call, conv_pre folded into stage 0."""
+    tree, _, _, mel, ref = v1_case
+    iface = InterfaceHifiGAN('hifi_gan_v1', params=tree, device='cpu')
+    assert iface.decoder.folds_conv_pre(80)
+    out = iface.decode(mel).numpy()
+    assert out.shape == ref.shape == (2, 1, 19 * 256)
+    assert float(np.abs(ref).max()) > 0.05          # the weights drive the output
+    np.testing.assert_allclose(out, ref, atol=2e-4)
+
+
+def test_v1_decode_matches_pallas_generator(v1_case):
+    """vs the JAX fused path at full v1 width (the wide stage 0 with conv_pre
+    folded, interpret mode here)."""
+    tree, folded, jgen_folded, mel, _ = v1_case
+    ref = np.asarray(generator_apply_fused(jgen_folded, folded, jnp.asarray(mel),
+                                           full_stage=True))
+    out = InterfaceHifiGAN('hifi_gan_v1', params=tree, device='cpu').decode(mel).numpy()
+    np.testing.assert_allclose(out, ref, atol=2e-4)
+
+
+def test_v1_resblock_route_matches_flax(v1_case):
+    """``full_stage=False``: the upsamples by ``F.conv_transpose1d`` and each
+    stage's resblock mean by the resblock stage (K3's plain version here)."""
+    tree, _, _, mel, ref = v1_case
+    gen = build_model('hifi_gan_v1', extra_kwargs={'use_weight_norm': False})
+    gen.load_state_dict(port_hg.load_jax_params(tree))
+    with torch.no_grad():
+        out = port_hg.generator_apply_fused(gen, torch.from_numpy(mel), full_stage=False)
+    np.testing.assert_allclose(out.numpy(), ref, atol=2e-4)
+
+
+def test_load_jax_params_full_v1_tree(v1_case):
+    """The full v1 (g, v) tree of JAX ``Generator.init`` loads strictly into
+    the weight-normed generator as it is, and folded into the plain one."""
+    tree = v1_case[0]
+    wn = build_model('hifi_gan_v1')
+    wn.load_state_dict(port_hg.load_jax_params(tree, weight_norm=True))
+    plain = build_model('hifi_gan_v1', extra_kwargs={'use_weight_norm': False})
+    plain.load_state_dict(port_hg.load_jax_params(tree))
+    folded = jax.tree_util.tree_leaves(v1_case[1])
+    assert sum(p.numel() for p in plain.parameters()) == sum(a.size for a in folded)
+    torch.testing.assert_close(wn.resblocks_0.convs1_0.folded_weight(),
+                               plain.resblocks_0.convs1_0.weight, rtol=1e-6, atol=0)
+
+
+def test_stage_args_fold_conv_pre():
+    """v1 folds conv_pre into stage 0 (the JAX rule: ResBlock1, a stage 0
+    wider than 128 channels, mel channels <= 128); v2 does not."""
+    v1 = build_model('hifi_gan_v1', extra_kwargs={'use_weight_norm': False})
+    v2 = build_model('hifi_gan_v2', extra_kwargs={'use_weight_norm': False})
+    assert v1.folds_conv_pre(80) and not v1.folds_conv_pre(200)
+    assert not v2.folds_conv_pre(80)
+    assert v1.stage_args(0)['conv_pre'] is None
+    w, b = v1.stage_args(0, fold_conv_pre=True)['conv_pre']
+    assert w is v1.conv_pre.weight and b is v1.conv_pre.bias
+    for i in (1, 2, 3):
+        args = v1.stage_args(i, fold_conv_pre=True)
+        assert args['conv_pre'] is None and (args['conv_post'] is not None) == (i == 3)
+        assert [len(b) for b in args['blocks']] == [6, 6, 6]
+    assert v1.stage_args(0)['up_weight'].shape == (512, 256, 16)
+
+
+def test_v2_resblock_route_matches_full_stage(iface):
+    """The bundled v2 checkpoint: ``full_stage=False`` against the
+    full-stage decode on the CPU."""
+    mel = torch.from_numpy(_mel(23, (2, 80, 21)))
+    with torch.no_grad():
+        full = port_hg.generator_apply_fused(iface.decoder, mel)
+        split = port_hg.generator_apply_fused(iface.decoder, mel, full_stage=False)
+    torch.testing.assert_close(split, full, rtol=0, atol=1e-5)
+
+
+def test_pt_checkpoint_matches_jax_converter(tmp_path):
+    """A narrow v1-shaped torch state dict with weight-norm names
+    (``ups.0.weight_g``, ``resblocks.2.convs1.1.weight_v``, ...) under
+    'generator': the port's loader gives the JAX converter's tree, and the
+    decoded waveforms agree."""
+    from pytorch_sound_tpu.interface.hifi_gan import InterfaceHifiGAN as JaxIface
+    extra = {'upsample_initial_channel': 32}
+    src = port_hg.init_params(build_model('hifi_gan_v1', extra_kwargs=extra),
+                              torch.Generator().manual_seed(5))
+    state = {}
+    for key, val in src.state_dict().items():
+        key = key.replace('ups_', 'ups.').replace('resblocks_', 'resblocks.')
+        key = key.replace('convs1_', 'convs1.').replace('convs2_', 'convs2.')
+        key = key[:-2] + '.weight_v' if key.endswith('.v') else key
+        key = key[:-2] + '.weight_g' if key.endswith('.g') else key
+        state[key] = val * 7 if key.endswith('weight_v') else val
+    assert 'resblocks.2.convs1.1.weight_v' in state and 'ups.0.weight_g' in state
+    path = str(tmp_path / 'g.pt')
+    torch.save({'generator': state, 'steps': 3}, path)
+    tree = InterfaceHifiGAN._load_params(path)
+    ref_tree = JaxIface._load_params(path)
+    flat = port_hg.load_jax_params(tree)
+    ref_flat = port_hg.load_jax_params(ref_tree)
+    assert sorted(flat) == sorted(ref_flat)
+    for key in flat:
+        torch.testing.assert_close(flat[key], ref_flat[key], rtol=0, atol=0)
+    mel = _mel(3, (1, 80, 6))
+    gen = build_model('hifi_gan_v1', extra_kwargs=dict(extra, use_weight_norm=False))
+    gen.load_state_dict(flat)
+    with torch.no_grad():
+        out = port_hg.generator_apply_fused(gen, torch.from_numpy(mel)).numpy()
+    jgen = jax_build_model('hifi_gan_v1', extra_kwargs=dict(extra, use_weight_norm=False))
+    ref = np.asarray(jgen.apply(ref_tree, jnp.asarray(mel)))
+    np.testing.assert_allclose(out, ref, atol=2e-5)
 
 
 @pytest.mark.parametrize('frames', [13, 32])
@@ -196,5 +339,5 @@ def test_construction_guards():
         InterfaceHifiGAN('hifi_gan_v1', device='cpu')  # v1 blob is not bundled
     with pytest.raises(AssertionError, match='not valid'):
         InterfaceHifiGAN('hifi_gan_v9', device='cpu')
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(AssertionError, match='does not exist'):
         InterfaceHifiGAN('hifi_gan_v2', chk_path='model.pt', device='cpu')

@@ -58,6 +58,38 @@ assert not loaded, loaded
 '''
 
 
+V1_SCRIPT = r'''
+import sys
+import numpy as np
+import torch
+from pytorch_sound_tpu_torch.interface.hifi_gan import InterfaceHifiGAN
+from pytorch_sound_tpu_torch.models import build_model
+from pytorch_sound_tpu_torch.models.vocoders.hifi_gan import generator_apply_fused, init_params
+from pytorch_sound_tpu_torch.ops.cuda import _build, gen_stage
+gen = init_params(build_model('hifi_gan_v1', extra_kwargs={'use_weight_norm': False}),
+                  torch.Generator().manual_seed(0))
+tree = {}
+for key, val in gen.state_dict().items():
+    *path, leaf = key.split('.')
+    node = tree
+    for p in path:
+        node = node.setdefault(p, {})
+    node[leaf] = val.numpy()
+iface = InterfaceHifiGAN('hifi_gan_v1', params=tree, device='cpu')
+mel = iface.encode(np.zeros((1, 1024), np.float32) + 0.01)
+wav = iface.decode(mel)
+split = generator_apply_fused(iface.decoder, mel, full_stage=False)
+assert tuple(wav.shape) == tuple(split.shape) == (1, 1, 4 * 256), wav.shape
+assert float((wav - split).abs().max()) <= 1e-6
+assert _build._lib is None, 'the kernel library must not load on the CPU path'
+assert (gen_stage.generator_stage.launches, gen_stage.resblock_stage.launches) == (0, 0)
+loaded = sorted(m for m in sys.modules
+                if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'pytorch_sound_tpu'))
+print('LOADED', loaded)
+assert not loaded, loaded
+'''
+
+
 def _run(script, *args):
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [ROOT] + [p for p in os.environ.get('PYTHONPATH', '').split(os.pathsep) if p]))
@@ -69,6 +101,13 @@ def _run(script, *args):
 
 def test_port_loads_neither_jax_nor_the_jax_package():
     _run(SCRIPT)
+
+
+def test_v1_serving_loads_neither_jax_nor_the_jax_package():
+    """HiFi-GAN v1 from seeded weights handed over as a parameter tree:
+    encode, the full-stage decode (conv_pre folded into stage 0) and the
+    resblock-stage route, on the CPU."""
+    _run(V1_SCRIPT)
 
 
 def test_training_path_loads_neither_jax_nor_the_jax_package():

@@ -41,14 +41,28 @@ Phases, one line each; any failure raises and the script exits non-zero:
    and 16 x 256 frames; the main path ``InterfaceHifiGAN('hifi_gan_v1',
    params=..., device='cuda')``: encode, the 16 x 256 decode, card vs CPU,
    the ``full_stage=False`` route (K3) against the full-stage decode,
-   streaming, the launch counts; timings.
+   streaming, the launch counts; timings;
+10. the flash-attention kernels (K5: forward, dK / dV, dQ) against their plain
+   versions at 4 x 8 heads x 2048 / 4096 x 64, a ragged T = 4001 with a key
+   mask, D = 160, and at T = 16384 (forward against the plain scan,
+   gradients on one (n, h) slice); the main path,
+   ``MultiHeadAttention(512, 8)`` at 4 x 4096 with a key mask on its auto
+   route (the kernels), forward and backward against the dense route and
+   the forward against the CPU, the launch counts; timings of the kernels,
+   their plain versions and ``scaled_dot_product_attention`` at T = 2048 /
+   4096 / 16384, and of the module's forward + backward on both routes at
+   T = 256 ... 4096.
 
 The line before the last is a JSON object with one entry per kernel, each
 with its time, its plain version's, the least time the card could take for
-the same work (``bound_ms``, from the shapes, at the H100's published peaks)
-and the time of one PyTorch call computing the same function where there is
-one (``library_ms``: cuDNN's convolution and its backward for K6; none
-exists for the others). The last line is
+the same work (``bound_ms``, from the shapes, at the H100's published peaks;
+for K5 from the valid keys only, the kernels' own count of every key beside
+it as ``implemented_bound_ms``) and the time of one PyTorch call computing
+the same function where there is one (``library_ms``: cuDNN's convolution
+and its backward for K6, ``scaled_dot_product_attention`` in fp32 for K5,
+whose one backward call computes dq, dk and dv and stands beside both
+backward kernels, ``library_scope`` 'dq+dk+dv'; none exists for the
+others). The last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -75,6 +89,11 @@ GC_GRAD_TOL = 1e-4                # K6 dx and dw, the same ratio (dw sums up to 
 RESUME_RTOL = 1e-5                # resumed run's logged losses vs the first run's
 CARD_CPU_RTOL = 1e-4              # one training step's losses, card vs CPU
 CARD_CPU_GRAD_TOL = 1e-3          # ||g_card - g_cpu|| / ||g_cpu|| per parameter
+FLASH_FWD_TOL = 1e-5              # K5 forward (o, lse): max abs error / the plain version's max abs
+FLASH_GRAD_TOL = 1e-4             # K5 dq, dk, dv, the same ratio (tests/test_attention.py:237)
+MHA_T = 4096                      # the blockwise MHA's frames: JAX's auto_threshold
+MHA_TOL = 1e-4                    # MHA kernel route vs dense route / CPU, ratio to max abs
+MHA_GRAD_TOL = 1e-4               # ||g_kernel - g_dense|| / ||g_dense|| per parameter and input
 SEG = 8192                        # training segment (examples/hifi_gan.py:348)
 BATCH = 16
 LOSSES = ('loss', 'disc_loss', 'adv', 'feature_matching', 'mel_l1')
@@ -896,6 +915,278 @@ def v1_serving(dev, card, rng):
          'bound_ms': res_bound[0], 'bound_by': res_bound[1], 'library_ms': None}]
 
 
+ATTENTION_FLOPS = {'fwd': 4, 'dkv': 8, 'dq': 6}   # per (query, key) pair and per D
+
+
+def attention_work(n, h, tq, tk, d, lengths=None):
+    """{kernel: (fp32 FLOPs, bytes)} the three flash-attention functions need:
+    per (query, valid key) pair 4 D FLOPs in the forward, 8 D in dK / dV, 6 D
+    in dQ, summed over the items' valid key counts ``lengths`` (all Tk when
+    None; masked keys change no output); each input read and each output
+    written once (q, k, v, the mask, o and lse; do, lse and di; the
+    gradients)."""
+    valid = n * tk if lengths is None else sum(lengths)
+    pairs, q_el, k_el = float(h * tq * valid * d), n * h * tq * d, n * h * tk * d
+    rows, mask = n * h * tq, 0 if lengths is None else n * tk
+    by = {'fwd': 4.0 * (2 * q_el + 2 * k_el + rows + mask),
+          'dkv': 4.0 * (2 * q_el + 4 * k_el + 2 * rows + mask),
+          'dq': 4.0 * (3 * q_el + 2 * k_el + 2 * rows + mask)}
+    return {e: (ATTENTION_FLOPS[e] * pairs, by[e]) for e in by}
+
+
+def key_valid_from_lengths(lengths, t, dev):
+    """(N, t) float32 key validity, 1 for the first ``lengths[i]`` keys."""
+    import torch
+    return (torch.arange(t, device=dev)[None, :]
+            < torch.tensor(lengths, device=dev)[:, None]).float()
+
+
+def attention_path(dev, card):
+    """Phase 10: the flash-attention kernels (K5) and the blockwise
+    MultiHeadAttention route that runs them. Returns their JSON entries."""
+    import torch
+    import torch.nn.functional as F
+    from pytorch_sound_tpu_torch.models.modules import MultiHeadAttention
+    from pytorch_sound_tpu_torch.ops.attention import blockwise_attention
+    from pytorch_sound_tpu_torch.ops.cuda import flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(10)
+    errs = {'fwd': 0.0, 'dkv': 0.0, 'dq': 0.0}
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    def held(kind, got, ref, tol, **fields):
+        """Log a kernel output against its plain version and hold the max abs
+        error to ``tol`` of the plain version's max abs."""
+        torch.cuda.synchronize()
+        err, r = max_err(got, ref), rel(got, ref)
+        errs[kind] = max(errs[kind], err)
+        log('k5_' + kind, max_abs_err='%.3g' % err, rel='%.3g' % r, **fields)
+        assert got.shape == ref.shape and r <= tol, (kind, fields, r)
+
+    def qkv(n, h, tq, tk, d):
+        return [torch.randn((n, h, t, d), generator=gen, device=dev) for t in (tq, tk, tk)]
+
+    # 10.1 each kernel against its plain version: (a) the JAX bench shapes,
+    #      (b) a ragged T with a key mask (every item keeps a key), (c) D = 160
+    for n, h, t, d, lengths in ((4, 8, 2048, 64, None), (4, 8, 4096, 64, None),
+                                (4, 8, 4001, 64, (4001, 3001, 2001, 1)),
+                                (2, 4, 1000, 160, (1000, 517))):
+        q, k, v = qkv(n, h, t, t, d)
+        kv = None if lengths is None else key_valid_from_lengths(lengths, t, dev)
+        shape = dict(shape=(n, h, t, d), lengths=lengths)
+        o, lse = fa.attention_forward(q, k, v, kv)
+        o_ref, lse_ref = fa.attention_reference(q, k, v, kv)
+        held('fwd', o, o_ref, FLASH_FWD_TOL, out='o', **shape)
+        held('fwd', lse, lse_ref, FLASH_FWD_TOL, out='lse', **shape)
+        dout = torch.randn(o.shape, generator=gen, device=dev)
+        di = (o_ref * dout).sum(dim=-1)
+        dk, dv = fa.attention_dkv(q, k, v, kv, dout, lse_ref, di)
+        dk_ref, dv_ref = fa.attention_dkv_reference(q, k, v, kv, dout, lse_ref, di)
+        held('dkv', dk, dk_ref, FLASH_GRAD_TOL, out='dk', **shape)
+        held('dkv', dv, dv_ref, FLASH_GRAD_TOL, out='dv', **shape)
+        dq = fa.attention_dq(q, k, v, kv, dout, lse_ref, di)
+        held('dq', dq, fa.attention_dq_reference(q, k, v, kv, dout, lse_ref, di),
+             FLASH_GRAD_TOL, out='dq', **shape)
+        # no atomics: a rerun is bit-identical
+        assert torch.equal(fa.attention_forward(q, k, v, kv)[0], o)
+        assert torch.equal(fa.attention_dkv(q, k, v, kv, dout, lse_ref, di)[0], dk)
+        assert torch.equal(fa.attention_dq(q, k, v, kv, dout, lse_ref, di), dq)
+        del q, k, v, o, o_ref, dout, dk, dv, dk_ref, dv_ref, dq
+
+    # (d) T = 16384: a dense plain score tensor would take 34 GB, so the
+    #     forward is held against the plain scan and the gradients, through
+    #     the autograd function, on one (n, h) slice against the dense plain
+    #     backward of that slice
+    q, k, v = (t.requires_grad_(True) for t in qkv(4, 8, 16384, 16384, 64))
+    out = fa.flash_attention_trainable(q, k, v)
+    with torch.no_grad():
+        scan = blockwise_attention(q, k, v, block_size=1024, backend='scan')
+    held('fwd', out.detach(), scan, FLASH_FWD_TOL, out='o_vs_scan', shape=(4, 8, 16384, 64))
+    dout = torch.randn(out.shape, generator=gen, device=dev)
+    out.backward(dout)
+    with torch.no_grad():
+        sl = [t[1:2, 3:4].detach() for t in (q, k, v, dout)]
+        o1, lse1 = fa.attention_reference(*sl[:3])
+        di1 = (o1 * sl[3]).sum(dim=-1)
+        dk1, dv1 = fa.attention_dkv_reference(*sl[:3], None, sl[3], lse1, di1)
+        dq1 = fa.attention_dq_reference(*sl[:3], None, sl[3], lse1, di1)
+    held('dq', q.grad[1:2, 3:4], dq1, FLASH_GRAD_TOL, out='dq_slice', shape=(4, 8, 16384, 64))
+    held('dkv', k.grad[1:2, 3:4], dk1, FLASH_GRAD_TOL, out='dk_slice', shape=(4, 8, 16384, 64))
+    held('dkv', v.grad[1:2, 3:4], dv1, FLASH_GRAD_TOL, out='dv_slice', shape=(4, 8, 16384, 64))
+    del q, k, v, out, scan, dout, sl, o1, dk1, dv1, dq1
+
+    # 10.2 the main path: MultiHeadAttention(512, 8) at 4 x 4096 with the
+    #      default block_size=0, so the auto route takes the kernels; seeded
+    #      weights, key lengths 4096 / 3500 / 2900 / 2048; counters from zero
+    torch.manual_seed(10)
+    mha = MultiHeadAttention(hidden_dim=512, heads=8).to(dev)
+    dense = MultiHeadAttention(hidden_dim=512, heads=8, block_size=-1).to(dev)
+    dense.load_state_dict(mha.state_dict())
+    n, t = 4, MHA_T
+    lengths = (4096, 3500, 2900, 2048)
+    mask = key_valid_from_lengths(lengths, t, dev) < 0.5
+    x0 = torch.randn((n, 512, t), generator=gen, device=dev)
+    w = torch.randn((n, 512, t), generator=gen, device=dev)
+    assert mha.uses_blockwise(t) and not dense.uses_blockwise(t)
+    counters = (fa.attention_forward, fa.attention_dkv, fa.attention_dq)
+    for c in counters:
+        c.launches = 0
+    x = x0.clone().requires_grad_(True)
+    out, att = mha(x, mask)
+    (out * w).sum().backward()
+    with torch.no_grad():
+        again, _ = mha(x0, mask)
+    passes, backward_passes = 2, 1          # the blockwise calls above
+    torch.cuda.synchronize()
+    launches = tuple(c.launches for c in counters)
+    assert rel(again, out.detach()) <= MHA_TOL
+
+    kernel_grads = {'input': x.grad, **{k_: p.grad for k_, p in mha.named_parameters()}}
+    assert att is None and out.shape == (n, 512, t) and bool(torch.isfinite(out).all())
+    log('counts', path='mha_4x4096', forward=launches[0], dkv=launches[1], dq=launches[2],
+        blockwise_calls=passes, backward_passes=backward_passes)
+    assert launches == (passes, backward_passes, backward_passes), launches
+
+    x = x0.clone().requires_grad_(True)
+    out_d, att_d = dense(x, mask)
+    (out_d * w).sum().backward()
+    torch.cuda.synchronize()
+    assert tuple(c.launches for c in counters) == launches, 'the dense route launched a kernel'
+    dense_grads = {'input': x.grad, **{k_: p.grad for k_, p in dense.named_parameters()}}
+    grad_rel = {k_: float((g - dense_grads[k_]).norm() / dense_grads[k_].norm())
+                for k_, g in kernel_grads.items()}
+    fwd_rel = rel(out.detach(), out_d.detach())
+    cpu = MultiHeadAttention(hidden_dim=512, heads=8)
+    cpu.load_state_dict({k_: p.cpu() for k_, p in mha.state_dict().items()})
+    with torch.no_grad():
+        out_cpu, _ = cpu(x0.cpu(), mask.cpu())
+    cpu_rel = rel(out.detach().cpu(), out_cpu)
+    log('mha', shape=(n, 512, t), heads=8, lengths=lengths, att_dense=tuple(att_d.shape),
+        fwd_vs_dense_rel='%.3g' % fwd_rel, fwd_vs_cpu_rel='%.3g' % cpu_rel,
+        **{'grad_rel_' + k_: '%.3g' % g for k_, g in grad_rel.items()})
+    assert fwd_rel <= MHA_TOL and cpu_rel <= MHA_TOL, (fwd_rel, cpu_rel)
+    assert max(grad_rel.values()) <= MHA_GRAD_TOL, grad_rel
+    del out, out_d, att_d, x, kernel_grads, dense_grads
+
+    # 10.3 timings, CUDA events, plain and kernel in turns
+    def fwd_bwd(fn, q, k, v, kv, dout):
+        leaves = [t_.detach().requires_grad_(True) for t_ in (q, k, v)]
+        fn(*leaves, kv).backward(dout)
+
+    def plain_trainable(q, k, v, kv):
+        return fa.attention_reference(q, k, v, kv)[0]
+
+    def sdpa(q, k, v, kv):
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=kv[:, None, None, :] > 0.5)
+
+    entry_times = {}
+    for t_ in (2048, 4096, 16384):
+        q, k, v = qkv(4, 8, t_, t_, 64)
+        lengths = (t_, t_ * 7 // 8, t_ * 5 // 8, t_ // 2)
+        kv = key_valid_from_lengths(lengths, t_, dev)
+        dout = torch.randn(q.shape, generator=gen, device=dev)
+        iters = 2 if t_ > 4096 else 5
+        fields = {}
+        if t_ <= 4096:
+            f_k, f_p = paired_ms(lambda: fa.attention_reference(q, k, v, kv),
+                                 lambda: fa.attention_forward(q, k, v, kv), iters)[:2]
+            fb_k, fb_p = paired_ms(lambda: fwd_bwd(plain_trainable, q, k, v, kv, dout),
+                                   lambda: fwd_bwd(fa.flash_attention_trainable, q, k, v,
+                                                   kv, dout), iters)[:2]
+            fields.update(plain_fwd_ms='%.3f' % f_p, plain_fwd_bwd_ms='%.3f' % fb_p)
+        else:
+            # the dense plain version does not fit; the plain scan's forward
+            f_k, f_p = paired_ms(
+                lambda: blockwise_attention(q, k, v, mask=kv < 0.5, block_size=1024,
+                                            backend='scan'),
+                lambda: fa.attention_forward(q, k, v, kv), iters)[:2]
+            fb_k = cuda_ms(lambda: fwd_bwd(fa.flash_attention_trainable, q, k, v, kv, dout),
+                           iters)
+            fields.update(plain_scan_fwd_ms='%.3f' % f_p, plain_fwd_bwd_ms='not measured')
+        o, lse = fa.attention_forward(q, k, v, kv)
+        di = (o * dout).sum(dim=-1)
+        calls = {'dkv': (lambda: fa.attention_dkv_reference(q, k, v, kv, dout, lse, di),
+                         lambda: fa.attention_dkv(q, k, v, kv, dout, lse, di)),
+                 'dq': (lambda: fa.attention_dq_reference(q, k, v, kv, dout, lse, di),
+                        lambda: fa.attention_dq(q, k, v, kv, dout, lse, di))}
+        if t_ <= 4096:
+            (dkv_k, dkv_p), (dq_k, dq_p) = (paired_ms(*calls[e], iters)[:2] for e in calls)
+            fields.update(plain_dkv_ms='%.3f' % dkv_p, plain_dq_ms='%.3f' % dq_p)
+        else:   # the plain versions' scores do not fit
+            dkv_k, dq_k = (cuda_ms(calls[e][1], iters) for e in calls)
+        lib = lib_bwd = None
+        if t_ <= 4096:
+            lib = cuda_ms(lambda: sdpa(q, k, v, kv), iters)
+            lib_fb = cuda_ms(lambda: fwd_bwd(sdpa, q, k, v, kv, dout), iters)
+            leaves = [a.detach().requires_grad_(True) for a in (q, k, v)]
+            o_lib = sdpa(*leaves, kv)
+            # SDPA's backward is one call for dq, dk and dv together
+            lib_bwd = cuda_ms(lambda: torch.autograd.grad(o_lib, leaves, dout,
+                                                          retain_graph=True), iters)
+            fields.update(sdpa_fwd_ms='%.3f' % lib, sdpa_fwd_bwd_ms='%.3f' % lib_fb,
+                          sdpa_bwd_ms='%.3f' % lib_bwd)
+            del leaves, o_lib
+        # the bound counts the valid keys only; the kernels as written score
+        # every key, masked ones too (the *_implemented_* fields)
+        work = attention_work(4, 8, t_, t_, 64, lengths)
+        bounds = {e: bound(f, 0.0, b) for e, (f, b) in work.items()}
+        implemented = {e: bound(ATTENTION_FLOPS[e] * 4 * 8 * t_ * t_ * 64.0, 0.0, b)
+                       for e, (_, b) in work.items()}
+        log('time', card=repr(card), what='k5_4x8x%dx64' % t_, lengths=lengths,
+            fwd_ms='%.3f' % f_k, fwd_bwd_ms='%.3f' % fb_k, dkv_ms='%.3f' % dkv_k,
+            dq_ms='%.3f' % dq_k, **fields,
+            **{'%s_bound_ms' % e: '%.3f' % b[0] for e, b in bounds.items()},
+            **{'%s_gflop' % e: '%.1f' % (f / 1e9) for e, (f, _) in work.items()},
+            **{'%s_implemented_bound_ms' % e: '%.3f' % b[0] for e, b in implemented.items()},
+            **{'%s_mbytes' % e: '%.1f' % (b / 1e6) for e, (_, b) in work.items()})
+        if t_ == MHA_T:
+            entry_times = {'fwd': (f_k, f_p, lib), 'dkv': (dkv_k, dkv_p, lib_bwd),
+                           'dq': (dq_k, dq_p, lib_bwd), 'bounds': bounds,
+                           'implemented': implemented}
+        del q, k, v, dout, o, lse, di
+
+    # MultiHeadAttention forward + backward, kernel route vs dense route, at
+    # the main path's T and below it (where the kernel overtakes dense); the
+    # layout copies into and out of the kernel's (N * H, T, D)
+    blocky = MultiHeadAttention(hidden_dim=512, heads=8, auto_threshold=1).to(dev)
+    blocky.load_state_dict(mha.state_dict())
+    for t_ in (256, 512, 1024, 2048, MHA_T):
+        xs = x0[..., :t_].contiguous()
+        m_ = mask[:, :t_]
+        ws = w[..., :t_].contiguous()
+
+        def step(module):
+            xx = xs.detach().requires_grad_(True)
+            (module(xx, m_)[0] * ws).sum().backward()
+
+        # more calls at small T, where one step is a few ms of host time
+        k_ms, d_ms = paired_ms(lambda: step(dense), lambda: step(blocky),
+                               3 * MHA_T // t_)[:2]
+        log('time', card=repr(card), what='mha_fwd_bwd_4x512x%d' % t_,
+            kernel_route_ms='%.3f' % k_ms, dense_route_ms='%.3f' % d_ms, kernel_steps_per_s='%.2f' % (1e3 / k_ms),
+            dense_steps_per_s='%.2f' % (1e3 / d_ms))
+    qh = torch.randn((n, t, 8, 64), generator=gen, device=dev)
+    copy_ms = cuda_ms(lambda: [qh.transpose(1, 2).contiguous() for _ in range(4)], 10)
+    log('time', card=repr(card), what='mha_layout_copies_4x4096', q_k_v_out_ms='%.3f' % copy_ms)
+
+    names = {'fwd': ('flash_fwd', 'pytorch_sound_tpu/ops/pallas/flash_attention.py:92'),
+             'dkv': ('flash_dkv', 'pytorch_sound_tpu/ops/pallas/flash_attention.py:380'),
+             'dq': ('flash_dq', 'pytorch_sound_tpu/ops/pallas/flash_attention.py:411')}
+    # SDPA's backward is one call for dq, dk and dv: it is the library time of
+    # flash_dkv and flash_dq together, not of either alone
+    scope = {'fwd': 'forward', 'dkv': 'dq+dk+dv', 'dq': 'dq+dk+dv'}
+    return [{'name': names[e][0], 'route': 'cuda', 'source': fa.SOURCE,
+             'replaces': names[e][1] + (' and :322' if e == 'fwd' else ''),
+             'launches': launches[i], 'max_abs_err': errs[e],
+             'ms': entry_times[e][0], 'plain_ms': entry_times[e][1],
+             'bound_ms': entry_times['bounds'][e][0], 'bound_by': entry_times['bounds'][e][1],
+             'implemented_bound_ms': entry_times['implemented'][e][0],
+             'library_ms': entry_times[e][2], 'library_scope': scope[e]}
+            for i, e in enumerate(('fwd', 'dkv', 'dq'))]
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1108,6 +1399,9 @@ def main():
     # 9. HiFi-GAN v1 serving
     v1_narrow, v1_narrow_err, v1_entries = v1_serving(dev, card, rng)
 
+    # 10. flash attention and the blockwise MultiHeadAttention route
+    k5_entries = attention_path(dev, card)
+
     print(json.dumps({'kernels': [
         {'name': 'gen_stage', 'route': 'cuda', 'source': gs.SOURCE,
          'replaces': 'pytorch_sound_tpu/ops/pallas/gen_stage.py:282',
@@ -1123,6 +1417,7 @@ def main():
         k4_entry,
         *k6_entries,
         *v1_entries,
+        *k5_entries,
     ]}), flush=True)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': name,
                                              'count': torch.cuda.device_count()}}),

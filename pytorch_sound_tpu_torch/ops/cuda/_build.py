@@ -62,6 +62,17 @@ SIGNATURES = {
         _I, _I, _I, _I, _I,                 # n, cin, t_in, cout, t_out
         _I, _I, _I, _I, _I,                 # k, stride, pad, dilation, groups
         _I, _P],                            # splits, stream
+    'flash_attention_forward': [
+        _P, _P, _P, _P, _P, _P,             # q, k, v, key_valid, o, lse
+        _I, _I, _I, _I, _I, _F, _P],        # bh, heads, tq, tk, d, scale, stream
+    'flash_attention_dkv': [
+        _P, _P, _P, _P, _P, _P, _P,         # q, k, v, key_valid, dout, lse, di
+        _P, _P,                             # dk, dv
+        _I, _I, _I, _I, _I, _F, _P],        # bh, heads, tq, tk, d, scale, stream
+    'flash_attention_dq': [
+        _P, _P, _P, _P, _P, _P, _P,         # q, k, v, key_valid, dout, lse, di
+        _P,                                 # dq
+        _I, _I, _I, _I, _I, _F, _P],        # bh, heads, tq, tk, d, scale, stream
 }
 
 _lock = threading.Lock()

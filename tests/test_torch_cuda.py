@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (K1 in both layouts, K3, K2 through K4, and the
-grouped-conv kernels K6) against their plain versions on a card.
+"""The port's CUDA kernels (K1 in both layouts, K3, K2 through K4, the
+grouped-conv kernels K6 and the flash-attention kernels K5) against their
+plain versions on a card.
 
 Every test here is marked ``cuda`` and skips without a CUDA device. On a
 machine with one:
@@ -197,3 +198,103 @@ def test_conv_transpose_kernel_matches_plain(card):
     for got, ref in zip(*outs):
         assert got.shape == ref.shape
         assert float((got - ref).abs().max() / ref.abs().max()) <= GC_GRAD_TOL
+
+
+FLASH_FWD_TOL = 1e-5    # max abs error over the plain version's max abs
+FLASH_GRAD_TOL = 1e-4   # the same ratio for dq, dk and dv
+
+
+@pytest.mark.parametrize('n,h,tq,tk,d,masked', [
+    (2, 2, 77, 77, 16, True),       # tests/test_attention.py's ragged masked case
+    (1, 2, 96, 96, 160, False),     # D = 160: 32-key tiles in the backward
+    (2, 3, 130, 200, 64, True),     # Tq != Tk, ragged tiles on both axes
+    (1, 1, 65, 33, 256, True),      # the widest head
+    (2, 4, 300, 300, 32, False),
+    (2, 8, 1000, 1000, 64, True),   # several query and key tiles per block
+])
+def test_flash_attention_kernels_match_plain(card, n, h, tq, tk, d, masked):
+    """The forward (o and lse), dK / dV and dQ kernels against their plain
+    versions, every item keeping at least one valid key; then the autograd
+    function's gradients against autograd of the plain forward."""
+    from pytorch_sound_tpu_torch.ops.cuda import flash_attention as fa
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=card).manual_seed(n * h + tq + d)
+    q, k, v = (torch.randn((n, h, t, d), generator=g, device=card) for t in (tq, tk, tk))
+    kv = None
+    if masked:
+        lens = torch.tensor([tk - 13 * i for i in range(n)], device=card)
+        kv = (torch.arange(tk, device=card)[None] < lens[:, None]).float()
+    before = (fa.attention_forward.launches, fa.attention_dkv.launches, fa.attention_dq.launches)
+    o, lse = fa.attention_forward(q, k, v, kv)
+    o_ref, lse_ref = fa.attention_reference(q, k, v, kv)
+    dout = torch.randn(o.shape, generator=g, device=card)
+    di = (o_ref * dout).sum(dim=-1)
+    dk, dv = fa.attention_dkv(q, k, v, kv, dout, lse_ref, di)
+    dq = fa.attention_dq(q, k, v, kv, dout, lse_ref, di)
+    refs = (fa.attention_dq_reference(q, k, v, kv, dout, lse_ref, di),
+            *fa.attention_dkv_reference(q, k, v, kv, dout, lse_ref, di))
+    assert (fa.attention_forward.launches, fa.attention_dkv.launches,
+            fa.attention_dq.launches) == (before[0] + 1, before[1] + 1, before[2] + 1)
+    for got, ref, tol in ((o, o_ref, FLASH_FWD_TOL), (lse, lse_ref, FLASH_FWD_TOL),
+                          (dq, refs[0], FLASH_GRAD_TOL), (dk, refs[1], FLASH_GRAD_TOL),
+                          (dv, refs[2], FLASH_GRAD_TOL)):
+        assert got.shape == ref.shape
+        assert float((got - ref).abs().max() / ref.abs().max()) <= tol
+
+    grads = []
+    for fn in (fa.flash_attention_trainable, lambda *a: fa.attention_reference(*a)[0]):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        (fn(*leaves, kv) * dout).sum().backward()
+        grads.append([t.grad for t in leaves])
+    for got, ref in zip(*grads):
+        assert float((got - ref).abs().max() / ref.abs().max()) <= FLASH_GRAD_TOL
+
+
+def test_mha_blockwise_route_runs_the_kernels(card):
+    """MultiHeadAttention at a width of 128 / 4 heads, T = 600, blockwise
+    (the kernels) against its dense route: output, input gradient and the
+    qkv projection's gradient."""
+    from pytorch_sound_tpu_torch.models.modules import MultiHeadAttention
+    from pytorch_sound_tpu_torch.ops.cuda import flash_attention as fa
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.manual_seed(0)
+    dense = MultiHeadAttention(128, 4, block_size=-1).to(card)
+    blocky = MultiHeadAttention(128, 4, auto_threshold=512).to(card)
+    blocky.load_state_dict(dense.state_dict())
+    x0 = torch.randn(3, 128, 600, device=card)
+    # a random cotangent: sum(out ** 2) is constant through the LayerNorm,
+    # so its input gradient would be rounding noise
+    w = torch.randn(3, 128, 600, device=card)
+    mask = torch.arange(600, device=card)[None] >= torch.tensor([[600], [480], [321]], device=card)
+    outs = []
+    before = (fa.attention_forward.launches, fa.attention_dkv.launches, fa.attention_dq.launches)
+    for m in (blocky, dense):
+        x = x0.clone().requires_grad_(True)
+        out, _ = m(x, mask)
+        (out * w).sum().backward()
+        outs.append((out.detach(), x.grad, m.linear_kvq.weight.grad))
+    assert (fa.attention_forward.launches, fa.attention_dkv.launches,
+            fa.attention_dq.launches) == (before[0] + 1, before[1] + 1, before[2] + 1)
+    for got, ref in zip(*outs):
+        assert float((got - ref).abs().max() / ref.abs().max()) <= FLASH_GRAD_TOL
+
+
+def test_flash_fully_masked_item_matches_the_scan(card):
+    """An item whose keys are all masked: the forward kernel gives the mean of
+    v over its Tk keys, as the plain version and the plain scan do (the scan
+    pads its last key block, t = 100 at block 64)."""
+    from pytorch_sound_tpu_torch.ops.attention import blockwise_attention
+    from pytorch_sound_tpu_torch.ops.cuda import flash_attention as fa
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=card).manual_seed(5)
+    q, k, v = (torch.randn((2, 3, 100, 64), generator=g, device=card) for _ in range(3))
+    mask = torch.zeros((2, 100), dtype=torch.bool, device=card)
+    mask[0] = True
+    mask[1, 70:] = True
+    out = blockwise_attention(q, k, v, mask=mask, backend='cuda')
+    scan = blockwise_attention(q, k, v, mask=mask, block_size=64, backend='scan')
+    ref = fa.attention_reference(q, k, v, (~mask).float())[0]
+    mean_v = v[0].mean(dim=1, keepdim=True).expand_as(out[0])
+    for got in (out, scan):
+        assert float((got - ref).abs().max() / ref.abs().max()) <= FLASH_FWD_TOL
+        assert float((got[0] - mean_v).abs().max()) <= 1e-5

@@ -90,6 +90,32 @@ assert not loaded, loaded
 '''
 
 
+ATTENTION_SCRIPT = r'''
+import sys
+import torch
+from pytorch_sound_tpu_torch.models.modules import MultiHeadAttention
+from pytorch_sound_tpu_torch.ops.attention import blockwise_attention
+from pytorch_sound_tpu_torch.ops.cuda import _build, flash_attention as fa
+torch.manual_seed(0)
+mha = MultiHeadAttention(32, 4, auto_threshold=64)
+x = torch.randn(2, 32, 80, requires_grad=True)
+mask = torch.arange(80)[None, :] >= torch.tensor([[80], [61]])
+out, att = mha(x, mask)
+assert att is None and tuple(out.shape) == (2, 32, 80)
+out.sum().backward()
+q, k, v = (torch.randn(2, 4, 50, 16, requires_grad=True) for _ in range(3))
+blockwise_attention(q, k, v, mask=mask[:, :50], backend='cuda').square().sum().backward()
+assert all(torch.isfinite(t.grad).all() for t in (x, q, k, v))
+assert _build._lib is None, 'the kernel library must not load on the CPU path'
+assert (fa.attention_forward.launches, fa.attention_dkv.launches,
+        fa.attention_dq.launches) == (0, 0, 0)
+loaded = sorted(m for m in sys.modules
+                if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'pytorch_sound_tpu'))
+print('LOADED', loaded)
+assert not loaded, loaded
+'''
+
+
 def _run(script, *args):
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [ROOT] + [p for p in os.environ.get('PYTHONPATH', '').split(os.pathsep) if p]))
@@ -121,3 +147,10 @@ def test_kernel_route_loads_neither_jax_nor_the_jax_package():
     on the grouped-conv functions: their module loads without JAX, and on
     the CPU they build no kernel and count no launch."""
     _run(TRAIN_SCRIPT, 'cuda')
+
+
+def test_attention_path_loads_neither_jax_nor_the_jax_package():
+    """MultiHeadAttention's blockwise route and blockwise_attention on the
+    kernels' backend, forward and backward on the CPU: the plain versions,
+    no kernel library, no launch."""
+    _run(ATTENTION_SCRIPT)

@@ -44,8 +44,10 @@ Phases, one line each; any failure raises and the script exits non-zero:
    streaming, the launch counts; timings;
 10. the flash-attention kernels (K5: forward, dK / dV, dQ) against their plain
    versions at 4 x 8 heads x 2048 / 4096 x 64, a ragged T = 4001 with a key
-   mask, D = 160, and at T = 16384 (forward against the plain scan,
-   gradients on one (n, h) slice); the main path,
+   mask, D = 160, masks with whole masked tiles inside an item, an item with
+   every key masked and mask edges inside a tile (the backward's tile skip;
+   masked keys' dK / dV exactly 0), D = 128, and at T = 16384 (forward
+   against the plain scan, gradients on one (n, h) slice); the main path,
    ``MultiHeadAttention(512, 8)`` at 4 x 4096 with a key mask on its auto
    route (the kernels), forward and backward against the dense route and
    the forward against the CPU, the launch counts; timings of the kernels,
@@ -56,8 +58,10 @@ Phases, one line each; any failure raises and the script exits non-zero:
 The line before the last is a JSON object with one entry per kernel, each
 with its time, its plain version's, the least time the card could take for
 the same work (``bound_ms``, from the shapes, at the H100's published peaks;
-for K5 from the valid keys only, the kernels' own count of every key beside
-it as ``implemented_bound_ms``) and the time of one PyTorch call computing
+for K5 from the valid keys only, the count of the keys each kernel processes
+beside it as ``implemented_bound_ms``, and for the backward kernels, which
+run 3xTF32 on the tensor cores, the same FLOPs three times at the TF32 peak
+as ``tc_bound_ms``) and the time of one PyTorch call computing
 the same function where there is one (``library_ms``: cuDNN's convolution
 and its backward for K6, ``scaled_dot_product_attention`` in fp32 for K5,
 whose one backward call computes dq, dk and dv and stands beside both
@@ -102,6 +106,7 @@ LOSSES = ('loss', 'disc_loss', 'adv', 'feature_matching', 'mel_l1')
 # tensor cores, fp64 on the tensor cores (the faster fp64 route), HBM3
 PEAK_FP32 = 67e12
 PEAK_FP64 = 67e12
+PEAK_TF32 = 495e12                # dense TF32 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 
 
@@ -934,6 +939,17 @@ def attention_work(n, h, tq, tk, d, lengths=None):
     return {e: (ATTENTION_FLOPS[e] * pairs, by[e]) for e in by}
 
 
+def key_valid_from_spans(spans, t, dev):
+    """(N, t) float32 key validity, 1 inside each item's (start, end) spans;
+    an item with no span has every key masked."""
+    import torch
+    kv = torch.zeros((len(spans), t), device=dev)
+    for i, item in enumerate(spans):
+        for a, b in item:
+            kv[i, a:b] = 1.0
+    return kv
+
+
 def key_valid_from_lengths(lengths, t, dev):
     """(N, t) float32 key validity, 1 for the first ``lengths[i]`` keys."""
     import torch
@@ -969,13 +985,27 @@ def attention_path(dev, card):
         return [torch.randn((n, h, t, d), generator=gen, device=dev) for t in (tq, tk, tk)]
 
     # 10.1 each kernel against its plain version: (a) the JAX bench shapes,
-    #      (b) a ragged T with a key mask (every item keeps a key), (c) D = 160
-    for n, h, t, d, lengths in ((4, 8, 2048, 64, None), (4, 8, 4096, 64, None),
-                                (4, 8, 4001, 64, (4001, 3001, 2001, 1)),
-                                (2, 4, 1000, 160, (1000, 517))):
+    #      (b) a ragged T with a key mask (every item keeps a key), (c) D = 160,
+    #      (e) masks the backward's tile skip reads: whole masked tiles inside
+    #      an item (keys 1024-2047), an item with every key masked (not
+    #      skipped: p = 1 on each key), mask edges inside a tile, a ragged T,
+    #      and D = 128, where dK / dV splits the head width between warps
+    #      (key valid spans per item)
+    spans = {'all': ((0, 4096),), 'mid': ((0, 1024), (2048, 4096)), 'none': (),
+             'edge': ((0, 1000),), 'ragged': ((0, 100), (900, 1500)),
+             'ragged2': ((0, 300), (500, 777))}
+    for n, h, t, d, mask in ((4, 8, 2048, 64, None), (4, 8, 4096, 64, None),
+                             (4, 8, 4001, 64, (4001, 3001, 2001, 1)),
+                             (2, 4, 1000, 160, (1000, 517)),
+                             (4, 8, 4096, 64, ('all', 'mid', 'none', 'edge')),
+                             (2, 4, 1500, 64, ('ragged', 'none')),
+                             (2, 4, 777, 128, ('ragged2', 'none'))):
         q, k, v = qkv(n, h, t, t, d)
-        kv = None if lengths is None else key_valid_from_lengths(lengths, t, dev)
-        shape = dict(shape=(n, h, t, d), lengths=lengths)
+        if mask is None or isinstance(mask[0], int):
+            kv = None if mask is None else key_valid_from_lengths(mask, t, dev)
+        else:
+            kv = key_valid_from_spans([spans[m] for m in mask], t, dev)
+        shape = dict(shape=(n, h, t, d), mask=mask)
         o, lse = fa.attention_forward(q, k, v, kv)
         o_ref, lse_ref = fa.attention_reference(q, k, v, kv)
         held('fwd', o, o_ref, FLASH_FWD_TOL, out='o', **shape)
@@ -989,11 +1019,17 @@ def attention_path(dev, card):
         dq = fa.attention_dq(q, k, v, kv, dout, lse_ref, di)
         held('dq', dq, fa.attention_dq_reference(q, k, v, kv, dout, lse_ref, di),
              FLASH_GRAD_TOL, out='dq', **shape)
+        if kv is not None:
+            # masked keys of an item with a valid key: exactly zero (p = 0),
+            # whether their tile was skipped or computed
+            dead = (kv < 0.5) & (kv > 0.5).any(dim=1, keepdim=True)
+            for got in (dk, dv):
+                assert not bool(got.permute(0, 2, 1, 3)[dead].any()), shape
         # no atomics: a rerun is bit-identical
         assert torch.equal(fa.attention_forward(q, k, v, kv)[0], o)
         assert torch.equal(fa.attention_dkv(q, k, v, kv, dout, lse_ref, di)[0], dk)
         assert torch.equal(fa.attention_dq(q, k, v, kv, dout, lse_ref, di), dq)
-        del q, k, v, o, o_ref, dout, dk, dv, dk_ref, dv_ref, dq
+        del q, k, v, o, o_ref, dout, dk, dv, dk_ref, dv_ref, dq, kv
 
     # (d) T = 16384: a dense plain score tensor would take 34 GB, so the
     #     forward is held against the plain scan and the gradients, through
@@ -1128,23 +1164,36 @@ def attention_path(dev, card):
             fields.update(sdpa_fwd_ms='%.3f' % lib, sdpa_fwd_bwd_ms='%.3f' % lib_fb,
                           sdpa_bwd_ms='%.3f' % lib_bwd)
             del leaves, o_lib
-        # the bound counts the valid keys only; the kernels as written score
-        # every key, masked ones too (the *_implemented_* fields)
+        # the bound counts the valid keys only; the *_implemented_* fields
+        # count the keys each kernel processes: the forward scores every key,
+        # the backward kernels every key of a live tile (fa.live_key_tiles);
+        # the *_tc_bound_* fields put the backward's 3xTF32 products at the
+        # tensor cores' TF32 peak
         work = attention_work(4, 8, t_, t_, 64, lengths)
         bounds = {e: bound(f, 0.0, b) for e, (f, b) in work.items()}
-        implemented = {e: bound(ATTENTION_FLOPS[e] * 4 * 8 * t_ * t_ * 64.0, 0.0, b)
+        keys = {'fwd': 4.0 * t_}
+        for e, tile in zip(('dkv', 'dq'), fa.backward_key_tiles(64)):
+            live = fa.live_key_tiles(kv, tile).float()
+            widths = torch.full((live.shape[1],), float(tile), device=dev)
+            widths[-1] = t_ - tile * (live.shape[1] - 1)
+            keys[e] = float((live * widths).sum())
+        implemented = {e: bound(ATTENTION_FLOPS[e] * 8 * t_ * keys[e] * 64.0, 0.0, b)
                        for e, (_, b) in work.items()}
+        tc_bounds = {e: max(3 * work[e][0] / PEAK_TF32, work[e][1] / HBM_BYTES_PER_S) * 1e3
+                     for e in ('dkv', 'dq')}
         log('time', card=repr(card), what='k5_4x8x%dx64' % t_, lengths=lengths,
             fwd_ms='%.3f' % f_k, fwd_bwd_ms='%.3f' % fb_k, dkv_ms='%.3f' % dkv_k,
             dq_ms='%.3f' % dq_k, **fields,
             **{'%s_bound_ms' % e: '%.3f' % b[0] for e, b in bounds.items()},
             **{'%s_gflop' % e: '%.1f' % (f / 1e9) for e, (f, _) in work.items()},
             **{'%s_implemented_bound_ms' % e: '%.3f' % b[0] for e, b in implemented.items()},
-            **{'%s_mbytes' % e: '%.1f' % (b / 1e6) for e, (_, b) in work.items()})
+            **{'%s_tc_bound_ms' % e: '%.3f' % b for e, b in tc_bounds.items()},
+            **{'%s_mbytes' % e: '%.1f' % (b / 1e6) for e, (_, b) in work.items()},
+            bwd_kernels_ms='%.3f' % (dkv_k + dq_k))
         if t_ == MHA_T:
             entry_times = {'fwd': (f_k, f_p, lib), 'dkv': (dkv_k, dkv_p, lib_bwd),
                            'dq': (dq_k, dq_p, lib_bwd), 'bounds': bounds,
-                           'implemented': implemented}
+                           'implemented': implemented, 'tc': tc_bounds}
         del q, k, v, dout, o, lse, di
 
     # MultiHeadAttention forward + backward, kernel route vs dense route, at
@@ -1183,6 +1232,7 @@ def attention_path(dev, card):
              'ms': entry_times[e][0], 'plain_ms': entry_times[e][1],
              'bound_ms': entry_times['bounds'][e][0], 'bound_by': entry_times['bounds'][e][1],
              'implemented_bound_ms': entry_times['implemented'][e][0],
+             **({'tc_bound_ms': entry_times['tc'][e]} if e in entry_times['tc'] else {}),
              'library_ms': entry_times[e][2], 'library_scope': scope[e]}
             for i, e in enumerate(('fwd', 'dkv', 'dq'))]
 

@@ -282,7 +282,10 @@ def test_mha_blockwise_route_runs_the_kernels(card):
 def test_flash_fully_masked_item_matches_the_scan(card):
     """An item whose keys are all masked: the forward kernel gives the mean of
     v over its Tk keys, as the plain version and the plain scan do (the scan
-    pads its last key block, t = 100 at block 64)."""
+    pads its last key block, t = 100 at block 64). The backward kernels skip
+    no key tile of that item (p = 1 on every key) and match their plain
+    versions there and on the half-masked item, whose masked keys' dK / dV
+    are exactly 0."""
     from pytorch_sound_tpu_torch.ops.attention import blockwise_attention
     from pytorch_sound_tpu_torch.ops.cuda import flash_attention as fa
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -298,3 +301,48 @@ def test_flash_fully_masked_item_matches_the_scan(card):
     for got in (out, scan):
         assert float((got - ref).abs().max() / ref.abs().max()) <= FLASH_FWD_TOL
         assert float((got[0] - mean_v).abs().max()) <= 1e-5
+    _hold_flash_backward(fa, q, k, v, (~mask).float(), g)
+
+
+def _hold_flash_backward(fa, q, k, v, kv, g):
+    """dK / dV and dQ kernels against their plain versions from the plain
+    residuals, reruns bit-identical, and dK / dV exactly 0 at the masked keys
+    of every item that has a valid key."""
+    o, lse = fa.attention_reference(q, k, v, kv)
+    dout = torch.randn(o.shape, generator=g, device=q.device)
+    di = (o * dout).sum(dim=-1)
+    dk, dv = fa.attention_dkv(q, k, v, kv, dout, lse, di)
+    dq = fa.attention_dq(q, k, v, kv, dout, lse, di)
+    refs = (*fa.attention_dkv_reference(q, k, v, kv, dout, lse, di),
+            fa.attention_dq_reference(q, k, v, kv, dout, lse, di))
+    for got, ref in zip((dk, dv, dq), refs):
+        assert float((got - ref).abs().max() / ref.abs().max()) <= FLASH_GRAD_TOL
+    assert torch.equal(fa.attention_dkv(q, k, v, kv, dout, lse, di)[1], dv)
+    assert torch.equal(fa.attention_dq(q, k, v, kv, dout, lse, di), dq)
+    dead = (kv < 0.5) & (kv > 0.5).any(dim=1, keepdim=True)
+    for got in (dk, dv):
+        assert not bool(got.permute(0, 2, 1, 3)[dead].any())
+
+
+@pytest.mark.parametrize('t,d,spans', [
+    # per item, the (start, end) spans of valid keys; () = every key masked
+    (1000, 64, (((0, 1000),), ((0, 256), (640, 1000)), ((128, 1000),), ())),
+    (777, 128, (((0, 300), (500, 777)), (), ((1, 2),))),      # D = 128: dK / dV splits D
+    (500, 32, (((3, 5), (100, 130)), (), ((250, 251),))),     # edges inside tiles
+    (300, 160, (((0, 70), (200, 300)), (), ((299, 300),))),   # D = 160, 16-key dK / dV tiles
+])
+def test_flash_backward_skips_masked_tiles(card, t, d, spans):
+    """Key masks that are not suffixes, with whole masked key tiles between
+    valid keys, edges inside a tile and an item with every key masked: the
+    tiles the backward kernels skip hold no valid key, so their results
+    match the plain versions."""
+    from pytorch_sound_tpu_torch.ops.cuda import flash_attention as fa
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=card).manual_seed(t + d)
+    n = len(spans)
+    q, k, v = (torch.randn((n, 2, t, d), generator=g, device=card) for _ in range(3))
+    kv = torch.zeros((n, t), device=card)
+    for i, pairs in enumerate(spans):
+        for a, b in pairs:
+            kv[i, a:b] = 1.0
+    _hold_flash_backward(fa, q, k, v, kv, g)

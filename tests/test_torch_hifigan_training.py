@@ -120,7 +120,10 @@ def test_kernel_route_step_matches_cudnn_route(tmp_path):
     """One split step with every critic conv and generator upsample on the
     grouped-conv functions (their plain forward, dx and dw on the CPU) equals
     the cuDNN route's step from the same parameters and batch: the five
-    losses, every gradient and every updated parameter within 1e-5."""
+    losses and every gradient within 1e-5; each updated parameter within
+    1e-5 where the cuDNN route's gradient is clear of zero (|g| > 1e-6) and
+    within 2 lr everywhere, since Adam's first step moves an entry with a
+    near-zero gradient by up to lr whichever way a route rounds it."""
     batch = (np.random.default_rng(12).standard_normal((2, 2048)) * 0.2).astype(np.float32)
     trainers = [port_trainer(tmp_path / route, route=route) for route in ('cudnn', 'cuda')]
     trainers[1].load_model_state(trainers[0].model_state())
@@ -141,8 +144,10 @@ def test_kernel_route_step_matches_cudnn_route(tmp_path):
         assert err <= 1e-5, (k, err)
     for family, sd in after_a.items():
         for k, v in sd.items():
-            err = float((after_b[family][k] - v).norm() / max(float(v.norm()), 1e-30))
-            assert err <= 1e-5, (family, k, err)
+            diff = (after_b[family][k] - v).abs()
+            live = grad_a['%s.%s' % (family, k)].abs() > 1e-6
+            assert float(torch.where(live, diff, 0.0).max()) <= PARAM_TOL, (family, k)
+            assert float(diff.max()) <= 2 * LR + 1e-7, (family, k)
 
 
 def tones(seed, n=4, samples=2048):

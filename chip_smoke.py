@@ -29,7 +29,8 @@ Phases, one line each; any failure raises and the script exits non-zero:
    grouped-conv kernels: each kernel (forward, dx, dw) against its plain
    version on every conv of MPD base and MSD base at the critic phase's
    32 x 8192 inputs and at v2's four upsamples, one line per layer with its
-   times (kernel / plain / cuDNN); ``HiFiGANTrainer(...).run()`` at full
+   times (kernel / plain / cuDNN) and the dw kernel its rows per group
+   route to (tensor cores or CUDA cores); ``HiFiGANTrainer(...).run()`` at full
    width for 3 steps and a validation batch with the launch counts the
    models' routes give; card vs CPU and kernel route vs cuDNN route, one
    step each; the kernel route's step time beside phase 7's;
@@ -44,9 +45,11 @@ Phases, one line each; any failure raises and the script exits non-zero:
    streaming, the launch counts; timings;
 10. the flash-attention kernels (K5: forward, dK / dV, dQ) against their plain
    versions at 4 x 8 heads x 2048 / 4096 x 64, a ragged T = 4001 with a key
-   mask, D = 160, masks with whole masked tiles inside an item, an item with
-   every key masked and mask edges inside a tile (the backward's tile skip;
-   masked keys' dK / dV exactly 0), D = 128, and at T = 16384 (forward
+   mask, D = 160, masks with whole masked tiles inside an item, leading
+   masked tiles (the forward's first live tile wipes nothing), an item with
+   every key masked and mask edges inside a tile (the kernels' tile skip;
+   masked keys' dK / dV exactly 0), K5a's forward without the logsumexp,
+   D = 128, and at T = 16384 (forward
    against the plain scan, gradients on one (n, h) slice); the main path,
    ``MultiHeadAttention(512, 8)`` at 4 x 4096 with a key mask on its auto
    route (the kernels), forward and backward against the dense route and
@@ -59,9 +62,9 @@ The line before the last is a JSON object with one entry per kernel, each
 with its time, its plain version's, the least time the card could take for
 the same work (``bound_ms``, from the shapes, at the H100's published peaks;
 for K5 from the valid keys only, the count of the keys each kernel processes
-beside it as ``implemented_bound_ms``, and for the backward kernels, which
-run 3xTF32 on the tensor cores, the same FLOPs three times at the TF32 peak
-as ``tc_bound_ms``) and the time of one PyTorch call computing
+beside it as ``implemented_bound_ms``, and for the kernels that run 3xTF32
+on the tensor cores, K5's three and K6's dw, the same FLOPs three times at
+the TF32 peak as ``tc_bound_ms``) and the time of one PyTorch call computing
 the same function where there is one (``library_ms``: cuDNN's convolution
 and its backward for K6, ``scaled_dot_product_attention`` in fp32 for K5,
 whose one backward call computes dq, dk and dv and stands beside both
@@ -579,6 +582,7 @@ def kernel_route(dev, card, cudnn_step):
     errs = {'fwd': 0.0, 'dx': 0.0, 'dw': 0.0}
     times = {e: [0.0, 0.0, 0.0] for e in errs}     # kernel, plain, library ms
     work = {e: [0.0, 0.0] for e in errs}           # FLOPs, bytes
+    dw_flops = {'conv_dw_kernel': 0.0, 'conv_gemm_kernel': 0.0}   # by the dw kernel
 
     def rel(a, b):
         return float((a - b).abs().max() / b.abs().max())
@@ -611,6 +615,7 @@ def kernel_route(dev, card, cudnn_step):
                      'dw': gz.numel() + x.numel() + w.numel()}
             geometry = '%d->%d k%d u%d T%d' % (m.in_channels, m.out_channels,
                                               m.kernel_size, m.stride, t)
+            dw_rows = w.shape[0]        # the mirror conv's output channels, one group
         else:
             n, _, t = x.shape
             conf = dict(stride=m.stride, padding=m.padding, groups=m.groups,
@@ -639,7 +644,9 @@ def kernel_route(dev, card, cudnn_step):
             geometry = '%d->%d k%d s%d g%d d%d T%d' % (m.in_channels, m.out_channels,
                                                        m.kernel_size, m.stride, m.groups,
                                                        m.dilation, t)
-        line = {}
+            dw_rows = m.out_channels // m.groups
+        line = {'dw_kernel': gc.dw_kernel(dw_rows)}
+        dw_flops[line['dw_kernel']] += 2.0 * macs
         for entry, (kernel, plain, library) in calls.items():
             got, ref = kernel(), plain()
             torch.cuda.synchronize()
@@ -658,11 +665,18 @@ def kernel_route(dev, card, cudnn_step):
         log('k6', layer=name, geometry=geometry, batch=n, **line)
     del layers
     bounds = {e: bound(f, 0.0, nb) for e, (f, nb) in work.items()}
+    # dw's layers on the tensor cores do 3 TF32 FLOPs per FLOP at the TF32
+    # peak; those on the CUDA cores (conv_post) theirs at the fp32 peak
+    dw_tc_bound = max(3 * dw_flops['conv_dw_kernel'] / PEAK_TF32
+                      + dw_flops['conv_gemm_kernel'] / PEAK_FP32,
+                      work['dw'][1] / HBM_BYTES_PER_S) * 1e3
     log('time', card=repr(card), what='k6_layers_one_call_each',
         **{'%s_ms' % e: '%.3f' % times[e][0] for e in errs},
         **{'%s_plain_ms' % e: '%.3f' % times[e][1] for e in errs},
         **{'%s_cudnn_ms' % e: '%.3f' % times[e][2] for e in errs},
         **{'%s_bound_ms' % e: '%.3f(%s)' % bounds[e] for e in errs},
+        dw_tc_bound_ms='%.3f' % dw_tc_bound,
+        dw_tc_gflop='%.1f' % (dw_flops['conv_dw_kernel'] / 1e9),
         **{'%s_gflop' % e: '%.1f' % (work[e][0] / 1e9) for e in errs})
 
     # 8.2 the main path on the kernel route: HiFiGANTrainer(...).run() at
@@ -729,7 +743,8 @@ def kernel_route(dev, card, cudnn_step):
     return [{'name': 'grouped_conv_' + e, 'route': 'cuda', 'source': gc.SOURCE,
              'replaces': replaces[e], 'launches': launches[i], 'max_abs_err': errs[e],
              'ms': times[e][0], 'plain_ms': times[e][1], 'bound_ms': bounds[e][0],
-             'bound_by': bounds[e][1], 'library_ms': times[e][2]}
+             'bound_by': bounds[e][1], **({'tc_bound_ms': dw_tc_bound} if e == 'dw' else {}),
+             'library_ms': times[e][2]}
             for i, e in enumerate(('fwd', 'dx', 'dw'))]
 
 
@@ -986,18 +1001,22 @@ def attention_path(dev, card):
 
     # 10.1 each kernel against its plain version: (a) the JAX bench shapes,
     #      (b) a ragged T with a key mask (every item keeps a key), (c) D = 160,
-    #      (e) masks the backward's tile skip reads: whole masked tiles inside
+    #      (e) masks the kernels' tile skip reads: whole masked tiles inside
     #      an item (keys 1024-2047), an item with every key masked (not
-    #      skipped: p = 1 on each key), mask edges inside a tile, a ragged T,
-    #      and D = 128, where dK / dV splits the head width between warps
-    #      (key valid spans per item)
+    #      skipped: p = 1 on each key), mask edges inside a tile, leading
+    #      masked tiles (the forward skips them and its first live tile's
+    #      alpha = 0), a ragged T, and D = 128, where dK / dV splits the head
+    #      width between warps (key valid spans per item); the forward also
+    #      as K5a, without the logsumexp
     spans = {'all': ((0, 4096),), 'mid': ((0, 1024), (2048, 4096)), 'none': (),
              'edge': ((0, 1000),), 'ragged': ((0, 100), (900, 1500)),
-             'ragged2': ((0, 300), (500, 777))}
+             'ragged2': ((0, 300), (500, 777)), 'late': ((1000, 4096),),
+             'tail': ((4000, 4096),)}
     for n, h, t, d, mask in ((4, 8, 2048, 64, None), (4, 8, 4096, 64, None),
                              (4, 8, 4001, 64, (4001, 3001, 2001, 1)),
                              (2, 4, 1000, 160, (1000, 517)),
                              (4, 8, 4096, 64, ('all', 'mid', 'none', 'edge')),
+                             (2, 8, 4096, 64, ('late', 'tail')),
                              (2, 4, 1500, 64, ('ragged', 'none')),
                              (2, 4, 777, 128, ('ragged2', 'none'))):
         q, k, v = qkv(n, h, t, t, d)
@@ -1010,6 +1029,9 @@ def attention_path(dev, card):
         o_ref, lse_ref = fa.attention_reference(q, k, v, kv)
         held('fwd', o, o_ref, FLASH_FWD_TOL, out='o', **shape)
         held('fwd', lse, lse_ref, FLASH_FWD_TOL, out='lse', **shape)
+        o_k5a, no_lse = fa.attention_forward(q, k, v, kv, with_lse=False)
+        held('fwd', o_k5a, o_ref, FLASH_FWD_TOL, out='o_k5a', **shape)
+        assert no_lse is None and torch.equal(o_k5a, o), shape
         dout = torch.randn(o.shape, generator=gen, device=dev)
         di = (o_ref * dout).sum(dim=-1)
         dk, dv = fa.attention_dkv(q, k, v, kv, dout, lse_ref, di)
@@ -1026,10 +1048,11 @@ def attention_path(dev, card):
             for got in (dk, dv):
                 assert not bool(got.permute(0, 2, 1, 3)[dead].any()), shape
         # no atomics: a rerun is bit-identical
-        assert torch.equal(fa.attention_forward(q, k, v, kv)[0], o)
+        again = fa.attention_forward(q, k, v, kv)
+        assert torch.equal(again[0], o) and torch.equal(again[1], lse)
         assert torch.equal(fa.attention_dkv(q, k, v, kv, dout, lse_ref, di)[0], dk)
         assert torch.equal(fa.attention_dq(q, k, v, kv, dout, lse_ref, di), dq)
-        del q, k, v, o, o_ref, dout, dk, dv, dk_ref, dv_ref, dq, kv
+        del q, k, v, o, o_ref, o_k5a, again, dout, dk, dv, dk_ref, dv_ref, dq, kv
 
     # (d) T = 16384: a dense plain score tensor would take 34 GB, so the
     #     forward is held against the plain scan and the gradients, through
@@ -1165,14 +1188,14 @@ def attention_path(dev, card):
                           sdpa_bwd_ms='%.3f' % lib_bwd)
             del leaves, o_lib
         # the bound counts the valid keys only; the *_implemented_* fields
-        # count the keys each kernel processes: the forward scores every key,
-        # the backward kernels every key of a live tile (fa.live_key_tiles);
-        # the *_tc_bound_* fields put the backward's 3xTF32 products at the
-        # tensor cores' TF32 peak
+        # count the keys each kernel processes, every key of a live tile
+        # (fa.live_key_tiles); the *_tc_bound_* fields put the kernels' 3xTF32
+        # products at the tensor cores' TF32 peak
         work = attention_work(4, 8, t_, t_, 64, lengths)
         bounds = {e: bound(f, 0.0, b) for e, (f, b) in work.items()}
-        keys = {'fwd': 4.0 * t_}
-        for e, tile in zip(('dkv', 'dq'), fa.backward_key_tiles(64)):
+        keys = {}
+        for e, tile in zip(('fwd', 'dkv', 'dq'),
+                           (fa.forward_key_tile(64), *fa.backward_key_tiles(64))):
             live = fa.live_key_tiles(kv, tile).float()
             widths = torch.full((live.shape[1],), float(tile), device=dev)
             widths[-1] = t_ - tile * (live.shape[1] - 1)
@@ -1180,7 +1203,7 @@ def attention_path(dev, card):
         implemented = {e: bound(ATTENTION_FLOPS[e] * 8 * t_ * keys[e] * 64.0, 0.0, b)
                        for e, (_, b) in work.items()}
         tc_bounds = {e: max(3 * work[e][0] / PEAK_TF32, work[e][1] / HBM_BYTES_PER_S) * 1e3
-                     for e in ('dkv', 'dq')}
+                     for e in work}
         log('time', card=repr(card), what='k5_4x8x%dx64' % t_, lengths=lengths,
             fwd_ms='%.3f' % f_k, fwd_bwd_ms='%.3f' % fb_k, dkv_ms='%.3f' % dkv_k,
             dq_ms='%.3f' % dq_k, **fields,
@@ -1232,7 +1255,7 @@ def attention_path(dev, card):
              'ms': entry_times[e][0], 'plain_ms': entry_times[e][1],
              'bound_ms': entry_times['bounds'][e][0], 'bound_by': entry_times['bounds'][e][1],
              'implemented_bound_ms': entry_times['implemented'][e][0],
-             **({'tc_bound_ms': entry_times['tc'][e]} if e in entry_times['tc'] else {}),
+             'tc_bound_ms': entry_times['tc'][e],
              'library_ms': entry_times[e][2], 'library_scope': scope[e]}
             for i, e in enumerate(('fwd', 'dkv', 'dq'))]
 

@@ -28,62 +28,66 @@
 // carried over; each head width is padded to the next of 16 / 32 / 64 / 128 /
 // 192 / 256 in shared memory only.
 //
-// The forward: fp32 on the CUDA cores. 256 threads form a 16 x 16 grid over
-// each 64 x 64 score tile: thread (ty, tx) owns rows ty * RM + i and columns
-// tx + 16 j, so one shared load feeds RM or CN FMAs; tiles have an odd row
-// stride (D + 1) so a warp reading 16 rows at one column hits 16 banks; the
-// running max and denominator live per row in registers, reduced with
-// shuffles.
+// All three run on the tensor cores at fp32 accuracy (tf32_mma.cuh):
 //
-// The backward (dK / dV and dQ) runs on the tensor cores at fp32 accuracy:
-//
-// - 3xTF32. Every product is mma.sync m16n8k8 with TF32 operands and an fp32
-//   accumulator. Each operand x is split as hi + lo, hi = x rounded to TF32
-//   (10 mantissa bits) and lo = x - hi (split_tf32), and a b accumulates
-//   lo_a hi_b + hi_a lo_b + hi_a hi_b: the dropped lo_a lo_b is ~2^-22 of the
-//   product, so each product is as close to fp32 as a CUDA-core FMA (one
-//   TF32 pass would be ~1e-3 off). The 3x work runs at the 495 TFLOP/s TF32
-//   rate, 7x the 67 TFLOP/s fp32 CUDA-core peak, so the bound is 3 FLOPs /
-//   495e12 where the forward's is FLOPs / 67e12.
+// - 3xTF32. Every product is mma.sync m16n8k8 with TF32 operands split as
+//   hi + lo and three products per pair, as close to fp32 as a CUDA-core FMA;
+//   the bound is 3 FLOPs / 495e12 (the TF32 rate) where fp32 would be
+//   FLOPs / 67e12.
 // - Partial sums. The tensor cores' fp32 accumulator rounds toward zero, a
 //   bias that grows with each product in a chain: summed over 4096 queries
 //   in one accumulator, dK / dV / dQ were 4e-5 of their max abs off the
-//   plain fp32 version. So dv, dk and dq take a fresh accumulator per
+//   plain fp32 version. So o, dv, dk and dq take a fresh accumulator per
 //   other-axis tile (add_part), and s and dp one per 8-deep step
 //   (mma_3xtf32_rn), each added to the total with an fp32 add (round to
 //   nearest). s and dp need the finer step because ds = p (dp - di) cancels:
 //   for an item with one valid key p = 1 and dp = di exactly, so its dK is
 //   rounding noise, and a chain's bias put it over the fp32 tolerance where
 //   per-step sums keep it at the plain fp32 version's own noise.
-// - Warps and tiles. A block is 4 warps; each warp owns 16 rows of the
-//   block's own axis (keys for dK / dV, queries for dQ) and computes their
-//   s and dp against the whole other-axis tile (BN keys or queries), then
-//   p and ds in registers, then its rows of dv / dk or dq. dK / dV finishes
-//   dV += p^T do before it computes dp, so s, dp and one partial are never
-//   live together with both accumulators. The accumulator layout of s (row
-//   g, columns 2t, 2t + 1 of each 8-column tile) is reused as the A operand
-//   of the next product without a trip through shared memory: the
-//   contraction index of each 8-wide step is permuted (operand column t <->
-//   tile column 2t, t + 4 <-> 2t + 1), and the B operand is read with the
-//   same permutation. Where the accumulators would not fit the registers,
-//   2 or 4 warps share each 16 rows and split the head width between them
-//   (both compute s and dp): dK / dV above D = 64, dQ above D = 128. D = 128
-//   and up take 32-row other-axis tiles.
-// - Staging. Tiles of the other axis (q, do, lse, di for dK / dV; k, v for
-//   dQ) stream through a two-stage ring with cp.async: 16-byte copies when
-//   D % 4 == 0 and the rows are 16-byte aligned, else 4-byte ones; the next
-//   tile's copy overlaps the current tile's products. Rows have a stride of
-//   D + 4 floats (16-byte aligned; 4 mod 32 banks, so the fragment loads of
-//   a warp, 8 rows x 4 columns or 4 row pairs x 8 columns, hit 32 banks).
-//   At D = 64 a block takes 104 KB, two blocks per SM.
-// - Skipping masked key tiles. For an item with at least one valid key a
-//   masked key's p = exp(-1e30 - lse) is exactly 0 in fp32, so a key tile
-//   whose keys are all masked changes nothing: its dK / dV block writes
-//   zeros and returns, and the dQ loop skips it (the copy too). Liveness is
-//   read from key_valid on the card (__syncthreads_or over a tile's flags),
-//   for any mask, not only suffixes. An item whose keys are all masked is
-//   never skipped: there lse rounds to -1e30 and every masked key has p = 1,
-//   as in the plain version.
+// - Warps and tiles. A backward block is 4 warps, a forward block 8; each
+//   warp owns 16 rows of the block's own axis (queries for the forward and
+//   dQ, keys for dK / dV) and computes their s (and dp) against the whole
+//   other-axis tile (BN keys or queries), then p (and ds) in registers, then
+//   its rows of o, dv / dk or dq. dK / dV finishes dV += p^T do before it computes dp, so s, dp and
+//   one partial are never live together with both accumulators. The
+//   accumulator layout of s (row g, columns 2t, 2t + 1 of each 8-column
+//   tile) is reused as the A operand of the next product without a trip
+//   through shared memory: the contraction index of each 8-wide step is
+//   permuted (operand column t <-> tile column 2t, t + 4 <-> 2t + 1), and
+//   the B operand is read with the same permutation. Where the accumulators
+//   would not fit the registers, 2 or 4 warps share each 16 rows and split
+//   the head width between them (all compute s and dp): dK / dV above
+//   D = 64, the forward and dQ above D = 128. D = 128 and up take 32-row
+//   other-axis tiles.
+// - The forward's online softmax runs on the accumulator layout: each lane
+//   holds rows g and g + 8 of its warp's 16, so the row max and row sum of
+//   a key tile reduce over the 4 lanes of a quad (two shuffles), and m, l
+//   and the rescale of o by alpha = exp(m - m_new) stay in fp32 registers.
+//   A forward block owns 128 queries in 8 warps (104 KB of shared memory at
+//   D = 64): on the H100 it measured faster than dQ's 64 queries in 4 warps
+//   at D = 64 and 256 and as fast at 128, since it stages each K / V tile
+//   for twice the queries.
+// - Staging. Tiles of the other axis (k, v for the forward and dQ; q, do,
+//   lse, di for dK / dV) stream through a two-stage ring with cp.async:
+//   16-byte copies when D % 4 == 0 and the rows are 16-byte aligned, else
+//   4-byte ones; the next tile's copy overlaps the current tile's products.
+//   Rows have a stride of D + 4 floats (16-byte aligned; 4 mod 32 banks, so
+//   the fragment loads of a warp, 8 rows x 4 columns or 4 row pairs x 8
+//   columns, hit 32 banks). At D = 64 a dK / dV block takes 104 KB, two
+//   blocks per SM.
+// - Skipping masked key tiles. In an item with at least one valid key, a
+//   key tile whose keys are all masked changes no result, bit for bit. In
+//   the forward: once a valid key has been seen, a masked key's
+//   p = exp(-1e30 - m) is exactly 0 in fp32 and alpha = 1; masked tiles
+//   before the first valid one leave m = -1e30, and the first live tile's
+//   alpha = exp(-1e30 - m_new) = 0 exactly wipes what they summed. In the
+//   backward a masked key's p = exp(-1e30 - lse) is exactly 0. So the
+//   forward and dQ walk (and stage) only live key tiles, and a dK / dV block
+//   whose keys are all masked writes zeros and returns. Liveness is read
+//   from key_valid on the card (__syncthreads_or over a tile's flags), for
+//   any mask, not only suffixes. An item whose keys are all masked is never
+//   skipped: there every key scores -1e30, p = 1 and lse rounds to -1e30,
+//   as in the plain version. Without key_valid nothing is skipped.
 //
 // Masking: a key with key_valid < 0.5 scores -1e30 (finite, as in JAX), so a
 // query whose keys are all masked gets the mean of v over its Tk keys; keys
@@ -96,79 +100,11 @@
 #include <cstdint>
 #include <cmath>
 
+#include "tf32_mma.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;  // a 16 x 16 grid of threads over each score tile
 constexpr float kNegInf = -1e30f;
-
-// Rows [0, rows) of a row-major (., d) tensor into a BR x (DP + 1) shared
-// tile; rows past `rows` and columns past d are zero.
-template <int BR, int DP>
-__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src,
-                                          int rows, int d) {
-  constexpr int LD = DP + 1;
-  for (int e = threadIdx.x; e < BR * DP; e += kThreads) {
-    const int r = e / DP, c = e - r * DP;
-    dst[r * LD + c] =
-        (r < rows && c < d) ? __ldg(src + static_cast<size_t>(r) * d + c) : 0.f;
-  }
-}
-
-// s[i][j] = sum_c A[ty * RM + i][c] B[tx + 16 j][c] over one padded head width.
-template <int RM, int CN, int DP>
-__device__ __forceinline__ void dot_tile(const float* A, const float* B, int ty,
-                                         int tx, float (&s)[RM][CN]) {
-  constexpr int LD = DP + 1;
-#pragma unroll
-  for (int i = 0; i < RM; ++i)
-#pragma unroll
-    for (int j = 0; j < CN; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-  for (int c = 0; c < DP; ++c) {
-    float a[RM], b[CN];
-#pragma unroll
-    for (int i = 0; i < RM; ++i) a[i] = A[(ty * RM + i) * LD + c];
-#pragma unroll
-    for (int j = 0; j < CN; ++j) b[j] = B[(tx + 16 * j) * LD + c];
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < CN; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
-  }
-}
-
-// acc[i][j] += sum_c P[ty * RM + i][c] X[c][tx + 16 j], c < BC; P has row
-// stride BC + 1, X row stride DP + 1.
-template <int RM, int BC, int DP>
-__device__ __forceinline__ void acc_tile(const float* P, const float* X, int ty,
-                                         int tx, float (&acc)[RM][DP / 16]) {
-  constexpr int LD = DP + 1;
-#pragma unroll 4
-  for (int c = 0; c < BC; ++c) {
-    float p[RM];
-#pragma unroll
-    for (int i = 0; i < RM; ++i) p[i] = P[(ty * RM + i) * (BC + 1) + c];
-#pragma unroll
-    for (int j = 0; j < DP / 16; ++j) {
-      const float x = X[c * LD + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) acc[i][j] = fmaf(p[i], x, acc[i][j]);
-    }
-  }
-}
-
-// Reductions over the 16 threads of a tile row (the low four lane bits).
-__device__ __forceinline__ float row_max(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
 
 // The key's class: 0 attends, 1 is masked (scores -1e30), 2 lies past Tk.
 __device__ __forceinline__ int key_class(int col, int tk, const float* valid) {
@@ -180,103 +116,19 @@ __device__ __forceinline__ float masked_score(float dot, float scale, int cls) {
   return cls == 0 ? dot * scale : (cls == 1 ? kNegInf : -INFINITY);
 }
 
-// One block per (n * h, BQ-row query tile): o and, when lse is not null, the
-// row logsumexp, over BK-key tiles.
-template <int DP, int BQ, int BK>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const float* __restrict__ key_valid,
-                     float* __restrict__ o, float* __restrict__ lse, int heads,
-                     int tq, int tk, int d, float scale) {
-  constexpr int LD = DP + 1, RM = BQ / 16, CN = BK / 16, NJ = DP / 16;
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + BQ * LD;
-  float* Vs = Ks + BK * LD;
-  float* Ps = Vs + BK * LD;  // BQ x (BK + 1)
-
-  const int q_tiles = (tq + BQ - 1) / BQ;
-  const int b = blockIdx.x / q_tiles;
-  const int q0 = (blockIdx.x - b * q_tiles) * BQ;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const float* valid = key_valid ? key_valid + static_cast<size_t>(b / heads) * tk : nullptr;
-  const float* kb = k + static_cast<size_t>(b) * tk * d;
-  const float* vb = v + static_cast<size_t>(b) * tk * d;
-  load_tile<BQ, DP>(Qs, q + (static_cast<size_t>(b) * tq + q0) * d, tq - q0, d);
-
-  float m[RM], l[RM], acc[RM][NJ];
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < tk; k0 += BK) {
-    __syncthreads();  // the last tile's Ps and Vs are read
-    load_tile<BK, DP>(Ks, kb + static_cast<size_t>(k0) * d, tk - k0, d);
-    load_tile<BK, DP>(Vs, vb + static_cast<size_t>(k0) * d, tk - k0, d);
-    __syncthreads();
-    float s[RM][CN];
-    dot_tile<RM, CN, DP>(Qs, Ks, ty, tx, s);
-    int cls[CN];
-#pragma unroll
-    for (int j = 0; j < CN; ++j) cls[j] = key_class(k0 + tx + 16 * j, tk, valid);
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < CN; ++j) {
-        s[i][j] = masked_score(s[i][j], scale, cls[j]);
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row_max(mx));
-      const float alpha = expf(m[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < CN; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        sum += p;
-        Ps[(ty * RM + i) * (BK + 1) + tx + 16 * j] = p;
-      }
-      l[i] = l[i] * alpha + row_sum(sum);
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] *= alpha;
-    }
-    __syncthreads();
-    acc_tile<RM, BK, DP>(Ps, Vs, ty, tx, acc);
-  }
-
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int row = q0 + ty * RM + i;
-    if (row >= tq) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
-    float* orow = o + (static_cast<size_t>(b) * tq + row) * d;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int col = tx + 16 * j;
-      if (col < d) orow[col] = acc[i][j] / denom;
-    }
-    if (lse != nullptr && tx == 0) lse[static_cast<size_t>(b) * tq + row] = m[i] + logf(denom);
-  }
-}
-
-
-// ---- the backward: 3xTF32 mma.sync, cp.async two-stage ring ----
-
 constexpr int kBwdWarps = 4;
 constexpr int kBwdThreads = 32 * kBwdWarps;
+constexpr int kFwdWarps = 8;
+constexpr int kFwdThreads = 32 * kFwdWarps;
 
-// The backward's tiles at padded head width DP: SPLIT warps share each 16
-// rows of the block's own axis and split the head width of their
-// accumulators, so the block owns ROWS rows; BN rows of the other axis per
-// step; shared row stride LD.
-template <int DP, int SPLIT>
+// The tiles at padded head width DP for a block of WARPS warps: SPLIT warps
+// share each 16 rows of the block's own axis and split the head width of
+// their accumulators, so the block owns ROWS rows; BN rows of the other axis
+// per step; shared row stride LD. The forward takes dQ's split (one
+// accumulator of the head width, beside its partial) with kFwdWarps warps.
+template <int DP, int SPLIT, int WARPS = kBwdWarps>
 struct BwdTile {
-  static constexpr int ROWS = 16 * kBwdWarps / SPLIT;
+  static constexpr int ROWS = 16 * WARPS / SPLIT;
   static constexpr int BN = DP > 64 ? 32 : 64;
   static constexpr int LD = DP + 4;
   static constexpr int NT = BN / 8;           // 8-wide tiles of the other axis
@@ -288,90 +140,9 @@ struct BwdTile {
 __host__ __device__ constexpr int dkv_split(int dp) { return dp <= 64 ? 1 : dp <= 128 ? 2 : 4; }
 __host__ __device__ constexpr int dq_split(int dp) { return dp <= 128 ? 1 : 2; }
 
-// x = hi + lo as two TF32 operands. The tensor cores read only the top 19
-// bits of a TF32 operand (sign, exponent, 10 mantissa bits), so hi is x plus
-// half a TF32 ulp (x rounded to nearest once read) and lo the exact rest
-// x - hi, truncated to TF32 by the same read: |lo| <= 2^-11 |x| and the part
-// of lo that is lost <= 2^-21 |x|. Three integer / fp32 instructions, where
-// cvt.rna.tf32.f32 twice takes nine.
-__device__ __forceinline__ void split_tf32(float x, unsigned& hi, unsigned& lo) {
-  hi = __float_as_uint(x) + 0x1000u;
-  lo = __float_as_uint(x - __uint_as_float(hi & 0xffffe000u));
-}
-
-// c += a b on one m16n8k8 tile, TF32 operands, fp32 accumulator.
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4],
-                                         const unsigned (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// c += a b at fp32 accuracy: the three TF32 products, small ones first.
-__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const unsigned (&ah)[4],
-                                           const unsigned (&al)[4], const unsigned (&bh)[2],
-                                           const unsigned (&bl)[2]) {
-  mma_tf32(c, al, bh);
-  mma_tf32(c, ah, bl);
-  mma_tf32(c, ah, bh);
-}
-
-// c += a b with the three products summed in a fresh accumulator and added
-// to c in fp32 (round to nearest), so the accumulator's rounding toward zero
-// never compounds along c: s and dp, on which ds = p (dp - di) cancels.
-__device__ __forceinline__ void mma_3xtf32_rn(float (&c)[4], const unsigned (&ah)[4],
-                                              const unsigned (&al)[4], const unsigned (&bh)[2],
-                                              const unsigned (&bl)[2]) {
-  float t[4] = {0.f, 0.f, 0.f, 0.f};
-  mma_3xtf32(t, ah, al, bh, bl);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) c[e] += t[e];
-}
-
-// The A operand (16 x 8, rows r0.., columns c0..) of a row-major shared tile,
-// split: lane (g, t) holds rows g and g + 8 at columns t and t + 4.
-__device__ __forceinline__ void load_a(const float* s, int ld, int r0, int c0, int g, int t,
-                                       unsigned (&hi)[4], unsigned (&lo)[4]) {
-  const float* p = s + (r0 + g) * ld + c0 + t;
-  split_tf32(p[0], hi[0], lo[0]);
-  split_tf32(p[8 * ld], hi[1], lo[1]);
-  split_tf32(p[4], hi[2], lo[2]);
-  split_tf32(p[8 * ld + 4], hi[3], lo[3]);
-}
-
-// The B operand (8 x 8) with B[k][n] = s[n0 + n][c0 + k]: a transposed read
-// of rows n0.. (lane (g, t): row g, columns t and t + 4).
-__device__ __forceinline__ void load_bt(const float* s, int ld, int n0, int c0, int g, int t,
-                                        unsigned (&hi)[2], unsigned (&lo)[2]) {
-  const float* p = s + (n0 + g) * ld + c0 + t;
-  split_tf32(p[0], hi[0], lo[0]);
-  split_tf32(p[4], hi[1], lo[1]);
-}
-
-// The B operand with B[k][n] = s[r0 + perm(k)][c0 + n], the contraction
-// permuted as the accumulator layout gives it (k = t <-> row 2t, k = t + 4
-// <-> row 2t + 1).
-__device__ __forceinline__ void load_bp(const float* s, int ld, int r0, int c0, int g, int t,
-                                        unsigned (&hi)[2], unsigned (&lo)[2]) {
-  const float* p = s + (r0 + 2 * t) * ld + c0 + g;
-  split_tf32(p[0], hi[0], lo[0]);
-  split_tf32(p[ld], hi[1], lo[1]);
-}
-
-// The A operand from an accumulator tile c (rows g, g + 8; columns 2t, 2t + 1),
-// split, with the contraction permuted as load_bp reads B.
-__device__ __forceinline__ void acc_as_a(const float (&c)[4], unsigned (&hi)[4],
-                                         unsigned (&lo)[4]) {
-  split_tf32(c[0], hi[0], lo[0]);
-  split_tf32(c[2], hi[1], lo[1]);
-  split_tf32(c[1], hi[2], lo[2]);
-  split_tf32(c[3], hi[3], lo[3]);
-}
-
 // c[n] = the warp's 16 rows (r0..) of `a` times rows 8 n.. of `b`, over the
-// padded head width DP: s = K Q^T, dp = V dO^T for dK / dV, s = Q K^T,
-// dp = dO V^T for dQ.
+// padded head width DP: s = Q K^T for the forward, s = K Q^T, dp = V dO^T
+// for dK / dV, s = Q K^T, dp = dO V^T for dQ.
 template <int DP, int NT>
 __device__ __forceinline__ void row_products(const float* a, const float* b, int ld, int r0,
                                              int g, int t, float (&c)[NT][4]) {
@@ -394,7 +165,8 @@ __device__ __forceinline__ void row_products(const float* a, const float* b, int
 
 // part[n] += a b: the warp's accumulator tile `a` (16 rows x BN other-axis
 // columns, as row_products leaves it) as the A operand, times `b`'s rows
-// 0..BN at columns c0 + 8 n..: dV += p^T dO, dK += ds^T Q, dQ += ds K.
+// 0..BN at columns c0 + 8 n..: o += p V, dV += p^T dO, dK += ds^T Q,
+// dQ += ds K.
 template <int NT, int NC>
 __device__ __forceinline__ void tile_products(const float (&a)[NT][4], const float* b, int ld,
                                               int c0, int g, int t, float (&part)[NC][4]) {
@@ -411,42 +183,22 @@ __device__ __forceinline__ void tile_products(const float (&a)[NT][4], const flo
   }
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d), "l"(src), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, int bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(d), "l"(src), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-// Wait until at most one group of this thread's copies is in flight.
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;" ::: "memory");
-}
-
 // Rows [0, rows) of a row-major (., d) tensor into an R x (DP + 4) shared
 // tile, asynchronously; rows past `rows` and columns past d are zero-filled.
-// vec: d % 4 == 0 and 16-byte aligned rows, so 16-byte copies.
-template <int R, int DP>
+// vec: d % 4 == 0 and 16-byte aligned rows, so 16-byte copies. NTH: the
+// block's threads.
+template <int R, int DP, int NTH = kBwdThreads>
 __device__ __forceinline__ void stage_tile(float* dst, const float* __restrict__ src, int rows,
                                            int d, bool vec) {
   constexpr int LD = DP + 4;
   if (vec) {
-    for (int e = threadIdx.x; e < R * (DP / 4); e += kBwdThreads) {
+    for (int e = threadIdx.x; e < R * (DP / 4); e += NTH) {
       const int r = e / (DP / 4), c = 4 * (e - r * (DP / 4));
       const bool in = r < rows && c < d;
       cp_async16(dst + r * LD + c, in ? src + static_cast<size_t>(r) * d + c : src, in ? 16 : 0);
     }
   } else {
-    for (int e = threadIdx.x; e < R * DP; e += kBwdThreads) {
+    for (int e = threadIdx.x; e < R * DP; e += NTH) {
       const int r = e / DP, c = e - r * DP;
       const bool in = r < rows && c < d;
       cp_async4(dst + r * LD + c, in ? src + static_cast<size_t>(r) * d + c : src, in ? 4 : 0);
@@ -458,7 +210,7 @@ __device__ __forceinline__ void stage_tile(float* dst, const float* __restrict__
 // so every thread of the block calls it.
 __device__ __forceinline__ bool any_valid(const float* valid, int k0, int n, int tk) {
   bool any = false;
-  for (int e = threadIdx.x; e < n && k0 + e < tk; e += kBwdThreads)
+  for (int e = threadIdx.x; e < n && k0 + e < tk; e += blockDim.x)
     any = any || !(__ldg(valid + k0 + e) < 0.5f);
   return __syncthreads_or(any) != 0;
 }
@@ -469,18 +221,129 @@ __device__ __forceinline__ int next_live(const float* valid, int t, int tiles, i
   return t;
 }
 
-// acc += part, in fp32 with round to nearest: the tensor cores' accumulator
-// rounds toward zero, so each tile's products are summed apart and added
-// here, which keeps the biased rounding to one tile's chain of products.
-template <int NC>
-__device__ __forceinline__ void add_part(float (&acc)[NC][4], float (&part)[NC][4]) {
+// One block per (n * h, ROWS-row query tile): o and, when lse is not null,
+// the row logsumexp, over the live BN-key tiles.
+template <int DP>
+__global__ void __launch_bounds__(kFwdThreads)
+    flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ key_valid,
+                     float* __restrict__ o, float* __restrict__ lse, int heads, int tq,
+                     int tk, int d, float scale, int vec) {
+  using T = BwdTile<DP, dq_split(DP), kFwdWarps>;
+  constexpr int LD = T::LD, R = T::ROWS, BN = T::BN, NT = T::NT, NC = T::NC;
+  constexpr int STAGE = 2 * BN * LD;  // k, v of one key tile
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;
+  float* ring = Qs + R * LD;
+
+  const int q_tiles = (tq + R - 1) / R;
+  const int b = blockIdx.x / q_tiles;
+  const int q0 = (blockIdx.x - b * q_tiles) * R;
+  const int warp = threadIdx.x / 32, g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
+  const int r0 = 16 * (warp % (R / 16)), c0 = 8 * NC * (warp / (R / 16));
+  const float* valid = key_valid ? key_valid + static_cast<size_t>(b / heads) * tk : nullptr;
+  const float* kb = k + static_cast<size_t>(b) * tk * d;
+  const float* vb = v + static_cast<size_t>(b) * tk * d;
+  auto stage = [&](int kt, float* st) {
+    const int k0 = kt * BN;
+    stage_tile<BN, DP, kFwdThreads>(st, kb + static_cast<size_t>(k0) * d, tk - k0, d, vec);
+    stage_tile<BN, DP, kFwdThreads>(st + BN * LD, vb + static_cast<size_t>(k0) * d, tk - k0, d,
+                                    vec);
+  };
+
+  // Key tiles with no valid key are skipped when the item has a valid key
+  // (they change neither o nor lse); in an item with none, every key has
+  // p = 1 and no tile is skipped.
+  const int k_tiles = (tk + BN - 1) / BN;
+  int kt = valid != nullptr ? next_live(valid, 0, k_tiles, BN, tk) : 0;
+  const bool skip = kt < k_tiles && valid != nullptr;
+  if (!skip) kt = 0;
+  stage_tile<R, DP, kFwdThreads>(Qs, q + (static_cast<size_t>(b) * tq + q0) * d, tq - q0, d, vec);
+  stage(kt, ring);
+  cp_async_commit();
+
+  // rows g and g + 8 of the warp's 16: running max, denominator, o
+  float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f}, o_acc[NC][4], part[NC][4];
 #pragma unroll
   for (int n = 0; n < NC; ++n)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      acc[n][e] += part[n][e];
-      part[n][e] = 0.f;
+    for (int e = 0; e < 4; ++e) o_acc[n][e] = part[n][e] = 0.f;
+
+  for (int it = 0; kt < k_tiles; ++it) {
+    const int next = skip ? next_live(valid, kt + 1, k_tiles, BN, tk) : kt + 1;
+    if (next < k_tiles) stage(next, ring + ((it + 1) & 1) * STAGE);
+    cp_async_commit();
+    cp_async_wait_one();
+    __syncthreads();  // this tile's copies, from every thread, have landed
+    const float* Ks = ring + (it & 1) * STAGE;
+    const float* Vs = Ks + BN * LD;
+
+    // s = Q K^T scale, masked, on the warp's 16 queries x BN keys (rows g,
+    // g + 8; key columns 8 n + 2 t, + 1), and its row max over the quad
+    float s[NT][4];
+    row_products<DP>(Qs, Ks, LD, r0, g, t, s);
+    const int k0 = kt * BN;
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const int cls[2] = {key_class(k0 + 8 * n + 2 * t, tk, valid),
+                          key_class(k0 + 8 * n + 2 * t + 1, tk, valid)};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = masked_score(s[n][e], scale, cls[e & 1]);
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+      }
     }
+    float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m_r[i], mx[i]);
+      alpha[i] = expf(m_r[i] - m_new);
+      m_r[i] = m_new;
+    }
+    // p = exp(s - m) in place, its row sums, and o rescaled by alpha
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = expf(s[n][e] - m_r[e >> 1]);
+        sum[e >> 1] += s[n][e];
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
+      l_r[i] = l_r[i] * alpha[i] + sum[i];
+    }
+#pragma unroll
+    for (int n = 0; n < NC; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o_acc[n][e] *= alpha[e >> 1];
+    // o += P V over the tile's keys, in a fresh accumulator
+    tile_products(s, Vs, LD, c0, g, t, part);
+    add_part(o_acc, part);
+    __syncthreads();  // the stage is read before the next copy overwrites it
+    kt = next;
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + r0 + g + 8 * i;
+    if (row >= tq) continue;
+    const float denom = fmaxf(l_r[i], 1e-30f);
+    float* orow = o + (static_cast<size_t>(b) * tq + row) * d;
+#pragma unroll
+    for (int n = 0; n < NC; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = c0 + 8 * n + 2 * t + e;
+        if (col < d) orow[col] = o_acc[n][2 * i + e] / denom;
+      }
+    if (lse != nullptr && c0 == 0 && t == 0)
+      lse[static_cast<size_t>(b) * tq + row] = m_r[i] + logf(denom);
+  }
 }
 
 // One block per (n * h, ROWS-key tile): dK and dV over BN-row query tiles.
@@ -721,20 +584,21 @@ int launch(Kernel kernel, int threads, long long blocks, size_t smem, cudaStream
 
 long long tiles(int t, int tile) { return (t + tile - 1) / tile; }
 
-template <int DP>
-int forward(const Shape& s, const float* q, const float* k, const float* v,
-            const float* key_valid, float* o, float* lse, cudaStream_t st) {
-  constexpr int BQ = 64, BK = 64, LD = DP + 1;
-  const size_t smem = sizeof(float) * ((BQ + 2 * BK) * LD + BQ * (BK + 1));
-  return launch(flash_fwd_kernel<DP, BQ, BK>, kThreads, s.bh * tiles(s.tq, BQ), smem, st, q, k,
-                v, key_valid, o, lse, s.heads, s.tq, s.tk, s.d, s.scale);
-}
-
 // 16-byte copies need d % 4 == 0 and 16-byte aligned tensors.
 int vec_rows(int d, const float* q, const float* k, const float* v, const float* dout) {
   const auto bits = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                     reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout);
   return d % 4 == 0 && bits % 16 == 0;
+}
+
+template <int DP>
+int forward(const Shape& s, const float* q, const float* k, const float* v,
+            const float* key_valid, float* o, float* lse, cudaStream_t st) {
+  using T = BwdTile<DP, dq_split(DP), kFwdWarps>;
+  const size_t smem = sizeof(float) * (T::ROWS * T::LD + 2 * (2 * T::BN * T::LD));
+  return launch(flash_fwd_kernel<DP>, kFwdThreads, s.bh * tiles(s.tq, T::ROWS), smem, st, q, k,
+                v, key_valid, o, lse, s.heads, s.tq, s.tk, s.d, s.scale,
+                vec_rows(s.d, q, k, v, q));
 }
 
 template <int DP>

@@ -18,7 +18,8 @@
 // channel) and conv_post (one output channel) are bound by bytes.
 //
 // What the design does about it: each of the three is one implicit GEMM per
-// group, tiled for the CUDA cores in fp32 (no tensor cores yet). A block owns a
+// group. The forward, dx, and dw of layers with fewer than 16 output channels
+// per group run conv_gemm_kernel, tiled for the CUDA cores in fp32. A block owns a
 // BM x BN tile of the GEMM's output: rows are output channels (forward, dw) or
 // input channels (dx); columns are (item, time) flattened (forward, dx), so
 // short sequences still fill a tile, or (channel, tap) pairs (dw). The
@@ -41,14 +42,49 @@
 // stride are never visited and the inner loop has no branch on them
 // (K = 41 at stride 4: 10 or 11 taps per phase).
 //
-// dw is deterministic: the (item, time) reduction is cut into `splits` fixed
-// chunks; each block writes its partial tile to scratch, and a second pass of
-// the same entry point sums the chunks in a fixed order. No float atomics, so a
-// rerun is bit-identical.
+// dw of layers with at least 16 output channels per group (every critic
+// layer but conv_post, every upsample's mirror conv) runs conv_dw_kernel on
+// the tensor cores at fp32 accuracy: 3xTF32 mma.sync m16n8k8 (tf32_mma.cuh),
+// each operand split into a TF32 hi and lo and three products per pair, so
+// the bound is 3 FLOPs at the 495 TFLOP/s TF32 rate where the CUDA cores'
+// is one at 67 TFLOP/s. Rows are output channels, columns (input channel,
+// tap) pairs, and the reduction runs over (item, time) positions in 32-deep
+// stages. The A tile (gy rows, contiguous in time) and the B tile (x gathered
+// with the conv's index map, zero padding from cp.async's zero-fill, no
+// im2col copy) stream through a two-stage cp.async ring with one barrier per
+// stage. gy arrives in 16-byte copies: where t_out % 4 != 0 or gy is not
+// 16-byte aligned (the period critics, the scale critics below full rate),
+// the entry point first pads its rows to a multiple of 4 in scratch, which
+// measured a quarter faster on those layers than 4-byte copies of gy and
+// costs one pass over gy. Each stage's products go to a fresh accumulator added in fp32
+// (add_part): the tensor cores' accumulator rounds toward zero, and one
+// chain over thousands of positions would carry that bias into the result.
+// A block is 4 warps over a 128 x 64, 64 x 64, 32 x 128 or 16 x 256 tile
+// (by the rows per group), each warp 4 x 4, 2 x 4, 2 x 4 or 1 x 8 mma tiles;
+// rows of the shared tiles are padded (32 + 4 and BN + 8 floats) so that
+// every fragment load hits 32 banks. Below 16 rows an m16 tile would waste
+// most of its rows (conv_post has one), so those layers keep
+// conv_gemm_kernel, whose one-row tile splits the reduction over 8 slices.
+// On the H100 the instructions that stage and split its operands hold it
+// back, not the tensor cores: a variant without the products kept about two
+// thirds of the time. Every element of x arrives by its own 4-byte cp.async
+// with its index arithmetic, and every operand is split for each warp that
+// reads it; 128-row tiles (fewer copies per product) measured faster than
+// 64-row ones from 128 rows on, and 8-warp 128 x 128 tiles or a deeper ring
+// slower over the critics' layers.
+//
+// dw is deterministic on both kernels: the (item, time) reduction is cut into
+// `splits` fixed chunks; each block writes its partial tile to scratch, and a
+// second pass of the same entry point sums the chunks in a fixed order. No
+// float atomics, so a rerun is bit-identical.
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstddef>
+#include <cstdint>
+
+#include "tf32_mma.cuh"
 
 namespace {
 
@@ -370,6 +406,170 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
+// ---- the weight gradient on the tensor cores ----
+
+constexpr int kDwBK = 32;       // (item, time) positions per stage
+constexpr int kDwMinRows = 16;  // rows per group from which dw takes conv_dw_kernel
+
+// conv_dw_kernel's BM x BN block tile: WM x WN warps (NTH threads), each MI
+// 16-row by NJ 8-column mma tiles; shared tiles As[row][position] (row
+// stride LDA) and Bs[position][column] (LDB), STAGE floats per ring stage.
+template <int BM, int BN, int WM, int WN>
+struct DwTile {
+  static constexpr int NTH = 32 * WM * WN;
+  static constexpr int MI = BM / WM / 16;
+  static constexpr int NJ = BN / WN / 8;
+  static constexpr int LDA = kDwBK + 4;
+  static constexpr int LDB = BN + 8;
+  static constexpr int STAGE = BM * LDA + kDwBK * LDB;
+  static_assert(MI >= 1 && NJ >= 1 && MI * WM * 16 == BM && NJ * WN * 8 == BN, "bad dw tile");
+};
+
+// One BM x BN tile of one group's dw over one split's positions [split *
+// chunk, min(n * t_out, (split + 1) * chunk)); out = dw (cout, cg, k), or the
+// partial sums (splits, cout, cg, k). blockIdx.z = group * splits + split.
+// gy's rows are whole 16-byte pieces: t_out % 4 == 0, gy 16-byte aligned.
+template <int BM, int BN, int WM, int WN>
+__global__ void __launch_bounds__(32 * WM * WN)
+    conv_dw_kernel(Geom g, const float* __restrict__ gy, const float* __restrict__ x,
+                   float* __restrict__ out, int splits, int chunk) {
+  using T = DwTile<BM, BN, WM, WN>;
+  constexpr int BK = kDwBK, LDA = T::LDA, LDB = T::LDB, MI = T::MI, NJ = T::NJ;
+  constexpr int NTH = T::NTH;
+  constexpr int CT = BN > NTH ? BN / NTH : 1;  // columns a thread gathers
+  constexpr int PR = BN > NTH ? 1 : NTH / BN;  // its positions' spacing
+  extern __shared__ __align__(16) float smem[];
+
+  const int cg = g.cin / g.groups, cog = g.cout / g.groups, ncols = cg * g.k;
+  const int grp = blockIdx.z / splits, split = blockIdx.z % splits;
+  const int m_base = blockIdx.y * BM, c_base = blockIdx.x * BN;
+  const int r_begin = split * chunk;
+  const int r_end = min(g.n * g.t_out, r_begin + chunk);
+  const int tid = threadIdx.x;
+
+  // The B columns this thread gathers: x channel offset and tap offset d m - p
+  const int b_p0 = BN > NTH ? 0 : tid / BN;
+  size_t ch_off[CT];
+  int tap[CT];
+  bool col_ok[CT];
+#pragma unroll
+  for (int j = 0; j < CT; ++j) {
+    const int c = c_base + tid % BN + j * NTH;
+    col_ok[j] = c < ncols;
+    const int ci = col_ok[j] ? c / g.k : 0, m = col_ok[j] ? c - ci * g.k : 0;
+    ch_off[j] = static_cast<size_t>(grp * cg + ci) * g.t_in;
+    tap[j] = g.dil * m - g.pad;
+  }
+  const size_t item_x = static_cast<size_t>(g.cin) * g.t_in;
+  const size_t item_gy = static_cast<size_t>(g.cout) * g.t_out;
+  const float* gy_rows = gy + static_cast<size_t>(grp * cog + m_base) * g.t_out;
+
+  auto stage = [&](int r, float* st) {
+    float* As = st;
+    float* Bs = st + BM * LDA;
+    // A: gy[n, row, t .. t + 3] at positions r + pl .. + 3 (one item, as
+    // t_out % 4 == 0) -> As[row][pl ..]; each thread keeps one position
+    // quad (pl) and walks rows
+    {
+      constexpr int U = BK / 4;  // 16-byte copies per row
+      const int pl = 4 * (tid % U);
+      const int pos = r + pl;
+      const bool pos_ok = pos < r_end;
+      const int n_ = pos_ok ? pos / g.t_out : 0;
+      const float* src = gy_rows + n_ * item_gy + (pos_ok ? pos - n_ * g.t_out : 0);
+      for (int row = tid / U; row < BM; row += NTH / U) {
+        const bool ok = pos_ok && m_base + row < cog;
+        cp_async16(As + row * LDA + pl, ok ? src + static_cast<size_t>(row) * g.t_out : gy,
+                   ok ? 16 : 0);
+      }
+    }
+    // B: x[n, ci, t s + d m - p] at position r + b_p0 + PR i -> Bs[pos][col]
+    int pos = r + b_p0;
+    int n_ = pos / g.t_out, t_ = pos - n_ * g.t_out;
+#pragma unroll 4
+    for (int i = 0; i < BK / PR; ++i) {
+      const bool pos_ok = pos < r_end;
+      const float* xb = x + n_ * item_x;
+#pragma unroll
+      for (int j = 0; j < CT; ++j) {
+        const int u = t_ * g.stride + tap[j];
+        const bool ok = pos_ok && col_ok[j] && u >= 0 && u < g.t_in;
+        cp_async4(Bs + (b_p0 + PR * i) * LDB + tid % BN + j * NTH,
+                  ok ? xb + ch_off[j] + u : x, ok ? 4 : 0);
+      }
+      pos += PR;
+      t_ += PR;
+      while (t_ >= g.t_out) {
+        t_ -= g.t_out;
+        ++n_;
+      }
+    }
+  };
+
+  const int warp = tid / 32, gl = (tid % 32) / 4, tl = tid % 4;
+  const int wr0 = 16 * MI * (warp % WM), wc0 = 8 * NJ * (warp / WM);
+  float acc[MI * NJ][4], part[MI * NJ][4];
+#pragma unroll
+  for (int i = 0; i < MI * NJ; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = part[i][e] = 0.f;
+
+  // The ring: stage it + 1 is copied while stage it is multiplied. One
+  // barrier per stage: after it, every thread has landed stage it's copies
+  // and finished reading stage it - 1, whose buffer the next copy takes.
+  const int steps = (r_end - r_begin + BK - 1) / BK;
+  stage(r_begin, smem);
+  cp_async_commit();
+  for (int it = 0; it < steps; ++it) {
+    cp_async_wait<0>();
+    __syncthreads();
+    if (it + 1 < steps) stage(r_begin + (it + 1) * BK, smem + ((it + 1) & 1) * T::STAGE);
+    cp_async_commit();
+    const float* As = smem + (it & 1) * T::STAGE;
+    const float* Bs = As + BM * LDA;
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 8) {
+      unsigned ah[MI][4], al[MI][4];
+#pragma unroll
+      for (int i = 0; i < MI; ++i) load_a(As, LDA, wr0 + 16 * i, kk, gl, tl, ah[i], al[i]);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        unsigned bh[2], bl[2];
+        load_b(Bs, LDB, kk, wc0 + 8 * j, gl, tl, bh, bl);
+#pragma unroll
+        for (int i = 0; i < MI; ++i) mma_3xtf32(part[i * NJ + j], ah[i], al[i], bh, bl);
+      }
+    }
+    add_part(acc, part);
+  }
+
+  float* base = out + static_cast<size_t>(split) * g.cout * ncols +
+                static_cast<size_t>(grp * cog + m_base) * ncols + c_base;
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = wr0 + 16 * i + gl + 8 * (e >> 1);
+        const int col = wc0 + 8 * j + 2 * tl + (e & 1);
+        if (m_base + row < cog && c_base + col < ncols)
+          base[static_cast<size_t>(row) * ncols + col] = acc[i * NJ + j][e];
+      }
+}
+
+// dst (rows, t_pad) = src (rows, t) with each row zero-padded to t_pad.
+__global__ void pad_rows_kernel(const float* __restrict__ src, float* __restrict__ dst,
+                                size_t rows, int t, int t_pad) {
+  const size_t count = rows * t_pad;
+  for (size_t e = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; e < count;
+       e += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    const size_t r = e / t_pad;
+    const int c = static_cast<int>(e - r * t_pad);
+    dst[e] = c < t ? src[r * t + c] : 0.f;
+  }
+}
+
 // dw[e] = sum over the splits of part[split, e], in split order.
 __global__ void sum_splits_kernel(const float* __restrict__ part,
                                   float* __restrict__ dw, size_t count,
@@ -400,8 +600,8 @@ int launch(const Geom& g, int rows, int ncols, int grid_z, const float* a,
 // tile's work and feeds twice the FMAs from each shared load; counted 1.25x
 // faster per FMA, it is taken unless it needs nearly as many waves of blocks
 // over the SMs (MSD L5 at scale 1: 136 blocks for 132 SMs take 2 waves, as do
-// 264 blocks of 128 x 64 at half the work each); dw takes 128 x 64, its
-// reduction split supplies the blocks. One
+// 264 blocks of 128 x 64 at half the work each). dw comes here only below
+// kDwMinRows rows. One
 // row (cg = 1 at dx of the first layers, cout = 1 at conv_post) takes 32
 // columns per block and splits the reduction over 8 slices of a warp each:
 // conv_post has few columns and a long reduction, which wide tiles would
@@ -423,7 +623,7 @@ int dispatch(const Geom& g, int rows, int ncols, int grid_z, const float* a,
   return launch<MODE, BM, BN, TM, TN, kThreads, KS>(                         \
       g, rows, ncols, grid_z, a, b, bias, out, has_slope, slope, splits, chunk, \
       stream)
-  if (rows >= 128 && MODE != kDw && 8 * waves(128, 128) <= 5 * waves(128, 64))
+  if (rows >= 128 && 8 * waves(128, 128) <= 5 * waves(128, 64))
     PSTT_LAUNCH(128, 128, 8, 8, 1);
   if (rows >= 128) PSTT_LAUNCH(128, 64, 8, 4, 1);
   if (rows >= 64) PSTT_LAUNCH(64, 64, 4, 4, 1);
@@ -432,6 +632,34 @@ int dispatch(const Geom& g, int rows, int ncols, int grid_z, const float* a,
   if (rows >= 2) PSTT_LAUNCH(8, 256, 2, 4, 1);
   PSTT_LAUNCH(1, 32, 1, 1, 8);
 #undef PSTT_LAUNCH
+}
+
+template <int BM, int BN, int WM, int WN>
+int launch_dw(const Geom& g, const float* gy, const float* x, float* out, int splits,
+              int chunk, cudaStream_t stream) {
+  using T = DwTile<BM, BN, WM, WN>;
+  const int rows = g.cout / g.groups, ncols = (g.cin / g.groups) * g.k;
+  const dim3 grid((ncols + BN - 1) / BN, (rows + BM - 1) / BM, g.groups * splits);
+  if (grid.y > 65535u || grid.z > 65535u)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  const size_t smem = sizeof(float) * 2 * T::STAGE;
+  const cudaError_t err = cudaFuncSetAttribute(
+      conv_dw_kernel<BM, BN, WM, WN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  conv_dw_kernel<BM, BN, WM, WN><<<grid, T::NTH, smem, stream>>>(g, gy, x, out, splits, chunk);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// conv_dw_kernel's tile by rows per group (>= kDwMinRows). Keep in step with
+// ops/cuda/grouped_conv.py::dw_tile.
+int dispatch_dw(const Geom& g, const float* gy, const float* x, float* out, int splits,
+                int chunk, cudaStream_t stream) {
+  const int rows = g.cout / g.groups;
+  if (rows >= 128) return launch_dw<128, 64, 2, 2>(g, gy, x, out, splits, chunk, stream);
+  if (rows >= 64) return launch_dw<64, 64, 2, 2>(g, gy, x, out, splits, chunk, stream);
+  if (rows >= 32) return launch_dw<32, 128, 1, 4>(g, gy, x, out, splits, chunk, stream);
+  return launch_dw<16, 256, 1, 4>(g, gy, x, out, splits, chunk, stream);
 }
 
 bool valid_geom(const Geom& g) {
@@ -480,9 +708,13 @@ extern "C" int grouped_conv_input_grad(const float* gy, const float* w,
 }
 
 // dw (cout, cin / groups, k) of the conv above from x and gy. With splits > 1,
-// scratch holds splits * cout * (cin / groups) * k floats: the reduction over
-// n * t_out is cut into splits chunks whose partial sums a second pass adds in
-// a fixed order (deterministic, no atomics).
+// scratch starts with splits * cout * (cin / groups) * k floats, rounded up
+// to a multiple of 4: the reduction over n * t_out is cut into splits chunks
+// whose partial sums a second pass adds in a fixed order (deterministic, no
+// atomics). With cout / groups >= 16 (the tensor-core kernel), when t_out % 4
+// != 0 or gy is not 16-byte aligned, n * cout * round_up(t_out, 4) floats
+// follow (at the start when splits == 1): gy with its rows zero-padded, which
+// the kernel copies in 16-byte pieces (padded positions add zero products).
 extern "C" int grouped_conv_weight_grad(const float* x, const float* gy,
                                         float* dw, float* scratch, int n,
                                         int cin, int t_in, int cout, int t_out,
@@ -491,16 +723,40 @@ extern "C" int grouped_conv_weight_grad(const float* x, const float* gy,
   const Geom g{n, cin, t_in, cout, t_out, k, stride, pad, dil, groups};
   if (!valid_geom(g) || splits < 1 || (splits > 1 && scratch == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int q_total = n * t_out;
-  int chunk = (q_total + splits - 1) / splits;
-  chunk = (chunk + kBK - 1) / kBK * kBK;
-  const int used = (q_total + chunk - 1) / chunk;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* target = used > 1 ? scratch : dw;
-  int err = dispatch<kDw>(g, cout / groups, (cin / groups) * k, groups * used,
-                          gy, x, nullptr, target, 0, 0.f, used, chunk, st);
-  if (err != 0 || used == 1) return err;
+  // the tensor-core kernel from kDwMinRows rows per group, its chunks whole
+  // 32-position stages, on gy padded where its rows are not whole 16-byte
+  // pieces; below, the CUDA-core kernel in 16-position chunks
+  const bool tc = cout / groups >= kDwMinRows;
+  const bool padded = tc && (t_out % 4 != 0 || reinterpret_cast<uintptr_t>(gy) % 16 != 0);
+  Geom ga = g;
+  if (padded) ga.t_out = (t_out + 3) / 4 * 4;
+  if ((padded && scratch == nullptr) || static_cast<long long>(n) * ga.t_out >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
   const size_t count = static_cast<size_t>(cout) * (cin / groups) * k;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* a = gy;
+  if (padded) {
+    float* gyp = scratch + (splits > 1 ? (splits * count + 3) / 4 * 4 : 0);
+    if (reinterpret_cast<uintptr_t>(gyp) % 16 != 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const size_t rows = static_cast<size_t>(n) * cout;
+    const size_t blocks = std::min<size_t>(4096, (rows * ga.t_out + 255) / 256);
+    pad_rows_kernel<<<static_cast<unsigned>(blocks), 256, 0, st>>>(gy, gyp, rows, t_out,
+                                                                   ga.t_out);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    a = gyp;
+  }
+  const int depth = tc ? kDwBK : kBK;
+  const int q_total = n * ga.t_out;
+  int chunk = (q_total + splits - 1) / splits;
+  chunk = (chunk + depth - 1) / depth * depth;
+  const int used = (q_total + chunk - 1) / chunk;
+  float* target = used > 1 ? scratch : dw;
+  int err = tc ? dispatch_dw(ga, a, x, target, used, chunk, st)
+               : dispatch<kDw>(g, cout / groups, (cin / groups) * k, groups * used,
+                               gy, x, nullptr, target, 0, 0.f, used, chunk, st);
+  if (err != 0 || used == 1) return err;
   const int threads = 256;
   size_t blocks = (count + threads - 1) / threads;
   if (blocks > 4096) blocks = 4096;

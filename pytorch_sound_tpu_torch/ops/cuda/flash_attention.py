@@ -18,11 +18,12 @@ or raises. On the CPU :func:`flash_attention_trainable` is autograd through
 the plain forward.
 
 The kernels take every head width D <= 256, pick their own tiles and give
-fp32 results (the backward on the tensor cores as 3xTF32), so JAX's tile,
-interpret and precision arguments have no counterpart here. The backward
-kernels skip a key tile whose keys are all masked when its item has a valid
-key (there p = 0 exactly); :func:`live_key_tiles` reckons which tiles they
-process.
+fp32 results (on the tensor cores as 3xTF32), so JAX's tile, interpret and
+precision arguments have no counterpart here. All three kernels skip a key
+tile whose keys are all masked when its item has a valid key (there p = 0
+exactly, and the forward's result is bit for bit the same);
+:func:`live_key_tiles` reckons which tiles they process, at the tile sizes
+:func:`forward_key_tile` and :func:`backward_key_tiles` give.
 
 A query row whose keys are all masked gets the mean of v over its Tk keys
 (softmax of a row of equal -1e30 scores). JAX's padded kernel averages over
@@ -85,17 +86,27 @@ def attention_dq_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.matmul(_probs_and_ds(q, k, v, key_valid, dout, lse, di)[1], k)
 
 
+def _padded(d: int) -> int:
+    return next(p for p in (16, 32, 64, 128, 192, 256) if d <= p)
+
+
+def forward_key_tile(d: int) -> int:
+    """Keys per step of the forward kernel at head width ``d`` (its
+    ``BwdTile<DP, dq_split(DP), kFwdWarps>::BN``)."""
+    return 32 if _padded(d) > 64 else 64
+
+
 def backward_key_tiles(d: int) -> Tuple[int, int]:
     """Keys per tile of the dK / dV kernel (the keys a block owns) and of the
     dQ kernel (the keys it walks per step) at head width ``d``, as the
     kernels' ``BwdTile`` picks them from the padded width."""
-    dp = next(p for p in (16, 32, 64, 128, 192, 256) if d <= p)
+    dp = _padded(d)
     return 64 // (1 if dp <= 64 else 2 if dp <= 128 else 4), 32 if dp > 64 else 64
 
 
 def live_key_tiles(key_valid: torch.Tensor, tile: int) -> torch.Tensor:
     """(N, ceil(Tk / tile)) bool: the ``tile``-key tiles of ``key_valid``
-    (N, Tk) that the backward kernels process. A tile is skipped when none of
+    (N, Tk) that the kernels process. A tile is skipped when none of
     its keys is valid (key_valid >= 0.5) and its item has a valid key; an
     item with no valid key keeps every tile, since there each masked key has
     p = 1."""

@@ -11,7 +11,9 @@ a launch counter:
 - :func:`conv1d_input_grad`: the input gradient of that conv from its
   cotangent, with an optional bias and slope in the epilogue, which makes it
   also the forward of ConvTranspose1d (K6a, dx and convT);
-- :func:`conv1d_weight_grad`: the weight gradient, deterministic (K6b).
+- :func:`conv1d_weight_grad`: the weight gradient, deterministic (K6b): on
+  the tensor cores (3xTF32) from ``DW_TC_MIN_ROWS`` output channels per
+  group, on the CUDA cores below (:func:`dw_kernel`).
 
 Each dispatches on the tensor's device: on the CPU it runs its plain version
 (``F.conv1d``, ``torch.nn.grad.conv1d_input``, ``torch.nn.grad.conv1d_weight``),
@@ -36,6 +38,7 @@ from pytorch_sound_tpu_torch.ops.cuda import _build
 SOURCE = 'pytorch_sound_tpu_torch/csrc/grouped_conv.cu'
 DW_BLOCKS_PER_SM = 8        # the weight gradient's split aims at this many blocks
 DW_MIN_CHUNK = 256          # (item, time) positions per split at least
+DW_TC_MIN_ROWS = 16         # output channels per group from which dw runs on the tensor cores
 
 
 def conv_out_len(t_in: int, kernel_size: int, stride: int = 1, padding: int = 0,
@@ -174,14 +177,35 @@ def conv1d_input_grad(gy: torch.Tensor, w: torch.Tensor, t_in: int,
 conv1d_input_grad.launches = 0
 
 
+def dw_kernel(rows: int) -> str:
+    """The CUDA kernel that computes the weight gradient for ``rows`` output
+    channels per group: ``conv_dw_kernel`` (tensor cores) from
+    ``DW_TC_MIN_ROWS`` on, ``conv_gemm_kernel`` (CUDA cores) below, where an
+    m16 tile would waste most of its rows (conv_post has one)."""
+    return 'conv_dw_kernel' if rows >= DW_TC_MIN_ROWS else 'conv_gemm_kernel'
+
+
 def dw_tile(rows: int):
     """(rows, columns) of the weight-gradient kernel's block tile for
-    ``rows`` output channels per group (``dispatch`` in the CUDA source)."""
+    ``rows`` output channels per group (``dispatch_dw`` and ``dispatch`` in
+    the CUDA source)."""
     for least, tile in ((128, (128, 64)), (64, (64, 64)), (32, (32, 128)),
                         (16, (16, 256)), (2, (8, 256))):
         if rows >= least:
             return tile
     return 1, 32
+
+
+def dw_scratch(cout: int, cg: int, k: int, groups: int, n: int, t_out: int, splits: int,
+               gy_aligned: bool) -> int:
+    """Floats of scratch the weight-gradient entry point takes: the splits'
+    partial sums when ``splits`` > 1 (rounded up to a multiple of 4), then,
+    on the tensor-core kernel when gy's rows are not whole 16-byte pieces
+    (``t_out % 4`` or a misaligned gy), gy with its rows zero-padded to a
+    multiple of 4 (``grouped_conv_weight_grad`` in the CUDA source)."""
+    partials = -(-splits * cout * cg * k // 4) * 4 if splits > 1 else 0
+    padded = dw_kernel(cout // groups) == 'conv_dw_kernel' and (t_out % 4 or not gy_aligned)
+    return partials + (n * cout * -(-t_out // 4) * 4 if padded else 0)
 
 
 def dw_splits(cout: int, cg: int, k: int, groups: int, positions: int, sms: int) -> int:
@@ -215,8 +239,8 @@ def conv1d_weight_grad(x: torch.Tensor, gy: torch.Tensor, w_shape: Sequence[int]
     splits = dw_splits(cout, cg, k, groups, n * gy.shape[2],
                        torch.cuda.get_device_properties(x.device).multi_processor_count)
     dw = torch.empty((cout, cg, k), dtype=torch.float32, device=x.device)
-    scratch = (torch.empty(splits * dw.numel(), dtype=torch.float32, device=x.device)
-               if splits > 1 else None)
+    floats = dw_scratch(cout, cg, k, groups, n, gy.shape[2], splits, gy.data_ptr() % 16 == 0)
+    scratch = torch.empty(floats, dtype=torch.float32, device=x.device) if floats else None
     with torch.cuda.device(x.device):
         code = _build.library().grouped_conv_weight_grad(
             x.data_ptr(), gy.data_ptr(), dw.data_ptr(), _ptr(scratch), n, cin, t_in,

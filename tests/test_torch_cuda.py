@@ -346,3 +346,79 @@ def test_flash_backward_skips_masked_tiles(card, t, d, spans):
         for a, b in pairs:
             kv[i, a:b] = 1.0
     _hold_flash_backward(fa, q, k, v, kv, g)
+
+
+@pytest.mark.parametrize('tq,tk,d', [
+    (130, 200, 16), (77, 300, 32), (500, 1000, 64), (200, 130, 128), (96, 333, 160),
+    (65, 257, 256),
+])
+def test_flash_forward_skips_masked_tiles(card, tq, tk, d):
+    """The forward kernel (o and lse) against its plain version at Tq != Tk:
+    an item whose first key tiles are all masked (skipped; the first live
+    tile's alpha = 0), an item with every key masked (the mean of v, no tile
+    skipped), interior masked tiles, one valid key at the end, and no mask.
+    K5a's ``lse=None`` gives the same o, and a rerun is bit-identical."""
+    from pytorch_sound_tpu_torch.ops.cuda import flash_attention as fa
+    g = torch.Generator(device=card).manual_seed(tq + tk + d)
+    q = torch.randn((4, 2, tq, d), generator=g, device=card)
+    k, v = (torch.randn((4, 2, tk, d), generator=g, device=card) for _ in range(2))
+    spans = (((tk // 2, tk),), (), ((0, 5), (tk - 3, tk)), ((tk - 1, tk),))
+    kv = torch.zeros((4, tk), device=card)
+    for i, pairs in enumerate(spans):
+        for a, b in pairs:
+            kv[i, a:b] = 1.0
+    assert not bool(fa.live_key_tiles(kv, fa.forward_key_tile(d))[0, 0])
+    for mask in (kv, None):
+        before = fa.attention_forward.launches
+        o, lse = fa.attention_forward(q, k, v, mask)
+        o_ref, lse_ref = fa.attention_reference(q, k, v, mask)
+        o_only, none = fa.attention_forward(q, k, v, mask, with_lse=False)
+        assert fa.attention_forward.launches == before + 2 and none is None
+        for got, ref in ((o, o_ref), (lse, lse_ref)):
+            assert got.shape == ref.shape
+            assert float((got - ref).abs().max() / ref.abs().max()) <= FLASH_FWD_TOL
+        assert torch.equal(o_only, o)
+        again = fa.attention_forward(q, k, v, mask)
+        assert torch.equal(again[0], o) and torch.equal(again[1], lse)
+    mean_v = v[1].mean(dim=1, keepdim=True).expand_as(o_ref[1])
+    assert float((fa.attention_forward(q, k, v, kv)[0][1] - mean_v).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize('n,ci,co,k,s,g,dil,p,t,misaligned', [
+    (4, 64, 1, 3, 1, 1, 1, 1, 300, False),       # conv_post's one row: CUDA cores
+    (2, 16, 8, 5, 1, 1, 1, 2, 201, False),       # 8 rows: CUDA cores
+    (4, 64, 64, 41, 2, 4, 1, 20, 1000, False),   # 16 rows, t_out % 4 == 0: 16-byte gy copies
+    (4, 128, 256, 41, 4, 8, 1, 20, 1001, False),  # 32 rows, t_out = 251
+    (2, 128, 128, 5, 1, 1, 1, 2, 777, False),    # 128 rows
+    (3, 32, 64, 7, 2, 2, 3, 9, 500, False),      # stride 2, dilation 3
+    (2, 64, 128, 9, 4, 4, 2, 8, 1003, False),    # stride 4, dilation 2
+    (2, 64, 64, 41, 2, 4, 1, 20, 1000, True),    # x and gy 4 bytes off 16-byte alignment
+    (2, 3, 17, 5, 1, 1, 1, 2, 301, False),       # 17 rows, an odd partial-sum count, t_out 301
+])
+def test_weight_grad_kernels_match_plain(card, n, ci, co, k, s, g, dil, p, t, misaligned):
+    """dw on both kernels (the tensor cores from DW_TC_MIN_ROWS rows per
+    group, the CUDA cores below) against the plain version, reruns
+    bit-identical, at geometries on each side of the route; where t_out % 4
+    != 0 or gy is misaligned the tensor-core route pads gy in scratch."""
+    from pytorch_sound_tpu_torch.ops.cuda import grouped_conv as gc
+    rng = np.random.default_rng(n * ci + co + k + t)
+
+    def arr(*shape):
+        a = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(card)
+        if misaligned:          # a contiguous view one float into its storage
+            a = torch.cat([a.new_zeros(1), a.reshape(-1)])[1:].view(shape)
+            assert a.data_ptr() % 16 != 0
+        return a
+
+    conf = dict(stride=s, padding=p, groups=g, dilation=dil)
+    t_out = gc.conv_out_len(t, k, s, p, dil)
+    x, gy = arr(n, ci, t), arr(n, co, t_out)
+    shape = (co, ci // g, k)
+    before = gc.conv1d_weight_grad.launches
+    dw = gc.conv1d_weight_grad(x, gy, shape, **conf)
+    ref = gc.conv1d_weight_grad_reference(x, gy, shape, **conf)
+    assert torch.equal(dw, gc.conv1d_weight_grad(x, gy, shape, **conf))
+    assert gc.conv1d_weight_grad.launches == before + 2
+    assert gc.dw_kernel(co // g) == ('conv_dw_kernel' if co // g >= 16 else 'conv_gemm_kernel')
+    assert dw.shape == ref.shape
+    assert float((dw - ref).abs().max() / ref.abs().max()) <= GC_GRAD_TOL

@@ -100,7 +100,8 @@ def test_backward_key_tiles_follow_the_kernel_source():
 
     dkv_split = rule(r'constexpr int dkv_split\(int dp\) \{ return (.*?); \}')
     bn = rule(r'static constexpr int BN = (.*?);')
-    assert 'ROWS = 16 * kBwdWarps / SPLIT' in src and 'kBwdWarps = 4' in src
+    assert 'ROWS = 16 * WARPS / SPLIT' in src and 'int WARPS = kBwdWarps' in src
+    assert 'kBwdWarps = 4' in src
     for d in (1, 16, 17, 32, 64, 65, 128, 160, 192, 256):
         dp = next(p for p in (16, 32, 64, 128, 192, 256) if d <= p)
         assert fa.backward_key_tiles(d) == (64 // dkv_split(dp), bn(dp)), d

@@ -11,6 +11,9 @@ NTC, the port's NCT. Tolerances are the JAX test's (tests/test_grouped_conv.py:
 2e-5 forward, 3e-4 for dx, dw and db).
 """
 
+import os
+import re
+
 import jax
 
 jax.config.update('jax_platforms', 'cpu')
@@ -19,14 +22,17 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
 from pytorch_sound_tpu.ops.pallas.grouped_conv import (  # noqa: E402
     conv_transpose1d_ntc, grouped_conv1d_ntc)
 from pytorch_sound_tpu_torch.ops.cuda import grouped_conv as gc  # noqa: E402
+from test_torch_flash_backward import _kernel_products  # noqa: E402
 
 SLOPE = 0.1
 FWD_TOL = 2e-5
 GRAD_TOL = 3e-4
+GC_GRAD_TOL = 1e-4      # chip_smoke.py / tests/test_torch_cuda.py: the card's dw vs plain, ratio to max abs
 
 
 def _make(shape_x, shape_w, n_bias, seed):
@@ -144,10 +150,94 @@ def test_cpu_route_launches_nothing_and_other_devices_raise():
 
 def test_weight_grad_split_plan():
     """The dw reduction is cut into enough chunks to fill the card when the
-    weight is small, and little when it is large."""
-    assert gc.dw_tile(128) == (128, 64) and gc.dw_tile(1) == (1, 32)
+    weight is small, and little when it is large; the tile and the kernel
+    follow the rows per group, the tensor-core kernel from DW_TC_MIN_ROWS on
+    (its tiles 128 x 64 to 16 x 256), the CUDA-core one below (8 x 256, and
+    1 x 32 for conv_post's one row)."""
+    tiles = {1024: (128, 64), 128: (128, 64), 127: (64, 64), 64: (64, 64), 32: (32, 128),
+             16: (16, 256), 15: (8, 256), 2: (8, 256), 1: (1, 32)}
+    for rows, tile in tiles.items():
+        assert gc.dw_tile(rows) == tile, rows
+        assert gc.dw_kernel(rows) == ('conv_dw_kernel' if rows >= 16 else 'conv_gemm_kernel')
+    assert gc.DW_TC_MIN_ROWS == 16
     sms = 132                                                     # H100 SXM
     assert gc.dw_splits(128, 1, 15, 1, 32 * 8192, sms) == 1024    # MSD L0: 1 tile
     assert gc.dw_splits(1024, 128, 41, 8, 32 * 128, sms) == 2     # MSD L5: 656 tiles
+    assert gc.dw_splits(256, 16, 41, 8, 32 * 4096, sms) == 22     # MSD L2: 48 tiles of 32 x 128
+    assert gc.dw_splits(64, 8, 41, 4, 4096, sms) == 16            # 16 rows: 8 tiles, short
     assert gc.dw_splits(32, 1, 5, 1, 352 * 249, sms) == 342       # MPD L0 at p = 11
+    assert gc.dw_splits(1, 1024, 3, 1, 32 * 128, sms) == 11       # conv_post: 96 tiles of 1 x 32
     assert gc.dw_splits(32, 1, 5, 1, 100, sms) == 1               # short: one chunk
+    # scratch: the partial sums (rounded up to 4 floats), then gy padded to
+    # whole 16-byte rows on the tensor-core route where t_out % 4 or gy's
+    # address asks for it
+    assert gc.dw_scratch(1024, 128, 41, 8, 32, 128, 2, True) == 2 * 1024 * 128 * 41
+    assert gc.dw_scratch(1024, 1024, 5, 1, 64, 51, 1, True) == 64 * 1024 * 52
+    assert gc.dw_scratch(17, 3, 5, 1, 2, 301, 2, True) == 512 + 2 * 17 * 304
+    assert gc.dw_scratch(64, 64, 41, 4, 2, 500, 1, False) == 2 * 64 * 500
+    assert gc.dw_scratch(1, 1024, 3, 1, 32, 129, 8, False) == 8 * 3072   # CUDA cores: no pad
+
+
+def test_weight_grad_route_follows_the_kernel_source():
+    """``dw_kernel``, ``dw_tile`` and ``dw_scratch`` against
+    ``csrc/grouped_conv.cu``: the row threshold of the tensor-core route,
+    its tiles by rows, and when and where it pads gy in scratch."""
+    src = open(os.path.join(os.path.dirname(__file__), '..', gc.SOURCE)).read()
+    assert 'constexpr int kDwMinRows = %d;' % gc.DW_TC_MIN_ROWS in src
+    assert 'const bool tc = cout / groups >= kDwMinRows;' in src
+    assert ('const bool padded = tc && (t_out % 4 != 0 || '
+            'reinterpret_cast<uintptr_t>(gy) % 16 != 0);') in src
+    assert 'float* gyp = scratch + (splits > 1 ? (splits * count + 3) / 4 * 4 : 0);' in src
+    assert 'if (padded) ga.t_out = (t_out + 3) / 4 * 4;' in src
+    body = src[src.index('int dispatch_dw('):]
+    rules = re.findall(r'if \(rows >= (\d+)\) return launch_dw<(\d+), (\d+),', body[:800])
+    last = re.search(r'\n  return launch_dw<(\d+), (\d+),', body).groups()
+    for rows in (16, 31, 32, 63, 64, 127, 128, 1024):
+        want = next(((int(bm), int(bn)) for least, bm, bn in rules if rows >= int(least)),
+                    tuple(int(v) for v in last))
+        assert gc.dw_tile(rows) == want, rows
+
+
+def _dw_products(a, b, tile):
+    """a b^T over the last axis (positions) as conv_dw_kernel sums it:
+    operands split as split_tf32 does, three m16n8k8 products per 8-deep
+    step rounded toward zero into one accumulator per ``tile`` positions
+    (``tile`` = all positions: one chain), each tile added in fp32."""
+    out = torch.zeros(a.shape[:-1] + (b.shape[-2],))
+    for c in range(0, a.shape[-1], tile):
+        out = out + _kernel_products(a[..., c:c + tile], b[..., c:c + tile], False)
+    return out
+
+
+def test_3xtf32_weight_grad_keeps_the_tolerance():
+    """dw at an MSD-like grouped geometry (k 41, stride 4, groups 4, 16 rows
+    per group, 4,096 positions) with the tensor-core kernel's arithmetic
+    emulated: 3xTF32 products of split_tf32 operands rounded toward zero
+    per mma, a fresh accumulator per 32-position stage added in fp32, the
+    card's split plan summed in split order. Within GC_GRAD_TOL / 10 of the
+    fp64 weight gradient (measured 3.7e-7 of its max abs); one accumulator
+    chain over all 4,096 positions lies 4.3e-5 off, over 100x further."""
+    rng = np.random.default_rng(41)
+    n, cin, cout, k, s, g, pad, t = 2, 32, 64, 41, 4, 4, 20, 8192
+    x = torch.from_numpy(rng.standard_normal((n, cin, t)).astype(np.float32))
+    t_out = gc.conv_out_len(t, k, s, pad)
+    gy = torch.from_numpy(rng.standard_normal((n, cout, t_out)).astype(np.float32))
+    ref = gc.conv1d_weight_grad_reference(x.double(), gy.double(), (cout, cin // g, k),
+                                          stride=s, padding=pad, groups=g)
+    # im2col: cols[g][(ci, m), (n, t)] = x[n, g cg + ci, t s + m - pad]
+    patches = F.pad(x, (pad, pad)).unfold(2, k, s)[:, :, :t_out]     # (n, cin, t_out, k)
+    cols = patches.reshape(n, g, cin // g, t_out, k).permute(1, 2, 4, 0, 3)
+    cols = cols.reshape(g, (cin // g) * k, n * t_out)
+    rows = gy.reshape(n, g, cout // g, t_out).permute(1, 2, 0, 3).reshape(g, cout // g, -1)
+    positions = n * t_out
+    splits = gc.dw_splits(cout, cin // g, k, g, positions, 132)
+    chunk = -(-(-(-positions // splits)) // 32) * 32
+    staged = sum(_dw_products(rows[..., c:c + chunk], cols[..., c:c + chunk], 32)
+                 for c in range(0, positions, chunk))
+    chain = _dw_products(rows, cols, positions)
+    err = {}
+    for name, dw in (('staged', staged), ('chain', chain)):
+        dw = dw.reshape(g, cout // g, cin // g, k).reshape(cout, cin // g, k)
+        err[name] = float((dw.double() - ref).abs().max() / ref.abs().max())
+    assert splits > 1 and err['staged'] <= GC_GRAD_TOL / 10, err
+    assert err['chain'] >= 10 * err['staged'], err

@@ -204,6 +204,38 @@ def stage_work(x, args):
             4.0 * (x.numel() + weights + n * c_out * t_in * u))
 
 
+def mma_rate_tflops(dev):
+    """TF32 mma.sync m16n8k8 TFLOP/s on this card when nothing else runs
+    (csrc/mma_rate.cu, one 384-thread block per SM): the ceiling of the
+    3xTF32 kernels, which issue mma.sync."""
+    import torch
+    from pytorch_sound_tpu_torch.ops.cuda import _build
+    blocks, threads, iters = torch.cuda.get_device_properties(dev).multi_processor_count, 384, 4096
+    out = torch.empty(blocks * threads, device=dev)
+
+    def run(n):
+        _build.check(_build.library().mma_rate(out.data_ptr(), blocks, threads, n,
+                                               torch.cuda.current_stream().cuda_stream),
+                     'mma_rate')
+    ms = cuda_ms(lambda: run(iters), 3)
+    return blocks * threads // 32 * 8 * iters * 2048 / ms / 1e9
+
+
+def resblock_flops(n, t, blocks):
+    """FLOPs of a stage's resblock convs over n x t positions: the part of a
+    stage the stage kernel runs as 3xTF32 on the tensor cores."""
+    return 2.0 * n * t * sum(w.numel() for block in blocks for w, _, _ in block)
+
+
+def tc_bound(flops, tc_flops, nbytes):
+    """ms: the bound of a stage-kernel call whose ``tc_flops`` run as 3xTF32
+    (three TF32 FLOPs each at the TF32 peak) and the rest (the transposed
+    conv, conv_pre, conv_post) at the fp32 peak, or its bytes over the memory
+    rate, whichever is larger."""
+    ops_s = 3 * tc_flops / PEAK_TF32 + (flops - tc_flops) / PEAK_FP32
+    return max(ops_s, nbytes / HBM_BYTES_PER_S) * 1e3
+
+
 def resblock_work(x, blocks):
     """(fp32 FLOPs, bytes) of one resblock stage on x (N, C, T): every conv
     at its MACs per position; x, the weights and the output moved once."""
@@ -901,9 +933,15 @@ def v1_serving(dev, card, rng):
         stream_ms = cuda_ms(lambda: iface.decode_streaming(long_mel), 3)
         wide_work = [stage_work(x, gen.stage_args(i, i == 0)) for i, x in enumerate(stage_in)]
         res_work = [resblock_work(h, gen.stage_blocks(i)) for i, h in enumerate(res_in)]
+        res_tc = [resblock_flops(h.shape[0], h.shape[2], gen.stage_blocks(i))
+                  for i, h in enumerate(res_in)]
     wide_bound = bound(sum(f for f, _ in wide_work[:2]), 0.0, sum(b for _, b in wide_work[:2]))
     all_bound = bound(sum(f for f, _ in wide_work), 0.0, sum(b for _, b in wide_work))
     res_bound = bound(sum(f for f, _ in res_work), 0.0, sum(b for _, b in res_work))
+    wide_tc = tc_bound(sum(f for f, _ in wide_work[:2]), sum(res_tc[:2]),
+                       sum(b for _, b in wide_work[:2]))
+    all_tc = tc_bound(sum(f for f, _ in wide_work), sum(res_tc), sum(b for _, b in wide_work))
+    res_tc_bound = tc_bound(sum(res_tc), sum(res_tc), sum(b for _, b in res_work))
     dec_samples = BATCH * 256 * UP
     log('time', card=repr(card), what='v1_decode_16x256',
         kernel_samples_per_s='%.0f' % (dec_samples / dec_k * 1e3),
@@ -912,12 +950,27 @@ def v1_serving(dev, card, rng):
         per_stage_kernel_ms='/'.join('%.3f' % k for k, _ in per_stage),
         per_stage_plain_ms='/'.join('%.3f' % p for _, p in per_stage),
         stages_bound_ms='%.3f' % all_bound[0], bound_by=all_bound[1],
+        stages_tc_bound_ms='%.3f' % all_tc,
         gflop='%.1f' % (sum(f for f, _ in wide_work) / 1e9))
     log('time', card=repr(card), what='v1_resblock_route_16x256',
         kernel_ms='%.3f' % split_k, plain_ms='%.3f' % split_p,
         per_stage_k3_ms='/'.join('%.3f' % k for k, _ in per_res),
         per_stage_plain_ms='/'.join('%.3f' % p for _, p in per_res),
-        k3_bound_ms='%.3f' % res_bound[0], bound_by=res_bound[1])
+        k3_bound_ms='%.3f' % res_bound[0], bound_by=res_bound[1],
+        k3_tc_bound_ms='%.3f' % res_tc_bound)
+    # the TF32 products the stage kernels issue (3 per fp32 FLOP, the
+    # resblock convs' halo recompute not counted) against what mma.sync
+    # reaches on this card alone
+    rate = mma_rate_tflops(dev)
+    log('time', card=repr(card), what='v1_tensor_core_share',
+        mma_sync_tf32_tflops='%.1f' % rate,
+        k3_tf32_tflops='%.1f' % (3 * sum(res_tc) / sum(k for k, _ in per_res) / 1e9),
+        k3_share_of_mma_sync='%.3f' % (3 * sum(res_tc) / sum(k for k, _ in per_res) / 1e9 / rate))
+    # K1 less K3 on the same stage: what the transposed conv and conv_pre
+    # (stage 0) cost in the stage kernel, per stage and as a share of K1
+    log('time', card=repr(card), what='v1_upsample_cost_16x256',
+        k1_minus_k3_ms='/'.join('%.3f' % (k - r) for (k, _), (r, _) in zip(per_stage, per_res)),
+        share_of_k1='/'.join('%.3f' % ((k - r) / k) for (k, _), (r, _) in zip(per_stage, per_res)))
     log('time', card=repr(card), what='v1_stream_1x4096',
         kernel_samples_per_s='%.0f' % (4096 * UP / stream_ms * 1e3),
         kernel_ms='%.3f' % stream_ms)
@@ -927,12 +980,14 @@ def v1_serving(dev, card, rng):
          'replaces': 'pytorch_sound_tpu/ops/pallas/gen_stage.py:282',
          'launches': launches['gen_stage_wide'], 'max_abs_err': errs['wide'],
          'ms': per_stage[0][0] + per_stage[1][0], 'plain_ms': per_stage[0][1] + per_stage[1][1],
-         'bound_ms': wide_bound[0], 'bound_by': wide_bound[1], 'library_ms': None},
+         'bound_ms': wide_bound[0], 'bound_by': wide_bound[1], 'tc_bound_ms': wide_tc,
+         'library_ms': None},
         {'name': 'resblock_stage', 'route': 'cuda', 'source': gs.SOURCE,
          'replaces': 'pytorch_sound_tpu/ops/pallas/resblock.py:155',
          'launches': launches['resblock_stage'], 'max_abs_err': errs['resblock'],
          'ms': sum(k for k, _ in per_res), 'plain_ms': sum(p for _, p in per_res),
-         'bound_ms': res_bound[0], 'bound_by': res_bound[1], 'library_ms': None}]
+         'bound_ms': res_bound[0], 'bound_by': res_bound[1], 'tc_bound_ms': res_tc_bound,
+         'library_ms': None}]
 
 
 ATTENTION_FLOPS = {'fwd': 4, 'dkv': 8, 'dq': 6}   # per (query, key) pair and per D
@@ -1441,6 +1496,10 @@ def main():
         st_work = [stage_work(x, gen.stage_args(i)) for i, x in enumerate(stage_in)]
         st_bound, st_bound_by = bound(sum(f for f, _ in st_work), 0.0,
                                       sum(b for _, b in st_work))
+        # the resblock input of stage i has u_i times the positions of x
+        st_tc = tc_bound(sum(f for f, _ in st_work), sum(
+            resblock_flops(x.shape[0], x.shape[2] * gen.upsample_rates[i], gen.stage_blocks(i))
+            for i, x in enumerate(stage_in)), sum(b for _, b in st_work))
         stream_ms = cuda_ms(lambda: iface.decode_streaming(long_mel), 5)
     dec_samples = 32 * 256 * UP
     log('time', card=repr(card), what='encode_16x2s',
@@ -1460,7 +1519,8 @@ def main():
     _, cos_b, _ = lm._constants(SR, 1024, 1024, 80, 0.0, 8000.0, str(dev))
     enc_bound, enc_bound_by = bound(*logmel_work(*enc_wav.shape, cos_b.shape[1]))
     log('bound', card=repr(card), decode_stages_ms='%.4f' % st_bound,
-        decode_bound_by=st_bound_by, encode_ms='%.4f' % enc_bound,
+        decode_bound_by=st_bound_by, decode_stages_tc_ms='%.4f' % st_tc,
+        encode_ms='%.4f' % enc_bound,
         encode_bound_by=enc_bound_by)
 
     # 7. the training path
@@ -1481,7 +1541,7 @@ def main():
          'launches': launches['gen_stage'] + v1_narrow,
          'max_abs_err': max(errs['gen_stage'], v1_narrow_err),
          'ms': st_k, 'plain_ms': st_p, 'bound_ms': st_bound, 'bound_by': st_bound_by,
-         'library_ms': None},
+         'tc_bound_ms': st_tc, 'library_ms': None},
         {'name': 'logmel', 'route': 'cuda', 'source': lm.SOURCE,
          'replaces': 'pytorch_sound_tpu/ops/pallas/logmel.py:157',
          'launches': launches['logmel'] + train_logmel, 'max_abs_err': errs['logmel'],

@@ -32,36 +32,102 @@
 // Activations never leave the chip inside a stage. Each conv only computes
 // the positions that later layers still need (the halo shrinks layer by
 // layer), and every conv output is multiplied by the sequence-edge mask,
-// which reproduces per-layer zero padding exactly. Each thread holds an
-// 8-channel x 4-position register tile, so one shared-memory load feeds eight
-// FMAs and one weight load four; the tap loop is unrolled for HiFi-GAN's
-// kernel sizes; weights are read through the read-only cache and stay
-// L2-resident (2 MB at C = 64, 33 MB at C = 256). The transposed conv and
-// conv_pre use an 8-channel x 2-position tile, the positions of one
-// polyphase phase, so their weight loads (from L2: the buffers leave ~25 KB
-// of L1) are shared by the warp and each feeds two FMAs; one output per
-// thread, as first written, left them waiting on L2 for half of v1's decode.
+// which reproduces per-layer zero padding exactly.
+//
+// The resblock convs and the transposed conv run on the tensor cores at fp32
+// accuracy: 3xTF32 mma.sync m16n8k8 (tf32_mma.cuh), 3 TF32 products per fp32
+// one, so their bound is 3 FLOPs at the 495 TFLOP/s TF32 rate where the CUDA
+// cores' is one at 67 TFLOP/s. A resblock conv is one GEMM per tap: M =
+// positions (16 per m-tile), N = output channels (8 per n-tile), K = input
+// channels (8 per k-step).
+// - A (activations) is read from the shared-memory buffers at p + (j - half)
+//   d, leaky_relu'd at the load where the conv's input takes it, and split
+//   into TF32 hi / lo in registers.
+// - B (weights) is split once, outside the kernel, into TF32 hi / lo in the
+//   B-fragment order (ops/cuda/gen_stage.py: tf32_fragments): a lane loads
+//   its hi / lo pair of one fragment with one 16-byte read, and no weight is
+//   split in the kernel.
+// - A warp holds MI x NI = 8 tiles (NI n-tiles of 8 channels, MI m-tiles of
+//   16 positions; NI = 4 where the width allows): each A fragment feeds 3 NI
+//   products, each B fragment 3 MI. At the warp, a B fragment (512 bytes)
+//   feeds 4 MI FLOP per byte (8 at MI = 2). The warps of a block read the
+//   same fragments in the same order within a chunk, so L1 serves most of
+//   them again and L2 sees each block's weight slice about once per conv:
+//   R / 4 FLOP per byte for an R-position conv (64-92 at a 256-sample
+//   tile). A weight ring in shared memory would cost tile width (the
+//   buffers fill the 227 KB), and with it halo recompute.
+// - Summation: each output sums its input channels in chunks of 16 (kKC), in
+//   a fixed order (the block's own slice first, then the others in rank
+//   order), and within a chunk tap by tap. The tensor cores' accumulator
+//   rounds toward zero, so runs of products are summed in a fresh
+//   accumulator and added to the fp32 total: in the cluster layout each tap
+//   of a chunk (two k-steps) in a run accumulator; in the single-block
+//   layout each k-step's three products (mma_3xtf32_add), which spares the
+//   run accumulator's 32 registers, which its 512-thread kernels lack (they
+//   spilled). Measured in one call each way: per-k-step sums made the
+//   cluster layout slower, per-tap runs the narrow single-block widths
+//   slower. CPU emulation of a ResBlock1 stack at C = 256, k = 11:
+//   4.0e-7 (tap runs) and 4.2e-7 (k-step runs) of the max abs off fp64 (the
+//   fp32 plain version 3.5e-7); one chain over everything 3.9e-5; one TF32
+//   pass 2.8e-4 (tests/test_torch_gen_stage_tc.py).
+//   The order does not depend on the tile or the place in an mma tile, so a
+//   chunked decode matches a whole one; no atomics, so a rerun is
+//   bit-identical.
+// - Bank conflicts: buffer rows are L floats apart and L is a multiple of
+//   64, so a fragment's 4 channel rows at one position would share a bank.
+//   Rather than padding the rows (which costs the tile: C = 64 and the
+//   cluster slices would drop to half-width tiles, 26 % more recompute at
+//   C = 64), positions are swizzled within 32-float blocks: element (row,
+//   col) sits at row * L + (col ^ swz(row)), swz(row) = 8 ((row & 3) ^
+//   ((row >> 2) & 1)), which makes A-fragment loads and accumulator-order
+//   stores conflict-free and costs no memory.
+// - The transposed conv is one such GEMM per polyphase phase (conv_transpose),
+//   its A the input span in shared memory (rows q_row = 8 mod 16 floats
+//   apart, conflict-free), its B the upsample weight's fragments. On the
+//   CUDA cores it took 16-34 % of a v1 stage; on the tensor cores 4-8 %.
+//   conv_pre (stage 0 only) stays on the CUDA cores: with the transposed
+//   conv it takes 17 % of v1's stage 0, each block of a cluster computing
+//   all 2C rows its transposed conv reads.
+// What holds the convs back on an H100 (chip_smoke.py phase 9): mma.sync
+// m16n8k8 TF32 reaches ~310 TFLOP/s on the card when nothing else runs (63 %
+// of the dense TF32 peak; only wgmma reaches the rest), and K3 issues its
+// useful products at about a quarter of that. Variants tried on the card
+// (probe builds, not kept): without the products a conv keeps a small part
+// of its time, without the A loads and splits nearly all of it; weight
+// reads that always hit L1, or no peer staging in the cluster layout, each
+// save a smaller part; 8 warps of 16 tiles, 16 of 4, fewer n-tiles per
+// warp, a weight prefetch into L1, the products issued pass by pass across
+// the tiles, the tap loop unrolled, and an even split of (m-tile, half)
+// units over the warps (tests/test_torch_gen_stage_tc.py reckons the
+// imbalance it removes) were all as fast or slower, the last two by
+// spilling. So the mma stream waits on its operands and on the warps that
+// hold two m-tiles.
+// The conv_pre loop uses an 8-channel x 2-position tile on the CUDA cores,
+// the weight loads shared by the warp, each feeding two FMAs.
 //
 // Two layouts, by width:
 //
 // - C <= 64 (single block): one block of 512 threads per (item, tile) holds
 //   every channel; the tile is the widest of 1024 ... 64 whose buffers fit
-//   the 227 KB a block may use.
+//   the 227 KB a block may use. Warps split the output channels into groups
+//   of NI n-tiles (NI = 4, 2 or 1, the largest that divides C / 8) and the
+//   positions round robin; a conv takes one or more waves.
 // - C = 128 or 256 (cluster): at 256 channels even a 64-sample tile needs
 //   662 KB, so a thread-block cluster of C / 32 blocks (384 threads each)
-//   owns one (item, tile), each block 32 channels of every buffer. A conv's
-//   block computes its own 32 output channels: it reads its own input slice
-//   in place and copies each peer's slice of the input rows the conv reads
-//   from the peer's shared memory (distributed shared memory) into a staging
-//   buffer, one peer after the other in rank order; cluster.sync() stands
-//   where the single-block layout has __syncthreads() between convs. A
-//   32-channel slice fits a 256-sample tile in 224 KB. On stage 0 every block
-//   computes conv_pre for all 2C input rows its transposed conv reads (4 % of
-//   the stage's work, done once per block).
-//
-// Each output's summation order is fixed (input channel, then tap) and does
-// not depend on its tile, so a chunked decode matches a whole one. Plain
-// fp32 FMA: no tensor cores yet.
+//   owns one (item, tile), each block 32 channels of every buffer and a
+//   256-sample tile (224 KB). A conv's block computes its own 32 output
+//   channels over every input channel: its own slice in place, each peer's
+//   16-channel chunks through a two-chunk staging buffer. The copy of the
+//   next peer chunk (distributed shared memory, map_shared_rank, into
+//   registers) is issued before this chunk's products and stored after
+//   them, so the exchange overlaps the tensor cores; one barrier per chunk.
+//   Reading peers' A fragments straight through distributed shared memory
+//   instead would fetch each remote element once per tap (11 times at k =
+//   11) over the cluster network, whose bandwidth per SM is a fraction of
+//   shared memory's; staging fetches it once. cluster.sync() stands where
+//   the single-block layout has __syncthreads() between convs. On stage 0
+//   every block computes conv_pre for all 2C input rows its transposed conv
+//   reads (4 % of the stage's work, done once per block; see above).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -69,9 +135,15 @@
 #include <algorithm>
 #include <cstddef>
 
+#include "tf32_mma.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
+
+// The kernel's dynamic shared memory. conv_layer indexes it by 32-bit offsets
+// so that its loads are shared-memory loads with 32-bit addresses.
+extern __shared__ float4 smem4[];
 
 constexpr int kHalo = 64;
 // Plan capacity. HiFi-GAN v1 / v2 use 3 blocks of 6 convs; a plan sized to
@@ -79,16 +151,22 @@ constexpr int kHalo = 64;
 constexpr int kMaxBlocks = 8;
 constexpr int kMaxConvs = 32;
 constexpr int kThreads = 512;      // single-block layout
-constexpr int kWideThreads = 384;  // cluster layout: 12 warps, one per task of
-                                   // a 32-channel slice and a 256-sample tile
+constexpr int kWideThreads = 384;  // cluster layout: 12 warps
 constexpr int kSlice = 32;         // channels per block in the cluster layout
 constexpr int kMaxRanks = 8;       // blocks per cluster (the portable limit)
-constexpr int kCoTile = 8;         // output channels per thread
-constexpr int kStrip = 4;          // positions per thread, 32 apart (conflict-free)
-constexpr int kUpStrip = 2;        // the same in the transposed conv and conv_pre
+constexpr int kWideMaxTile = 256;  // the cluster layout's tile (what 224 KB holds)
+constexpr int kCoTile = 8;         // conv_pre: output rows per thread
+constexpr int kUpStrip = 2;        // conv_pre: positions per thread
+constexpr int kKC = 16;            // input channels per chunk of a resblock conv
+constexpr int kTiles = 8;          // mma tiles (MI x NI) per warp
+// float4 copies per thread of one peer chunk (kKC rows of the widest tile)
+constexpr int kStageVec = kKC * (kWideMaxTile + 2 * kHalo) / 4 / kWideThreads;
+static_assert(kStageVec * kWideThreads * 4 == kKC * (kWideMaxTile + 2 * kHalo),
+              "a peer chunk splits evenly over the cluster layout's threads");
 
 struct Plan {
-  const float* w[kMaxConvs];  // (C, C, k) each, in execution order
+  const float4* w[kMaxConvs]; // each (C, C, k) weight as TF32 fragments, in
+                              // execution order (see conv_layer)
   const float* b[kMaxConvs];  // (C,)
   int k[kMaxConvs];
   int d[kMaxConvs];
@@ -108,8 +186,11 @@ struct Stage {
                               // (n, C, t_out) without the upsample
   float* out;                 // (n, C, t_out), or (n, 1, t_out) with conv_post
   int c, t_in, t_out;
-  int u, k_up, pad, q_stride; // k_up == 0: no upsample (the resblock mode)
-  const float* up_w;          // (2C, C, k_up)
+  int u, k_up, pad;           // k_up == 0: no upsample (the resblock mode)
+  int q_stride, q_row;        // input rows a tile's transposed conv reads; the
+                              // row stride of their span in shared memory
+  const float4* up_w;         // (2C, C, k_up) as TF32 fragments of its (C, 2C,
+                              // k_up) transpose (see conv_transpose)
   const float* up_b;          // (C,)
   const float* pre_w;         // (2C, c_mel, pre_k)
   const float* pre_b;         // (2C,)
@@ -123,8 +204,17 @@ struct Stage {
 // Where one conv runs: this block's channel slice of a tile.
 struct Tile {
   int c, cs, ranks, rank, L, base, t_out;
-  float* stage;               // peer staging buffer (cs, L); cluster layout only
+  int stage;                  // offset (floats) of the two peer chunks (kKC, L)
+                              // each; cluster layout only
 };
+
+// Buffer rows are L floats apart (L a multiple of 64); position col of row
+// sits at col ^ swz(row), a permutation inside each 32-float block that puts
+// an A fragment's (rows t, t + 4; 8 positions) and an accumulator tile's
+// (rows 2t, 2t + 1) loads and stores on 32 distinct banks.
+__device__ __forceinline__ int swz(int row) { return ((row & 3) ^ ((row >> 2) & 1)) << 3; }
+
+__device__ __forceinline__ int at(int row, int col, int L) { return row * L + (col ^ swz(row)); }
 
 __device__ __forceinline__ float lrelu(float v, float slope) {
   return v > 0.f ? v : v * slope;
@@ -144,104 +234,173 @@ __device__ __forceinline__ void stage_sync(int ranks) {
     __syncthreads();
 }
 
-// Copies rows [in_lo, in_hi) (widened to 16-byte boundaries) of every channel
-// of peer block `peer`'s buffer `src` into the staging buffer, at the same
-// offsets. Buffers start at multiples of L floats and L is a multiple of 64,
-// so the float4 accesses are aligned.
-__device__ void copy_peer_slice(const Tile& tl, const float* src, int peer, int in_lo,
-                                int in_hi) {
-  const float* from = cg::this_cluster().map_shared_rank(const_cast<float*>(src), peer);
-  const int lo4 = in_lo & ~3;
-  const int hi4 = min(tl.L, (in_hi + 3) & ~3);
-  const int w4 = (hi4 - lo4) / 4;
-  for (int e = threadIdx.x; e < tl.cs * w4; e += blockDim.x) {
-    const int off = (e / w4) * tl.L + lo4 + 4 * (e % w4);
-    *reinterpret_cast<float4*>(tl.stage + off) = *reinterpret_cast<const float4*>(from + off);
-  }
-}
-
 // dst[co][p] = act(mask(p) * (bias[co] + sum_ci sum_j w[co][ci][j]
 //                   * in(src[ci][p + (j - half) * d]))) (+ res[co][p])
 // for p in [lo, hi) and this block's output channels co, where in =
 // leaky_relu(0.1) if kLreluIn else identity and act = leaky_relu(0.1) if
-// kLreluOut else identity. The input channels ci run over every block's slice
-// in rank order; a peer's slice is staged first. Each warp takes one task (8
-// channels x 128 positions) per wave and keeps its sums in registers across
-// the slices. The kernel size kK is fixed at compile time, so the tap loop
-// unrolls.
-template <int kK, bool kLreluIn, bool kLreluOut>
-__device__ void conv_layer(const Tile& tl, const float* src, float* dst, const float* res,
-                           const float* __restrict__ w, const float* __restrict__ bias,
+// kLreluOut else identity; 3xTF32 on the tensor cores.
+//
+// wf holds the weight as TF32 fragments: float4 ((j S + s) S + n) 32 + lane
+// (S = C / 8; lane = 4 g + t) is {hi, hi, lo, lo} of w[8n + g][8s + t][j] and
+// w[8n + g][8s + t + 4][j], the B operand of k-step s, n-tile n, tap j.
+//
+// The warps split this block's channels into groups of NI n-tiles and the
+// m-tiles of [lo, hi) round robin within a group, MI = kTiles / NI per warp
+// and wave. Each output sums the input channels in kKC-channel chunks, the
+// block's own slice first, then tap by tap, each run of products (a tap of
+// a chunk in the cluster layout, a k-step otherwise) in a fresh accumulator.
+// In the cluster layout a peer's chunk is read from the staging buffer: its
+// copy was loaded into registers before the previous chunk's products and
+// stored after them.
+template <int kK, bool kLreluIn, bool kLreluOut, int NI, bool kWide>
+__device__ void conv_layer(const Tile& tl, int src, int dst, int res,
+                           const float4* __restrict__ wf, const float* __restrict__ bias,
                            int d, int lo, int hi) {
-  constexpr int k = kK;
-  constexpr int half = (k - 1) / 2;
-  const int span = 32 * kStrip;
+  constexpr int MI = kTiles / NI;
+  constexpr int half = (kK - 1) / 2;
+  float* const sm = reinterpret_cast<float*>(smem4);
   const int L = tl.L;
-  const int n_chunks = (hi - lo + span - 1) / span;
-  const int n_tasks = (tl.cs / kCoTile) * n_chunks;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int n_warps = blockDim.x >> 5;
-  const size_t w_co = static_cast<size_t>(tl.c) * k;   // weight stride per output channel
-  for (int wave = 0; wave < n_tasks; wave += n_warps) {
-    const int task = wave + warp;
-    const bool active = task < n_tasks;
-    const int co0 = (task / n_chunks) * kCoTile;       // in this block's slice
-    const int p0 = lo + (task % n_chunks) * span + lane;
-    float acc[kCoTile][kStrip];
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int n_groups = tl.cs / (8 * NI);
+  const int wm = (blockDim.x >> 5) / n_groups;   // warps per channel group
+  const int ng = warp / wm;                      // >= n_groups: idle warp
+  const int wi = warp % wm;
+  const int S = tl.c / 8;
+  const int n0 = tl.rank * (tl.cs / 8) + ng * NI;  // this warp's first n-tile
+  const int m_tiles = (hi - lo + 15) / 16;
+  const int per_wave = wm * MI;
+  const int waves = (m_tiles + per_wave - 1) / per_wave;
+  const int own = (tl.cs + kKC - 1) / kKC;       // chunks per block slice
+  const int n_chunks = own * tl.ranks;           // the last may hold one k-step
+  // the input rows a peer chunk's copy covers, widened to whole 32-float
+  // swizzle blocks; float4 copies of the swizzled rows keep their layout
+  const int in_lo = max(0, (lo - half * d) & ~31);
+  const int in_hi = min(L, (hi + half * d + 31) & ~31);
+  const int w4 = (in_hi - in_lo) >> 2;
+  const int swa0 = t << 3;                       // swz(row) of A rows t and t + 4
+  const int swa1 = (t ^ 1) << 3;
+
+  for (int wave = 0; wave < waves; ++wave) {
+    const int m_first = wave * per_wave + wi;
+    const int cnt =
+        ng < n_groups ? max(0, min(MI, (m_tiles - m_first + wm - 1) / wm)) : 0;
+    const int pos0 = lo + 16 * m_first + g;      // position of fragment row g, slot 0
+    float acc[MI * NI][4], part[MI * NI][4];
 #pragma unroll
-    for (int c = 0; c < kCoTile; ++c)
+    for (int i = 0; i < MI * NI; ++i)
 #pragma unroll
-      for (int s = 0; s < kStrip; ++s) acc[c][s] = 0.f;
-    for (int peer = 0; peer < tl.ranks; ++peer) {
-      const bool remote = peer != tl.rank;
-      const float* in = src;
-      if (remote) {
-        copy_peer_slice(tl, src, peer, lo - half * d, hi + half * d);
-        __syncthreads();
-        in = tl.stage;
+      for (int e = 0; e < 4; ++e) acc[i][e] = part[i][e] = 0.f;
+
+    for (int cc = 0; cc < n_chunks; ++cc) {
+      const int c = (cc + tl.rank * own) % n_chunks;   // own slice first
+      const int cb = c / own == tl.rank ? src + (c % own) * kKC * L
+                                        : tl.stage + (cc & 1) * kKC * L;
+      // issue the next chunk's copy when a peer holds it
+      const int nc = (c + 1) % n_chunks;
+      const bool fetch = kWide && cc + 1 < n_chunks && nc / own != tl.rank;
+      float4 pre[kStageVec];
+      if (fetch) {
+        const float* from = cg::this_cluster().map_shared_rank(sm + src, nc / own) +
+                            (nc % own) * kKC * L + in_lo;
+#pragma unroll
+        for (int r = 0; r < kStageVec; ++r) {
+          const int e = threadIdx.x + r * blockDim.x;
+          if (e < kKC * w4)
+            pre[r] = *reinterpret_cast<const float4*>(from + (e / w4) * L + 4 * (e % w4));
+        }
       }
-      if (active) {
-        const float* wp =
-            w + (static_cast<size_t>(tl.rank * tl.cs + co0) * tl.c + peer * tl.cs) * k;
-        for (int ci = 0; ci < tl.cs; ++ci) {
-          const float* row = in + ci * L;
-          const float* wrow = wp + ci * k;
+      if (cnt > 0) {
+        const int steps = min(kKC, tl.c - c * kKC) / 8;   // 2, or 1 on a last half chunk
+#pragma unroll 1
+        for (int j = 0; j < kK; ++j) {
+          const int off = (j - half) * d;
+          const float4* wj =
+              wf + (static_cast<size_t>(j * S + c * (kKC / 8)) * S + n0) * 32 + lane;
 #pragma unroll
-          for (int j = 0; j < k; ++j) {
-            const int off = (j - half) * d;
-            float v[kStrip];
+          for (int s = 0; s < kKC / 8; ++s) {
+            if (s >= steps) break;
+            unsigned bh[NI][2], bl[NI][2];
 #pragma unroll
-            for (int s = 0; s < kStrip; ++s) {
-              const int p = p0 + 32 * s;
-              const float x = p < hi ? row[p + off] : 0.f;
-              v[s] = kLreluIn ? lrelu(x, 0.1f) : x;
+            for (int n = 0; n < NI; ++n) {
+              const float4 v = __ldg(wj + (s * S + n) * 32);
+              bh[n][0] = __float_as_uint(v.x);
+              bh[n][1] = __float_as_uint(v.y);
+              bl[n][0] = __float_as_uint(v.z);
+              bl[n][1] = __float_as_uint(v.w);
             }
+            const int r0 = cb + (8 * s + t) * L;   // channel rows t and t + 4
+            const int r1 = r0 + 4 * L;
 #pragma unroll
-            for (int c = 0; c < kCoTile; ++c) {
-              const float wv = __ldg(wrow + c * w_co + j);
+            for (int i = 0; i < MI; ++i) {
+              if (i < cnt) {
+                const int p = pos0 + 16 * wm * i + off;
+                const float a[4] = {sm[r0 + (p ^ swa0)], sm[r0 + ((p + 8) ^ swa0)],
+                                    sm[r1 + (p ^ swa1)], sm[r1 + ((p + 8) ^ swa1)]};
+                unsigned ah[4], al[4];
 #pragma unroll
-              for (int s = 0; s < kStrip; ++s) acc[c][s] = fmaf(wv, v[s], acc[c][s]);
+                for (int e = 0; e < 4; ++e)
+                  split_tf32(kLreluIn ? lrelu(a[e], 0.1f) : a[e], ah[e], al[e]);
+                if constexpr (kWide) {
+#pragma unroll
+                  for (int n = 0; n < NI; ++n)
+                    mma_3xtf32(part[i * NI + n], ah, al, bh[n], bl[n]);
+                } else {
+#pragma unroll
+                  for (int n = 0; n < NI; ++n)
+                    mma_3xtf32_add(acc[i * NI + n], ah, al, bh[n], bl[n]);
+                }
+              }
             }
+          }
+          if constexpr (kWide) {
+            // one tap of the chunk summed apart, added in fp32
+#pragma unroll
+            for (int i = 0; i < MI; ++i)
+              if (i < cnt)
+#pragma unroll
+                for (int n = 0; n < NI; ++n)
+#pragma unroll
+                  for (int e = 0; e < 4; ++e) {
+                    acc[i * NI + n][e] += part[i * NI + n][e];
+                    part[i * NI + n][e] = 0.f;
+                  }
           }
         }
       }
-      if (remote) __syncthreads();      // the staging buffer is reused
+      if (fetch) {
+        float* to = sm + tl.stage + ((cc + 1) & 1) * kKC * L + in_lo;
+#pragma unroll
+        for (int r = 0; r < kStageVec; ++r) {
+          const int e = threadIdx.x + r * blockDim.x;
+          if (e < kKC * w4)
+            *reinterpret_cast<float4*>(to + (e / w4) * L + 4 * (e % w4)) = pre[r];
+        }
+      }
+      if (kWide) __syncthreads();   // the staged chunk is complete; the other is free
     }
-    if (!active) continue;
+
+    // accumulator tile: rows g, g + 8 (positions), columns 2t, 2t + 1 (channels)
 #pragma unroll
-    for (int c = 0; c < kCoTile; ++c) {
-      const int co = co0 + c;
-      const float bv = __ldg(bias + tl.rank * tl.cs + co);
+    for (int i = 0; i < MI; ++i) {
+      if (i >= cnt) continue;
 #pragma unroll
-      for (int s = 0; s < kStrip; ++s) {
-        const int p = p0 + 32 * s;
-        if (p < hi) {
-          const int g = tl.base + p;
-          float y = (g >= 0 && g < tl.t_out) ? acc[c][s] + bv : 0.f;
+      for (int n = 0; n < NI; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int co = (ng * NI + n) * 8 + 2 * t + (e & 1);   // in this block's slice
+          const int p = pos0 + 16 * wm * i + 8 * (e >> 1);
+          if (p >= hi) continue;
+          const int gp = tl.base + p;
+          float y = (gp >= 0 && gp < tl.t_out)
+                        ? acc[i * NI + n][e] + __ldg(bias + tl.rank * tl.cs + co)
+                        : 0.f;
           if (kLreluOut) y = lrelu(y, 0.1f);
-          if (res != nullptr) y += res[co * L + p];
-          dst[co * L + p] = y;
+          const int o = at(co, p, L);
+          if (res >= 0) y += sm[res + o];
+          sm[dst + o] = y;
         }
       }
     }
@@ -250,21 +409,20 @@ __device__ void conv_layer(const Tile& tl, const float* src, float* dst, const f
 
 // One ResBlock1 conv with its kernel size dispatched to an unrolled instance:
 // HiFi-GAN's 3 / 7 / 11, the only sizes the entry points accept.
-template <bool kLreluIn, bool kLreluOut>
-__device__ void conv_any(const Tile& tl, int k, const float* src, float* dst,
-                         const float* res, const float* w, const float* b, int d, int lo,
-                         int hi) {
+template <bool kLreluIn, bool kLreluOut, int NI, bool kWide>
+__device__ void conv_any(const Tile& tl, int k, int src, int dst, int res, const float4* w,
+                         const float* b, int d, int lo, int hi) {
   if (k == 3)
-    conv_layer<3, kLreluIn, kLreluOut>(tl, src, dst, res, w, b, d, lo, hi);
+    conv_layer<3, kLreluIn, kLreluOut, NI, kWide>(tl, src, dst, res, w, b, d, lo, hi);
   else if (k == 7)
-    conv_layer<7, kLreluIn, kLreluOut>(tl, src, dst, res, w, b, d, lo, hi);
+    conv_layer<7, kLreluIn, kLreluOut, NI, kWide>(tl, src, dst, res, w, b, d, lo, hi);
   else
-    conv_layer<11, kLreluIn, kLreluOut>(tl, src, dst, res, w, b, d, lo, hi);
+    conv_layer<11, kLreluIn, kLreluOut, NI, kWide>(tl, src, dst, res, w, b, d, lo, hi);
 }
 
 // The input rows the tile's transposed conv reads, q in [q_lo, q_lo +
-// q_stride), all 2C channels: leaky_relu(0.1) of x, or of conv_pre(mel)
-// computed here, zero outside [0, t_in).
+// q_stride), all 2C channels (rows q_row floats apart): leaky_relu(0.1) of x,
+// or of conv_pre(mel) computed here, zero outside [0, t_in).
 __device__ void load_input_span(const Stage& s, const Plan& plan, float* smem, int n,
                                 int q_lo) {
   float* xs = smem + plan.xs_off;
@@ -273,10 +431,11 @@ __device__ void load_input_span(const Stage& s, const Plan& plan, float* smem, i
     const float* xn = s.x + static_cast<size_t>(n) * c_in * s.t_in;
     for (int e = threadIdx.x; e < c_in * s.q_stride; e += blockDim.x) {
       const int ci = e / s.q_stride;
-      const int q = q_lo + e % s.q_stride;
-      xs[e] = (q >= 0 && q < s.t_in)
-                  ? lrelu(__ldg(xn + static_cast<size_t>(ci) * s.t_in + q), 0.1f)
-                  : 0.f;
+      const int r = e % s.q_stride;
+      const int q = q_lo + r;
+      xs[ci * s.q_row + r] = (q >= 0 && q < s.t_in)
+                                 ? lrelu(__ldg(xn + static_cast<size_t>(ci) * s.t_in + q), 0.1f)
+                                 : 0.f;
     }
     return;
   }
@@ -335,90 +494,114 @@ __device__ void load_input_span(const Stage& s, const Plan& plan, float* smem, i
         const int r = r0 + 32 * t;
         const int q = q_lo + r;
         if (r < s.q_stride)
-          xs[(ci0 + c) * s.q_stride + r] =
+          xs[(ci0 + c) * s.q_row + r] =
               (q >= 0 && q < s.t_in) ? lrelu(acc[c][t] + bv, 0.1f) : 0.f;
       }
     }
   }
 }
 
-// 2. The transposed conv into h, polyphase: output l (global g = base + l) of
-// phase r = (g + pad) % u takes taps j = r + m*u from input row (g + pad) / u
-// - m; masked to [0, t_out). base is a multiple of u, so the phase and the
-// row offset follow from l alone. A task is 8 output channels x 64 outputs of
-// one phase, the lanes on consecutive input rows: each weight load feeds two
-// FMAs and is the same across the warp.
-__device__ void conv_transpose(const Stage& s, const Plan& plan, const float* xs,
-                               float* hbuf, int L, int base, int co_base) {
+// 2. The transposed conv into h on the tensor cores (3xTF32), polyphase:
+// output l (global g = base + l) of phase r = (g + pad) % u takes taps j = r
+// + m u from input row (g + pad) / u - m; masked to [0, t_out). base is a
+// multiple of u, so the phase and the row follow from l. Per phase it is a
+// GEMM: M = the phase's outputs (16 per m-tile, consecutive input rows), N =
+// this block's output channels, K = 2C input channels x the phase's taps.
+// A is the input span xs (2C rows q_row floats apart, q_row = 8 mod 16: the
+// fragment loads hit 32 banks); B the weight as TF32 fragments of its (C, 2C,
+// k_up) transpose, laid out as conv_layer's. Warps split the channels as in
+// conv_layer and take the (phase, m-tile) units round robin, one at a time;
+// each output sums its taps in order and each tap's input channels by
+// k-step, each k-step's products in a fresh accumulator.
+template <int NI>
+__device__ void conv_transpose(const Stage& s, const Plan& plan, int L, int base, int rank) {
+  float* const sm = reinterpret_cast<float*>(smem4);
   const int u = s.u;
   const int m_taps = (s.k_up + u - 1) / u;
-  const int span = 32 * kUpStrip;
-  const int n_chunks = ((plan.h_hi - plan.h_lo + u - 1) / u + span - 1) / span;
-  const int n_tasks = (plan.cs / kCoTile) * u * n_chunks;
-  const int row0 = (plan.h_lo + s.pad) / u - (m_taps - 1);   // input row of xs[.][0]
-  const int c_in = 2 * s.c;
+  const int row0 = (plan.h_lo + s.pad) / u - (m_taps - 1);   // input row of xs column 0
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  for (int task = warp; task < n_tasks; task += blockDim.x >> 5) {
-    const int co0 = task / (u * n_chunks) * kCoTile;
-    const int r = task / n_chunks % u;
-    const int a0 = task % n_chunks * span + lane;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int n_groups = plan.cs / (8 * NI);
+  const int wm = (blockDim.x >> 5) / n_groups;
+  const int ng = warp / wm;
+  if (ng >= n_groups) return;
+  const int N = s.c / 8;                   // n-tiles of the output
+  const int S = s.c / 4;                   // k-steps over the 2C input channels
+  const int n0 = rank * (plan.cs / 8) + ng * NI;
+  const int per_phase = ((plan.h_hi - plan.h_lo + u - 1) / u + 15) / 16;
+  const int qr = s.q_row;
+  for (int unit = warp % wm; unit < u * per_phase; unit += wm) {
+    const int r = unit / per_phase;
+    const int a0 = unit % per_phase * 16;                      // first output of the tile
     const int l_r = plan.h_lo + ((r - s.pad - plan.h_lo) % u + u) % u;   // first l of phase r
-    int l[kUpStrip], q0[kUpStrip];
+    const int n_r = (plan.h_hi - l_r + u - 1) / u;            // outputs of phase r
+    // xs columns of A rows g and g + 8 at tap 0 (rows past the phase read
+    // its last output's and are not stored)
+    const int q = plan.xs_off + (l_r + s.pad) / u - row0 + t * qr;
+    const int c0 = q + min(a0 + g, n_r - 1);
+    const int c1 = q + min(a0 + g + 8, n_r - 1);
+    float acc[NI][4] = {};
+    for (int m = 0; m < m_taps; ++m) {
+      const int j = r + m * u;
+      if (j >= s.k_up) break;
+      const float4* wj = s.up_w + (static_cast<size_t>(j) * S * N + n0) * 32 + lane;
+#pragma unroll 2
+      for (int ks = 0; ks < S; ++ks) {
+        unsigned bh[NI][2], bl[NI][2];
 #pragma unroll
-    for (int t = 0; t < kUpStrip; ++t) {
-      l[t] = l_r + (a0 + 32 * t) * u;
-      q0[t] = (l[t] + s.pad) / u - row0;
-    }
-    float acc[kCoTile][kUpStrip];
-#pragma unroll
-    for (int c = 0; c < kCoTile; ++c)
-#pragma unroll
-      for (int t = 0; t < kUpStrip; ++t) acc[c][t] = 0.f;
-    for (int ci = 0; ci < c_in; ++ci) {
-      const float* wr = s.up_w + (static_cast<size_t>(ci) * s.c + co_base + co0) * s.k_up;
-      const float* xr = xs + ci * s.q_stride;
-      for (int m = 0; m < m_taps; ++m) {
-        const int j = r + m * u;
-        if (j >= s.k_up) break;
-        float v[kUpStrip];
-#pragma unroll
-        for (int t = 0; t < kUpStrip; ++t) v[t] = l[t] < plan.h_hi ? xr[q0[t] - m] : 0.f;
-#pragma unroll
-        for (int c = 0; c < kCoTile; ++c) {
-          const float wv = __ldg(wr + c * s.k_up + j);
-#pragma unroll
-          for (int t = 0; t < kUpStrip; ++t) acc[c][t] = fmaf(wv, v[t], acc[c][t]);
+        for (int n = 0; n < NI; ++n) {
+          const float4 v = __ldg(wj + (ks * N + n) * 32);
+          bh[n][0] = __float_as_uint(v.x);
+          bh[n][1] = __float_as_uint(v.y);
+          bl[n][0] = __float_as_uint(v.z);
+          bl[n][1] = __float_as_uint(v.w);
         }
+        const int k0 = 8 * ks * qr - m;
+        const float a[4] = {sm[c0 + k0], sm[c1 + k0], sm[c0 + k0 + 4 * qr],
+                            sm[c1 + k0 + 4 * qr]};
+        unsigned ah[4], al[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) split_tf32(a[e], ah[e], al[e]);
+#pragma unroll
+        for (int n = 0; n < NI; ++n) mma_3xtf32_add(acc[n], ah, al, bh[n], bl[n]);
       }
     }
+    // accumulator tile: rows g, g + 8 (outputs), columns 2t, 2t + 1 (channels)
 #pragma unroll
-    for (int c = 0; c < kCoTile; ++c) {
-      const int co = co0 + c;
-      const float bv = __ldg(s.up_b + co_base + co);
+    for (int n = 0; n < NI; ++n) {
 #pragma unroll
-      for (int t = 0; t < kUpStrip; ++t) {
-        if (l[t] >= plan.h_hi) continue;
-        const int g = base + l[t];
-        hbuf[co * L + l[t]] = (g >= 0 && g < s.t_out) ? acc[c][t] + bv : 0.f;
+      for (int e = 0; e < 4; ++e) {
+        const int co = (ng * NI + n) * 8 + 2 * t + (e & 1);   // in this block's slice
+        const int a = a0 + g + 8 * (e >> 1);
+        if (a >= n_r) continue;
+        const int l = l_r + a * u;
+        const int gp = base + l;
+        sm[at(co, l, L)] = (gp >= 0 && gp < s.t_out)
+                               ? acc[n][e] + __ldg(s.up_b + rank * plan.cs + co)
+                               : 0.f;
       }
     }
   }
 }
 
-template <int kNT>
+template <int kNT, int NI>
 __global__ void __launch_bounds__(kNT) gen_stage_kernel(const Stage s, const Plan plan) {
-  extern __shared__ float4 smem4[];
+  constexpr bool kWide = kNT == kWideThreads;   // the cluster layout
   float* smem = reinterpret_cast<float*>(smem4);
   const int ranks = plan.ranks;
   const int cs = plan.cs;
   const int L = s.tile_t + 2 * kHalo;
   const int A = plan.a_hi - plan.a_lo;
-  float* hbuf = smem;               // stage input h            (cs, L)
-  float* xb = hbuf + cs * L;        // block running residual   (cs, L)
-  float* tb = xb + cs * L;          // conv1 output             (cs, L)
-  float* st = tb + cs * L;          // peer staging (cluster)   (cs, L)
-  float* acc = st + (ranks > 1 ? cs * L : 0);   // sum over blocks (cs, A)
+  // buffers as offsets (floats) into shared memory, which conv_layer takes
+  const int h_at = 0;               // stage input h            (cs, L)
+  const int x_at = cs * L;          // block running residual   (cs, L)
+  const int t_at = 2 * cs * L;      // conv1 output             (cs, L)
+  const int st_at = 3 * cs * L;     // peer staging (cluster)   (2 kKC, L)
+  float* hbuf = smem + h_at;
+  float* xb = smem + x_at;
+  float* acc = smem + st_at + (ranks > 1 ? 2 * kKC * L : 0);   // sum over blocks (cs, A)
 
   const int rank = blockIdx.x % ranks;
   const int n = blockIdx.y;
@@ -434,7 +617,7 @@ __global__ void __launch_bounds__(kNT) gen_stage_kernel(const Stage s, const Pla
       const int co = e / h_w;
       const int l = plan.h_lo + e % h_w;
       const int g = base + l;
-      hbuf[co * L + l] =
+      hbuf[at(co, l, L)] =
           (g >= 0 && g < s.t_out) ? __ldg(xn + static_cast<size_t>(co) * s.t_out + g) : 0.f;
     }
   } else {
@@ -445,30 +628,30 @@ __global__ void __launch_bounds__(kNT) gen_stage_kernel(const Stage s, const Pla
     __syncthreads();
 
     // 2. transposed conv
-    conv_transpose(s, plan, smem + plan.xs_off, hbuf, L, base, co_base);
+    conv_transpose<NI>(s, plan, L, base, rank);
   }
   stage_sync(ranks);
 
   // 3. ResBlock1 stacks: xb = h; per round xb += conv2(lrelu(conv1(lrelu(xb)))).
   //    conv1 stores lrelu of its (masked) output, which only conv2 reads.
-  const Tile tl = {s.c, cs, ranks, rank, L, base, s.t_out, st};
+  const Tile tl = {s.c, cs, ranks, rank, L, base, s.t_out, st_at};
   int ci = 0;
   for (int b = 0; b < plan.n_blocks; ++b) {
     for (int r = 0; r < plan.rounds[b]; ++r) {
-      const float* src = r == 0 ? hbuf : xb;
-      conv_any<true, true>(tl, plan.k[ci], src, tb, nullptr, plan.w[ci], plan.b[ci],
-                           plan.d[ci], plan.lo[ci], plan.hi[ci]);
+      const int src = r == 0 ? h_at : x_at;
+      conv_any<true, true, NI, kWide>(tl, plan.k[ci], src, t_at, -1, plan.w[ci], plan.b[ci],
+                                      plan.d[ci], plan.lo[ci], plan.hi[ci]);
       ++ci;
       stage_sync(ranks);
-      conv_any<false, false>(tl, plan.k[ci], tb, xb, src, plan.w[ci], plan.b[ci],
-                             plan.d[ci], plan.lo[ci], plan.hi[ci]);
+      conv_any<false, false, NI, kWide>(tl, plan.k[ci], t_at, x_at, src, plan.w[ci],
+                                        plan.b[ci], plan.d[ci], plan.lo[ci], plan.hi[ci]);
       ++ci;
       stage_sync(ranks);
     }
     for (int e = threadIdx.x; e < cs * A; e += blockDim.x) {
       const int co = e / A;
       const int l = plan.a_lo + e % A;
-      acc[e] = (b == 0 ? 0.f : acc[e]) + xb[co * L + l];
+      acc[e] = (b == 0 ? 0.f : acc[e]) + xb[at(co, l, L)];
     }
     __syncthreads();
   }
@@ -508,7 +691,7 @@ __global__ void __launch_bounds__(kNT) gen_stage_kernel(const Stage s, const Pla
 // Plans a tile of tile_t output samples: each conv's output range, walked
 // back from the block sum (a conv's output range is what the next layer or
 // the block sum reads; its input range is that widened by its reach). Sets
-// s.q_stride (the input rows the tile's transposed conv reads) and
+// s.q_stride (the input rows the tile's transposed conv reads), s.q_row and
 // plan.xs_off. Returns the tile's dynamic shared memory in bytes, or 0 when
 // a block's receptive field exceeds the halo.
 size_t plan_tile(Plan& plan, Stage& s, int tile_t) {
@@ -536,24 +719,26 @@ size_t plan_tile(Plan& plan, Stage& s, int tile_t) {
   }
   const size_t cs = plan.cs;
   const size_t A = plan.a_hi - plan.a_lo;
-  // h, the residual and the intermediate (and the peer staging buffer in the
-  // cluster layout), (cs, L) each, and the block sum (cs, A)
-  const size_t bufs = ((plan.ranks > 1 ? 4 : 3) * static_cast<size_t>(L) + A) * cs;
+  // h, the residual and the intermediate, (cs, L) each, the two peer chunks
+  // (kKC, L) in the cluster layout, and the block sum (cs, A)
+  const size_t bufs = (3 * static_cast<size_t>(L) + A) * cs +
+                      (plan.ranks > 1 ? 2 * kKC * static_cast<size_t>(L) : 0);
   if (s.k_up == 0) {
-    s.q_stride = 0;
+    s.q_stride = s.q_row = 0;
     plan.xs_off = 0;
     return bufs * sizeof(float);
   }
   const int m_taps = (s.k_up + s.u - 1) / s.u;
   // base = t0 - kHalo is a multiple of u, so the row span is the same for
-  // every tile
+  // every tile; its rows are stored q_row = 8 mod 16 floats apart
   s.q_stride = (plan.h_hi - 1 + s.pad) / s.u - (plan.h_lo + s.pad) / s.u + m_taps;
-  // the input span (2C, q_stride) reuses the intermediate onwards; conv_pre's
+  s.q_row = s.q_stride + (24 - s.q_stride % 16) % 16;
+  // the input span (2C, q_row) reuses the intermediate onwards; conv_pre's
   // mel rows sit before it, in h and the residual
   const size_t mel = s.pre_k > 0 ? static_cast<size_t>(s.c_mel) * (s.q_stride + s.pre_k - 1) : 0;
   const size_t xs_off = std::max(2 * cs * L, mel);
   plan.xs_off = static_cast<int>(xs_off);
-  return std::max(bufs, xs_off + 2 * static_cast<size_t>(s.c) * s.q_stride) * sizeof(float);
+  return std::max(bufs, xs_off + 2 * static_cast<size_t>(s.c) * s.q_row) * sizeof(float);
 }
 
 // Fills the plan's convs and layout, picks the widest tile of 1024 ... 64
@@ -564,7 +749,7 @@ int launch(Stage s, Plan plan, int n, int n_convs, const int* conv_k, const int*
   for (int i = 0; i < n_convs; ++i) {
     if ((conv_k[i] != 3 && conv_k[i] != 7 && conv_k[i] != 11) || conv_d[i] < 1)
       return static_cast<int>(cudaErrorInvalidValue);
-    plan.w[i] = static_cast<const float*>(conv_w[i]);
+    plan.w[i] = static_cast<const float4*>(conv_w[i]);
     plan.b[i] = static_cast<const float*>(conv_b[i]);
     plan.k[i] = conv_k[i];
     plan.d[i] = conv_d[i];
@@ -578,8 +763,14 @@ int launch(Stage s, Plan plan, int n, int n_convs, const int* conv_k, const int*
   }
   plan.cs = s.c / plan.ranks;
   const bool wide = plan.ranks > 1;
+  // n-tiles per warp: 4 in the cluster layout (its 32-channel slice), else the
+  // largest of 4, 2, 1 that divides the width's n-tiles
+  const int n_tiles = s.c / 8;
   void (*kernel)(const Stage, const Plan) =
-      wide ? gen_stage_kernel<kWideThreads> : gen_stage_kernel<kThreads>;
+      wide                ? gen_stage_kernel<kWideThreads, 4>
+      : n_tiles % 4 == 0  ? gen_stage_kernel<kThreads, 4>
+      : n_tiles % 2 == 0  ? gen_stage_kernel<kThreads, 2>
+                          : gen_stage_kernel<kThreads, 1>;
   const int threads = wide ? kWideThreads : kThreads;
 
   int device = 0, limit = 0;
@@ -600,7 +791,7 @@ int launch(Stage s, Plan plan, int n, int n_convs, const int* conv_k, const int*
   config.numAttrs = wide ? 1 : 0;
 
   size_t bytes = 0;
-  for (int t = 1024; t >= kHalo; t /= 2) {
+  for (int t = wide ? kWideMaxTile : 1024; t >= kHalo; t /= 2) {
     bytes = plan_tile(plan, s, t);
     if (bytes == 0) return static_cast<int>(cudaErrorInvalidValue);
     if (bytes > static_cast<size_t>(limit)) continue;
@@ -639,7 +830,7 @@ int fill_blocks(Plan& plan, int n_blocks, const int* rounds) {
 }
 
 bool width_ok(int c) {
-  return (c >= kCoTile && c <= 64 && c % kCoTile == 0) ||
+  return (c >= 8 && c <= 64 && c % 8 == 0) ||
          (c > 64 && c % kSlice == 0 && c / kSlice <= kMaxRanks);
 }
 
@@ -647,10 +838,14 @@ bool width_ok(int c) {
 
 // x (n, 2c, t_in) -> out (n, c, u * t_in), or (n, 1, u * t_in) when post_k > 0
 // (c <= 64: conv_post reads every channel, which one block holds only there).
+// up_w is the transposed conv's weight (2c, c, k_up) as TF32 fragments of its
+// (c, 2c, k_up) transpose ((k_up, c / 4, c / 8, 32, 4) floats), up_b (c,).
 // With pre_k > 0, x is the mel (n, c_mel, t_in) and conv_pre (pre_w (2c,
 // c_mel, pre_k), pre_b (2c,)) runs first. Block b runs rounds[b] conv pairs;
 // conv i has kernel conv_k[i] (3, 7 or 11), dilation conv_d[i], weight
-// conv_w[i] (c, c, k) and bias conv_b[i] (c,). Widths: c <= 64 a multiple of
+// conv_w[i] (c, c, k) as TF32 fragments ((k, c / 8, c / 8, 32, 4) floats, the
+// order conv_layer reads; ops/cuda/gen_stage.py: tf32_fragments) and bias
+// conv_b[i] (c,). Widths: c <= 64 a multiple of
 // 8 (one block per tile), or a multiple of 32 up to 256 (a cluster of c / 32
 // blocks per tile). The host arrays are read before return. Returns a
 // cudaError_t; 0 when launched.
@@ -680,7 +875,7 @@ extern "C" int gen_stage_forward(const float* x, float* out, int n, int c,
   s.u = u;
   s.k_up = k_up;
   s.pad = (k_up - u) / 2;
-  s.up_w = up_w;
+  s.up_w = reinterpret_cast<const float4*>(up_w);
   s.up_b = up_b;
   s.pre_w = pre_w;
   s.pre_b = pre_b;

@@ -1,7 +1,7 @@
 // fp32-accurate products on the TF32 tensor cores (3xTF32 mma.sync m16n8k8)
 // and the cp.async copies that stage their operands, shared by the
-// flash-attention kernels (flash_attention.cu) and the grouped-conv weight
-// gradient (grouped_conv.cu).
+// flash-attention kernels (flash_attention.cu), the grouped-conv weight
+// gradient (grouped_conv.cu) and the generator-stage convs (gen_stage.cu).
 //
 // - 3xTF32. Each operand x is split as hi + lo, hi = x rounded to TF32 (10
 //   mantissa bits) and lo = x - hi (split_tf32), and a b accumulates
@@ -13,7 +13,7 @@
 // - Partial sums. The tensor cores' fp32 accumulator rounds toward zero, a
 //   bias that grows with each product in a chain, so callers sum a bounded
 //   run of products in a fresh accumulator and add it to their total in fp32
-//   (add_part, mma_3xtf32_rn).
+//   (add_part, mma_3xtf32_rn, mma_3xtf32_add).
 // - Fragments (PTX m16n8k8 .tf32): lane (g, t) = (lane / 4, lane % 4) holds A
 //   rows g and g + 8 at columns t and t + 4, B rows t and t + 4 at column g,
 //   and C rows g and g + 8 at columns 2t and 2t + 1.
@@ -46,6 +46,24 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// acc += a b as mma_3xtf32_rn computes it, the fresh accumulator started by
+// the first product (its C operand the constant 0) rather than zeroed
+// registers.
+__device__ __forceinline__ void mma_3xtf32_add(float (&acc)[4], const unsigned (&ah)[4],
+                                               const unsigned (&al)[4], const unsigned (&bh)[2],
+                                               const unsigned (&bl)[2]) {
+  const float z = 0.f;
+  float c[4];
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};"
+      : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
+      : "r"(al[0]), "r"(al[1]), "r"(al[2]), "r"(al[3]), "r"(bh[0]), "r"(bh[1]), "f"(z));
+  mma_tf32(c, ah, bl);
+  mma_tf32(c, ah, bh);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) acc[e] += c[e];
 }
 
 // c += a b at fp32 accuracy: the three TF32 products, small ones first.

@@ -69,6 +69,7 @@ SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P,         # q, k, v, key_valid, dout, lse, di
         _P, _P,                             # dk, dv
         _I, _I, _I, _I, _I, _F, _P],        # bh, heads, tq, tk, d, scale, stream
+    'mma_rate': [_P, _I, _I, _I, _P],     # out, blocks, threads, iters, stream
     'flash_attention_dq': [
         _P, _P, _P, _P, _P, _P, _P,         # q, k, v, key_valid, dout, lse, di
         _P,                                 # dq

@@ -24,7 +24,11 @@ from the card's shared memory per block.
 
 A stage's resblocks are given as ``blocks``: one list per ResBlock1 of
 ``(weight (C, C, k), bias (C,), dilation)`` triples in execution order
-(convs1_0, convs2_0, convs1_1, convs2_1, ...).
+(convs1_0, convs2_0, convs1_1, convs2_1, ...). The kernel runs the resblock
+convs as 3xTF32 products on the tensor cores and reads each weight as TF32
+fragments (:func:`tf32_fragments`), made once per weight and kept on the
+weight tensor until it changes (its ``_version``); the transposed conv runs
+on the tensor cores the same way.
 """
 
 from typing import Optional, Sequence, Tuple
@@ -93,6 +97,39 @@ def generator_stage_reference(x: torch.Tensor, up_weight: torch.Tensor,
         x = torch.tanh(F.conv1d(F.leaky_relu(x, 0.01), w, b,
                                 padding=(w.shape[-1] - 1) // 2))
     return x
+
+
+def tf32_fragments(w: torch.Tensor) -> torch.Tensor:
+    """A conv weight (C_out, C_in, k) split into TF32 hi / lo in the order the
+    kernel reads its mma B fragments: (k, C_in / 8, C_out / 8, 8, 4, 2, 2) =
+    (tap j, k-step s, n-tile n, g, t, hi / lo, h), entry w[8n + g][8s + 4h +
+    t][j]; lane 4g + t of a warp reads its four floats with one 16-byte load.
+    hi is w rounded to TF32 (the tensor cores read the top 19 bits) and lo =
+    w - hi, as ``split_tf32`` in ``csrc/tf32_mma.cuh`` splits an operand."""
+    c_out, c_in, k = w.shape
+    w = w.contiguous()
+    hi = ((w.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+    lo = w - hi
+
+    def order(x):
+        return x.reshape(c_out // 8, 8, c_in // 8, 2, 4, k).permute(5, 2, 0, 1, 4, 3)
+    return torch.stack([order(hi), order(lo)], dim=-2).contiguous()
+
+
+def _fragments(w: torch.Tensor, transposed: bool = False) -> torch.Tensor:
+    """:func:`tf32_fragments` of w, or of its (C_out, C_in, k) transpose for a
+    ConvTranspose1d weight (C_in, C_out, k), kept on w while its version
+    holds (an inference tensor has no version: split per call)."""
+    def split(v):
+        return tf32_fragments(v.transpose(0, 1) if transposed else v)
+    if w.is_inference():
+        return split(w)
+    name = '_tf32_fragments_t' if transposed else '_tf32_fragments'
+    kept = getattr(w, name, None)
+    if kept is None or kept[0] != w._version:
+        kept = (w._version, split(w.detach()))
+        setattr(w, name, kept)
+    return kept[1]
 
 
 def _check_width(c: int):
@@ -186,13 +223,19 @@ def _device(x: torch.Tensor, name: str) -> bool:
     return x.device.type == 'cuda'
 
 
-def _plan_args(blocks: Sequence[Sequence[Conv]]):
+def _plan_args(blocks: Sequence[Sequence[Conv]], frags: Sequence[torch.Tensor]):
+    """The C plan arguments; ``frags``: the convs' TF32 fragments, which the
+    caller holds until the launch has been queued."""
     convs = [conv for block in blocks for conv in block]
     return (len(blocks), _build.int_array([len(b) // 2 for b in blocks]),
             _build.int_array([w.shape[2] for w, _, _ in convs]),
             _build.int_array([d for _, _, d in convs]),
-            _build.ptr_array([w for w, _, _ in convs]),
+            _build.ptr_array(frags),
             _build.ptr_array([b for _, b, _ in convs]))
+
+
+def _conv_fragments(blocks: Sequence[Sequence[Conv]]):
+    return [_fragments(w) for block in blocks for w, _, _ in block]
 
 
 def generator_stage(x: torch.Tensor, up_weight: torch.Tensor, up_bias: torch.Tensor,
@@ -212,10 +255,11 @@ def generator_stage(x: torch.Tensor, up_weight: torch.Tensor, up_bias: torch.Ten
     pre_w, pre_b = conv_pre if conv_pre is not None else (None, None)
     out = torch.empty((n, 1 if conv_post is not None else c, t_in * upsample_rate),
                       dtype=torch.float32, device=x.device)
+    up_frags, frags = _fragments(up_weight, transposed=True), _conv_fragments(blocks)
     with torch.cuda.device(x.device):
         code = _build.library().gen_stage_forward(
             x.data_ptr(), out.data_ptr(), n, c, t_in, upsample_rate, k_up,
-            up_weight.data_ptr(), up_bias.data_ptr(), *_plan_args(blocks),
+            up_frags.data_ptr(), up_bias.data_ptr(), *_plan_args(blocks, frags),
             post_w.data_ptr() if post_w is not None else None,
             post_b.data_ptr() if post_b is not None else None,
             post_w.shape[2] if post_w is not None else 0,
@@ -243,9 +287,10 @@ def resblock_stage(x: torch.Tensor, blocks: Sequence[Sequence[Conv]]) -> torch.T
     check_resblock_stage(x, blocks)
     n, c, t = x.shape
     out = torch.empty_like(x)
+    frags = _conv_fragments(blocks)
     with torch.cuda.device(x.device):
         code = _build.library().resblock_stage_forward(
-            x.data_ptr(), out.data_ptr(), n, c, t, *_plan_args(blocks),
+            x.data_ptr(), out.data_ptr(), n, c, t, *_plan_args(blocks, frags),
             torch.cuda.current_stream().cuda_stream)
     _build.check(code, 'resblock_stage_forward')
     resblock_stage.launches += 1

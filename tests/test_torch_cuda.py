@@ -113,6 +113,66 @@ def test_resblock_kernel_matches_plain(card, c, n, t):
     assert float((out - ref).abs().max()) <= STAGE_TOL * float(ref.abs().max())
 
 
+@pytest.mark.parametrize('c,t', [
+    (8, 2100),     # one n-tile per warp (the n-tile route of C = 8, 24, 40, 56)
+    (16, 2100),    # two n-tiles per warp
+    (24, 1100),    # one n-tile, three channel groups of five warps
+    (48, 700),     # two n-tiles, three channel groups
+    (64, 700),     # four n-tiles, two channel groups
+    (256, 773),    # the cluster layout, a ragged last tile of 5 samples
+])
+def test_resblock_kernel_width_routes(card, c, t):
+    """K3 at each n-tile route of the single-block layout and at C = 256
+    with a ragged last tile: within STAGE_TOL of the plain version's max
+    abs, and bit-identical on a rerun (fixed summation order, no atomics)."""
+    rng = np.random.default_rng(c * 7 + t)
+    w, blocks = _stage_weights(card, rng, c)
+    x = w(1, c, t, scale=1.0)
+    out = gs.resblock_stage(x, blocks)
+    ref = gs.resblock_stage_reference(x, blocks)
+    assert float((out - ref).abs().max()) <= STAGE_TOL * float(ref.abs().max())
+    tail = slice(t - 5, t)
+    assert float((out[..., tail] - ref[..., tail]).abs().max()) <= \
+        STAGE_TOL * float(ref.abs().max())
+    assert torch.equal(out, gs.resblock_stage(x, blocks))
+
+
+@pytest.mark.parametrize('c,pre', [(64, False), (128, False), (256, True)])
+def test_stage_kernel_rerun_is_bit_identical(card, c, pre):
+    """K1 in the single-block layout and the cluster layout (with conv_pre at
+    C = 256), run twice on the same input: the same bits."""
+    rng = np.random.default_rng(c + 5)
+    w, blocks = _stage_weights(card, rng, c)
+    args = dict(up_weight=w(2 * c, c, 16, scale=0.05), up_bias=w(c, scale=0.1),
+                blocks=blocks, upsample_rate=8,
+                conv_pre=(w(2 * c, 80, 7, scale=0.05), w(2 * c, scale=0.1)) if pre else None)
+    x = w(2, 80 if pre else 2 * c, 70, scale=1.0)
+    first = gs.generator_stage(x, **args)
+    assert torch.equal(first, gs.generator_stage(x, **args))
+    ref = gs.generator_stage_reference(x, **args)
+    assert float((first - ref).abs().max()) <= STAGE_TOL * float(ref.abs().max())
+
+
+@pytest.mark.parametrize('c', [64, 256])
+def test_stage_kernel_takes_inference_weights(card, c):
+    """Weights made under inference mode have no version to key the kept
+    TF32 fragments on, so they are split on every call: the stage kernel
+    gives the same bits as with the same weights as ordinary tensors."""
+    rng = np.random.default_rng(c + 11)
+    w, blocks = _stage_weights(card, rng, c)
+    args = dict(up_weight=w(2 * c, c, 16, scale=0.05), up_bias=w(c, scale=0.1),
+                blocks=blocks, upsample_rate=8)
+    x, h = w(2, 2 * c, 40, scale=1.0), w(2, c, 320, scale=1.0)
+    with torch.inference_mode():
+        frozen = dict(args, up_weight=args['up_weight'].clone(), blocks=[
+            [(wt.clone(), b.clone(), d) for wt, b, d in block] for block in blocks])
+        assert frozen['up_weight'].is_inference()
+        out = gs.generator_stage(x, **frozen)
+        res = gs.resblock_stage(h, frozen['blocks'])
+    assert torch.equal(out, gs.generator_stage(x, **args))
+    assert torch.equal(res, gs.resblock_stage(h, blocks))
+
+
 def test_trainable_mel_kernel_matches_plain(card):
     """K4 at the training shape (16 x 8192): the forward launches the log-mel
     kernel once and matches the plain version; the gradient of sum(sin(mel))

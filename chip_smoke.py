@@ -29,8 +29,10 @@ Phases, one line each; any failure raises and the script exits non-zero:
    grouped-conv kernels: each kernel (forward, dx, dw) against its plain
    version on every conv of MPD base and MSD base at the critic phase's
    32 x 8192 inputs and at v2's four upsamples, one line per layer with its
-   times (kernel / plain / cuDNN) and the dw kernel its rows per group
-   route to (tensor cores or CUDA cores); ``HiFiGANTrainer(...).run()`` at full
+   times (kernel / plain / cuDNN) and the kernel each entry point's rows per
+   group route to (tensor cores or CUDA cores), then the sums beside the
+   fp32 and 3xTF32 bounds and the layers each entry loses to cuDNN;
+   ``HiFiGANTrainer(...).run()`` at full
    width for 3 steps and a validation batch with the launch counts the
    models' routes give; card vs CPU and kernel route vs cuDNN route, one
    step each; the kernel route's step time beside phase 7's;
@@ -614,7 +616,9 @@ def kernel_route(dev, card, cudnn_step):
     errs = {'fwd': 0.0, 'dx': 0.0, 'dw': 0.0}
     times = {e: [0.0, 0.0, 0.0] for e in errs}     # kernel, plain, library ms
     work = {e: [0.0, 0.0] for e in errs}           # FLOPs, bytes
-    dw_flops = {'conv_dw_kernel': 0.0, 'conv_gemm_kernel': 0.0}   # by the dw kernel
+    # FLOPs by the kernel each entry point took (tensor cores or CUDA cores)
+    by_kernel = {e: {} for e in errs}
+    losses = {e: [0, 0.0, 0.0] for e in errs}     # layers slower than cuDNN: count, ms, cuDNN ms
 
     def rel(a, b):
         return float((a - b).abs().max() / b.abs().max())
@@ -647,7 +651,11 @@ def kernel_route(dev, card, cudnn_step):
                      'dw': gz.numel() + x.numel() + w.numel()}
             geometry = '%d->%d k%d u%d T%d' % (m.in_channels, m.out_channels,
                                               m.kernel_size, m.stride, t)
-            dw_rows = w.shape[0]        # the mirror conv's output channels, one group
+            # the mirror conv (one group): dw and fwd rows its output channels,
+            # dx (the ConvTranspose1d forward) rows its input channels
+            rows = {'fwd': w.shape[0], 'dx': w.shape[1], 'dw': w.shape[0]}
+            depth = {'fwd': w.shape[1] * m.kernel_size,
+                     'dx': gc.dx_depth(w.shape[0], m.kernel_size, m.stride, m.padding)}
         else:
             n, _, t = x.shape
             conf = dict(stride=m.stride, padding=m.padding, groups=m.groups,
@@ -676,9 +684,17 @@ def kernel_route(dev, card, cudnn_step):
             geometry = '%d->%d k%d s%d g%d d%d T%d' % (m.in_channels, m.out_channels,
                                                        m.kernel_size, m.stride, m.groups,
                                                        m.dilation, t)
-            dw_rows = m.out_channels // m.groups
-        line = {'dw_kernel': gc.dw_kernel(dw_rows)}
-        dw_flops[line['dw_kernel']] += 2.0 * macs
+            rows = {'fwd': m.out_channels // m.groups, 'dx': m.in_channels // m.groups,
+                    'dw': m.out_channels // m.groups}
+            depth = {'fwd': m.in_channels // m.groups * m.kernel_size,
+                     'dx': gc.dx_depth(m.out_channels, m.kernel_size, m.stride, m.padding,
+                                       m.dilation, m.groups)}
+        line = {'fwd_kernel': gc.fwd_kernel(rows['fwd'], depth['fwd']),
+                'dx_kernel': gc.dx_kernel(rows['dx'], depth['dx']),
+                'dw_kernel': gc.dw_kernel(rows['dw'])}
+        for e in errs:
+            kern = line['%s_kernel' % e]
+            by_kernel[e][kern] = by_kernel[e].get(kern, 0.0) + 2.0 * macs
         for entry, (kernel, plain, library) in calls.items():
             got, ref = kernel(), plain()
             torch.cuda.synchronize()
@@ -694,22 +710,30 @@ def kernel_route(dev, card, cudnn_step):
             work[entry][0] += 2.0 * macs
             work[entry][1] += 4.0 * moved[entry]
             line[entry + '_ms'] = '%.3f/%.3f/%.3f' % (k_ms, p_ms, l_ms)
+            if k_ms > l_ms:
+                losses[entry][0] += 1
+                losses[entry][1] += k_ms
+                losses[entry][2] += l_ms
         log('k6', layer=name, geometry=geometry, batch=n, **line)
     del layers
     bounds = {e: bound(f, 0.0, nb) for e, (f, nb) in work.items()}
-    # dw's layers on the tensor cores do 3 TF32 FLOPs per FLOP at the TF32
-    # peak; those on the CUDA cores (conv_post) theirs at the fp32 peak
-    dw_tc_bound = max(3 * dw_flops['conv_dw_kernel'] / PEAK_TF32
-                      + dw_flops['conv_gemm_kernel'] / PEAK_FP32,
-                      work['dw'][1] / HBM_BYTES_PER_S) * 1e3
+    # the layers on the tensor cores (conv_dw_kernel, conv_tap_kernel) do 3
+    # TF32 FLOPs per FLOP at the TF32 peak; those on the CUDA cores
+    # (conv_gemm_kernel: conv_post, a first layer's dx, v2's last upsample)
+    # theirs at the fp32 peak
+    tc_kernels = ('conv_dw_kernel', 'conv_tap_kernel')
+    tc_flops = {e: sum(f for k_, f in by_kernel[e].items() if k_ in tc_kernels) for e in errs}
+    tc_bounds = {e: max(3 * tc_flops[e] / PEAK_TF32 + (work[e][0] - tc_flops[e]) / PEAK_FP32,
+                        work[e][1] / HBM_BYTES_PER_S) * 1e3 for e in errs}
     log('time', card=repr(card), what='k6_layers_one_call_each',
         **{'%s_ms' % e: '%.3f' % times[e][0] for e in errs},
         **{'%s_plain_ms' % e: '%.3f' % times[e][1] for e in errs},
         **{'%s_cudnn_ms' % e: '%.3f' % times[e][2] for e in errs},
         **{'%s_bound_ms' % e: '%.3f(%s)' % bounds[e] for e in errs},
-        dw_tc_bound_ms='%.3f' % dw_tc_bound,
-        dw_tc_gflop='%.1f' % (dw_flops['conv_dw_kernel'] / 1e9),
-        **{'%s_gflop' % e: '%.1f' % (work[e][0] / 1e9) for e in errs})
+        **{'%s_tc_bound_ms' % e: '%.3f' % tc_bounds[e] for e in errs},
+        **{'%s_tc_gflop' % e: '%.1f' % (tc_flops[e] / 1e9) for e in errs},
+        **{'%s_gflop' % e: '%.1f' % (work[e][0] / 1e9) for e in errs},
+        **{'%s_loses_to_cudnn' % e: '%d_layers_%.3f/%.3f_ms' % tuple(losses[e]) for e in errs})
 
     # 8.2 the main path on the kernel route: HiFiGANTrainer(...).run() at
     #     full width, 3 steps and one validation batch, launch counts from zero
@@ -775,8 +799,8 @@ def kernel_route(dev, card, cudnn_step):
     return [{'name': 'grouped_conv_' + e, 'route': 'cuda', 'source': gc.SOURCE,
              'replaces': replaces[e], 'launches': launches[i], 'max_abs_err': errs[e],
              'ms': times[e][0], 'plain_ms': times[e][1], 'bound_ms': bounds[e][0],
-             'bound_by': bounds[e][1], **({'tc_bound_ms': dw_tc_bound} if e == 'dw' else {}),
-             'library_ms': times[e][2]}
+             'bound_by': bounds[e][1], 'tc_bound_ms': tc_bounds[e],
+             'layers_slower_than_library': losses[e][0], 'library_ms': times[e][2]}
             for i, e in enumerate(('fwd', 'dx', 'dw'))]
 
 

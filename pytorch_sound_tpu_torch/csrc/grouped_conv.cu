@@ -17,66 +17,107 @@
 // above the card's ~20 FLOP/B fp32 ridge; only the first layers (one input
 // channel) and conv_post (one output channel) are bound by bytes.
 //
-// What the design does about it: each of the three is one implicit GEMM per
-// group. The forward, dx, and dw of layers with fewer than 16 output channels
-// per group run conv_gemm_kernel, tiled for the CUDA cores in fp32. A block owns a
-// BM x BN tile of the GEMM's output: rows are output channels (forward, dw) or
-// input channels (dx); columns are (item, time) flattened (forward, dx), so
-// short sequences still fill a tile, or (channel, tap) pairs (dw). The
-// reduction runs in chunks of 16 through shared memory: the weight (or
+// Each of the three is one implicit GEMM per group, and three kernels run
+// them, chosen by the GEMM's rows per group (forward and dw: output channels;
+// dx: input channels):
+//
+// conv_tap_kernel: the forward and dx from 16 rows and one 32-deep stage of
+// reduction on (every critic conv but its first layer and conv_post, whose
+// one input or output channel leaves a reduction of 3-15 or one row; v2's
+// upsamples but the last one's ConvTranspose1d, 8 rows). It replaces
+// _shifted_matmul's "J shifted matmuls over a phase-folded input" and keeps
+// its reuse: the k taps of a conv read the same input row at shifts. Bound:
+// 3 TF32 FLOPs per FLOP (3xTF32 mma.sync m16n8k8, tf32_mma.cuh: each operand
+// split into a TF32 hi and lo, three products per pair, fp32-accurate) at
+// the 495 TFLOP/s TF32 rate. Rows x columns (item, time) flattened x
+// reduction (channel, tap) in 32-deep stages through a three-stage cp.async
+// ring, one barrier a stage; 4 warps over the tile conv_dw_kernel takes for
+// the same rows.
+//   - A (the weight) arrives in 16-byte copies of rows contiguous along the
+//     reduction: w itself in the forward; dx's A, w[co, ci, m0 + ms i]
+//     gathered per phase ([group][phase][ci][(co, i)], as the JAX package's
+//     _pack_dx_taps packs it outside its kernel), and a forward whose rows
+//     are not whole 16-byte pieces, are first packed by pack_tap_a_kernel
+//     into scratch the entry point takes stream-ordered (cudaMallocAsync on
+//     the caller's stream; the C signatures take none). Each warp splits
+//     the A fragments it reads.
+//   - B is not gathered per (tap, column). Per stage and per channel the
+//     stage touches, the source window of the block's columns over all taps
+//     (forward: x[n, ci, t0 s - p .. (t0 + BN - 1) s + d (k - 1) - p]; dx:
+//     the phase's gy window, stride 1) lands once by 4-byte cp.async (zero
+//     padding by zero-fill) and the B fragments of every tap read it at
+//     their shift, split where they are read. At stride s the window is
+//     stored by phase (u mod s), each phase row pitched so that a
+//     fragment's four taps hit different banks (tap_pitch). A column tile
+//     that spans items (the period critics' folded items of 10-51 outputs,
+//     the scale critics' last layers of 33-128) holds one window segment per
+//     item, each with its own tail of span / s entries: short items need no
+//     per-element gather.
+//   - dx is one GEMM per (group, stride phase): outputs u = rho + s j read
+//     the taps m that reach an integer cotangent time, a residue class m0 +
+//     ms i (ms = s / gcd(s, d); 10 or 11 of K = 41 at stride 4), at time
+//     j + base - i d / gcd(s, d): no tap outside the phase is visited.
+//   - Each stage's products go to a fresh accumulator added in fp32
+//     (add_part): the tensor cores' accumulator rounds toward zero, and one
+//     chain over a reduction of 5,120 terms would carry that bias into the
+//     result. Every output has one writer, no atomics: a rerun is
+//     bit-identical. Bias and leaky_relu run in the epilogue.
+//   - What held it back (ops/cuda/k6a_probe.py's variants of this source on
+//     the H100, sums over the 58 layers chip_smoke.py's phase 8.1 runs): the
+//     staging and the instructions around the products more than the
+//     tensor cores. Without the compute loop the staging alone keeps about
+//     half the time (49 % forward, 55 % dx), without the staging the
+//     compute loop keeps 68 / 74 %: the two overlap only in part. One TF32
+//     product instead of three saves 24 / 21 %. Two ring stages tie three
+//     on the forward and lose 2 % on dx; 64-deep stages (+11 / +8 %), 8-warp
+//     128 x 128 tiles (+8 / +7 %) and a fresh accumulator per k-step instead
+//     of per stage (+7 %) lose. Two earlier drafts cost more than they
+//     saved: a pass splitting the landed window into hi / lo before each
+//     stage's barrier, and A pre-split into hi / lo fragments by the pack
+//     (twice A's bytes through L2 for every 64-column tile).
+//
+// conv_dw_kernel: dw from 16 output channels per group (every critic layer
+// but conv_post, every upsample's mirror conv), 3xTF32 as above. Rows are
+// output channels, columns (input channel, tap) pairs, and the reduction
+// runs over (item, time) positions in 32-deep stages. The A tile (gy rows,
+// contiguous in time) and the B tile (x gathered with the conv's index map,
+// zero padding from cp.async's zero-fill, no im2col copy) stream through a
+// two-stage cp.async ring with one barrier per stage. gy arrives in 16-byte
+// copies: where t_out % 4 != 0 or gy is not 16-byte aligned (the period
+// critics, the scale critics below full rate), the entry point first pads
+// its rows to a multiple of 4 in scratch, which measured a quarter faster on
+// those layers than 4-byte copies of gy and costs one pass over gy. Each
+// stage's products go to a fresh accumulator added in fp32 (add_part). A
+// block is 4 warps over a 128 x 64, 64 x 64, 32 x 128 or 16 x 256 tile (by
+// the rows per group), each warp 4 x 4, 2 x 4, 2 x 4 or 1 x 8 mma tiles;
+// rows of the shared tiles are padded (32 + 4 and BN + 8 floats) so that
+// every fragment load hits 32 banks. On the H100 the instructions that stage
+// and split its operands hold it back, not the tensor cores: a variant
+// without the products kept about two thirds of the time. Every element of x
+// arrives by its own 4-byte cp.async with its index arithmetic, and every
+// operand is split for each warp that reads it; 128-row tiles (fewer copies
+// per product) measured faster than 64-row ones from 128 rows on, and 8-warp
+// 128 x 128 tiles or a deeper ring slower over the critics' layers.
+//
+// conv_gemm_kernel: below 16 rows, where an m16 tile would waste most of its
+// rows (conv_post has one; a first layer's dx one; v2's last upsample's
+// ConvTranspose1d eight), on the CUDA cores in fp32. A block owns a BM x BN
+// tile of the GEMM's output: columns are (item, time) flattened (forward,
+// dx), so short sequences still fill a tile, or (channel, tap) pairs (dw).
+// The reduction runs in chunks of 16 through shared memory: the weight (or
 // cotangent) tile, and the input tile gathered straight from the unpadded NCT
 // tensor with the conv's index map (zero padding by masking, no im2col copy).
 // The next chunk is loaded into registers while this one's FMAs run, then
 // stored to the second of two shared buffers (one barrier per chunk). Each
 // thread keeps a TM x TN register tile, so one shared load feeds TN (or TM)
-// FMAs; columns are interleaved across threads so that shared reads of the
-// gathered tile and the global stores are contiguous across a warp. Bias and
-// leaky_relu run in the epilogue. The tile shape follows the rows per group
-// and the number of blocks (see dispatch).
+// FMAs. Its one-row tile splits the reduction over 8 slices. dx walks
+// (group, stride phase) as the tap kernel does. Bias and leaky_relu run in
+// the epilogue.
 //
-// dx gathers, one output element per register-tile entry, with no float
-// atomics: blockIdx.z walks (group, stride phase). For outputs u = phase + s j
-// the taps m that reach an integer t satisfy d m = u + p (mod s), a single
-// residue class m0 + ms i (ms = s / gcd(s, d)), so the reduction runs over
-// (co, i) with t = j + base - i d / gcd(s, d): taps that do not divide the
-// stride are never visited and the inner loop has no branch on them
-// (K = 41 at stride 4: 10 or 11 taps per phase).
-//
-// dw of layers with at least 16 output channels per group (every critic
-// layer but conv_post, every upsample's mirror conv) runs conv_dw_kernel on
-// the tensor cores at fp32 accuracy: 3xTF32 mma.sync m16n8k8 (tf32_mma.cuh),
-// each operand split into a TF32 hi and lo and three products per pair, so
-// the bound is 3 FLOPs at the 495 TFLOP/s TF32 rate where the CUDA cores'
-// is one at 67 TFLOP/s. Rows are output channels, columns (input channel,
-// tap) pairs, and the reduction runs over (item, time) positions in 32-deep
-// stages. The A tile (gy rows, contiguous in time) and the B tile (x gathered
-// with the conv's index map, zero padding from cp.async's zero-fill, no
-// im2col copy) stream through a two-stage cp.async ring with one barrier per
-// stage. gy arrives in 16-byte copies: where t_out % 4 != 0 or gy is not
-// 16-byte aligned (the period critics, the scale critics below full rate),
-// the entry point first pads its rows to a multiple of 4 in scratch, which
-// measured a quarter faster on those layers than 4-byte copies of gy and
-// costs one pass over gy. Each stage's products go to a fresh accumulator added in fp32
-// (add_part): the tensor cores' accumulator rounds toward zero, and one
-// chain over thousands of positions would carry that bias into the result.
-// A block is 4 warps over a 128 x 64, 64 x 64, 32 x 128 or 16 x 256 tile
-// (by the rows per group), each warp 4 x 4, 2 x 4, 2 x 4 or 1 x 8 mma tiles;
-// rows of the shared tiles are padded (32 + 4 and BN + 8 floats) so that
-// every fragment load hits 32 banks. Below 16 rows an m16 tile would waste
-// most of its rows (conv_post has one), so those layers keep
-// conv_gemm_kernel, whose one-row tile splits the reduction over 8 slices.
-// On the H100 the instructions that stage and split its operands hold it
-// back, not the tensor cores: a variant without the products kept about two
-// thirds of the time. Every element of x arrives by its own 4-byte cp.async
-// with its index arithmetic, and every operand is split for each warp that
-// reads it; 128-row tiles (fewer copies per product) measured faster than
-// 64-row ones from 128 rows on, and 8-warp 128 x 128 tiles or a deeper ring
-// slower over the critics' layers.
-//
-// dw is deterministic on both kernels: the (item, time) reduction is cut into
-// `splits` fixed chunks; each block writes its partial tile to scratch, and a
-// second pass of the same entry point sums the chunks in a fixed order. No
-// float atomics, so a rerun is bit-identical.
+// dw is deterministic on both of its kernels: the (item, time) reduction is
+// cut into `splits` fixed chunks; each block writes its partial tile to
+// scratch, and a second pass of the same entry point sums the chunks in a
+// fixed order. No float atomics, so a rerun is bit-identical.
 
 #include <cuda_runtime.h>
 
@@ -97,7 +138,7 @@ struct Geom {
   int n, cin, t_in, cout, t_out, k, stride, pad, dil, groups;
 };
 
-__device__ __forceinline__ int gcd_int(int a, int b) {
+__host__ __device__ inline int gcd_int(int a, int b) {
   while (b) {
     const int r = a % b;
     a = b;
@@ -106,7 +147,7 @@ __device__ __forceinline__ int gcd_int(int a, int b) {
   return a;
 }
 
-__device__ __forceinline__ int mod_pos(int a, int m) { return ((a % m) + m) % m; }
+__host__ __device__ inline int mod_pos(int a, int m) { return ((a % m) + m) % m; }
 
 // The taps of one stride phase of dx: outputs u = rho + stride * j,
 // j < j_count, read taps m = m0 + ms * i, i < n_taps, at cotangent time
@@ -115,7 +156,7 @@ struct DxPhase {
   int m0, ms, n_taps, base, dstep, j_count;
 };
 
-__device__ DxPhase dx_phase(const Geom& g, int rho) {
+__host__ __device__ inline DxPhase dx_phase(const Geom& g, int rho) {
   DxPhase p;
   const int gc = gcd_int(g.stride, g.dil);
   p.ms = g.stride / gc;
@@ -558,6 +599,270 @@ __global__ void __launch_bounds__(32 * WM * WN)
       }
 }
 
+// ---- the forward and the input gradient on the tensor cores ----
+
+constexpr int kTapBK = 32;       // reduction indices (channel, tap) per stage
+constexpr int kTapStages = 3;    // the cp.async ring: two stages in flight
+constexpr int kTapMinRows = 16;  // GEMM rows per group from which fwd / dx take conv_tap_kernel
+constexpr int kTapMaxSmem = 232448;  // bytes of shared memory a block may take
+
+// The tap GEMM of one block: out[row, (item, j)] = sum over (c, m) of
+// A[row, (c, m)] src[item, c, j S + off(m)], with off(m) = off_min + rel(m).
+//   forward: rows co, channels ci, taps m < k, S = stride, rel = d m,
+//            off_min = -pad, j < t_out;
+//   dx:      rows ci, channels co, taps i < n_taps of the block's phase,
+//            S = 1, rel = (n_taps - 1 - i) dstep, off_min = base - (n_taps -
+//            1) dstep, j < j_count, out at u = rho + stride j.
+// Host plan (TapPlan) and kernel share the window layout: per channel slot,
+// S phase rows of `lpp` floats; entry (phase f, idx) holds src position
+// (j_first + idx - sb) S + f + off_min of the segment (item) it falls in.
+struct TapPlan {
+  int depth, kp;   // the reduction's length (the longest phase's in dx) and A's packed row
+  int qx;          // extra window entries per segment: span / S
+  int lpp;         // phase-row pitch (>= bn + nseg qx)
+  int ldw;         // channel-slot pitch: S lpp
+  int nch;         // channel slots per stage
+  int stage;       // floats per ring stage
+  size_t smem;     // bytes
+};
+
+// One column tile's window rows are pitched so that a B fragment (4 taps of
+// one channel at lanes t, 8 columns at lanes g) hits 32 banks: at stride S
+// the 4 taps fall in up to 4 phase rows, which a pitch of 16 (S = 2), 11
+// (S = 3) or 8 (S >= 4) floats mod 32 sets apart.
+inline int tap_pitch(int lp, int s) {
+  if (s == 1) return lp;
+  const int want = s == 2 ? 16 : (s == 3 ? 11 : 8);
+  return lp + (((want - lp) % 32) + 32) % 32;
+}
+
+// conv_tap_kernel's BM x BN block tile: WM x WN warps, each MI x NJ mma tiles.
+template <int BM, int BN, int WM, int WN>
+struct TapTile {
+  static constexpr int NTH = 32 * WM * WN;
+  static constexpr int MI = BM / WM / 16;
+  static constexpr int NJ = BN / WN / 8;
+  static constexpr int LDA = kTapBK + 4;
+  static_assert(MI >= 1 && NJ >= 1 && MI * WM * 16 == BM && NJ * WN * 8 == BN, "bad tap tile");
+};
+
+// The A operand of the tap GEMM of MODE as rows of kp floats, zero past
+// the reduction: per block z (kFwd: group; kDx: group * stride + phase) R
+// rows. forward A[co][(ci, m)] = w[co, ci, m] (rows not whole 16-byte
+// pieces); dx A[ci][(co, i)] = w[co, ci, m0 + ms i], the phase's taps.
+template <int MODE>
+__global__ void pack_tap_a_kernel(Geom g, int kp, const float* __restrict__ w,
+                                  float* __restrict__ pack, size_t count) {
+  const int cg = g.cin / g.groups, cog = g.cout / g.groups;
+  const int rows = MODE == kFwd ? cog : cg;
+  for (size_t e = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; e < count;
+       e += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    const size_t zr = e / kp;
+    const int r = static_cast<int>(e - zr * kp);
+    const int z = static_cast<int>(zr / rows), row = static_cast<int>(zr - z * rows);
+    float a = 0.f;
+    if (MODE == kFwd) {
+      if (r < cg * g.k) a = w[zr * cg * g.k + r];
+    } else {
+      const DxPhase ph = dx_phase(g, z % g.stride);
+      if (r < cog * ph.n_taps) {
+        const int co = r / ph.n_taps, i = r - co * ph.n_taps;
+        a = w[(static_cast<size_t>(z / g.stride * cog + co) * cg + row) * g.k + ph.m0 +
+              ph.ms * i];
+      }
+    }
+    pack[e] = a;
+  }
+}
+
+// One BM x BN tile of the tap GEMM of MODE (kFwd: blockIdx.z = group; kDx:
+// blockIdx.z = group * stride + phase). The reduction runs over (channel,
+// tap) in stages of kTapBK: A in 16-byte copies of rows of lda floats (w
+// itself or its pack; block z's rows from a + z * a_z) and, per channel the
+// stage touches, the source window of the block's columns over all taps,
+// staged once and read by the B fragments of every tap. A kTapStages-deep
+// cp.async ring.
+template <int MODE, int BM, int BN, int WM, int WN>
+__global__ void __launch_bounds__(32 * WM * WN)
+    conv_tap_kernel(Geom g, TapPlan p, const float* __restrict__ a, int lda, size_t a_z,
+                    const float* __restrict__ src, const float* __restrict__ bias,
+                    float* __restrict__ out, int has_slope, float slope) {
+  using TT = TapTile<BM, BN, WM, WN>;
+  constexpr int BK = kTapBK, LDA = TT::LDA, MI = TT::MI, NJ = TT::NJ, NTH = TT::NTH;
+  constexpr int A_STAGE = BM * LDA;  // floats of A per stage
+  extern __shared__ __align__(16) float smem[];
+
+  const int cg = g.cin / g.groups, cog = g.cout / g.groups;
+  int grp, rho = 0, R, C, T, S, J, off_min, t_src, c_total, dstep = 0;
+  DxPhase ph{};
+  if (MODE == kFwd) {
+    grp = blockIdx.z;
+    R = cog, C = cg, T = g.k, S = g.stride, J = g.t_out, off_min = -g.pad;
+    t_src = g.t_in, c_total = g.cin;
+  } else {
+    grp = blockIdx.z / g.stride;
+    rho = blockIdx.z % g.stride;
+    ph = dx_phase(g, rho);
+    R = cg, C = cog, T = ph.n_taps, S = 1, J = ph.j_count;
+    dstep = ph.dstep;
+    off_min = ph.base - (T - 1) * ph.dstep;
+    t_src = g.t_out, c_total = g.cout;
+  }
+  const int ncols = g.n * J, K = C * T;
+  const int m_base = blockIdx.y * BM, c_base = blockIdx.x * BN;
+  if (c_base >= ncols || m_base >= R) return;  // whole block: a ragged grid
+  const int tid = threadIdx.x;
+  const int n0 = c_base / J, c_end = min(c_base + BN, ncols);
+  const int ent = S * p.lpp;  // window entries per channel slot
+
+  int* tab_n = reinterpret_cast<int*>(smem + kTapStages * p.stage);
+  int* tab_u = tab_n + ent;
+  int* tapoff = tab_u + ent;
+  // Per window entry its item and source position (-1: zero), and per tap
+  // its entry offset phase * lpp + rel / S: fixed for the block.
+  for (int e = tid; e < ent; e += NTH) {
+    const int f = e / p.lpp, idx = e - f * p.lpp;
+    int n_ = n0, col0 = c_base, sb = 0, u = -1;
+    while (col0 < c_end) {
+      const int cnt = min((n_ + 1) * J, c_end) - col0;
+      if (idx < sb + cnt + p.qx) {
+        u = (col0 - n_ * J + idx - sb) * S + f + off_min;
+        if (u >= t_src) u = -1;
+        break;
+      }
+      sb += cnt + p.qx;
+      col0 += cnt;
+      ++n_;
+    }
+    tab_n[e] = n_;
+    tab_u[e] = u;
+  }
+  for (int m = tid; m < T; m += NTH) {
+    const int rel = MODE == kFwd ? g.dil * m : (T - 1 - m) * dstep;
+    tapoff[m] = (rel % S) * p.lpp + rel / S;
+  }
+  __syncthreads();
+
+  const float* src_grp = src + static_cast<size_t>(grp) * C * t_src;
+  const size_t item_src = static_cast<size_t>(c_total) * t_src;
+  auto channels = [&](int r0) {  // first channel of a stage and how many it touches
+    return make_int2(r0 / T, (r0 + BK - 1) / T - r0 / T + 1);
+  };
+
+  const float* a_rows = a + blockIdx.z * a_z + static_cast<size_t>(m_base) * lda;
+  auto stage = [&](int r0, float* st) {
+    float* As = st;
+    float* win = st + A_STAGE;
+    int* offtab = reinterpret_cast<int*>(win + p.nch * p.ldw);
+    {  // A: rows m_base.., reduction r0 .. (zero past the rows and K)
+      const int q = 4 * (tid % (BK / 4));
+      const bool r_ok = r0 + q < K;  // lda % 4 == 0: a quad is whole or out
+      for (int row = tid / (BK / 4); row < BM; row += NTH / (BK / 4)) {
+        const bool ok = r_ok && m_base + row < R;
+        cp_async16(As + row * LDA + q, ok ? a_rows + static_cast<size_t>(row) * lda + r0 + q : a,
+                   ok ? 16 : 0);
+      }
+    }
+    // the window of each channel the stage touches (zero beyond C)
+    const int2 ch = channels(r0);
+    for (int e = tid; e < ent; e += NTH) {
+      const int u = tab_u[e];
+      const float* row = src_grp + tab_n[e] * item_src + u;
+      for (int cs = 0; cs < ch.y; ++cs) {
+        const bool ok = u >= 0 && ch.x + cs < C;
+        cp_async4(win + cs * p.ldw + e, ok ? row + static_cast<size_t>(ch.x + cs) * t_src : src,
+                  ok ? 4 : 0);
+      }
+    }
+    if (tid < BK) {
+      const int r = r0 + tid, c = r / T, m = r - c * T;
+      offtab[tid] = (c - ch.x) * p.ldw + tapoff[m];
+    }
+  };
+
+  const int warp = tid / 32, gl = (tid % 32) / 4, tl = tid % 4;
+  const int wr0 = 16 * MI * (warp % WM), wc0 = 8 * NJ * (warp / WM);
+  // each lane's B column per n-tile: its window index (column - c_base +
+  // segment * qx); 0 for columns past the end (their outputs are not stored)
+  int colbase[NJ];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const int col = c_base + wc0 + 8 * j + gl;
+    colbase[j] = col < ncols ? col - c_base + (col / J - n0) * p.qx : 0;
+  }
+  float acc[MI * NJ][4], part[MI * NJ][4];
+#pragma unroll
+  for (int i = 0; i < MI * NJ; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = part[i][e] = 0.f;
+
+  // The ring: stages it + 1 and it + 2 are in flight while stage it is
+  // multiplied. One barrier per stage: after it, every thread has landed
+  // stage it's copies and finished reading stage it - 1, whose buffer the
+  // next copy takes.
+  constexpr int NS = kTapStages;
+  const int steps = (K + BK - 1) / BK;
+  for (int s0 = 0; s0 < NS - 1; ++s0) {
+    if (s0 < steps) stage(s0 * BK, smem + s0 * p.stage);
+    cp_async_commit();
+  }
+  for (int it = 0; it < steps; ++it) {
+    const float* st = smem + (it % NS) * p.stage;
+    cp_async_wait<NS - 2>();
+    __syncthreads();
+    if (it + NS - 1 < steps) stage((it + NS - 1) * BK, smem + ((it + NS - 1) % NS) * p.stage);
+    cp_async_commit();
+    const float* As = st;
+    const float* win = st + A_STAGE;
+    const int* offtab = reinterpret_cast<const int*>(win + p.nch * p.ldw);
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 8) {
+      const int o0 = offtab[kk + tl], o1 = offtab[kk + tl + 4];
+      unsigned ah[MI][4], al[MI][4];
+#pragma unroll
+      for (int i = 0; i < MI; ++i) load_a(As, LDA, wr0 + 16 * i, kk, gl, tl, ah[i], al[i]);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        unsigned bh[2], bl[2];
+        split_tf32(win[o0 + colbase[j]], bh[0], bl[0]);
+        split_tf32(win[o1 + colbase[j]], bh[1], bl[1]);
+#pragma unroll
+        for (int i = 0; i < MI; ++i) mma_3xtf32(part[i * NJ + j], ah[i], al[i], bh, bl);
+      }
+    }
+    add_part(acc, part);
+  }
+
+  // epilogue: bias, leaky_relu, one writer per output
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int col = c_base + wc0 + 8 * j + 2 * tl + h;
+      if (col >= ncols) continue;
+      const int n_ = col / J, jj = col - n_ * J;
+      size_t base, row_step;
+      if (MODE == kFwd) {
+        base = (static_cast<size_t>(n_) * g.cout + grp * cog) * g.t_out + jj;
+        row_step = g.t_out;
+      } else {
+        base = (static_cast<size_t>(n_) * g.cin + grp * cg) * g.t_in + rho + g.stride * jj;
+        row_step = g.t_in;
+      }
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int e2 = 0; e2 < 2; ++e2) {
+          const int row = m_base + wr0 + 16 * i + gl + 8 * e2;
+          if (row >= R) continue;
+          float v = acc[i * NJ + j][2 * e2 + h];
+          if (bias != nullptr) v += __ldg(bias + grp * R + row);
+          if (has_slope) v = v > 0.f ? v : slope * v;
+          out[base + row * row_step] = v;
+        }
+    }
+}
+
 // dst (rows, t_pad) = src (rows, t) with each row zero-padded to t_pad.
 __global__ void pad_rows_kernel(const float* __restrict__ src, float* __restrict__ dst,
                                 size_t rows, int t, int t_pad) {
@@ -662,6 +967,122 @@ int dispatch_dw(const Geom& g, const float* gy, const float* x, float* out, int 
   return launch_dw<16, 256, 1, 4>(g, gy, x, out, splits, chunk, stream);
 }
 
+// The tap kernel's plan for MODE at a BM x BN tile: the window of the
+// shortest items (most segments per tile) over the widest tap span, the
+// channel slots of the phase with the fewest taps. smem = 0: no tap to run
+// (dx with no tap in any phase cannot happen: every tap lies in one phase).
+TapPlan tap_plan(int mode, const Geom& g, int bm, int bn) {
+  TapPlan p{};
+  int s, t_min, t_max, span, j_min;
+  if (mode == kFwd) {
+    s = g.stride;
+    t_min = t_max = g.k;
+    span = g.dil * (g.k - 1);
+    j_min = g.t_out;
+  } else {
+    s = 1;
+    t_min = g.k;
+    t_max = 1;
+    for (int rho = 0; rho < g.stride; ++rho) {
+      const int taps = dx_phase(g, rho).n_taps;
+      if (taps > 0) {
+        t_min = std::min(t_min, taps);
+        t_max = std::max(t_max, taps);
+      }
+    }
+    span = (t_max - 1) * (g.dil / gcd_int(g.stride, g.dil));
+    j_min = std::max(1, g.t_in / g.stride);
+  }
+  const int nseg = std::min(g.n, (bn - 1) / j_min + 2);
+  const int depth = mode == kFwd ? (g.cin / g.groups) * g.k : (g.cout / g.groups) * t_max;
+  p.depth = depth;
+  p.kp = (depth + kTapBK - 1) / kTapBK * kTapBK;
+  p.qx = span / s;
+  p.lpp = tap_pitch(bn + nseg * p.qx, s);
+  p.ldw = s * p.lpp;
+  p.nch = (kTapBK - 1) / t_min + 2;
+  p.stage = (bm * (kTapBK + 4) + p.nch * p.ldw + kTapBK + 3) / 4 * 4;
+  p.smem = sizeof(float) * (kTapStages * static_cast<size_t>(p.stage) + 2 * p.ldw + g.k);
+  return p;
+}
+
+// Scratch for the packed A, stream-ordered on the caller's stream (the C
+// entry points take no scratch argument): freed scratch stays in the
+// device's pool for the next call instead of going back to the driver.
+cudaError_t tap_scratch(void** ptr, size_t bytes, cudaStream_t stream) {
+  int device = 0;
+  cudaMemPool_t pool;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetDefaultMemPool(&pool, device);
+  if (err == cudaSuccess) {
+    uint64_t keep = ~0ull;
+    err = cudaMemPoolSetAttribute(pool, cudaMemPoolAttrReleaseThreshold, &keep);
+  }
+  return err == cudaSuccess ? cudaMallocAsync(ptr, bytes, stream) : err;
+}
+
+// Launches the tap kernel on A: w itself for a forward whose rows are whole
+// 16-byte pieces, else A packed into scratch first (dx always: its A is
+// gathered per phase).
+template <int MODE, int BM, int BN, int WM, int WN>
+int launch_tap(const Geom& g, const TapPlan& p, int grid_z, int rows, int ncols,
+               const float* w, const float* src, const float* bias, float* out,
+               int has_slope, float slope, cudaStream_t stream) {
+  const dim3 grid((ncols + BN - 1) / BN, (rows + BM - 1) / BM, grid_z);
+  if (grid.y > 65535u || grid.z > 65535u)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  auto kernel = conv_tap_kernel<MODE, BM, BN, WM, WN>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(p.smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int depth = (g.cin / g.groups) * g.k;
+  if (MODE == kFwd && depth % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0) {
+    kernel<<<grid, TapTile<BM, BN, WM, WN>::NTH, p.smem, stream>>>(
+        g, p, w, depth, static_cast<size_t>(rows) * depth, src, bias, out, has_slope, slope);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const size_t count = static_cast<size_t>(grid_z) * rows * p.kp;
+  float* pack = nullptr;
+  err = tap_scratch(reinterpret_cast<void**>(&pack), count * sizeof(float), stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t blocks = std::min<size_t>(4096, (count + 255) / 256);
+  pack_tap_a_kernel<MODE><<<static_cast<unsigned>(blocks), 256, 0, stream>>>(g, p.kp, w, pack,
+                                                                            count);
+  err = cudaGetLastError();
+  if (err == cudaSuccess) {
+    kernel<<<grid, TapTile<BM, BN, WM, WN>::NTH, p.smem, stream>>>(
+        g, p, pack, p.kp, static_cast<size_t>(rows) * p.kp, src, bias, out, has_slope, slope);
+    err = cudaGetLastError();
+  }
+  const cudaError_t freed = cudaFreeAsync(pack, stream);
+  return static_cast<int>(err != cudaSuccess ? err : freed);
+}
+
+// The forward or dx of MODE on the tensor cores from kTapMinRows GEMM rows
+// per group and one stage of reduction, its tile by rows (as
+// conv_dw_kernel's); -1 where the rows or the reduction are fewer (the
+// critics' first layers: one input channel) or the window does not fit a
+// block: the caller then takes conv_gemm_kernel. Keep in step with
+// ops/cuda/grouped_conv.py::tap_tile and fwd_kernel.
+template <int MODE>
+int dispatch_tap(const Geom& g, int rows, int ncols, int grid_z, const float* w,
+                 const float* src, const float* bias, float* out, int has_slope, float slope,
+                 cudaStream_t stream) {
+  if (rows < kTapMinRows) return -1;
+#define PSTT_TAP(BM, BN, WM, WN)                                                         \
+  {                                                                                      \
+    const TapPlan p = tap_plan(MODE, g, BM, BN);                                         \
+    if (p.depth < kTapBK || p.smem > static_cast<size_t>(kTapMaxSmem)) return -1;        \
+    return launch_tap<MODE, BM, BN, WM, WN>(g, p, grid_z, rows, ncols, w, src, bias, out, \
+                                            has_slope, slope, stream);                   \
+  }
+  if (rows >= 128) PSTT_TAP(128, 64, 2, 2)
+  if (rows >= 64) PSTT_TAP(64, 64, 2, 2)
+  if (rows >= 32) PSTT_TAP(32, 128, 1, 4)
+  PSTT_TAP(16, 256, 1, 4)
+#undef PSTT_TAP
+}
+
 bool valid_geom(const Geom& g) {
   if (g.n < 1 || g.cin < 1 || g.cout < 1 || g.t_in < 1 || g.k < 1 ||
       g.stride < 1 || g.dil < 1 || g.pad < 0 || g.groups < 1 ||
@@ -686,8 +1107,12 @@ extern "C" int grouped_conv_forward(const float* x, const float* w,
                                     int has_slope, float slope, void* stream) {
   const Geom g{n, cin, t_in, cout, t_out, k, stride, pad, dil, groups};
   if (!valid_geom(g)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int tc = dispatch_tap<kFwd>(g, cout / groups, n * t_out, groups, w, x, b, y,
+                                    has_slope, slope, st);
+  if (tc >= 0) return tc;
   return dispatch<kFwd>(g, cout / groups, n * t_out, groups, w, x, b, y,
-                        has_slope, slope, 1, 0, static_cast<cudaStream_t>(stream));
+                        has_slope, slope, 1, 0, st);
 }
 
 // dx (n, cin, t_in) of the conv above from its cotangent gy (n, cout, t_out),
@@ -702,9 +1127,12 @@ extern "C" int grouped_conv_input_grad(const float* gy, const float* w,
   const Geom g{n, cin, t_in, cout, t_out, k, stride, pad, dil, groups};
   if (!valid_geom(g)) return static_cast<int>(cudaErrorInvalidValue);
   const int j_max = (t_in + stride - 1) / stride;  // phase 0 has the most
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int tc = dispatch_tap<kDx>(g, cin / groups, n * j_max, groups * stride, w, gy, b, dx,
+                                   has_slope, slope, st);
+  if (tc >= 0) return tc;
   return dispatch<kDx>(g, cin / groups, n * j_max, groups * stride, w, gy, b,
-                       dx, has_slope, slope, 1, 0,
-                       static_cast<cudaStream_t>(stream));
+                       dx, has_slope, slope, 1, 0, st);
 }
 
 // dw (cout, cin / groups, k) of the conv above from x and gy. With splits > 1,

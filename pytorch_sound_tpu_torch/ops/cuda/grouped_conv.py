@@ -10,7 +10,10 @@ a launch counter:
   optional (K6a, the forward);
 - :func:`conv1d_input_grad`: the input gradient of that conv from its
   cotangent, with an optional bias and slope in the epilogue, which makes it
-  also the forward of ConvTranspose1d (K6a, dx and convT);
+  also the forward of ConvTranspose1d (K6a, dx and convT). Both run on the
+  tensor cores (3xTF32, ``conv_tap_kernel``) from ``TC_MIN_ROWS`` GEMM rows
+  per group, on the CUDA cores below (:func:`fwd_kernel`,
+  :func:`dx_kernel`);
 - :func:`conv1d_weight_grad`: the weight gradient, deterministic (K6b): on
   the tensor cores (3xTF32) from ``DW_TC_MIN_ROWS`` output channels per
   group, on the CUDA cores below (:func:`dw_kernel`).
@@ -28,6 +31,7 @@ slope mask from the saved output (``out > 0``), ``db`` as a sum, and for
 ConvTranspose1d the roles of input and cotangent swapped.
 """
 
+import math
 from typing import Optional, Sequence
 
 import torch
@@ -39,6 +43,10 @@ SOURCE = 'pytorch_sound_tpu_torch/csrc/grouped_conv.cu'
 DW_BLOCKS_PER_SM = 8        # the weight gradient's split aims at this many blocks
 DW_MIN_CHUNK = 256          # (item, time) positions per split at least
 DW_TC_MIN_ROWS = 16         # output channels per group from which dw runs on the tensor cores
+TC_MIN_ROWS = 16            # GEMM rows per group from which fwd and dx run on the tensor cores
+TAP_BK = 32                 # the tap kernel's reduction indices (channel, tap) per stage
+TAP_STAGES = 3              # the tap kernel's cp.async ring
+TAP_MAX_SMEM = 232448       # bytes of shared memory one block may take on the H100
 
 
 def conv_out_len(t_in: int, kernel_size: int, stride: int = 1, padding: int = 0,
@@ -183,6 +191,94 @@ def dw_kernel(rows: int) -> str:
     ``DW_TC_MIN_ROWS`` on, ``conv_gemm_kernel`` (CUDA cores) below, where an
     m16 tile would waste most of its rows (conv_post has one)."""
     return 'conv_dw_kernel' if rows >= DW_TC_MIN_ROWS else 'conv_gemm_kernel'
+
+
+def fwd_kernel(rows: int, depth: int) -> str:
+    """The CUDA kernel that computes the forward for ``rows`` output channels
+    per group and a reduction of ``depth`` = (C_in / groups) * K:
+    ``conv_tap_kernel`` (tensor cores) from ``TC_MIN_ROWS`` rows and one
+    stage (``TAP_BK``) of reduction on, ``conv_gemm_kernel`` (CUDA cores)
+    below: conv_post has one row, the critics' first layers one input
+    channel (a reduction of 5 or 15, where the CUDA-core kernel measured
+    up to twice as fast; conv_post's dx has a reduction of 3). A geometry
+    whose window overflows a block (:func:`tap_plan`; none of the critics'
+    or upsamples') also takes ``conv_gemm_kernel``."""
+    return ('conv_tap_kernel' if rows >= TC_MIN_ROWS and depth >= TAP_BK
+            else 'conv_gemm_kernel')
+
+
+def dx_kernel(rows: int, depth: int) -> str:
+    """The same for dx and ConvTranspose1d, whose GEMM rows are the input
+    channels per group (a critic's first layer has one, v2's last upsample
+    eight) and whose reduction is (C_out / groups) times the taps of its
+    longest stride phase (:func:`dx_depth`)."""
+    return fwd_kernel(rows, depth)
+
+
+def dx_depth(cout: int, k: int, stride: int = 1, padding: int = 0, dilation: int = 1,
+             groups: int = 1) -> int:
+    """dx's reduction length: output channels per group times the taps of
+    the longest stride phase."""
+    return cout // groups * max(dx_phase(rho, k, stride, padding, dilation, 0)[2]
+                                for rho in range(stride))       # taps: any length
+
+
+def tap_tile(rows: int):
+    """(rows, columns) of ``conv_tap_kernel``'s block tile for ``rows`` GEMM
+    rows per group (``dispatch_tap`` in the CUDA source)."""
+    for least, tile in ((128, (128, 64)), (64, (64, 64)), (32, (32, 128))):
+        if rows >= least:
+            return tile
+    return 16, 256
+
+
+def tap_pitch(lp: int, stride: int) -> int:
+    """Floats of one phase row of the tap kernel's window: at least ``lp``,
+    16 / 11 / 8 mod 32 at stride 2 / 3 / >= 4 so that the 4 taps of a B
+    fragment land in different banks."""
+    if stride == 1:
+        return lp
+    return lp + (({2: 16, 3: 11}.get(stride, 8) - lp) % 32)
+
+
+def dx_phase(rho: int, k: int, stride: int, padding: int, dilation: int, t_in: int):
+    """(m0, ms, n_taps, base, dstep, j_count) of dx's stride phase ``rho``
+    (``dx_phase`` in the CUDA source): outputs u = rho + stride j, j <
+    j_count, read taps m = m0 + ms i, i < n_taps, at cotangent time
+    j + base - i dstep."""
+    gc_ = math.gcd(stride, dilation)
+    ms, dstep = stride // gc_, dilation // gc_
+    m0 = next((m for m in range(min(ms, k)) if (rho + padding - dilation * m) % stride == 0),
+              None)
+    n_taps = 0 if m0 is None else (k - 1 - m0) // ms + 1
+    base = 0 if m0 is None else (rho + padding - dilation * m0) // stride
+    j_count = -(-(t_in - rho) // stride) if rho < t_in else 0
+    return (-1 if m0 is None else m0), ms, n_taps, base, dstep, j_count
+
+
+def tap_plan(mode: str, n: int, cin: int, t_in: int, cout: int, t_out: int, k: int,
+             stride: int = 1, padding: int = 0, dilation: int = 1, groups: int = 1) -> dict:
+    """``conv_tap_kernel``'s plan for ``mode`` 'fwd' or 'dx' (``tap_plan`` in
+    the CUDA source): the tile, the window's extra entries per item segment
+    (``qx``), phase-row and channel-slot pitches, channel slots per stage,
+    floats per ring stage and the shared memory in bytes."""
+    rows = cout // groups if mode == 'fwd' else cin // groups
+    bm, bn = tap_tile(rows)
+    if mode == 'fwd':
+        s, t_min, span, j_min = stride, k, dilation * (k - 1), t_out
+    else:
+        taps = [t for t in (dx_phase(rho, k, stride, padding, dilation, t_in)[2]
+                            for rho in range(stride)) if t > 0]
+        s, t_min = 1, min(taps)
+        span = (max(taps) - 1) * (dilation // math.gcd(stride, dilation))
+        j_min = max(1, t_in // stride)
+    nseg = min(n, (bn - 1) // j_min + 2)
+    qx = span // s
+    lpp = tap_pitch(bn + nseg * qx, s)
+    nch = (TAP_BK - 1) // t_min + 2
+    stage = -(-(bm * (TAP_BK + 4) + nch * s * lpp + TAP_BK) // 4) * 4
+    return dict(tile=(bm, bn), qx=qx, lpp=lpp, ldw=s * lpp, nch=nch, stage=stage,
+                smem=4 * (TAP_STAGES * stage + 2 * s * lpp + k))
 
 
 def dw_tile(rows: int):

@@ -482,3 +482,62 @@ def test_weight_grad_kernels_match_plain(card, n, ci, co, k, s, g, dil, p, t, mi
     assert gc.dw_kernel(co // g) == ('conv_dw_kernel' if co // g >= 16 else 'conv_gemm_kernel')
     assert dw.shape == ref.shape
     assert float((dw - ref).abs().max() / ref.abs().max()) <= GC_GRAD_TOL
+
+
+@pytest.mark.parametrize('n,ci,co,k,s,g,dil,p,t,misaligned', [
+    (2, 15, 15, 5, 1, 1, 1, 2, 1000, False),      # 15 rows: CUDA cores
+    (2, 16, 16, 5, 1, 1, 1, 2, 1000, False),      # 16 rows: tensor cores
+    (2, 17, 17, 5, 1, 1, 1, 2, 1001, False),      # 17 rows: a ragged row tile
+    (2, 8, 8, 5, 1, 1, 1, 2, 1000, False),        # 8 rows (v2's last upsample's)
+    (352, 64, 128, 5, 1, 1, 1, 2, 10, False),     # period 11: t_out 10, tiles span items
+    (352, 512, 1024, 5, 3, 1, 1, 2, 28, False),   # MPD L3 at period 11
+    (4, 1024, 1024, 41, 1, 8, 1, 20, 33, False),  # MSD L5 at scale 2: t_out 33
+    (3, 32, 64, 7, 2, 2, 3, 9, 500, False),       # stride 2, dilation 3
+    (2, 48, 48, 5, 3, 3, 2, 4, 999, False),       # stride 3, dilation 2
+    (2, 64, 128, 9, 4, 4, 2, 8, 1003, False),     # stride 4, dilation 2
+    (2, 32, 64, 16, 8, 1, 1, 4, 1000, False),     # v2 upsample mirror: stride 8
+    (2, 3, 17, 5, 1, 1, 1, 2, 301, False),        # cg k = 15: one partial stage, CUDA cores
+    (2, 7, 17, 5, 1, 1, 1, 2, 301, False),        # cg k = 35: w packed to 16-byte rows
+    (2, 64, 64, 41, 2, 4, 1, 20, 1000, True),     # every tensor 4 bytes off 16-byte alignment
+])
+def test_tap_kernels_match_plain(card, n, ci, co, k, s, g, dil, p, t, misaligned):
+    """The forward (bias, slope) and dx (also with bias and slope: the
+    ConvTranspose1d route) on both routes by rows per group, the tensor
+    cores from TC_MIN_ROWS on: against their plain versions, reruns
+    bit-identical."""
+    from pytorch_sound_tpu_torch.ops.cuda import grouped_conv as gc
+    rng = np.random.default_rng(n * ci + co + k + t + s)
+
+    def arr(*shape, scale=1.0):
+        a = torch.from_numpy((rng.standard_normal(shape) * scale)
+                             .astype(np.float32)).to(card)
+        if misaligned:          # a contiguous view one float into its storage
+            a = torch.cat([a.new_zeros(1), a.reshape(-1)])[1:].view(shape)
+            assert a.data_ptr() % 16 != 0
+        return a
+
+    conf = dict(stride=s, padding=p, groups=g, dilation=dil)
+    t_out = gc.conv_out_len(t, k, s, p, dil)
+    x, w = arr(n, ci, t), arr(co, ci // g, k, scale=(ci // g * k) ** -0.5)
+    b_out, b_in, gy = arr(co), arr(ci), arr(n, co, t_out)
+    assert gc.fwd_kernel(co // g, ci // g * k) == \
+        ('conv_tap_kernel' if co // g >= 16 and ci // g * k >= 32 else 'conv_gemm_kernel')
+    assert gc.dx_kernel(ci // g, gc.dx_depth(co, k, s, p, dil, g)) == \
+        ('conv_tap_kernel' if ci // g >= 16 else 'conv_gemm_kernel')
+    for mode in ('fwd', 'dx'):
+        assert gc.tap_plan(mode, n, ci, t, co, t_out, k, **conf)['smem'] <= gc.TAP_MAX_SMEM
+    before = (gc.conv1d_forward.launches, gc.conv1d_input_grad.launches)
+    y = gc.conv1d_forward(x, w, b_out, slope=0.1, **conf)
+    dx = gc.conv1d_input_grad(gy, w, t, **conf)
+    dxb = gc.conv1d_input_grad(gy, w, t, b_in, slope=0.2, **conf)
+    assert torch.equal(y, gc.conv1d_forward(x, w, b_out, slope=0.1, **conf))
+    assert torch.equal(dx, gc.conv1d_input_grad(gy, w, t, **conf))
+    assert (gc.conv1d_forward.launches, gc.conv1d_input_grad.launches) == \
+        (before[0] + 2, before[1] + 3)
+    y_ref = gc.grouped_conv1d_reference(x, w, b_out, slope=0.1, **conf)
+    dx_ref = gc.conv1d_input_grad_reference(gy, w, t, **conf)
+    dxb_ref = torch.nn.functional.leaky_relu(dx_ref + b_in[None, :, None], 0.2)
+    for got, ref, tol in ((y, y_ref, GC_FWD_TOL), (dx, dx_ref, GC_GRAD_TOL),
+                          (dxb, dxb_ref, GC_GRAD_TOL)):
+        assert got.shape == ref.shape
+        assert float((got - ref).abs().max() / ref.abs().max()) <= tol

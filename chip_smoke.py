@@ -9,8 +9,10 @@ Phases, one line each; any failure raises and the script exits non-zero:
 1. device: requires CUDA, prints the card's name and power limit, turns TF32
    off so that the plain versions run in full fp32;
 2. build: compiles the CUDA kernels from ``pytorch_sound_tpu_torch/csrc``;
-3. the log-mel kernel vs its plain version on the card (both conventions),
-   and at the 16 x 2 s shape that phase 6 times;
+3. the log-mel kernel (K2, an in-block fp64 FFT) vs its plain version on
+   the card (both conventions), short inputs (t = 640 and t = pad + 1),
+   every bin (fmax None), n_fft 512 and 2048, the 16 x 2 s shape that phase
+   6 times, and a batch's log-mel against its items' bit for bit;
 4. the generator-stage kernel vs its plain version, each of HiFi-GAN v2's four
    stages with the bundled checkpoint's weights, fed by the real conv_pre and
    earlier stages;
@@ -18,13 +20,16 @@ Phases, one line each; any failure raises and the script exits non-zero:
    encode against the plain version run in fp64 on the same card tensor,
    decode, cycle consistency, the bench-shape decode, card vs CPU decode,
    streaming decode, and the launch counts of both kernels;
-6. timings (CUDA events) of kernel vs plain, labelled with the card;
+6. timings (CUDA events) of kernel vs plain, labelled with the card, K2
+   also beside ``torch.stft`` alone and the recorded times of the direct-DFT
+   kernel it replaced;
 7. the training path, ``HiFiGANTrainer(...).run()`` at full width (HiFi-GAN
    v2 with weight norm, MPD base, MSD base, 16 x 8192-sample segments): K4
-   (the trainable log-mel) vs its plain version, six steps with checkpoints,
-   a resume from step 3 that replays steps 4-6, one step on the card against
-   the same step on the CPU, the log-mel launch counts of the run, and
-   timings;
+   (the trainable log-mel: K2 forward, its own backward kernels) vs its
+   plain version and fp64 autograd, six steps with checkpoints, a resume
+   from step 3 that replays steps 4-6, one step on the card against the same
+   step on the CPU, the log-mel launch counts of the run (K4's backward once
+   per training step), and timings;
 8. the K6 training route, every critic conv and generator upsample on the
    grouped-conv kernels: each kernel (forward, dx, dw) against its plain
    version on every conv of MPD base and MSD base at the critic phase's
@@ -106,11 +111,17 @@ MHA_GRAD_TOL = 1e-4               # ||g_kernel - g_dense|| / ||g_dense|| per par
 SEG = 8192                        # training segment (examples/hifi_gan.py:348)
 BATCH = 16
 LOSSES = ('loss', 'disc_loss', 'adv', 'feature_matching', 'mel_l1')
+# K2 / K4 as the direct-DFT kernel and the autograd backward ran them on PR 9's
+# tree (PERF.md section 6, NVIDIA H100 80GB HBM3 at 700 W): reference only
+PR9_MS = {'k2_encode_16x2s': 0.547, 'k2_plain_encode_16x2s': 0.248,
+          'k4_fwd_16x8192': 0.286, 'k4_bwd_16x8192': 1.300,
+          'k4_plain_fwd_16x8192': 0.398, 'k4_plain_bwd_16x8192': 0.901}
 
 # H100 SXM published peaks (NVIDIA data sheet, 700 W): fp32 outside the
 # tensor cores, fp64 on the tensor cores (the faster fp64 route), HBM3
 PEAK_FP32 = 67e12
 PEAK_FP64 = 67e12
+PEAK_FP64_CUDA_CORES = 34e12      # fp64 outside the tensor cores: K2's FFT
 PEAK_TF32 = 495e12                # dense TF32 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 
@@ -168,10 +179,10 @@ def paired_ms(plain, kernel, iters):
     return (k1 + k2) / 2, (p1 + p2) / 2, (k1, k2), (p1, p2)
 
 
-def bound(fp32_flops, fp64_flops, nbytes):
+def bound(fp32_flops, fp64_flops, nbytes, fp64_peak=PEAK_FP64):
     """(ms, 'operations' or 'bytes'): the larger of the operations over the
     card's peak rates for their type and the bytes over its memory rate."""
-    ops_s = fp32_flops / PEAK_FP32 + fp64_flops / PEAK_FP64
+    ops_s = fp32_flops / PEAK_FP32 + fp64_flops / fp64_peak
     bytes_s = nbytes / HBM_BYTES_PER_S
     return max(ops_s, bytes_s) * 1e3, 'operations' if ops_s >= bytes_s else 'bytes'
 
@@ -250,27 +261,53 @@ def resblock_work(x, blocks):
     return 2.0 * macs * positions, 4.0 * (2 * x.numel() + weights)
 
 
-def logmel_work(b, t, n_bins, n_mels=80, n_fft=1024, hop=256):
-    """(fp32 FLOPs, fp64 FLOPs, bytes) of the HiFi-GAN log-mel of (b, t)
-    samples: the direct windowed DFT over the used bins in fp64 (2 FMAs per
-    sample, bin and frame), the mel projection in fp32; the waveform read and
-    the log-mel written once."""
-    frames = 1 + (t + n_fft - hop - n_fft) // hop
+def logmel_frames(t, n_fft=1024, hop=256):
+    """Frames of the HiFi-GAN convention ((n_fft - hop) / 2 reflect pad)."""
+    return 1 + (t + n_fft - hop - n_fft) // hop
+
+
+def logmel_dft_work(b, t, n_bins, n_mels=80, n_fft=1024, hop=256):
+    """(fp32 FLOPs, fp64 FLOPs, bytes) of the direct windowed DFT the TPU
+    kernel and the port's first K2 ran: 2 FMAs per sample, used bin and frame
+    in fp64, the dense mel projection in fp32; the waveform read and the
+    log-mel written once. Kept as ``dft_bound_ms`` beside the FFT's bound."""
+    frames = logmel_frames(t, n_fft, hop)
     dft = 2.0 * 2 * n_bins * n_fft * frames * b
     mel = 2.0 * n_mels * n_bins * frames * b
     return mel, dft, 4.0 * (b * t + b * n_mels * frames)
 
 
-def logmel_bwd_work(b, t, n_mels=80, n_fft=1024, hop=256):
-    """(fp32 FLOPs, bytes) of K4's backward on (b, t) samples, autograd of the
-    composite: the forward recomputed (a real FFT of each frame, 2.5 n log2 n
-    FLOPs, and the mel projection) and its adjoint (the mel projection
-    transposed and the adjoint real FFT); the waveform and the mel's
-    gradient read and the waveform's gradient written once."""
-    frames = 1 + (t + n_fft - hop - n_fft) // hop
-    fft = 2.5 * n_fft * np.log2(n_fft)
-    mel = 2.0 * n_mels * (n_fft // 2 + 1)
-    return 2 * (fft + mel) * frames * b, 4.0 * (2 * b * t + b * n_mels * frames)
+def fft_flops(n_fft, f_used):
+    """fp64 FLOPs of K2's spectrum of one frame: the window (n_fft
+    products), the n_fft / 2-point complex FFT (5 M log2 M), the split (16
+    per used bin) and the magnitude (4 per used bin)."""
+    m = n_fft // 2
+    return n_fft + 5.0 * m * np.log2(m) + 20.0 * f_used
+
+
+def logmel_work(b, t, f_used, nnz, n_mels=80, n_fft=1024, hop=256):
+    """(fp32 FLOPs, fp64 FLOPs, bytes) of K2 on (b, t) samples: the FFT's
+    spectrum per frame in fp64, the band mel in fp32 (2 per nonzero of the
+    filterbank); the waveform read and the log-mel written once."""
+    frames = logmel_frames(t, n_fft, hop) * b
+    return 2.0 * nnz * frames, fft_flops(n_fft, f_used) * frames, \
+        4.0 * (b * t + b * n_mels * logmel_frames(t, n_fft, hop))
+
+
+def logmel_bwd_work(b, t, f_used, nnz, n_mels=80, n_fft=1024, hop=256):
+    """(fp32 FLOPs, fp64 FLOPs, bytes) of K4's backward kernels on (b, t)
+    samples: the forward's spectrum and band mel recomputed, then per frame
+    dmag (2 per nonzero), the bins' gradients and C (30 per used bin), the
+    inverse FFT and the window (5 M log2 M + n_fft), and the overlap-add
+    (n_fft / hop adds per sample); the waveform and the mel's gradient read
+    and the waveform's gradient written once (the frames' scratch is the
+    kernels' own)."""
+    frames = logmel_frames(t, n_fft, hop) * b
+    m = n_fft // 2
+    fp64 = (fft_flops(n_fft, f_used) + 2.0 * nnz + 30.0 * f_used + n_fft
+            + 5.0 * m * np.log2(m)) * frames + (n_fft // hop) * b * t
+    return 2.0 * nnz * frames, fp64, \
+        4.0 * (2 * b * t + b * n_mels * logmel_frames(t, n_fft, hop))
 
 
 class ToneStream:
@@ -397,11 +434,13 @@ def train_path(dev, card):
     from pytorch_sound_tpu_torch.ops.cuda import logmel as lm
 
     # 7.1 K4 vs its plain version at the training shape. Forward on tones
-    #     against the plain version in fp64. Gradient of sum(sin(mel)) on
-    #     white noise (the signal of tests/test_pallas.py:286) against
-    #     autograd of the fp32 plain version, absolute; on tones, whose
-    #     quiet bands drive the gradient to ~1e3 through 1/mel, relative to
-    #     its largest entry.
+    #     against the plain version in fp64. Gradient of sum(sin(mel)) (K4's
+    #     backward kernels) on white noise (the signal of
+    #     tests/test_pallas.py:286) against autograd of the fp32 plain
+    #     version, absolute; on tones, whose quiet bands drive the gradient
+    #     to ~1e3 through 1/mel, relative to its largest entry; on both,
+    #     against autograd of the plain version in fp64 for the same
+    #     cotangent, relative to its largest entry.
     rng = np.random.default_rng(7)
     tonal = torch.from_numpy(tones(rng, BATCH, SEG)).to(dev)
     noise = torch.from_numpy((rng.standard_normal((BATCH, SEG)) * 0.2)
@@ -419,12 +458,20 @@ def train_path(dev, card):
     g_ref = grad(mel_ops.hifigan_mel_spectrogram, tonal)
     tone_rel = max_err(grad(lm.fused_hifigan_mel_trainable, tonal), g_ref) \
         / float(g_ref.abs().max())
+    fp64_rel = 0.0
+    for wav in (noise, tonal):
+        cot = torch.cos(lm.fused_hifigan_mel(wav))
+        ref64 = lm.hifigan_mel_vjp(wav.double(), cot.double())
+        fp64_rel = max(fp64_rel, max_err(lm.hifigan_mel_backward(wav, cot).double(), ref64)
+                       / float(ref64.abs().max()))
     torch.cuda.synchronize()
     log('k4', shape=tuple(tonal.shape), mel=tuple(mel.shape),
         fwd_tones_vs_fp64='%.3g' % fwd_err, grad_noise_vs_plain='%.3g' % grad_err,
-        grad_tones_rel='%.3g' % tone_rel, grad_tones_max='%.4g' % float(g_ref.abs().max()))
+        grad_tones_rel='%.3g' % tone_rel, grad_tones_max='%.4g' % float(g_ref.abs().max()),
+        grad_vs_fp64_rel='%.3g' % fp64_rel)
     assert mel.shape == (BATCH, 80, SEG // 256) and fwd_err <= MEL_TOL, fwd_err
     assert grad_err <= GRAD_TOL and tone_rel <= GRAD_TOL, (grad_err, tone_rel)
+    assert fp64_rel <= GRAD_TOL, fp64_rel
 
     # 7.2 the main path: HiFiGANTrainer(...).run() at full width, 6 steps,
     #     checkpoints at 3 and 6, deterministic cuDNN for the resume check
@@ -432,6 +479,7 @@ def train_path(dev, card):
     torch.backends.cudnn.benchmark = False
     lm.fused_log_mel.launches = 0
     lm.fused_hifigan_mel_trainable.launches = 0
+    lm.fused_hifigan_mel_trainable.bwd_launches = 0
     steps, valid_batches = 0, 0
     work = tempfile.mkdtemp(prefix='chip_smoke_train_')
     try:
@@ -477,15 +525,19 @@ def train_path(dev, card):
     finally:
         shutil.rmtree(work, ignore_errors=True)
     launches = {'logmel': lm.fused_log_mel.launches,
-                'logmel_trainable': lm.fused_hifigan_mel_trainable.launches}
+                'logmel_trainable': lm.fused_hifigan_mel_trainable.launches,
+                'logmel_trainable_bwd': lm.fused_hifigan_mel_trainable.bwd_launches}
     torch.backends.cudnn.deterministic = False
 
     # 7.5 every step and valid batch ran K2 twice (mel_real, and the fake's
-    #     mel through K4) and K4 once
+    #     mel through K4) and K4 once; every training step (not a valid
+    #     batch) ran K4's backward kernels once
     log('counts', logmel=launches['logmel'], logmel_trainable=launches['logmel_trainable'],
+        logmel_trainable_bwd=launches['logmel_trainable_bwd'],
         train_steps=steps, valid_batches=valid_batches)
     assert launches['logmel'] == 2 * (steps + valid_batches) > 0, launches
     assert launches['logmel_trainable'] == steps + valid_batches, launches
+    assert launches['logmel_trainable_bwd'] == steps > 0, launches
 
     # 7.4 one step on the card against the same step on the CPU, from the
     #     same parameters and a 2 x 8192 batch (split_step_pair)
@@ -519,23 +571,35 @@ def train_path(dev, card):
         lambda: lm.fused_hifigan_mel_trainable(tonal), 20)
     fb_k, fb_p, _, _ = paired_ms(lambda: fwd_bwd(mel_ops.hifigan_mel_spectrogram),
                                  lambda: fwd_bwd(lm.fused_hifigan_mel_trainable), 20)
-    _, cos_b, _ = lm._constants(22050, 1024, 1024, 80, 0.0, 8000.0, str(dev))
-    bound_ms, bound_by = bound(*logmel_work(BATCH, SEG, cos_b.shape[1]))
-    bwd_flops, bwd_bytes = logmel_bwd_work(BATCH, SEG)
-    bwd_bound_ms, bwd_bound_by = bound(bwd_flops, 0.0, bwd_bytes)
+    cot = torch.cos(lm.fused_hifigan_mel(tonal))
+    bwd_k, bwd_p, bwd_kr, bwd_pr = paired_ms(lambda: lm.hifigan_mel_vjp(tonal, cot),
+                                             lambda: lm.hifigan_mel_backward(tonal, cot), 20)
+    c = lm._constants(22050, 1024, 1024, 80, 0.0, 8000.0, str(dev))
+    f_used, nnz = c.mel_w.shape[1], int((c.mel_w != 0).sum())
+    bound_ms, bound_by = bound(*logmel_work(BATCH, SEG, f_used, nnz),
+                               fp64_peak=PEAK_FP64_CUDA_CORES)
+    dft_bound_ms, _ = bound(*logmel_dft_work(BATCH, SEG, f_used))
+    bwd_bound_ms, bwd_bound_by = bound(*logmel_bwd_work(BATCH, SEG, f_used, nnz),
+                                       fp64_peak=PEAK_FP64_CUDA_CORES)
     log('time', card=repr(card), what='k4_16x8192', fwd_ms='%.4f' % fwd_k,
         plain_fwd_ms='%.4f' % fwd_p, bwd_ms='%.4f' % (fb_k - fwd_k),
-        plain_bwd_ms='%.4f' % (fb_p - fwd_p), fwd_ms_runs='%.4f,%.4f' % fwd_kr,
-        plain_fwd_ms_runs='%.4f,%.4f' % fwd_pr, fwd_bound_ms='%.4f' % bound_ms,
-        bound_by=bound_by, bwd_bound_ms='%.5f' % bwd_bound_ms, bwd_bound_by=bwd_bound_by)
+        plain_bwd_ms='%.4f' % (fb_p - fwd_p), bwd_kernels_ms='%.4f' % bwd_k,
+        plain_vjp_ms='%.4f' % bwd_p, bwd_kernels_ms_runs='%.4f,%.4f' % bwd_kr,
+        plain_vjp_ms_runs='%.4f,%.4f' % bwd_pr, fwd_ms_runs='%.4f,%.4f' % fwd_kr,
+        plain_fwd_ms_runs='%.4f,%.4f' % fwd_pr, fwd_bound_ms='%.5f' % bound_ms,
+        bound_by=bound_by, fwd_dft_bound_ms='%.4f' % dft_bound_ms,
+        bwd_bound_ms='%.5f' % bwd_bound_ms, bwd_bound_by=bwd_bound_by,
+        pr9_recorded_fwd_ms=PR9_MS['k4_fwd_16x8192'], pr9_recorded_bwd_ms=PR9_MS['k4_bwd_16x8192'])
     return launches['logmel'], step_time, {
         'name': 'logmel_trainable', 'route': 'cuda', 'source': lm.SOURCE,
         'replaces': 'pytorch_sound_tpu/ops/pallas/logmel.py:275',
         'launches': launches['logmel_trainable'], 'max_abs_err': grad_err,
+        'bwd_launches': launches['logmel_trainable_bwd'], 'bwd_fp64_rel_err': fp64_rel,
         'fwd_max_abs_err': fwd_err, 'ms': fwd_k, 'plain_ms': fwd_p,
         'bwd_ms': fb_k - fwd_k, 'plain_bwd_ms': fb_p - fwd_p,
-        'bound_ms': bound_ms, 'bound_by': bound_by, 'bwd_bound_ms': bwd_bound_ms,
-        'bwd_bound_by': bwd_bound_by, 'library_ms': None}
+        'bwd_kernels_ms': bwd_k, 'plain_vjp_ms': bwd_p,
+        'bound_ms': bound_ms, 'bound_by': bound_by, 'dft_bound_ms': dft_bound_ms,
+        'bwd_bound_ms': bwd_bound_ms, 'bwd_bound_by': bwd_bound_by, 'library_ms': None}
 
 
 def conv_macs(n, cout, cg, k, stride, padding, dilation, t_in, t_out):
@@ -1414,8 +1478,49 @@ def main():
         log('logmel', what=what, shape=tuple(mel.shape), vs_fp64='%.3g' % err)
         assert mel.shape == ref64.shape and err <= MEL_TOL, (what, mel.shape, err)
 
+    #    short inputs (two frames, and one sample past the pad), every bin
+    #    (fmax None), and the other power-of-two n_fft (hop n_fft / 4, the
+    #    HiFi-GAN pad and floor), each against the plain version in fp64
+    def geometry(n_fft):
+        hop = n_fft // 4
+        kw = dict(pad=(n_fft - hop) // 2, power_eps=1e-9, log_floor=1e-5)
+        filt = mel_ops.cached_mel_filter(SR, n_fft, 80, 0.0, 8000.0)
+        return (lambda x: lm.fused_log_mel(x, n_fft=n_fft, win_length=n_fft,
+                                           hop_length=hop, mel_max=8000.0, **kw),
+                lambda x: mel_ops.log_mel(x, filt, n_fft, hop, n_fft, **kw))
+
+    extra = [('hifigan', conventions['hifigan'], (3, 640)),
+             ('hifigan', conventions['hifigan'], (3, 385)),
+             ('centered', conventions['centered'], (3, 640)),
+             ('centered', conventions['centered'], (3, 513)),
+             ('centered_fmax_none', (
+                 lambda x: lm.fused_log_mel(x, mel_max=None, min_db=-100.0, max_db=20.0),
+                 lambda x: mel_ops.log_mel_spectrogram(x, SR, 80, 1024, 1024, 256,
+                                                       min_db=-100.0, max_db=20.0,
+                                                       mel_max=None)), (3, 50001)),
+             ('n_fft_512', geometry(512), (3, 50001)),
+             ('n_fft_2048', geometry(2048), (3, 50001))]
+    for conv, (kernel, plain), shape in extra:
+        for kind, wav in (('noise', rng.standard_normal(shape) * 0.2),
+                          ('tones', tones(rng, *shape, am=False))):
+            x = torch.from_numpy(wav.astype(np.float32)).to(dev)
+            ker, ref64 = kernel(x), plain(x.double())
+            torch.cuda.synchronize()
+            err = max_err(ker.double(), ref64)
+            errs['logmel'] = max(errs['logmel'], err)
+            log('logmel', shape=shape, convention=conv, signal=kind, vs_fp64='%.3g' % err)
+            assert ker.shape == ref64.shape and err <= MEL_TOL, (conv, shape, kind, err)
+
     enc_wav = torch.from_numpy(tones(rng, 16, 2 * SR)).to(dev)    # timed in phase 6
-    check_mel(lm.fused_hifigan_mel(enc_wav), enc_wav, 'encode_16x2s')
+    enc_mel = lm.fused_hifigan_mel(enc_wav)
+    check_mel(enc_mel, enc_wav, 'encode_16x2s')
+    #    each frame is computed alone: the batch's log-mel is its items' and a
+    #    rerun's, bit for bit
+    same = torch.equal(enc_mel, lm.fused_hifigan_mel(enc_wav)) and all(
+        torch.equal(enc_mel[i:i + 1], lm.fused_hifigan_mel(enc_wav[i:i + 1].contiguous()))
+        for i in range(enc_wav.shape[0]))
+    log('logmel', what='batch_vs_items_16x2s', bit_identical=same)
+    assert same
 
     # 4. generator-stage kernel vs plain, v2 checkpoint, real stage inputs
     iface = InterfaceHifiGAN('hifi_gan_v2', device='cuda')
@@ -1506,6 +1611,12 @@ def main():
         enc_k, enc_p, enc_kr, enc_pr = paired_ms(
             lambda: mel_ops.hifigan_mel_spectrogram(enc_wav),
             lambda: lm.fused_hifigan_mel(enc_wav), 20)
+        # torch.stft (cuFFT, fp32) alone on the padded input: a yardstick for
+        # the FFT, not the same function
+        enc_padded = torch.nn.functional.pad(enc_wav[:, None], (384, 384), mode='reflect')[:, 0]
+        hann = torch.hann_window(1024, dtype=torch.float32, device=dev)
+        stft_ms = cuda_ms(lambda: torch.stft(enc_padded, 1024, 256, 1024, window=hann,
+                                             center=False, return_complex=True), 20)
         dec_k, dec_p, dec_kr, dec_pr = paired_ms(
             lambda: plain_decode(bench_mel), lambda: generator_apply_fused(gen, bench_mel), 10)
         stage_in = [gen.conv_pre(bench_mel)]
@@ -1529,7 +1640,9 @@ def main():
     log('time', card=repr(card), what='encode_16x2s',
         kernel_frames_per_s='%.0f' % (enc_frames / enc_k * 1e3),
         plain_frames_per_s='%.0f' % (enc_frames / enc_p * 1e3),
-        kernel_ms='%.4f,%.4f' % enc_kr, plain_ms='%.4f,%.4f' % enc_pr)
+        kernel_ms='%.4f,%.4f' % enc_kr, plain_ms='%.4f,%.4f' % enc_pr,
+        stft_ms='%.4f' % stft_ms, pr9_recorded_kernel_ms=PR9_MS['k2_encode_16x2s'],
+        pr9_recorded_plain_ms=PR9_MS['k2_plain_encode_16x2s'])
     log('time', card=repr(card), what='decode_32x256',
         kernel_samples_per_s='%.0f' % (dec_samples / dec_k * 1e3),
         plain_samples_per_s='%.0f' % (dec_samples / dec_p * 1e3),
@@ -1540,12 +1653,15 @@ def main():
     log('time', card=repr(card), what='stream_1x4096',
         kernel_samples_per_s='%.0f' % (4096 * UP / stream_ms * 1e3),
         kernel_ms='%.4f' % stream_ms)
-    _, cos_b, _ = lm._constants(SR, 1024, 1024, 80, 0.0, 8000.0, str(dev))
-    enc_bound, enc_bound_by = bound(*logmel_work(*enc_wav.shape, cos_b.shape[1]))
+    consts = lm._constants(SR, 1024, 1024, 80, 0.0, 8000.0, str(dev))
+    f_used, nnz = consts.mel_w.shape[1], int((consts.mel_w != 0).sum())
+    enc_bound, enc_bound_by = bound(*logmel_work(*enc_wav.shape, f_used, nnz),
+                                    fp64_peak=PEAK_FP64_CUDA_CORES)
+    enc_dft_bound, _ = bound(*logmel_dft_work(*enc_wav.shape, f_used))
     log('bound', card=repr(card), decode_stages_ms='%.4f' % st_bound,
         decode_bound_by=st_bound_by, decode_stages_tc_ms='%.4f' % st_tc,
-        encode_ms='%.4f' % enc_bound,
-        encode_bound_by=enc_bound_by)
+        encode_ms='%.5f' % enc_bound, encode_bound_by=enc_bound_by,
+        encode_dft_bound_ms='%.4f' % enc_dft_bound)
 
     # 7. the training path
     train_logmel, cudnn_step, k4_entry = train_path(dev, card)
@@ -1570,7 +1686,7 @@ def main():
          'replaces': 'pytorch_sound_tpu/ops/pallas/logmel.py:157',
          'launches': launches['logmel'] + train_logmel, 'max_abs_err': errs['logmel'],
          'ms': enc_k, 'plain_ms': enc_p, 'bound_ms': enc_bound, 'bound_by': enc_bound_by,
-         'library_ms': None},
+         'dft_bound_ms': enc_dft_bound, 'stft_ms': stft_ms, 'library_ms': None},
         k4_entry,
         *k6_entries,
         *v1_entries,

@@ -1,18 +1,21 @@
-"""Fused log-mel frontend: wrapper of the CUDA kernel ``csrc/logmel.cu``.
+"""Fused log-mel frontend: wrapper of the CUDA kernels ``csrc/logmel.cu``.
 
 Counterpart of ``pytorch_sound_tpu/ops/pallas/logmel.py`` (``fused_log_mel``,
 ``fused_hifigan_mel``): reflect pad -> frames -> windowed DFT over the bins the
 mel filterbank uses -> magnitude -> mel -> log -> clip, in one launch; the
-spectrum never reaches device memory.
+spectrum never reaches device memory. On the card the DFT is an in-block fp64
+FFT, which takes a power-of-two ``n_fft`` from 256 to 4096 (the JAX kernel's
+matmul DFT took any ``n_fft``); the plain version takes every geometry.
 
 The wrapper dispatches on the tensor's device: on the CPU it runs the plain
 version (:func:`pytorch_sound_tpu_torch.ops.mel.log_mel`), on a CUDA tensor it
 launches the kernel or raises. :func:`fused_hifigan_mel_trainable` (K4) wraps
-the same kernel in an autograd function for the training loss.
+the same kernel in an autograd function for the training loss, with a
+backward kernel on the same FFT.
 """
 
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -24,24 +27,63 @@ from pytorch_sound_tpu_torch.ops.cuda import _build
 SOURCE = 'pytorch_sound_tpu_torch/csrc/logmel.cu'
 
 
+class FFTConstants(NamedTuple):
+    """The kernels' host-made tables, on one device."""
+    window: torch.Tensor      # (n_fft,) float64, the centered periodic Hann window
+    twiddles: torch.Tensor    # (n_fft // 2, 2) float64, W_M^e = exp(-2 pi i e / M), M = n_fft / 2
+    split: torch.Tensor       # (f_used, 2) float64, exp(-2 pi i k / n_fft)
+    mel_w: torch.Tensor       # (n_mels, f_used) float32, the filterbank's used bins
+    bands: torch.Tensor       # (n_mels, 2) int32, each mel's nonzero bins [k0, k1)
+    bin_mels: torch.Tensor    # (f_used, 2) int32, the mels [m0, m1) weighting each bin
+
+
+def _kernel_geometry(n_fft: int, hop_length: int, win_length: int):
+    """Raises ``ValueError`` unless n_fft == win_length, hop_length | n_fft
+    and n_fft is a power of two from 256 to 4096: the geometry the FFT
+    kernels take."""
+    if (win_length != n_fft or n_fft < 256 or n_fft > 4096 or n_fft & (n_fft - 1)
+            or hop_length < 1 or n_fft % hop_length):
+        raise ValueError(
+            'the log-mel FFT kernel takes the geometry n_fft == win, hop | n_fft, n_fft '
+            'a power of two from 256 to 4096; got n_fft %d, hop %d, win %d'
+            % (n_fft, hop_length, win_length))
+
+
+def _ranges(nonzero: np.ndarray) -> np.ndarray:
+    """(rows, 2) int32 [first, last + 1) of each row's nonzeros ([0, 0) if none)."""
+    out = np.zeros((nonzero.shape[0], 2), dtype=np.int32)
+    for i, row in enumerate(nonzero):
+        idx = np.flatnonzero(row)
+        if idx.size:
+            out[i] = idx[0], idx[-1] + 1
+    return out
+
+
+def _complex_pairs(z: np.ndarray) -> np.ndarray:
+    return np.stack([z.real, z.imag], axis=-1)
+
+
 @functools.lru_cache(maxsize=8)
 def _constants(sample_rate: int, n_fft: int, win_length: int, n_mels: int,
-               fmin: float, fmax: Optional[float], device: str):
-    """(cos (n_fft, F), sin (n_fft, F)) in float64 and mel (n_mels, F) in
-    float32, on ``device``.
+               fmin: float, fmax: Optional[float], device: str) -> FFTConstants:
+    """The FFT kernels' tables for one geometry, on ``device``.
 
-    F counts only the spectral bins the mel filterbank weights (372 of 513 at
-    fmax 8 kHz); higher bins have exactly-zero mel weight and are dropped.
+    f_used counts only the spectral bins the mel filterbank weights (372 of
+    513 at fmax 8 kHz); higher bins have exactly-zero mel weight and are never
+    formed. Window and twiddles are fp64 from numpy: the kernels call no
+    sincos.
     """
-    cutoff = n_fft // 2 + 1
     mel = filters.mel_filterbank(sample_rate, n_fft, n_mels, fmin, fmax)
     nz = np.nonzero(np.any(mel != 0.0, axis=0))[0]
-    f_used = int(nz[-1]) + 1 if nz.size else cutoff
-    basis = filters.stft_basis(n_fft, win_length)   # (2*cutoff, n_fft)
-    arrays = ((basis[:f_used].T, np.float64), (basis[cutoff:cutoff + f_used].T, np.float64),
-              (mel[:, :f_used], np.float32))
-    return tuple(torch.from_numpy(np.ascontiguousarray(a, dtype=dt)).to(device)
-                 for a, dt in arrays)
+    f_used = int(nz[-1]) + 1 if nz.size else n_fft // 2 + 1
+    m = n_fft // 2
+    mel_w = np.asarray(mel[:, :f_used], dtype=np.float32)
+    arrays = (filters.pad_center(filters.hann_window(win_length), n_fft),
+              _complex_pairs(np.exp(-2j * np.pi * np.arange(m) / m)),
+              _complex_pairs(np.exp(-2j * np.pi * np.arange(f_used) / n_fft)),
+              mel_w, _ranges(mel_w != 0), _ranges((mel_w != 0).T))
+    return FFTConstants(*(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                          for a in arrays))
 
 
 def fused_log_mel(wav: torch.Tensor, sample_rate: int = 22050, mel_size: int = 80,
@@ -53,7 +95,9 @@ def fused_log_mel(wav: torch.Tensor, sample_rate: int = 22050, mel_size: int = 8
     """Log-mel: wav (B, T) float32 -> (B, mel_size, n_frames).
 
     ``pad`` defaults to n_fft // 2 (centered); the HiFi-GAN convention is
-    :func:`fused_hifigan_mel`. Requires hop | n_fft and n_fft == win_length.
+    :func:`fused_hifigan_mel`. Requires hop | n_fft and n_fft == win_length,
+    and on a CUDA tensor a power-of-two n_fft from 256 to 4096
+    (:func:`_kernel_geometry`).
     """
     if wav.ndim != 2:
         raise ValueError('fused_log_mel expects (B, T), got %s' % (tuple(wav.shape),))
@@ -70,6 +114,7 @@ def fused_log_mel(wav: torch.Tensor, sample_rate: int = 22050, mel_size: int = 8
     if wav.device.type != 'cuda':
         raise RuntimeError('fused_log_mel runs on cpu or cuda, not %s' % wav.device)
 
+    _kernel_geometry(n_fft, hop_length, win_length)
     if wav.dtype != torch.float32 or not wav.is_contiguous():
         raise ValueError('fused_log_mel kernel takes contiguous float32 input')
     b, t = wav.shape
@@ -78,14 +123,14 @@ def fused_log_mel(wav: torch.Tensor, sample_rate: int = 22050, mel_size: int = 8
     n_frames = 1 + (t + 2 * pad - n_fft) // hop_length
     if n_frames < 1:
         raise ValueError('input of %d samples is shorter than one frame' % t)
-    cos_b, sin_b, mel_w = _constants(sample_rate, n_fft, win_length, mel_size,
-                                     mel_min, mel_max, str(wav.device))
+    c = _constants(sample_rate, n_fft, win_length, mel_size, mel_min, mel_max,
+                   str(wav.device))
     out = torch.empty((b, mel_size, n_frames), dtype=torch.float32, device=wav.device)
     with torch.cuda.device(wav.device):
         code = _build.library().logmel_forward(
             wav.data_ptr(), out.data_ptr(), b, t, pad, n_fft, hop_length, n_frames,
-            cos_b.data_ptr(), sin_b.data_ptr(), cos_b.shape[1],
-            mel_w.data_ptr(), mel_size,
+            c.window.data_ptr(), c.twiddles.data_ptr(), c.split.data_ptr(),
+            c.mel_w.shape[1], c.mel_w.data_ptr(), c.bands.data_ptr(), mel_size,
             power_eps, log_floor, log_offset, lo, hi,
             torch.cuda.current_stream().cuda_stream)
     _build.check(code, 'logmel_forward')
@@ -108,9 +153,62 @@ def fused_hifigan_mel(wav: torch.Tensor, sampling_rate: int = 22050,
         power_eps=1e-9, log_floor=1e-5)
 
 
+def hifigan_mel_vjp(wav: torch.Tensor, grad: torch.Tensor) -> torch.Tensor:
+    """Plain version of K4's backward: the VJP of the composite
+    ``ops.mel.hifigan_mel_spectrogram`` at ``wav`` for the cotangent ``grad``
+    (the JAX package's ``_fhm_bwd``), by autograd."""
+    with torch.enable_grad():
+        w = wav.detach().requires_grad_(True)
+        mel = mel_ops.hifigan_mel_spectrogram(w)
+        dwav, = torch.autograd.grad(mel, w, grad)
+    return dwav
+
+
+def hifigan_mel_backward(wav: torch.Tensor, grad: torch.Tensor) -> torch.Tensor:
+    """K4's backward at the HiFi-GAN settings (22.05 kHz, n_fft 1024, hop
+    256, 80 mels to 8 kHz): wav (B, T), grad (B, 80, frames) -> dwav (B, T).
+
+    On a CPU tensor, :func:`hifigan_mel_vjp`. On a CUDA tensor, the backward
+    kernels of ``csrc/logmel.cu`` (the frames' gradients by an inverse FFT into
+    (B, frames, n_fft) scratch, then the overlap-add and the reflect pad's
+    adjoint), counted once per call in
+    ``fused_hifigan_mel_trainable.bwd_launches``, or an error.
+    """
+    if wav.device.type == 'cpu':
+        return hifigan_mel_vjp(wav, grad)
+    if wav.device.type != 'cuda':
+        raise RuntimeError('the log-mel backward runs on cpu or cuda, not %s' % wav.device)
+    n_fft, hop, n_mels = 1024, 256, 80
+    if wav.dtype != torch.float32 or not wav.is_contiguous() or wav.ndim != 2:
+        raise ValueError('the log-mel backward kernel takes contiguous float32 (B, T)')
+    b, t = wav.shape
+    pad = (n_fft - hop) // 2
+    if not 0 <= pad < t:
+        raise ValueError('reflect pad %d needs more than %d samples' % (pad, t))
+    n_frames = 1 + (t + 2 * pad - n_fft) // hop
+    grad = grad.to(torch.float32).contiguous()
+    if tuple(grad.shape) != (b, n_mels, n_frames) or grad.device != wav.device:
+        raise ValueError('grad of shape %s on %s for wav %s'
+                         % (tuple(grad.shape), grad.device, tuple(wav.shape)))
+    c = _constants(22050, n_fft, n_fft, n_mels, 0.0, 8000.0, str(wav.device))
+    dframes = torch.empty((b, n_frames, n_fft), dtype=torch.float32, device=wav.device)
+    dwav = torch.empty_like(wav)
+    with torch.cuda.device(wav.device):
+        code = _build.library().logmel_backward(
+            wav.data_ptr(), grad.data_ptr(), dframes.data_ptr(), dwav.data_ptr(),
+            b, t, pad, n_fft, hop, n_frames,
+            c.window.data_ptr(), c.twiddles.data_ptr(), c.split.data_ptr(),
+            c.mel_w.shape[1], c.mel_w.data_ptr(), c.bands.data_ptr(),
+            c.bin_mels.data_ptr(), n_mels, 1e-9, 1e-5,
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(code, 'logmel_backward')
+    fused_hifigan_mel_trainable.bwd_launches += 1
+    return dwav
+
+
 class _TrainableMel(torch.autograd.Function):
-    """K4's forward is the log-mel kernel; its backward is autograd of the
-    composite formula, recomputed from the saved waveform."""
+    """K4: the log-mel kernel forward, its backward kernel (recomputing from
+    the saved waveform) on a CUDA tensor."""
 
     @staticmethod
     def forward(ctx, wav):
@@ -123,11 +221,7 @@ class _TrainableMel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         wav, = ctx.saved_tensors
-        with torch.enable_grad():
-            w = wav.detach().requires_grad_(True)
-            mel = mel_ops.hifigan_mel_spectrogram(w)
-            dwav, = torch.autograd.grad(mel, w, grad)
-        return dwav
+        return hifigan_mel_backward(wav, grad)
 
 
 def fused_hifigan_mel_trainable(wav: torch.Tensor, precision: str = 'highest'
@@ -137,12 +231,11 @@ def fused_hifigan_mel_trainable(wav: torch.Tensor, precision: str = 'highest'
 
     Forward: :func:`fused_hifigan_mel`, the log-mel kernel on a CUDA tensor
     (counted in ``fused_log_mel.launches`` and, per call, in this function's
-    ``launches``), the plain version on a CPU tensor. Backward: the VJP of the
-    plain composite ``ops.mel.hifigan_mel_spectrogram`` at the saved
-    waveform, recomputed under autograd. That is the JAX package's own design
-    (its ``_fhm_bwd`` is XLA's autodiff of the same formula; it has no
-    backward kernel), not a plain version standing in for a kernel. Only
-    ``precision='highest'`` exists: the kernel's DFT is fp64.
+    ``launches``), the plain version on a CPU tensor. Backward:
+    :func:`hifigan_mel_backward`, recomputed from the saved waveform as the
+    JAX package's ``_fhm_bwd`` does: the backward kernel on a CUDA tensor
+    (counted in ``bwd_launches``), the VJP of the plain composite on a CPU
+    tensor. Only ``precision='highest'`` exists: the kernels' FFT is fp64.
     """
     if precision != 'highest':
         raise ValueError("precision must be 'highest', got %r" % (precision,))
@@ -150,3 +243,4 @@ def fused_hifigan_mel_trainable(wav: torch.Tensor, precision: str = 'highest'
 
 
 fused_hifigan_mel_trainable.launches = 0
+fused_hifigan_mel_trainable.bwd_launches = 0

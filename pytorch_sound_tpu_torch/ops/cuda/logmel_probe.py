@@ -1,0 +1,144 @@
+"""Times the log-mel kernels (K2, and K4's forward and backward) of one tree of
+the repository on a card, so that two trees (a commit and its parent) are
+compared on one machine, in turns.
+
+    python pytorch_sound_tpu_torch/ops/cuda/logmel_probe.py [ROOT] [--profile]
+
+ROOT (default: the checkout holding this file) is the root of the tree whose
+``pytorch_sound_tpu_torch`` is imported and built; the script only calls the
+entry points every tree has (``fused_hifigan_mel``,
+``fused_hifigan_mel_trainable``, ``ops.mel.hifigan_mel_spectrogram``). Inputs
+are seeded harmonic tones at the shapes ``chip_smoke.py`` times: the encode
+batch (16 x 2 s) and the training batch (16 x 8192). Each time is the mean of
+20 calls after 2 warm-ups (CUDA events), plain, kernel, kernel, plain; K4's
+backward is forward + backward minus forward. Prints one JSON line with the
+card's name and power limit. ``--profile`` then traces 20 calls of each
+of K2 at the encode shape, K2 at the training shape, K4's backward kernels
+called alone and K4 forward + backward through autograd with
+``torch.profiler`` and prints, per workload, the device time of each kernel
+and the host time of the busiest operators per call; and times, as K4's
+backward is timed, an autograd function whose forward is K2 and whose
+backward only returns zeros: the part of that time autograd itself takes.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+
+def tones(rng, n, samples, sr=22050):
+    import numpy as np
+    t = np.arange(samples) / sr
+    f0 = rng.uniform(110.0, 300.0, size=(n, 1))
+    wav = sum(0.4 / h * np.sin(2 * np.pi * h * f0 * t) for h in (1, 2, 3))
+    wav = wav + 0.003 * rng.standard_normal((n, samples))
+    return (0.6 * wav / np.abs(wav).max(axis=1, keepdims=True)).astype(np.float32)
+
+
+def cuda_ms(fn, iters=20):
+    import torch
+    for _ in range(2):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def paired(plain, kernel):
+    p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kernel), cuda_ms(kernel), cuda_ms(plain)
+    return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def profile(name, fn, iters=20):
+    """Per-call device time of each CUDA kernel and host time of the top
+    operators over ``iters`` calls of ``fn``, by ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    dev = {e.key: e.device_time_total / iters / 1e3 for e in events
+           if getattr(e, 'device_time_total', 0) > 0 and e.device_type.name == 'CUDA'}
+    host = sorted(((e.cpu_time_total / iters / 1e3, e.key) for e in events
+                   if e.device_type.name == 'CPU'), reverse=True)[:8]
+    print(json.dumps({'profile': name, 'device_ms_per_call': dev,
+                      'host_ms_per_call': {k: v for v, k in host}}), flush=True)
+
+
+def main():
+    args = [a for a in sys.argv[1:] if a != '--profile']
+    root = os.path.abspath(args[0] if args else
+                           os.path.join(os.path.dirname(os.path.abspath(__file__)), '..', '..', '..'))
+    sys.path.insert(0, root)
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit('logmel_probe: no CUDA device is available')
+    from pytorch_sound_tpu_torch.ops import mel as mel_ops
+    from pytorch_sound_tpu_torch.ops.cuda import _build
+    from pytorch_sound_tpu_torch.ops.cuda import logmel as lm
+    assert os.path.dirname(os.path.abspath(lm.__file__)).startswith(root), lm.__file__
+    card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device('cuda', 0)
+    _build.library()
+    rng = np.random.default_rng(0)
+    enc = torch.from_numpy(tones(rng, 16, 2 * 22050)).to(dev)
+    train = torch.from_numpy(tones(rng, 16, 8192)).to(dev)
+
+    def fwd_bwd(fn):
+        w = train.clone().requires_grad_(True)
+        fn(w).sum().backward()
+
+    with torch.inference_mode():
+        enc_k, enc_p = paired(lambda: mel_ops.hifigan_mel_spectrogram(enc),
+                              lambda: lm.fused_hifigan_mel(enc))
+    fwd_k, fwd_p = paired(lambda: mel_ops.hifigan_mel_spectrogram(train),
+                          lambda: lm.fused_hifigan_mel_trainable(train))
+    fb_k, fb_p = paired(lambda: fwd_bwd(mel_ops.hifigan_mel_spectrogram),
+                        lambda: fwd_bwd(lm.fused_hifigan_mel_trainable))
+    print(json.dumps({'root': root, 'card': card, 'k2_encode_16x2s_ms': enc_k,
+                      'plain_encode_16x2s_ms': enc_p, 'k4_fwd_16x8192_ms': fwd_k,
+                      'plain_fwd_16x8192_ms': fwd_p, 'k4_bwd_16x8192_ms': fb_k - fwd_k,
+                      'plain_bwd_16x8192_ms': fb_p - fwd_p}), flush=True)
+    if '--profile' in sys.argv:
+        cot = torch.cos(lm.fused_hifigan_mel(train))
+        with torch.inference_mode():
+            profile('k2_encode_16x2s', lambda: lm.fused_hifigan_mel(enc))
+            profile('k2_train_16x8192', lambda: lm.fused_hifigan_mel(train))
+            if hasattr(lm, 'hifigan_mel_backward'):
+                profile('k4_bwd_kernels_16x8192', lambda: lm.hifigan_mel_backward(train, cot))
+        profile('k4_fwd_bwd_16x8192', lambda: fwd_bwd(lm.fused_hifigan_mel_trainable))
+
+        class ZeroBackward(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, w):
+                return lm.fused_hifigan_mel(w)
+
+            @staticmethod
+            def backward(ctx, g):
+                return torch.zeros((16, 8192), device=g.device)
+
+        fwd_z = cuda_ms(lambda: ZeroBackward.apply(train))
+        fb_z = cuda_ms(lambda: fwd_bwd(ZeroBackward.apply))
+        fwd_k, fb_k = cuda_ms(lambda: lm.fused_hifigan_mel_trainable(train)), \
+            cuda_ms(lambda: fwd_bwd(lm.fused_hifigan_mel_trainable))
+        print(json.dumps({'card': card, 'zero_backward_bwd_16x8192_ms': fb_z - fwd_z,
+                          'k4_bwd_16x8192_ms': fb_k - fwd_k}), flush=True)
+
+
+if __name__ == '__main__':
+    main()

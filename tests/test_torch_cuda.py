@@ -173,10 +173,67 @@ def test_stage_kernel_takes_inference_weights(card, c):
     assert torch.equal(res, gs.resblock_stage(h, blocks))
 
 
+MEL_TOL = 1e-4        # log-mel kernel vs plain (tests/test_pallas.py:98)
+
+
+def _tones(rng, b, t):
+    n = np.arange(t) / 22050
+    return np.stack([sum(0.4 / h * np.sin(2 * np.pi * rng.uniform(90, 300) * h * n)
+                         for h in range(1, 6)) for _ in range(b)]).astype(np.float32)
+
+
+@pytest.mark.parametrize('n_fft,t,conv', [
+    (1024, 66150, 'hifigan'), (1024, 50001, 'centered'), (1024, 20000, 'centered_all_bins'),
+    (1024, 640, 'hifigan'), (1024, 385, 'hifigan'), (512, 30000, 'hifigan'),
+    (2048, 30000, 'centered'), (256, 9000, 'centered'), (4096, 30000, 'hifigan')])
+def test_log_mel_kernel_matches_plain(card, n_fft, t, conv):
+    """K2, the in-block fp64 FFT, against the plain version run in fp64 on the
+    same card tensor: noise and tones, both conventions, every bin to fmax
+    None, short inputs (t = 640 and t = pad + 1 at the HiFi-GAN pad 384) and
+    the power-of-two n_fft the kernel takes."""
+    from pytorch_sound_tpu_torch.ops import mel as mel_ops
+    from pytorch_sound_tpu_torch.ops.cuda import logmel as lm
+    rng = np.random.default_rng(n_fft + t)
+    hop = n_fft // 4
+    fmax = None if conv == 'centered_all_bins' else 8000.0
+    pad = (n_fft - hop) // 2 if conv == 'hifigan' else n_fft // 2
+    kw = dict(power_eps=1e-9, log_floor=1e-5) if conv == 'hifigan' else {}
+    filt = mel_ops.cached_mel_filter(22050, n_fft, 80, 0.0, fmax)
+    for wav in (rng.standard_normal((3, t)) * 0.2, _tones(rng, 3, t)):
+        x = torch.from_numpy(wav.astype(np.float32)).to(card)
+        before = lm.fused_log_mel.launches
+        got = lm.fused_log_mel(x, n_fft=n_fft, win_length=n_fft, hop_length=hop,
+                               mel_max=fmax, pad=pad, **kw)
+        assert lm.fused_log_mel.launches == before + 1
+        ref = mel_ops.log_mel(x.double(), filt, n_fft, hop, n_fft, pad, **kw)
+        assert got.shape == ref.shape
+        assert float((got.double() - ref).abs().max()) <= MEL_TOL
+
+
+def test_log_mel_kernel_batch_equals_items(card):
+    """Each frame is computed alone: a batch's log-mel equals its items'
+    log-mels bit for bit, and a rerun equals the first run."""
+    from pytorch_sound_tpu_torch.ops.cuda import logmel as lm
+    x = torch.from_numpy(_tones(np.random.default_rng(3), 16, 44100)).to(card)
+    batch = lm.fused_hifigan_mel(x)
+    assert torch.equal(batch, lm.fused_hifigan_mel(x))
+    for i in range(16):
+        assert torch.equal(batch[i:i + 1], lm.fused_hifigan_mel(x[i:i + 1].contiguous()))
+
+
+def test_kernel_rejects_unsupported_n_fft(card):
+    from pytorch_sound_tpu_torch.ops.cuda import logmel as lm
+    x = torch.zeros((1, 9000), device=card)
+    with pytest.raises(ValueError, match='geometry'):
+        lm.fused_log_mel(x, n_fft=1000, win_length=1000, hop_length=250)
+
+
 def test_trainable_mel_kernel_matches_plain(card):
     """K4 at the training shape (16 x 8192): the forward launches the log-mel
-    kernel once and matches the plain version; the gradient of sum(sin(mel))
-    matches autograd of the plain version on white noise."""
+    kernel once and matches the plain version; the backward launches its
+    kernels once, matches autograd of the plain version on white noise
+    (fp32) and, relative to its largest entry, autograd in fp64 on tones;
+    a rerun of the backward is bit-identical."""
     from pytorch_sound_tpu_torch.ops import mel as mel_ops
     from pytorch_sound_tpu_torch.ops.cuda import logmel as lm
     rng = np.random.default_rng(12)
@@ -184,17 +241,27 @@ def test_trainable_mel_kernel_matches_plain(card):
     grads = []
     for fn in (lm.fused_hifigan_mel_trainable, mel_ops.hifigan_mel_spectrogram):
         w = wav.clone().requires_grad_(True)
-        before = (lm.fused_log_mel.launches, lm.fused_hifigan_mel_trainable.launches)
+        before = (lm.fused_log_mel.launches, lm.fused_hifigan_mel_trainable.launches,
+                  lm.fused_hifigan_mel_trainable.bwd_launches)
         mel = fn(w)
         torch.sum(torch.sin(mel)).backward()
         grads.append((mel.detach(), w.grad))
         if fn is lm.fused_hifigan_mel_trainable:
-            assert (lm.fused_log_mel.launches, lm.fused_hifigan_mel_trainable.launches) == (
-                before[0] + 1, before[1] + 1)
+            assert (lm.fused_log_mel.launches, lm.fused_hifigan_mel_trainable.launches,
+                    lm.fused_hifigan_mel_trainable.bwd_launches) == (
+                before[0] + 1, before[1] + 1, before[2] + 1)
     (mel_k, g_k), (mel_p, g_p) = grads
     assert mel_k.shape == (16, 80, 32)
     assert float((mel_k - mel_p).abs().max()) <= 1e-4
     assert float((g_k - g_p).abs().max()) <= 1e-4
+    assert torch.equal(g_k, lm.hifigan_mel_backward(wav, torch.cos(mel_k)))
+
+    tonal = torch.from_numpy(_tones(rng, 4, 8192)).to(card)
+    mel = lm.fused_hifigan_mel(tonal)
+    cot = torch.cos(mel)
+    got = lm.hifigan_mel_backward(tonal, cot)
+    ref = lm.hifigan_mel_vjp(tonal.double(), cot.double())
+    assert float((got.double() - ref).abs().max()) <= 1e-6 * float(ref.abs().max())
 
 
 GC_FWD_TOL = 1e-5     # max abs error over the plain version's max abs

@@ -1,0 +1,400 @@
+"""The plan of the log-mel FFT kernels (``csrc/logmel.cu``) on the CPU.
+
+The card's kernels cannot run here, so a numpy fp64 twin of their plan, read
+from the source, stands in: the packing of a frame into an n_fft / 2-point
+complex sequence, the Stockham radix passes and their twiddle indices, the
+split into the one-sided spectrum, the band-limited mel and, for K4's
+backward, the adjoint of the trimmed DFT by one inverse FFT, the overlap-add
+and the reflect pad's adjoint. The twin is held against ``torch.fft.rfft``
+(1e-12 of the frame's norm), against the JAX package's Pallas kernels in
+interpret mode (1e-4, tests/test_pallas.py:98 and :305) and, for the
+backward, against fp64 autograd of the port's plain composite (1e-10).
+"""
+
+import os
+import re
+
+import jax
+
+jax.config.update('jax_platforms', 'cpu')
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+import pytest  # noqa: E402
+import torch  # noqa: E402
+
+from pytorch_sound_tpu.ops.pallas.logmel import fused_hifigan_mel as jax_fused_hifigan_mel  # noqa: E402
+from pytorch_sound_tpu.ops.pallas.logmel import fused_hifigan_mel_trainable as jax_trainable  # noqa: E402
+from pytorch_sound_tpu.ops.pallas.logmel import fused_log_mel as jax_fused_log_mel  # noqa: E402
+from pytorch_sound_tpu_torch.ops import mel as mel_ops  # noqa: E402
+from pytorch_sound_tpu_torch.ops.cuda import logmel as lm  # noqa: E402
+
+SRC = open(os.path.join(os.path.dirname(__file__), '..', lm.SOURCE)).read()
+TOL = 1e-4            # values and gradients against the JAX kernels
+SR = 22050
+
+
+# ---------------------------------------------------------------- the twin
+
+def radices(log_m):
+    """The passes of ``fft`` in the source: LOG_M / 3 radix-8 passes, then
+    the radix its ``LOG_M % 3`` rule names."""
+    body = SRC[SRC.index('__device__ __forceinline__ void fft('):]
+    assert re.search(r'p < LOG_M / 3; \+\+p, ns \*= 8\)', body)
+    rest = {int(r): int(radix) for r, radix in
+            re.findall(r'if constexpr \(LOG_M % 3 == (\d)\) fft_pass<M, (\d),', body)}
+    return [8] * (log_m // 3) + ([rest[log_m % 3]] if log_m % 3 else [])
+
+
+def pidx(i):
+    expr = re.search(r'constexpr int pidx\(int i\) \{ return (.*?); \}', SRC).group(1)
+    return eval(expr, {'i': i})
+
+
+def dft_radix(v, c8):
+    """The kernel's dft2 / dft4 / dft8 on the leading axis of v."""
+    def dft4(u0, u1, u2, u3):
+        s0, d0, s1, d1 = u0 + u2, u0 - u2, u1 + u3, (u1 - u3) * -1j
+        return s0 + s1, d0 + d1, s0 - s1, d0 - d1
+    if len(v) == 2:
+        return np.stack([v[0] + v[1], v[0] - v[1]])
+    if len(v) == 4:
+        return np.stack(dft4(*v))
+    a = [v[r] + v[r + 4] for r in range(4)]
+    b = [v[r] - v[r + 4] for r in range(4)]
+    b[1] = (b[1].real + b[1].imag) * c8 + 1j * (b[1].imag - b[1].real) * c8
+    b[2] = b[2] * -1j
+    b[3] = (b[3].imag - b[3].real) * c8 - 1j * (b[3].real + b[3].imag) * c8
+    a, b = dft4(*a), dft4(*b)
+    return np.stack([x for pair in zip(a, b) for x in pair])
+
+
+def fft(z, tw):
+    """The M-point forward FFT of each row of z (..., M), natural order, by
+    the kernel's Stockham passes."""
+    m = z.shape[-1]
+    c8 = tw[m // 8].real
+    ns = 1
+    for radix in radices(int(np.log2(m))):
+        j = np.arange(m // radix)
+        k = j & (ns - 1)
+        v = np.stack([z[..., j + r * (m // radix)] for r in range(radix)])
+        if ns > 1:
+            step = m // (ns * radix)
+            for r in range(1, radix):
+                v[r] = v[r] * tw[r * k * step]
+        v = dft_radix(v, c8)
+        out = np.empty_like(z)
+        base = (j - k) * radix + k
+        for r in range(radix):
+            out[..., base + r * ns] = v[r]
+        z, ns = out, ns * radix
+    return z
+
+
+def tables(c):
+    as_c = lambda a: a.numpy()[..., 0] + 1j * a.numpy()[..., 1]  # noqa: E731
+    return (c.window.numpy(), as_c(c.twiddles), as_c(c.split), c.mel_w.numpy(),
+            c.bands.numpy(), c.bin_mels.numpy())
+
+
+def split(za, zb, st):
+    """X[k] from Z[k mod M], Z[(M - k) mod M] and e^(-2 pi i k / N)."""
+    e = 0.5 * (za.real + zb.real) + 0.5j * (za.imag - zb.imag)
+    o = 0.5 * (za.real - zb.real) + 0.5j * (za.imag + zb.imag)
+    to = st * o
+    return (e.real + to.imag) + 1j * (e.imag - to.real)
+
+
+def spectrum(frames, c):
+    """frames (..., N) fp64 -> (Z (..., M), X (..., f_used)): packing, FFT,
+    split."""
+    win, tw, st, *_ = tables(c)
+    x = frames * win
+    z = fft(x[..., 0::2] + 1j * x[..., 1::2], tw)
+    m = z.shape[-1]
+    k = np.arange(len(st))
+    return z, split(z[..., k % m], z[..., (m - k) % m], st)
+
+
+def reflect(p, t, pad):
+    s = p - pad
+    s = np.where(s < 0, -s, s)
+    return np.where(s >= t, 2 * (t - 1) - s, s)
+
+
+def frames_of(wav, n_fft, hop, pad):
+    """(B, frames, N) from the unpadded waveform, reflected by index."""
+    b, t = wav.shape
+    n_frames = 1 + (t + 2 * pad - n_fft) // hop
+    p = np.arange(n_frames)[:, None] * hop + np.arange(n_fft)[None, :]
+    return wav[:, reflect(p, t, pad)]
+
+
+def band_mel(mag, mel_w, bands, dtype):
+    """Each mel's ascending sum over its band, fp32 fmaf (emulated: the
+    product of two fp32 values is exact in fp64) or fp64."""
+    out = np.zeros(mag.shape[:-1] + (len(bands),), dtype=dtype)
+    for m, (k0, k1) in enumerate(bands):
+        a = np.zeros(mag.shape[:-1], dtype=dtype)
+        for k in range(k0, k1):
+            a = (mel_w[m, k].astype(np.float64) * mag[..., k] + a).astype(dtype)
+        out[..., m] = a
+    return out
+
+
+def twin_log_mel(wav, c, n_fft=1024, hop=256, pad=None, power_eps=0.0, log_floor=0.0,
+                 log_offset=1e-6, lo=-np.inf, hi=np.inf, dtype=np.float32):
+    """The forward kernel's result, (B, n_mels, frames); ``dtype`` float32 is
+    the kernel's (magnitudes stored and the mel summed in fp32)."""
+    pad = n_fft // 2 if pad is None else pad
+    _, x = spectrum(frames_of(wav.astype(np.float64), n_fft, hop, pad), c)
+    mag = np.sqrt(x.real ** 2 + x.imag ** 2 + power_eps).astype(dtype)
+    _, _, _, mel_w, bands, _ = tables(c)
+    mel = band_mel(mag, mel_w, bands, dtype)
+    out = np.log(np.maximum(mel, log_floor)) if log_floor > 0 else np.log(mel + log_offset)
+    return np.clip(out, lo, hi).astype(dtype).swapaxes(1, 2)
+
+
+def twin_hifigan_backward(wav, grad, c, dtype=np.float32, n_fft=1024, hop=256):
+    """K4's backward as the kernels compute it: wav (B, T), grad (B, 80,
+    frames) -> dwav (B, T). ``dtype`` is that of the forward's mag and mel,
+    and of dmel (the kernel's float32)."""
+    b, t = wav.shape
+    pad = (n_fft - hop) // 2
+    win, tw, st, mel_w, bands, bin_mels = tables(c)
+    f_used, m = len(st), n_fft // 2
+    z, x = spectrum(frames_of(wav.astype(np.float64), n_fft, hop, pad), c)
+    mag32 = np.sqrt(x.real ** 2 + x.imag ** 2 + 1e-9).astype(dtype)
+    mel = band_mel(mag32, mel_w, bands, dtype)                 # (B, F, n_mels)
+    g = grad.swapaxes(1, 2).astype(dtype)
+    dmel = np.where(mel >= 1e-5, g / mel, 0).astype(dtype).astype(np.float64)
+
+    # logmel_frame_grad_kernel: G per bin, then C, then one inverse FFT
+    mag = np.sqrt(x.real ** 2 + x.imag ** 2 + 1e-9)
+    dmag = np.zeros(x.shape)
+    for k, (m0, m1) in enumerate(bin_mels):
+        for mm in range(m0, m1):
+            dmag[..., k] += mel_w[mm, k].astype(np.float64) * dmel[..., mm]
+    gk = np.zeros(x.shape[:-1] + (m + 1,), dtype=np.complex128)
+    gk[..., :f_used] = dmag / mag * x
+    kk = np.arange(m)
+    inner = np.arange(1, min(f_used, m))
+    a = gk[..., :m].copy()                                     # A[k] = G[k]
+    bb = np.zeros_like(a)                                      # B[k] = G[k] e^(2 pi i k / N)
+    bb[..., inner] = gk[..., inner] * np.conj(st[inner])
+    a[..., 0] = gk[..., 0] + gk[..., m]                        # the Nyquist bin, folded
+    bb[..., 0] = gk[..., 0] - gk[..., m]
+    ar, br = a[..., (m - kk) % m], bb[..., (m - kk) % m]
+    cc = 0.5 * (a + np.conj(ar)) + 0.5j * (bb + np.conj(br))
+    y = fft(np.conj(cc), tw)                                   # DFT(conj C) = conj(c)
+    dframes = np.empty(x.shape[:-1] + (n_fft,))
+    dframes[..., 0::2] = win[0::2] * y.real
+    dframes[..., 1::2] = -win[1::2] * y.imag
+
+    # logmel_overlap_add_kernel: every padded position that maps to s
+    n_frames = dframes.shape[1]
+    padded = np.zeros((b, t + 2 * pad))
+    for f in range(n_frames):
+        padded[:, f * hop:f * hop + n_fft] += dframes[:, f]
+    s = np.arange(t)
+    dwav = padded[:, s + pad].copy()
+    left = (s >= 1) & (s <= pad)
+    dwav[:, left] += padded[:, pad - s[left]]
+    right = (s >= t - 1 - pad) & (s <= t - 2)
+    dwav[:, right] += padded[:, pad + 2 * (t - 1) - s[right]]
+    return dwav
+
+
+def consts(n_fft=1024, n_mels=80, fmax=8000.0):
+    return lm._constants(SR, n_fft, n_fft, n_mels, 0.0, fmax, 'cpu')
+
+
+def tones(rng, b, t):
+    n = np.arange(t) / SR
+    out = np.zeros((b, t))
+    for i in range(b):
+        f0 = rng.uniform(90, 300)
+        for h in range(1, 12):
+            out[i] += 0.4 / h * np.sin(2 * np.pi * f0 * h * n + rng.uniform(0, 2 * np.pi))
+    return out.astype(np.float32)
+
+
+# ---------------------------------------------------------------- tests
+
+@pytest.mark.parametrize('n_fft', [256, 512, 1024, 2048, 4096])
+def test_fft_plan_matches_rfft(n_fft):
+    """Packing, radix passes, twiddle table and split give the one-sided DFT
+    of the windowed frame, every bin to N / 2, to 1e-12 of the frame's norm."""
+    rng = np.random.default_rng(n_fft)
+    c = lm._constants(SR, n_fft, n_fft, 40, 0.0, None, 'cpu')
+    every_bin = np.exp(-2j * np.pi * np.arange(n_fft // 2 + 1) / n_fft)
+    c = c._replace(split=torch.from_numpy(np.stack([every_bin.real, every_bin.imag], -1)))
+    frames = rng.standard_normal((3, n_fft))
+    _, x = spectrum(frames, c)
+    ref = torch.fft.rfft(torch.from_numpy(frames * c.window.numpy())).numpy()
+    norm = np.linalg.norm(frames * c.window.numpy(), axis=-1, keepdims=True)
+    assert float((np.abs(x - ref) / norm).max()) <= 1e-12
+
+
+def test_radix_plan_and_shared_accesses():
+    """Every FFT size runs radix-8 passes and one radix-4 or radix-2 pass for
+    the rest; each pass's reads and writes by the 8 lanes of a 16-byte
+    shared-memory phase land on 8 distinct 16-byte bank slots (the padded
+    rows, pidx)."""
+    for log_m, plan in ((7, [8, 8, 2]), (8, [8, 8, 4]), (9, [8, 8, 8]),
+                        (10, [8, 8, 8, 2]), (11, [8, 8, 8, 4])):
+        assert radices(log_m) == plan
+        m, ns = 1 << log_m, 1
+        tf = m // 8
+        for radix in plan:
+            for q in range(8 // radix):
+                for r in range(radix):
+                    for lane0 in range(0, tf, 8):
+                        j = np.arange(lane0, lane0 + 8) + q * tf
+                        k = j & (ns - 1)
+                        reads = j + r * (m // radix)
+                        writes = (j - k) * radix + k + r * ns
+                        for idx in (reads, writes):
+                            assert len({pidx(int(i)) % 8 for i in idx}) == 8, (log_m, radix)
+            ns *= radix
+
+
+def held(got, jax_out, ref64):
+    """Noise: the twin within TOL of the JAX kernel. Tones: the JAX kernel's
+    fp32 contraction is itself up to ~1e-3 from the exact value in quiet
+    bands, so the twin is held to the plain version in fp64 at 1e-6, and to
+    the JAX kernel at TOL wherever that is within TOL / 2 of fp64."""
+    assert got.shape == jax_out.shape == ref64.shape
+    assert float(np.abs(got - ref64).max()) <= 1e-6
+    near = np.abs(jax_out - ref64) <= TOL / 2
+    np.testing.assert_allclose(got[near], jax_out[near], atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize('signal', ['noise', 'tones'])
+@pytest.mark.parametrize('shape', [(2, 9000), (2, 640)])
+def test_twin_matches_jax_hifigan_mel(signal, shape):
+    """HiFi-GAN convention, pad 384 (t = 640 is two frames: the reflection of
+    both edges reaches across the whole input)."""
+    rng = np.random.default_rng(5)
+    wav = (rng.standard_normal(shape) * 0.2).astype(np.float32) if signal == 'noise' \
+        else tones(rng, *shape)
+    got = twin_log_mel(wav, consts(), pad=384, power_eps=1e-9, log_floor=1e-5)
+    ref = np.asarray(jax_fused_hifigan_mel(jnp.asarray(wav), precision='highest'))
+    assert got.shape == ref.shape == (shape[0], 80, shape[1] // 256)
+    if signal == 'noise':
+        np.testing.assert_allclose(got, ref, atol=TOL, rtol=0)
+    else:
+        held(got, ref, mel_ops.hifigan_mel_spectrogram(
+            torch.from_numpy(wav).double()).numpy())
+
+
+@pytest.mark.parametrize('fmax,f_used', [(8000.0, 372), (None, 512), (12000.0, 513)])
+def test_twin_matches_jax_centered_log_mel(fmax, f_used):
+    """Centered convention with the dB clip. At fmax None the Slaney
+    filterbank weights every bin but the Nyquist one; at 12 kHz its top
+    filters reach past sr / 2 and weight that bin too (the split at
+    k = N / 2 reads Z[0] twice)."""
+    rng = np.random.default_rng(6)
+    wav = np.concatenate([(rng.standard_normal((1, 5000)) * 0.2).astype(np.float32),
+                          tones(rng, 1, 5000)])
+    c = consts(fmax=fmax)
+    assert c.mel_w.shape[1] == f_used
+    lo, hi = mel_ops.db_to_log(-100.0), mel_ops.db_to_log(20.0)
+    got = twin_log_mel(wav, c, lo=lo, hi=hi)
+    ref = np.asarray(jax_fused_log_mel(jnp.asarray(wav), mel_max=fmax, min_db=-100.0,
+                                       max_db=20.0, precision='highest'))
+    assert got.shape == ref.shape == (2, 80, 1 + 5000 // 256)
+    np.testing.assert_allclose(got[:1], ref[:1], atol=TOL, rtol=0)
+    held(got[1:], ref[1:], mel_ops.log_mel_spectrogram(
+        torch.from_numpy(wav[1:]).double(), SR, 80, 1024, 1024, 256, min_db=-100.0,
+        max_db=20.0, mel_max=fmax).numpy())
+
+
+@pytest.mark.parametrize('shape', [(2, 3000), (1, 640), (1, 385)])
+def test_backward_twin_matches_fp64_autograd(shape):
+    """With the mel in fp64, the twin's backward is the VJP of the port's
+    plain composite in fp64 to 1e-10 of the gradient's largest entry: the
+    adjoint of the trimmed DFT by one inverse FFT, the Nyquist fold, the
+    overlap-add and both mirrors of the reflect pad (t = 385 = pad + 1)."""
+    rng = np.random.default_rng(shape[1])
+    wav = (rng.standard_normal(shape) * 0.2).astype(np.float32)
+    w = torch.from_numpy(wav.astype(np.float64)).requires_grad_(True)
+    mel = mel_ops.hifigan_mel_spectrogram(w)
+    cot = rng.standard_normal(tuple(mel.shape))
+    ref, = torch.autograd.grad(mel, w, torch.from_numpy(cot))
+    got = twin_hifigan_backward(wav, cot, consts(), dtype=np.float64)
+    ref = ref.numpy()
+    assert float(np.abs(got - ref).max()) <= 1e-10 * float(np.abs(ref).max())
+
+
+def test_backward_twin_nyquist_bin_matches_fp64_autograd():
+    """The same with every bin to N / 2 used (fmax 12 kHz, past sr / 2): the
+    Nyquist bin folds into k = 0 with e^(i pi) = -1."""
+    rng = np.random.default_rng(9)
+    wav = (rng.standard_normal((1, 2000)) * 0.2).astype(np.float32)
+    c = consts(fmax=12000.0)
+    assert c.mel_w.shape[1] == 513
+    w = torch.from_numpy(wav.astype(np.float64)).requires_grad_(True)
+    mel = mel_ops.log_mel(w, c.mel_w.numpy(), 1024, 256, 1024, 384, 1e-9, 1e-5)
+    cot = rng.standard_normal(tuple(mel.shape))
+    ref, = torch.autograd.grad(mel, w, torch.from_numpy(cot))
+    got = twin_hifigan_backward(wav, cot, c, dtype=np.float64)
+    ref = ref.numpy()
+    assert float(np.abs(got - ref).max()) <= 1e-10 * float(np.abs(ref).max())
+
+
+@pytest.mark.parametrize('signal', ['noise', 'tones'])
+def test_backward_twin_matches_jax_grad(signal):
+    """The kernel's backward (fp32 mel) against jax.grad of JAX's K4 at
+    'highest', loss sum(sin(mel)) (tests/test_torch_mel_trainable.py:24).
+    On tones the gradient reaches ~5e3 through 1 / mel in quiet bands, where
+    JAX's fp32 forward is ~1e-3 off: there the twin is held to fp64 autograd
+    of the plain composite at 1e-6 of the largest entry, and to JAX within
+    JAX's own distance from fp64 plus TOL of the largest entry."""
+    rng = np.random.default_rng(12)
+    wav = (rng.standard_normal((2, 9000)) * 0.2).astype(np.float32) if signal == 'noise' \
+        else tones(rng, 2, 9000)
+    ref = np.asarray(jax.grad(lambda w: jnp.sum(jnp.sin(jax_trainable(w, 'highest'))))(
+        jnp.asarray(wav)))
+    mel = twin_log_mel(wav, consts(), pad=384, power_eps=1e-9, log_floor=1e-5)
+    got = twin_hifigan_backward(wav, np.cos(mel), consts())
+    if signal == 'noise':
+        assert float(np.abs(got - ref).max()) <= TOL
+        return
+    w = torch.from_numpy(wav.astype(np.float64)).requires_grad_(True)
+    ref64, = torch.autograd.grad(mel_ops.hifigan_mel_spectrogram(w), w,
+                                 torch.from_numpy(np.cos(mel).astype(np.float64)))
+    ref64 = ref64.numpy()
+    scale = float(np.abs(ref64).max())
+    assert float(np.abs(got - ref64).max()) <= 1e-6 * scale
+    assert float(np.abs(got - ref).max()) <= float(np.abs(ref - ref64).max()) + TOL * scale
+
+
+def test_band_sum_equals_dense_sum():
+    """The band-limited mel sum is the dense ascending fp32 sum, bit for bit:
+    a zero weight adds an exact zero."""
+    rng = np.random.default_rng(2)
+    c = consts()
+    mel_w, bands = c.mel_w.numpy(), c.bands.numpy()
+    mag = (rng.random((64, mel_w.shape[1])) * 10.0 ** rng.uniform(-6, 2, (64, 1))
+           ).astype(np.float32)
+    dense = np.tile(np.array([[0, mel_w.shape[1]]], dtype=np.int32), (len(bands), 1))
+    np.testing.assert_array_equal(band_mel(mag, mel_w, bands, np.float32),
+                                  band_mel(mag, mel_w, dense, np.float32))
+    assert int((bands[:, 1] - bands[:, 0]).sum()) == int((mel_w != 0).sum())
+
+
+def test_kernel_geometry_guard():
+    """The FFT kernels take a power-of-two n_fft from 256 to 4096 with hop |
+    n_fft and win == n_fft; the CPU path takes every geometry it took."""
+    for n_fft in (256, 512, 1024, 2048, 4096):
+        lm._kernel_geometry(n_fft, 128, n_fft)
+    for n_fft, hop, win in ((1000, 250, 1000), (8192, 256, 8192), (128, 64, 128),
+                            (1024, 384, 1024), (1024, 256, 800)):
+        with pytest.raises(ValueError, match='geometry'):
+            lm._kernel_geometry(n_fft, hop, win)
+    wav = torch.from_numpy((np.random.default_rng(0).standard_normal((1, 4000)) * 0.2)
+                           .astype(np.float32))
+    out = lm.fused_log_mel(wav, n_fft=1000, win_length=1000, hop_length=250)
+    assert out.shape == (1, 80, 1 + 4000 // 250) and bool(torch.isfinite(out).all())

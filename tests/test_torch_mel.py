@@ -70,13 +70,29 @@ def test_port_filters_equal_jax_filters(htk, norm, fmax):
 
 
 def test_kernel_constants_trim_unused_bins():
-    """The kernel contracts only the bins the filterbank weights (372 of 513
-    at fmax 8 kHz), with fp64 DFT bases taken from the shared filters."""
-    cos_b, sin_b, mel_w = logmel._constants(22050, 1024, 1024, 80, 0.0, 8000.0, 'cpu')
-    assert cos_b.shape == sin_b.shape == (1024, 372) and cos_b.dtype == torch.float64
-    assert mel_w.shape == (80, 372) and mel_w.dtype == torch.float32
+    """The FFT kernels' tables: the plain version's fp64 window, numpy's
+    twiddles to the bit, only the bins the filterbank weights (372 of 513 at
+    fmax 8 kHz), and band ranges that cover every nonzero of the filterbank
+    and nothing else."""
+    c = logmel._constants(22050, 1024, 1024, 80, 0.0, 8000.0, 'cpu')
+    np.testing.assert_array_equal(c.window.numpy(), torch_mel._cached_window(1024, 1024))
+    assert c.window.dtype == c.twiddles.dtype == c.split.dtype == torch.float64
+    tw = np.exp(-2j * np.pi * np.arange(512) / 512)
+    st = np.exp(-2j * np.pi * np.arange(372) / 1024)
+    np.testing.assert_array_equal(c.twiddles.numpy(), np.stack([tw.real, tw.imag], -1))
+    np.testing.assert_array_equal(c.split.numpy(), np.stack([st.real, st.imag], -1))
     full = torch_mel.cached_mel_filter(22050, 1024, 80, 0.0, 8000.0)
+    assert c.mel_w.shape == (80, 372) and c.mel_w.dtype == torch.float32
     assert not full[:, 372:].any() and full[:, 371].any()
+    np.testing.assert_array_equal(c.mel_w.numpy(), full[:, :372])
+    inside = np.zeros(full[:, :372].shape, dtype=bool)
+    for m, (k0, k1) in enumerate(c.bands.numpy()):
+        inside[m, k0:k1] = True
+    np.testing.assert_array_equal(inside, full[:, :372] != 0)
+    covered = np.zeros_like(inside)
+    for k, (m0, m1) in enumerate(c.bin_mels.numpy()):
+        covered[m0:m1, k] = True
+    np.testing.assert_array_equal(covered, inside)
 
 
 def test_fused_wrapper_guards():

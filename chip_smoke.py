@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's HiFi-GAN serving and training paths once on
-one GPU.
+"""Drive the PyTorch/CUDA port's HiFi-GAN serving and training paths, and the
+training recipe from wav files on disk, once on one GPU.
 
     python3 chip_smoke.py
 
@@ -11,18 +11,27 @@ Phases, one line each; any failure raises and the script exits non-zero:
 2. build: compiles the CUDA kernels from ``pytorch_sound_tpu_torch/csrc``;
 3. the log-mel kernel (K2, an in-block fp64 FFT) vs its plain version on
    the card (both conventions), short inputs (t = 640 and t = pad + 1),
-   every bin (fmax None), n_fft 512 and 2048, the 16 x 2 s shape that phase
-   6 times, and a batch's log-mel against its items' bit for bit;
+   every bin (fmax None), n_fft 512 and 2048, inputs the reflect pad exceeds
+   (t = 1 ... 385, numpy's reflect rule: JAX's shapes, (3, 80, 0) below one
+   frame with no launch, K4's backward at 255 / 384 / 385, reruns
+   bit-identical), the 16 x 2 s shape that phase 6 times, and a batch's
+   log-mel against its items' bit for bit;
 4. the generator-stage kernel vs its plain version, each of HiFi-GAN v2's four
    stages with the bundled checkpoint's weights, fed by the real conv_pre and
    earlier stages;
 5. the main path, ``InterfaceHifiGAN('hifi_gan_v2', device='cuda')``: every
    encode against the plain version run in fp64 on the same card tensor,
    decode, cycle consistency, the bench-shape decode, card vs CPU decode,
-   streaming decode, and the launch counts of both kernels;
+   streaming decode, and the launch counts of both kernels; then new
+   weights written through
+   ``.data`` (their version counters unchanged): the next decode follows
+   them, and writing the old ones back restores the first decode bit for
+   bit;
 6. timings (CUDA events) of kernel vs plain, labelled with the card, K2
    also beside ``torch.stft`` alone and the recorded times of the direct-DFT
-   kernel it replaced;
+   kernel it replaced, and what splitting a decode's weights into TF32
+   fragments costs, per weight in torch ops and in the entry points' split
+   kernel (its device time by ``torch.profiler``);
 7. the training path, ``HiFiGANTrainer(...).run()`` at full width (HiFi-GAN
    v2 with weight norm, MPD base, MSD base, 16 x 8192-sample segments): K4
    (the trainable log-mel: K2 forward, its own backward kernels) vs its
@@ -49,7 +58,8 @@ Phases, one line each; any failure raises and the script exits non-zero:
    and 16 x 256 frames; the main path ``InterfaceHifiGAN('hifi_gan_v1',
    params=..., device='cuda')``: encode, the 16 x 256 decode, card vs CPU,
    the ``full_stage=False`` route (K3) against the full-stage decode,
-   streaming, the launch counts; timings;
+   streaming, the launch counts; timings, the TF32 split's cost beside the
+   decode;
 10. the flash-attention kernels (K5: forward, dK / dV, dQ) against their plain
    versions at 4 x 8 heads x 2048 / 4096 x 64, a ragged T = 4001 with a key
    mask, D = 160, masks with whole masked tiles inside an item, leading
@@ -63,7 +73,16 @@ Phases, one line each; any failure raises and the script exits non-zero:
    the forward against the CPU, the launch counts; timings of the kernels,
    their plain versions and ``scaled_dot_product_attention`` at T = 2048 /
    4096 / 16384, and of the module's forward + backward on both routes at
-   T = 256 ... 4096.
+   T = 256 ... 4096;
+11. the recipe from disk (``examples.hifi_gan.main``): a VCTK tree under
+   ``$TMPDIR`` (4 speakers x 24 utterances of 2.05-4 s, int16, ~13 MB),
+   ``VCTKMeta.make_meta`` (88 train and 8 validation rows), the train loader
+   alone at 0 and 2 worker threads, ``main('vctk', ...)`` on the K6 route for
+   6 steps with exact K2 / K4 / K6 launch counts, 3 steps and a resume to 6
+   whose step-6 checkpoint equals the first run's bit for bit, 2 steps on
+   the default (cuDNN) route, and ``python -m
+   pytorch_sound_tpu_torch.examples.hifi_gan vctk ...`` once as a command;
+   the loader's ms per batch beside the recipe's and phase 8's step times.
 
 The line before the last is a JSON object with one entry per kernel, each
 with its time, its plain version's, the least time the card could take for
@@ -98,6 +117,7 @@ STAGE_TOL = 2e-5                  # one stage vs plain (tests/test_pallas.py:187
 DECODE_TOL = 2e-4                 # card decode vs CPU decode (tests/test_pallas.py:151)
 STREAM_TOL = 1e-5                 # streaming interior vs whole decode
 GRAD_TOL = 1e-4                   # K4 gradient vs plain (tests/test_pallas.py:305)
+SHORT_T = (1, 2, 255, 256, 383, 384, 385)   # lengths the reflect pad exceeds
 GC_FWD_TOL = 1e-5                 # K6 forward: max abs error / the plain version's max abs
 GC_GRAD_TOL = 1e-4                # K6 dx and dw, the same ratio (dw sums up to 262,144 terms)
 RESUME_RTOL = 1e-5                # resumed run's logged losses vs the first run's
@@ -185,6 +205,42 @@ def bound(fp32_flops, fp64_flops, nbytes, fp64_peak=PEAK_FP64):
     ops_s = fp32_flops / PEAK_FP32 + fp64_flops / fp64_peak
     bytes_s = nbytes / HBM_BYTES_PER_S
     return max(ops_s, bytes_s) * 1e3, 'operations' if ops_s >= bytes_s else 'bytes'
+
+
+def split_ms(gen, decode, iters=5):
+    """What splitting a decode's stage weights into TF32 fragments costs:
+    (each weight split in torch ops by ``tf32_fragments``, ms per decode by
+    CUDA events, host launch gaps included: the per-call alternative to the
+    kernel; the device time per decode of the entry points' own split,
+    ``tf32_split_kernel``, and of the whole decode, by ``torch.profiler``
+    over ``iters`` calls of ``decode``)."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    from pytorch_sound_tpu_torch.ops.cuda import gen_stage as gs
+    stages = [gen.stage_args(i) for i in range(len(gen.upsample_rates))]
+
+    def per_weight():
+        for a in stages:
+            gs.tf32_fragments(a['up_weight'].transpose(0, 1))
+            for block in a['blocks']:
+                for w, _, _ in block:
+                    gs.tf32_fragments(w)
+
+    torch_ms = cuda_ms(per_weight, 20)
+    decode()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            decode()
+        torch.cuda.synchronize()
+    split = total = 0.0
+    for e in prof.key_averages():
+        t = getattr(e, 'device_time_total', 0.0)
+        total += t
+        if 'tf32_split_kernel' in e.key:
+            split += t
+    assert split > 0, 'the profiler saw no tf32_split_kernel'
+    return torch_ms, split / iters / 1e3, total / iters / 1e3
 
 
 def stage_work(x, args):
@@ -820,6 +876,7 @@ def kernel_route(dev, card, cudnn_step):
         assert sorted(train) == [1, 2, 3], sorted(train)
         assert all(np.isfinite(m[k]) for m in train.values() for k in LOSSES), train
         assert np.isfinite(best), best
+        run_step_ms = 1e3 / train[3]['steps_per_sec']
         want = expected_gc_launches(*models, steps=3, valid_batches=1)
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
@@ -860,6 +917,7 @@ def kernel_route(dev, card, cudnn_step):
     replaces = {'fwd': 'pytorch_sound_tpu/ops/pallas/grouped_conv.py:414',
                 'dx': 'pytorch_sound_tpu/ops/pallas/grouped_conv.py:414',
                 'dw': 'pytorch_sound_tpu/ops/pallas/grouped_conv.py:763'}
+    kernel_route.step_ms = {'run_8_2': run_step_ms, 'in_memory_8_5': step_ms}
     return [{'name': 'grouped_conv_' + e, 'route': 'cuda', 'source': gc.SOURCE,
              'replaces': replaces[e], 'launches': launches[i], 'max_abs_err': errs[e],
              'ms': times[e][0], 'plain_ms': times[e][1], 'bound_ms': bounds[e][0],
@@ -1019,6 +1077,8 @@ def v1_serving(dev, card, rng):
             lambda h=h, i=i: gs.resblock_stage(h, gen.stage_blocks(i)), 3)[:2]
             for i, h in enumerate(res_in)]
         stream_ms = cuda_ms(lambda: iface.decode_streaming(long_mel), 3)
+        torch_split_ms, kernel_split_ms, dec_device_ms = split_ms(
+            gen, lambda: generator_apply_fused(gen, bench_mel), 2)
         wide_work = [stage_work(x, gen.stage_args(i, i == 0)) for i, x in enumerate(stage_in)]
         res_work = [resblock_work(h, gen.stage_blocks(i)) for i, h in enumerate(res_in)]
         res_tc = [resblock_flops(h.shape[0], h.shape[2], gen.stage_blocks(i))
@@ -1040,6 +1100,12 @@ def v1_serving(dev, card, rng):
         stages_bound_ms='%.3f' % all_bound[0], bound_by=all_bound[1],
         stages_tc_bound_ms='%.3f' % all_tc,
         gflop='%.1f' % (sum(f for f, _ in wide_work) / 1e9))
+    log('time', card=repr(card), what='tf32_split_v1_16x256',
+        split_kernel_device_ms='%.4f' % kernel_split_ms,
+        decode_device_ms='%.4f' % dec_device_ms,
+        share_of_decode='%.5f' % (kernel_split_ms / dec_k),
+        torch_per_weight_ms='%.4f' % torch_split_ms,
+        torch_share_of_decode='%.4f' % (torch_split_ms / dec_k))
     log('time', card=repr(card), what='v1_resblock_route_16x256',
         kernel_ms='%.3f' % split_k, plain_ms='%.3f' % split_p,
         per_stage_k3_ms='/'.join('%.3f' % k for k, _ in per_res),
@@ -1079,6 +1145,222 @@ def v1_serving(dev, card, rng):
 
 
 ATTENTION_FLOPS = {'fwd': 4, 'dkv': 8, 'dq': 6}   # per (query, key) pair and per D
+
+
+META_FILES = ['all_meta.json', 'train_meta.json', 'val_meta.json']
+
+
+def same_state(a, b):
+    """Two checkpoint states equal bit for bit."""
+    import torch
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_state(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(same_state(x, y) for x, y in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        return a.dtype == b.dtype and torch.equal(a, b)
+    return a == b
+
+
+def recipe_path(dev, card, k6_step_ms):
+    """Phase 11: the recipe from wav files on disk. A VCTK tree under $TMPDIR,
+    the port's metas of it, then ``examples.hifi_gan.main`` on the K6 route
+    (6 steps; 3 steps and a resume to 6, whose step-6 checkpoint must equal
+    the first run's bit for bit), on the default route (2 steps), and once
+    as a command. Returns the K2, K4, K4-backward and K6 (forward, dx, dw)
+    launches of the in-process runs."""
+    import logging
+    import random
+    import torch
+    from pytorch_sound_tpu_torch.data.meta.vctk import VCTKMeta, get_datasets
+    from pytorch_sound_tpu_torch.examples import hifi_gan as recipe
+    from pytorch_sound_tpu_torch.models import build_model
+    from pytorch_sound_tpu_torch.ops.cuda import grouped_conv as gc
+    from pytorch_sound_tpu_torch.ops.cuda import logmel as lm
+    from pytorch_sound_tpu_torch.utils.commons import LOGGER
+    from pytorch_sound_tpu_torch.utils.wavio import write_wav
+
+    counters = (lm.fused_log_mel, lm.fused_hifigan_mel_trainable,
+                gc.conv1d_forward, gc.conv1d_input_grad, gc.conv1d_weight_grad)
+    totals = np.zeros(6, dtype=np.int64)
+
+    class Lines(logging.Handler):
+        """The trainer's log lines with their times."""
+        def __init__(self):
+            super().__init__()
+            self.lines = []
+
+        def emit(self, record):
+            self.lines.append((record.created, record.getMessage()))
+
+    def run_main(meta, save_dir, max_step, save_interval=3, **kw):
+        """main() with every counter from zero; returns (best, launches (K2,
+        K4, K4 bwd, K6 fwd, dx, dw), {step: logged scalars}, step times)."""
+        for c in counters:
+            c.launches = 0
+        lm.fused_hifigan_mel_trainable.bwd_launches = 0
+        lines = Lines()
+        LOGGER.addHandler(lines)
+        np.random.seed(0)
+        torch.manual_seed(0)
+        try:
+            best = recipe.main('vctk', meta, save_dir, batch_size=BATCH, num_workers=0,
+                               fix_len=SEG, max_step=max_step, valid_max_step=1,
+                               save_interval=save_interval, log_interval=1, device=str(dev),
+                               **kw)
+            torch.cuda.synchronize()
+        finally:
+            LOGGER.removeHandler(lines)
+        launches = (lm.fused_log_mel.launches, lm.fused_hifigan_mel_trainable.launches,
+                    lm.fused_hifigan_mel_trainable.bwd_launches,
+                    *(c.launches for c in counters[2:]))
+        totals[:] += launches
+        steps, times = {}, {}
+        for created, msg in lines.lines:
+            parts = msg.split('\t')
+            if parts[0] == 'train':
+                step = int(parts[1].split()[0])
+                steps[step] = {k: float(v) for k, v in (p.split(': ') for p in parts[2:])}
+                times[step] = created
+        return best, launches, steps, times
+
+    def expected(kernel, steps, valid):
+        gen = build_model('hifi_gan_v2')
+        mpd, msd = recipe.build_critics(msd_kernel=8 if kernel else -1, mpd_kernel=kernel)
+        return (2 * (steps + valid), steps + valid, steps,
+                *expected_gc_launches(gen, mpd, msd, steps, valid))
+
+    deterministic = torch.backends.cudnn.deterministic
+    work = tempfile.mkdtemp(prefix='chip_smoke_recipe_')
+    try:
+        # 11.1 a VCTK tree: 4 speakers x 24 utterances of 2.05-4 s (the metas
+        #      keep 2 < duration < 15 s), harmonic tones with noise, int16 PCM
+        rng = np.random.default_rng(11)
+        raw = os.path.join(work, 'raw')
+        n_bytes = 0
+        for s in range(4):
+            spk = 'p%03d' % (225 + s)
+            for sub in ('wav', 'txt'):
+                os.makedirs(os.path.join(raw, spk, sub))
+            for u in range(24):
+                key = '%s_%03d' % (spk, u)
+                path = os.path.join(raw, spk, 'wav', key + '.wav')
+                write_wav(path, tones(rng, 1, int(SR * rng.uniform(2.05, 4.0)))[0], SR,
+                          dtype='int16')
+                n_bytes += os.path.getsize(path)
+                with open(os.path.join(raw, spk, 'txt', key + '.txt'), 'w') as f:
+                    f.write('Utterance %d of speaker %s.' % (u, spk))
+
+        # 11.2 the metas
+        meta = os.path.join(work, 'meta')
+        random.seed(0)
+        t0 = time.perf_counter()
+        VCTKMeta(meta).make_meta(raw)
+        meta_s = time.perf_counter() - t0
+        rows = [len(VCTKMeta(os.path.join(meta, name))) for name in META_FILES]
+        speakers = VCTKMeta(os.path.join(meta, META_FILES[0])).num_speakers
+        log('meta', wav_mb='%.1f' % (n_bytes / 1e6), files=sorted(os.listdir(meta)),
+            rows='/'.join(map(str, rows)), speakers=speakers)
+        assert sorted(os.listdir(meta)) == META_FILES and rows == [96, 88, 8] \
+            and speakers == 4, (os.listdir(meta), rows, speakers)
+
+        # 11.7 (first part) the train loader alone, one epoch per run: a warm
+        #      epoch, then 0 and 2 worker threads in turns
+        loader_ms = {0: [], 2: []}
+        for workers in (0, 0, 2, 2, 0):
+            train, _ = get_datasets(meta, BATCH, workers, fix_len=SEG, pad_multiple=SEG)
+            t0 = time.perf_counter()
+            batches = list(train)
+            loader_ms[workers].append((time.perf_counter() - t0) / len(batches) * 1e3)
+            assert len(batches) == len(train) == 5 and batches[0][0].shape == (BATCH, SEG)
+        loader_ms[0].pop(0)
+
+        # 11.3 main on the kernel route, 6 steps, checkpoints at 3 and 6
+        torch.backends.cudnn.deterministic = True
+        save_a = os.path.join(work, 'save_a')
+        kernel = dict(msd_pallas=8, mpd_pallas=True)
+        t0 = time.perf_counter()
+        best, launches, steps, times = run_main(meta, save_a, 6, **kernel)
+        main_s = time.perf_counter() - t0
+        want = expected(True, 6, 2)
+        for s_ in sorted(steps):
+            log('train', route='recipe_k6', step=s_, **{k: '%.6f' % steps[s_][k] for k in LOSSES})
+        ckpt_a = os.path.join(save_a, 'models', 'hifi_gan', 'Generator')
+        log('counts', route='recipe_k6', logmel=launches[0], logmel_trainable=launches[1],
+            logmel_trainable_bwd=launches[2], fwd=launches[3], dx=launches[4], dw=launches[5],
+            expected='/'.join(map(str, want)), train_steps=6, valid_batches=2,
+            seconds='%.1f' % main_s, best_valid_mel_l1='%.6f' % best,
+            checkpoints=','.join(sorted(os.listdir(ckpt_a))))
+        assert sorted(steps) == list(range(1, 7)), sorted(steps)
+        assert all(np.isfinite(m[k]) for m in steps.values() for k in LOSSES), steps
+        assert np.isfinite(best) and launches == want, (best, launches, want)
+        assert sorted(os.listdir(ckpt_a)) == ['step_000003.chkpt', 'step_000006.chkpt']
+        assert os.path.exists(os.path.join(save_a, 'models', 'hifi_gan', 'Generator.best.chkpt'))
+        # wall time between consecutive steps' log lines (the batch's load
+        # and transfer included), leaving out the gap with step 3's
+        # validation and checkpoint, beside the trainer's own step time
+        wall = [(times[i + 1] - times[i]) * 1e3 for i in (1, 2, 4, 5)]
+        trainer_ms = 1e3 / steps[6]['steps_per_sec']
+
+        # 11.4 3 steps, then a resume to 6: the step-6 checkpoint is the
+        #      first run's, bit for bit (the loaders' positions, crops and
+        #      bucket draws replay)
+        save_b = os.path.join(work, 'save_b')
+        _, launches_b1, _, _ = run_main(meta, save_b, 3, **kernel)
+        _, launches_b2, steps_b, _ = run_main(meta, save_b, 6, **kernel)
+        state_a, state_b = (torch.load(os.path.join(d, 'models', 'hifi_gan', 'Generator',
+                                                    'step_000006.chkpt'),
+                                       map_location='cpu', weights_only=True)
+                            for d in (save_a, save_b))
+        same = same_state(state_a, state_b)
+        log('resume', route='recipe_k6', steps='4-6', logged=sorted(steps_b),
+            checkpoint_bit_identical=same,
+            launches='/'.join(map(str, np.add(launches_b1, launches_b2))))
+        assert sorted(steps_b) == [4, 5, 6] and same, (sorted(steps_b), same)
+        assert tuple(launches_b1) == expected(True, 3, 1) == tuple(launches_b2)
+        del state_a, state_b
+        for d in (save_a, save_b):
+            shutil.rmtree(d)
+        torch.backends.cudnn.deterministic = deterministic
+
+        # 11.5 the default route (every critic conv on cuDNN): 2 steps, K2
+        #      and K4 only
+        best_c, launches_c, steps_c, _ = run_main(meta, os.path.join(work, 'save_c'), 2)
+        log('counts', route='recipe_cudnn', logmel=launches_c[0],
+            logmel_trainable=launches_c[1], logmel_trainable_bwd=launches_c[2],
+            k6='%d/%d/%d' % launches_c[3:], expected='/'.join(map(str, expected(False, 2, 0))))
+        assert sorted(steps_c) == [1, 2] and launches_c == expected(False, 2, 0), launches_c
+        assert all(np.isfinite(m[k]) for m in steps_c.values() for k in LOSSES), steps_c
+
+        # 11.6 the command line, in a process of its own
+        save_d = os.path.join(work, 'save_d')
+        root = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [root] + [p for p in os.environ.get('PYTHONPATH', '').split(os.pathsep) if p]))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, '-m', 'pytorch_sound_tpu_torch.examples.hifi_gan', 'vctk', meta,
+             save_d, '--batch_size', str(BATCH), '--num_workers', '2', '--max_step', '2',
+             '--save_interval', '2', '--valid_max_step', '1', '--log_interval', '1'],
+            cwd=root, env=env, capture_output=True, text=True, timeout=600)
+        cli_ckpt = os.path.join(save_d, 'models', 'hifi_gan', 'Generator', 'step_000002.chkpt')
+        log('cli', returncode=proc.returncode, seconds='%.1f' % (time.perf_counter() - t0),
+            checkpoint=os.path.exists(cli_ckpt),
+            last_line=repr(proc.stderr.strip().splitlines()[-1] if proc.stderr.strip() else ''))
+        assert proc.returncode == 0 and os.path.exists(cli_ckpt), proc.stdout + proc.stderr
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        shutil.rmtree(work, ignore_errors=True)
+
+    # 11.7 whether the loader keeps up: its ms per batch against the step
+    log('time', card=repr(card), what='recipe_16x8192', make_meta_s='%.3f' % meta_s,
+        loader_ms_per_batch_w0='/'.join('%.2f' % x for x in loader_ms[0]),
+        loader_ms_per_batch_w2='/'.join('%.2f' % x for x in loader_ms[2]),
+        main_step_wall_ms='/'.join('%.2f' % x for x in wall),
+        main_trainer_step_ms='%.2f' % trainer_ms,
+        phase8_run_step_ms='%.2f' % k6_step_ms['run_8_2'],
+        phase8_in_memory_step_ms='%.2f' % k6_step_ms['in_memory_8_5'])
+    return totals
 
 
 def attention_work(n, h, tq, tk, d, lengths=None):
@@ -1511,6 +1793,42 @@ def main():
             log('logmel', shape=shape, convention=conv, signal=kind, vs_fp64='%.3g' % err)
             assert ker.shape == ref64.shape and err <= MEL_TOL, (conv, shape, kind, err)
 
+    #    inputs the reflect pad exceeds, by numpy's rule (the HiFi-GAN pad is
+    #    384, the centered one 512): both conventions against the plain
+    #    version in fp64, JAX's shapes ((3, 80, 0) below one HiFi-GAN frame,
+    #    with no launch), reruns bit-identical; K4's backward against autograd
+    #    of the fp32 plain version at 384 and 385 (zeros and no launch at 255)
+    for t in SHORT_T:
+        x = torch.from_numpy((rng.standard_normal((3, t)) * 0.2).astype(np.float32)).to(dev)
+        for conv, (kernel, plain) in conventions.items():
+            before = lm.fused_log_mel.launches
+            ker = kernel(x)
+            launched = lm.fused_log_mel.launches - before
+            ref64 = plain(x.double())
+            rerun = torch.equal(ker, kernel(x))
+            torch.cuda.synchronize()
+            err = max_err(ker.double(), ref64) if ker.numel() else 0.0
+            errs['logmel'] = max(errs['logmel'], err)
+            log('logmel', short_t=t, convention=conv, shape=tuple(ker.shape),
+                launches=launched, vs_fp64='%.3g' % err, rerun_bit_identical=rerun)
+            assert ker.shape == ref64.shape and launched == int(ker.shape[-1] > 0), \
+                (conv, t, ker.shape, ref64.shape, launched)
+            assert err <= MEL_TOL and rerun, (conv, t, err, rerun)
+        if t in (255, 384, 385):
+            cot = torch.cos(lm.fused_hifigan_mel(x))
+            before = lm.fused_hifigan_mel_trainable.bwd_launches
+            got = lm.hifigan_mel_backward(x, cot)
+            launched = lm.fused_hifigan_mel_trainable.bwd_launches - before
+            ref = lm.hifigan_mel_vjp(x, cot)
+            rerun = torch.equal(got, lm.hifigan_mel_backward(x, cot))
+            torch.cuda.synchronize()
+            err = max_err(got, ref)
+            log('k4_bwd', short_t=t, launches=launched, vs_plain='%.3g' % err,
+                grad_max='%.3g' % float(ref.abs().max()), rerun_bit_identical=rerun)
+            assert err <= GRAD_TOL and rerun and launched == int(cot.numel() > 0), \
+                (t, err, rerun, launched)
+            assert t > 255 or not bool(got.any())
+
     enc_wav = torch.from_numpy(tones(rng, 16, 2 * SR)).to(dev)    # timed in phase 6
     enc_mel = lm.fused_hifigan_mel(enc_wav)
     check_mel(enc_mel, enc_wav, 'encode_16x2s')
@@ -1599,13 +1917,39 @@ def main():
     assert launches['gen_stage'] == 4 * decoded_batches > 0, launches
     assert launches['logmel'] == encodes > 0, launches
 
-    # 6. timings: kernel vs plain, one card, in turns
+    # 5b. weights written through .data, which leaves their version counters
+    #     alone: the next card decode follows the new weights (against the
+    #     plain decode of them, on the card), and writing the old ones back
+    #     brings back the first decode bit for bit
     def plain_decode(m):
         x = gen.conv_pre(m)
         for i in range(4):
             x = gs.generator_stage_reference(x, **gen.stage_args(i))
         return x
 
+    with torch.inference_mode():
+        probe = bench_mel[:4].contiguous()
+        first = iface.decode(probe)
+    params = list(gen.parameters())
+    saved = [p.detach().clone() for p in params]
+    versions = [p._version for p in params]
+    wrng = torch.Generator(device=dev).manual_seed(5)
+    for p in params:
+        p.data.copy_(p.data * torch.empty_like(p.data).uniform_(0.7, 1.3, generator=wrng))
+    assert versions == [p._version for p in params]
+    with torch.inference_mode():
+        rewritten, ref = iface.decode(probe), plain_decode(probe)
+    err, moved = max_err(rewritten, ref), max_err(rewritten, first)
+    for p, old in zip(params, saved):
+        p.data.copy_(old)
+    with torch.inference_mode():
+        back = torch.equal(iface.decode(probe), first)
+    torch.cuda.synchronize()
+    log('data_write', params=len(params), new_vs_plain='%.3g' % err,
+        moved_from_first='%.3g' % moved, restored_bit_identical=back)
+    assert err <= DECODE_TOL and moved > 10 * DECODE_TOL and back, (err, moved, back)
+
+    # 6. timings: kernel vs plain, one card, in turns
     enc_frames = 16 * (2 * SR // UP)
     with torch.inference_mode():
         enc_k, enc_p, enc_kr, enc_pr = paired_ms(
@@ -1636,6 +1980,8 @@ def main():
             resblock_flops(x.shape[0], x.shape[2] * gen.upsample_rates[i], gen.stage_blocks(i))
             for i, x in enumerate(stage_in)), sum(b for _, b in st_work))
         stream_ms = cuda_ms(lambda: iface.decode_streaming(long_mel), 5)
+        torch_split_ms, kernel_split_ms, dec_device_ms = split_ms(
+            gen, lambda: generator_apply_fused(gen, bench_mel))
     dec_samples = 32 * 256 * UP
     log('time', card=repr(card), what='encode_16x2s',
         kernel_frames_per_s='%.0f' % (enc_frames / enc_k * 1e3),
@@ -1650,6 +1996,12 @@ def main():
         stages_kernel_ms='%.4f' % st_k, stages_plain_ms='%.4f' % st_p,
         per_stage_kernel_ms='/'.join('%.4f' % k for k, _ in per_stage),
         per_stage_plain_ms='/'.join('%.4f' % p for _, p in per_stage))
+    log('time', card=repr(card), what='tf32_split_v2_32x256',
+        split_kernel_device_ms='%.4f' % kernel_split_ms,
+        decode_device_ms='%.4f' % dec_device_ms,
+        share_of_decode='%.5f' % (kernel_split_ms / dec_k),
+        torch_per_weight_ms='%.4f' % torch_split_ms,
+        torch_share_of_decode='%.4f' % (torch_split_ms / dec_k))
     log('time', card=repr(card), what='stream_1x4096',
         kernel_samples_per_s='%.0f' % (4096 * UP / stream_ms * 1e3),
         kernel_ms='%.4f' % stream_ms)
@@ -1675,6 +2027,13 @@ def main():
     # 10. flash attention and the blockwise MultiHeadAttention route
     k5_entries = attention_path(dev, card)
 
+    # 11. the recipe from disk: metas, loaders, main() on K2 / K4 / K6
+    recipe_launches = recipe_path(dev, card, kernel_route.step_ms)
+    k4_entry['launches'] += int(recipe_launches[1])
+    k4_entry['bwd_launches'] += int(recipe_launches[2])
+    for entry, n in zip(k6_entries, recipe_launches[3:]):
+        entry['launches'] += int(n)
+
     print(json.dumps({'kernels': [
         {'name': 'gen_stage', 'route': 'cuda', 'source': gs.SOURCE,
          'replaces': 'pytorch_sound_tpu/ops/pallas/gen_stage.py:282',
@@ -1684,7 +2043,8 @@ def main():
          'tc_bound_ms': st_tc, 'library_ms': None},
         {'name': 'logmel', 'route': 'cuda', 'source': lm.SOURCE,
          'replaces': 'pytorch_sound_tpu/ops/pallas/logmel.py:157',
-         'launches': launches['logmel'] + train_logmel, 'max_abs_err': errs['logmel'],
+         'launches': launches['logmel'] + train_logmel + int(recipe_launches[0]),
+         'max_abs_err': errs['logmel'],
          'ms': enc_k, 'plain_ms': enc_p, 'bound_ms': enc_bound, 'bound_by': enc_bound_by,
          'dft_bound_ms': enc_dft_bound, 'stft_ms': stft_ms, 'library_ms': None},
         k4_entry,

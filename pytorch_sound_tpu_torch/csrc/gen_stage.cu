@@ -43,10 +43,14 @@
 // - A (activations) is read from the shared-memory buffers at p + (j - half)
 //   d, leaky_relu'd at the load where the conv's input takes it, and split
 //   into TF32 hi / lo in registers.
-// - B (weights) is split once, outside the kernel, into TF32 hi / lo in the
-//   B-fragment order (ops/cuda/gen_stage.py: tf32_fragments): a lane loads
-//   its hi / lo pair of one fragment with one 16-byte read, and no weight is
-//   split in the kernel.
+// - B (weights) is split before the stage kernel into TF32 hi / lo in the
+//   B-fragment order (tf32_split_kernel below, whose plain version is
+//   ops/cuda/gen_stage.py: tf32_fragments): a lane loads its hi / lo pair of
+//   one fragment with one 16-byte read, and no weight is split in the stage
+//   kernel. The entry points run the split on every call, one launch for
+//   all the stage's weights into scratch taken with cudaMallocAsync on the
+//   caller's stream, so no split is kept that a write to the weights could
+//   leave stale.
 // - A warp holds MI x NI = 8 tiles (NI n-tiles of 8 channels, MI m-tiles of
 //   16 positions; NI = 4 where the width allows): each A fragment feeds 3 NI
 //   products, each B fragment 3 MI. At the warp, a B fragment (512 bytes)
@@ -741,19 +745,113 @@ size_t plan_tile(Plan& plan, Stage& s, int tile_t) {
   return std::max(bufs, xs_off + 2 * static_cast<size_t>(s.c) * s.q_row) * sizeof(float);
 }
 
-// Fills the plan's convs and layout, picks the widest tile of 1024 ... 64
-// output samples whose buffers fit the card (and, in the cluster layout, of
-// which at least one cluster can be resident), and launches on `stream`.
+// tf32_split_kernel: a stage's weights (its transposed conv and up to
+// kMaxConvs resblock convs) in one launch, in one struct passed by value
+// (about 1.3 KB of kernel parameters).
+constexpr int kMaxSplits = 40;
+static_assert(kMaxSplits >= kMaxConvs + 1, "one split job per weight of a stage");
+
+struct SplitJobs {
+  const float* w[kMaxSplits];
+  long long start[kMaxSplits + 1];   // element offsets: weight j is [start[j], start[j + 1])
+  int c_out[kMaxSplits], c_in[kMaxSplits], k[kMaxSplits], transposed[kMaxSplits];
+  int n;
+};
+
+// Weight j, read as (c_out, c_in, k) (a ConvTranspose1d weight (c_in, c_out,
+// k) through its transpose), written to out[2 start[j], 2 start[j + 1]) as
+// (k, c_in / 8, c_out / 8, 8, 4, 2, 2) = (tap, k-step s, n-tile, g, t,
+// hi / lo, h): entry w[8 n + g][8 s + 4 h + t][tap], hi rounded to TF32 the
+// way split_tf32 (tf32_mma.cuh) rounds, lo = w - hi. One thread per weight
+// entry writes its hi and lo.
+__global__ void tf32_split_kernel(const __grid_constant__ SplitJobs jobs,
+                                  float* __restrict__ out) {
+  const long long total = jobs.start[jobs.n];
+  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long e = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
+       e < total; e += step) {
+    int j = 0;
+    while (e >= jobs.start[j + 1]) ++j;
+    const long long l = e - jobs.start[j];
+    const int co = jobs.c_out[j], ci = jobs.c_in[j], k = jobs.k[j];
+    const int h = static_cast<int>(l & 1), t = static_cast<int>((l >> 1) & 3);
+    const int g = static_cast<int>((l >> 3) & 7);
+    long long r = l >> 6;
+    const int nt = static_cast<int>(r % (co / 8));
+    r /= co / 8;
+    const int ks = static_cast<int>(r % (ci / 8));
+    const int tap = static_cast<int>(r / (ci / 8));
+    const long long o = 8 * nt + g, i = 8 * ks + 4 * h + t;
+    const long long src = jobs.transposed[j] ? (i * co + o) * k + tap : (o * ci + i) * k + tap;
+    const float v = __ldg(jobs.w[j] + src);
+    const float hi = __uint_as_float((__float_as_uint(v) + 0x1000u) & 0xffffe000u);
+    float* dst = out + 2 * jobs.start[j] + ((l >> 1) << 2) + h;
+    dst[0] = hi;
+    dst[2] = v - hi;
+  }
+}
+
+// The split jobs of a stage: its transposed conv first (when s.k_up > 0),
+// then its resblock convs in plan order.
+SplitJobs stage_jobs(const Stage& s, int n_convs, const int* conv_k, const float* up_w,
+                     const void* const* conv_w) {
+  SplitJobs jobs = {};
+  auto add = [&jobs](const float* w, int c_out, int c_in, int k, int transposed) {
+    const int j = jobs.n++;
+    jobs.w[j] = w;
+    jobs.c_out[j] = c_out;
+    jobs.c_in[j] = c_in;
+    jobs.k[j] = k;
+    jobs.transposed[j] = transposed;
+    jobs.start[j + 1] = jobs.start[j] + static_cast<long long>(c_out) * c_in * k;
+  };
+  if (s.k_up > 0) add(up_w, s.c, 2 * s.c, s.k_up, 1);
+  for (int i = 0; i < n_convs; ++i) add(static_cast<const float*>(conv_w[i]), s.c, s.c, conv_k[i], 0);
+  return jobs;
+}
+
+int launch_stage(Stage s, Plan plan, int n, void* stream);
+
+// Checks the convs, splits the stage's weights (up_w, conv_w: the raw fp32
+// weights) into TF32 fragments in scratch on `stream`, fills the plan, and
+// launches the stage kernel there; the scratch is freed on the stream after
+// it.
 int launch(Stage s, Plan plan, int n, int n_convs, const int* conv_k, const int* conv_d,
-           const void* const* conv_w, const void* const* conv_b, void* stream) {
+           const float* up_w, const void* const* conv_w, const void* const* conv_b,
+           void* stream) {
   for (int i = 0; i < n_convs; ++i) {
     if ((conv_k[i] != 3 && conv_k[i] != 7 && conv_k[i] != 11) || conv_d[i] < 1)
       return static_cast<int>(cudaErrorInvalidValue);
-    plan.w[i] = static_cast<const float4*>(conv_w[i]);
-    plan.b[i] = static_cast<const float*>(conv_b[i]);
-    plan.k[i] = conv_k[i];
-    plan.d[i] = conv_d[i];
   }
+  const auto st = static_cast<cudaStream_t>(stream);
+  const SplitJobs jobs = stage_jobs(s, n_convs, conv_k, up_w, conv_w);
+  float* frags = nullptr;
+  cudaError_t err = cudaMallocAsync(reinterpret_cast<void**>(&frags),
+                                    2 * jobs.start[jobs.n] * sizeof(float), st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long blocks = (jobs.start[jobs.n] + 255) / 256;
+  tf32_split_kernel<<<static_cast<int>(blocks < 1056 ? blocks : 1056), 256, 0, st>>>(jobs,
+                                                                                   frags);
+  int code = static_cast<int>(cudaGetLastError());
+  if (code == 0) {
+    const int first = s.k_up > 0 ? 1 : 0;
+    if (s.k_up > 0) s.up_w = reinterpret_cast<const float4*>(frags);
+    for (int i = 0; i < n_convs; ++i) {
+      plan.w[i] = reinterpret_cast<const float4*>(frags + 2 * jobs.start[first + i]);
+      plan.b[i] = static_cast<const float*>(conv_b[i]);
+      plan.k[i] = conv_k[i];
+      plan.d[i] = conv_d[i];
+    }
+    code = launch_stage(s, plan, n, stream);
+  }
+  err = cudaFreeAsync(frags, st);
+  return code != 0 ? code : static_cast<int>(err);
+}
+
+// Picks the widest tile of 1024 ... 64 output samples whose buffers fit the
+// card (and, in the cluster layout, of which at least one cluster can be
+// resident), and launches the stage kernel on `stream`.
+int launch_stage(Stage s, Plan plan, int n, void* stream) {
   if (s.c <= 64) {
     plan.ranks = 1;
   } else if (s.c % kSlice == 0 && s.c / kSlice <= kMaxRanks) {
@@ -838,17 +936,16 @@ bool width_ok(int c) {
 
 // x (n, 2c, t_in) -> out (n, c, u * t_in), or (n, 1, u * t_in) when post_k > 0
 // (c <= 64: conv_post reads every channel, which one block holds only there).
-// up_w is the transposed conv's weight (2c, c, k_up) as TF32 fragments of its
-// (c, 2c, k_up) transpose ((k_up, c / 4, c / 8, 32, 4) floats), up_b (c,).
-// With pre_k > 0, x is the mel (n, c_mel, t_in) and conv_pre (pre_w (2c,
-// c_mel, pre_k), pre_b (2c,)) runs first. Block b runs rounds[b] conv pairs;
-// conv i has kernel conv_k[i] (3, 7 or 11), dilation conv_d[i], weight
-// conv_w[i] (c, c, k) as TF32 fragments ((k, c / 8, c / 8, 32, 4) floats, the
-// order conv_layer reads; ops/cuda/gen_stage.py: tf32_fragments) and bias
-// conv_b[i] (c,). Widths: c <= 64 a multiple of
-// 8 (one block per tile), or a multiple of 32 up to 256 (a cluster of c / 32
-// blocks per tile). The host arrays are read before return. Returns a
-// cudaError_t; 0 when launched.
+// up_w is the transposed conv's weight (2c, c, k_up), up_b (c,). With
+// pre_k > 0, x is the mel (n, c_mel, t_in) and conv_pre (pre_w (2c, c_mel,
+// pre_k), pre_b (2c,)) runs first. Block b runs rounds[b] conv pairs; conv i
+// has kernel conv_k[i] (3, 7 or 11), dilation conv_d[i], weight conv_w[i]
+// (c, c, k) and bias conv_b[i] (c,). The weights are fp32 as the module holds
+// them: two launches, the TF32 split of up_w and conv_w into scratch
+// (cudaMallocAsync / cudaFreeAsync on `stream`), then the stage. Widths:
+// c <= 64 a multiple of 8 (one block per tile), or a multiple of 32 up to
+// 256 (a cluster of c / 32 blocks per tile). The host arrays are read before
+// return. Returns a cudaError_t; 0 when launched.
 extern "C" int gen_stage_forward(const float* x, float* out, int n, int c,
                                  int t_in, int u, int k_up, const float* up_w,
                                  const float* up_b, int n_blocks,
@@ -875,7 +972,6 @@ extern "C" int gen_stage_forward(const float* x, float* out, int n, int c,
   s.u = u;
   s.k_up = k_up;
   s.pad = (k_up - u) / 2;
-  s.up_w = reinterpret_cast<const float4*>(up_w);
   s.up_b = up_b;
   s.pre_w = pre_w;
   s.pre_b = pre_b;
@@ -884,7 +980,7 @@ extern "C" int gen_stage_forward(const float* x, float* out, int n, int c,
   s.post_w = post_w;
   s.post_b = post_b;
   s.post_k = post_k;
-  return launch(s, plan, n, n_convs, conv_k, conv_d, conv_w, conv_b, stream);
+  return launch(s, plan, n, n_convs, conv_k, conv_d, up_w, conv_w, conv_b, stream);
 }
 
 // x (n, c, t) -> out (n, c, t): the mean of the ResBlock1 stacks, every conv
@@ -905,5 +1001,6 @@ extern "C" int resblock_stage_forward(const float* x, float* out, int n, int c, 
   s.t_in = t;
   s.t_out = t;
   s.u = 1;
-  return launch(s, plan, n, n_convs, conv_k, conv_d, conv_w, conv_b, stream);
+  return launch(s, plan, n, n_convs, conv_k, conv_d, nullptr, conv_w, conv_b, stream);
 }
+

@@ -26,6 +26,9 @@
 //   - Packing: z[m] = x[2m] w[2m] + i x[2m+1] w[2m+1], m < M = N / 2, read
 //     straight from the block's span of the waveform in shared memory (the
 //     reflect pad is done by index when the span is staged; no padded copy).
+//     The index follows numpy's reflect rule, which jnp.pad follows: where
+//     pad >= t the signal reflects again and again, a period of 2 (t - 1),
+//     and t == 1 repeats its one sample (reflect_index).
 //   - An M-point complex FFT in shared memory: Stockham autosort passes,
 //     radix 8 (LOG_M / 3 of them) then one radix-4 or radix-2 pass for the
 //     rest, M / 8 threads a frame, each holding one radix-8 butterfly (or two
@@ -64,10 +67,14 @@
 //      c = IDFT_M(C) gives dframe[2m] = w[2m] Re c[m] and dframe[2m+1] =
 //      w[2m+1] Im c[m]: one M-point inverse FFT, run as the forward FFT of
 //      conj C. dframe goes to scratch (B, frames, N), fp32.
-//   2. Per output sample s: overlap-add and the reflect pad's adjoint. The
-//      padded positions that map to s are s + pad, then pad - s (left
-//      mirror), then pad + 2 (t - 1) - s (right mirror); each sums its frames
-//      f with f hop <= p < f hop + N in ascending f, in fp64. The order is
+//   2. Per output sample s: overlap-add and the reflect pad's adjoint. In
+//      unpadded coordinates q = p - pad, the positions that map to s are
+//      q = s itself first, then those congruent to -s modulo 2 (t - 1)
+//      ascending (where that class differs from s's: 0 < s < t - 1), then
+//      the rest of s's class ascending (every q when t == 1). For pad < t
+//      that is s, its left mirror -s, its right mirror 2 (t - 1) - s; longer
+//      pads add the further reflections. Each position sums its frames f
+//      with f hop <= p < f hop + N in ascending f, in fp64. The order is
 //      fixed, so reruns are bit-identical.
 
 #include <cuda_runtime.h>
@@ -206,6 +213,17 @@ __device__ __forceinline__ double2 split(double2 za, double2 zb, double2 st) {
   return make_double2(e.x + to.y, e.y - to.x);
 }
 
+// The sample that unpadded position q (any integer) reads under numpy's
+// reflect rule: period 2 (t - 1); t == 1 repeats sample 0.
+__host__ __device__ __forceinline__ int reflect_index(int q, int t) {
+  if (q >= 0 && q < t) return q;
+  if (t == 1) return 0;
+  const int period = 2 * (t - 1);
+  q %= period;
+  if (q < 0) q += period;
+  return q < t ? q : period - q;
+}
+
 // Samples padded[f0 * hop, f0 * hop + span) of item `wb`, reflected at the
 // edges; zeros past the padded end.
 __device__ __forceinline__ void stage_span(float* xs, const float* __restrict__ wb,
@@ -213,14 +231,7 @@ __device__ __forceinline__ void stage_span(float* xs, const float* __restrict__ 
   const int padded = t + 2 * pad;
   for (int i = threadIdx.x; i < span; i += blockDim.x) {
     const int p = f0 * hop + i;
-    float v = 0.f;
-    if (p < padded) {
-      int s = p - pad;
-      if (s < 0) s = -s;
-      if (s >= t) s = 2 * (t - 1) - s;
-      v = __ldg(wb + s);
-    }
-    xs[i] = v;
+    xs[i] = p < padded ? __ldg(wb + reflect_index(p - pad, t)) : 0.f;
   }
 }
 
@@ -398,8 +409,25 @@ __global__ void __launch_bounds__(kMaxThreads) logmel_frame_grad_kernel(const fl
   }
 }
 
+// The smallest q >= lo congruent to r modulo period.
+__device__ __forceinline__ int first_congruent(int r, int lo, int period) {
+  const int d = r - lo;
+  const int k = d >= 0 ? d / period : -((-d + period - 1) / period);
+  return r - k * period;
+}
+
+// acc += the frames' gradients at padded position p, ascending frames.
+__device__ __forceinline__ void add_position(double& acc, const float* df, int p, int n_fft,
+                                             int hop, int n_frames) {
+  const int f_lo = p >= n_fft ? (p - n_fft) / hop + 1 : 0;
+  int f_hi = p / hop;
+  if (f_hi > n_frames - 1) f_hi = n_frames - 1;
+  for (int f = f_lo; f <= f_hi; ++f)
+    acc += static_cast<double>(df[static_cast<size_t>(f) * n_fft + p - f * hop]);
+}
+
 // dwav[b, s]: the frames' gradients summed over every padded position that
-// maps to s, in a fixed order.
+// maps to s (reflect_index), in the fixed order of the note at the top.
 __global__ void logmel_overlap_add_kernel(const float* __restrict__ dframes,
                                           float* __restrict__ dwav, int t, int pad,
                                           int n_fft, int hop, int n_frames) {
@@ -407,19 +435,19 @@ __global__ void logmel_overlap_add_kernel(const float* __restrict__ dframes,
   const int b = blockIdx.y;
   if (s >= t) return;
   const float* df = dframes + static_cast<size_t>(b) * n_frames * n_fft;
-  int ps[3];
-  int np = 0;
-  ps[np++] = s + pad;
-  if (s >= 1 && s <= pad) ps[np++] = pad - s;                  // left mirror
-  if (s >= t - 1 - pad && s <= t - 2) ps[np++] = pad + 2 * (t - 1) - s;  // right
+  const int lo = -pad, hi = t + pad - 1;          // unpadded positions q
   double acc = 0.0;
-  for (int i = 0; i < np; ++i) {
-    const int p = ps[i];
-    int f_lo = p >= n_fft ? (p - n_fft) / hop + 1 : 0;
-    int f_hi = p / hop;
-    if (f_hi > n_frames - 1) f_hi = n_frames - 1;
-    for (int f = f_lo; f <= f_hi; ++f)
-      acc += static_cast<double>(df[static_cast<size_t>(f) * n_fft + p - f * hop]);
+  add_position(acc, df, s + pad, n_fft, hop, n_frames);
+  if (t == 1) {
+    for (int q = lo; q <= hi; ++q)
+      if (q != 0) add_position(acc, df, q + pad, n_fft, hop, n_frames);
+  } else {
+    const int period = 2 * (t - 1);
+    if (s != 0 && s != t - 1)                      // the mirror class, -s mod period
+      for (int q = first_congruent(-s, lo, period); q <= hi; q += period)
+        add_position(acc, df, q + pad, n_fft, hop, n_frames);
+    for (int q = first_congruent(s, lo, period); q <= hi; q += period)
+      if (q != s) add_position(acc, df, q + pad, n_fft, hop, n_frames);
   }
   dwav[static_cast<size_t>(b) * t + s] = static_cast<float>(acc);
 }
@@ -433,7 +461,7 @@ int log2_exact(int n) {
 bool bad_geometry(int b, int t, int pad, int n_fft, int hop, int n_frames, int f_used,
                   int n_mels) {
   const int lg = log2_exact(n_fft);
-  return b < 1 || pad < 0 || pad >= t || hop < 1 || lg < 8 || lg > 12 ||
+  return b < 1 || t < 1 || pad < 0 || hop < 1 || lg < 8 || lg > 12 ||
          n_fft % hop != 0 || n_frames < 1 || f_used < 1 || f_used > n_fft / 2 + 1 ||
          n_mels < 1 || (n_frames - 1) * hop + n_fft > t + 2 * pad;
 }
@@ -492,8 +520,8 @@ int frame_grad_at(const float* wav, const float* grad, float* dframes, int b, in
 // wav (b, t) -> out (b, n_mels, n_frames). window (n_fft,) fp64; twiddles
 // (n_fft / 2,) and split (f_used,) fp64 complex (interleaved re, im); mel_w
 // (n_mels, f_used) fp32; bands (n_mels, 2) int32. n_fft a power of two from
-// 256 to 4096, hop | n_fft, 0 <= pad < t. Returns a cudaError_t; 0 when
-// launched.
+// 256 to 4096, hop | n_fft, t >= 1, pad >= 0 (any pad: numpy's reflect rule),
+// n_frames >= 1. Returns a cudaError_t; 0 when launched.
 extern "C" int logmel_forward(const float* wav, float* out, int b, int t, int pad,
                               int n_fft, int hop, int n_frames, const double* window,
                               const double* twiddles, const double* split_tw,

@@ -9,14 +9,20 @@ through K4, :func:`~pytorch_sound_tpu_torch.ops.cuda.logmel.fused_hifigan_mel_tr
 (the log-mel kernel forward, the composite's VJP backward); the real mel
 through the log-mel kernel itself.
 
-The JAX recipe's ``main`` reads dataset metas whose loaders are not ported
-yet; feed :class:`HiFiGANTrainer` any iterables of ``(wav (N, T),)`` batches.
+:func:`main` is the recipe from a meta directory on disk, as the JAX
+package's: ``python -m pytorch_sound_tpu_torch.examples.hifi_gan vctk META_DIR
+SAVE_DIR [--batch_size 16 ...]`` reads the dataset's meta files
+(``data.meta.<dataset>.get_datasets``: vctk, ljspeech, libri_tts), crops
+``fix_len``-sample segments and trains on the card. :class:`HiFiGANTrainer`
+also takes any iterables of ``(wav (N, T),)`` batches.
 :func:`build_critics` builds the recipe's critics on its conv routes
 (``main(msd_pallas=..., mpd_pallas=...)``): cuDNN by default, the
 grouped-conv kernels (K6) on request. The MSD's folded form and bf16 critics
-wait for later work.
+wait for later work (``ROADMAP.md`` section 2, queue item 2).
 """
 
+import importlib
+import itertools
 from typing import List, Tuple
 
 import torch
@@ -27,7 +33,7 @@ from pytorch_sound_tpu_torch.models.vocoders.hifi_gan import load_jax_params
 from pytorch_sound_tpu_torch.ops import gan as gan_ops
 from pytorch_sound_tpu_torch.ops.cuda.logmel import (fused_hifigan_mel,
                                                      fused_hifigan_mel_trainable)
-from pytorch_sound_tpu_torch.trainer import LogType, Trainer, clip_grads
+from pytorch_sound_tpu_torch.trainer import LogType, Trainer, adamw, clip_grads
 from pytorch_sound_tpu_torch.utils.checkpoint import load_msgpack
 from pytorch_sound_tpu_torch.utils.commons import log
 
@@ -201,3 +207,51 @@ class HiFiGANTrainer(Trainer):
         mel_l1 = torch.mean(torch.abs(fused_hifigan_mel_trainable(fake[:, 0]) - mel_real))
         return mel_l1, {'loss': (mel_l1, LogType.SCALAR),
                         'mel_l1': (mel_l1, LogType.SCALAR)}
+
+
+def main(dataset: str, meta_dir: str, save_dir: str, batch_size: int = 16,
+         num_workers: int = 2, fix_len: int = 8192, max_step: int = 500000,
+         valid_max_step: int = 20, save_interval: int = 5000,
+         log_interval: int = 100, lr: float = 2e-4, arch: str = 'hifi_gan_v2',
+         msd_pallas: int = -1, mpd_pallas: bool = False,
+         msd_folded: bool = False, disc_bf16: bool = False, device: str = 'cuda'):
+    """Train a HiFi-GAN on a wave-first dataset (vctk, ljspeech, libri_tts)
+    from its meta directory, as the JAX recipe's ``main`` does: crops of
+    ``fix_len`` samples (shorter clips zero-padded to it), AdamW 2e-4 with
+    betas (0.8, 0.99) for the generator and for both critics, no gradient
+    clip, checkpoints under ``save_dir/models/hifi_gan/``; returns the best
+    validation loss.
+
+    ``arch``: the generator, on its registered conv route. ``msd_pallas``:
+    -1 keeps every critic conv on cuDNN; N >= 0 puts the MSD's first N conv
+    layers on the grouped-conv kernels (K6). ``mpd_pallas``: all of the
+    MPD's conv layers on K6. ``msd_folded`` and ``disc_bf16`` are not ported
+    yet and raise. ``device``: 'cuda' (the default; raises without a card)
+    or 'cpu'.
+    """
+    if msd_folded or disc_bf16:
+        raise NotImplementedError(
+            'msd_folded and disc_bf16 are not ported yet (ROADMAP.md section 2, '
+            'queue item 2)')
+    data_mod = importlib.import_module('pytorch_sound_tpu_torch.data.meta.' + dataset)
+    train_loader, valid_loader = data_mod.get_datasets(
+        meta_dir, batch_size=batch_size, num_workers=num_workers,
+        fix_len=fix_len, pad_multiple=fix_len)
+
+    mpd, msd = build_critics(msd_kernel=msd_pallas, mpd_kernel=mpd_pallas)
+    generator = build_model(arch)
+    gen_opt = adamw(generator.parameters(), lr, 0.8, 0.99)
+    disc_opt = adamw(itertools.chain(mpd.parameters(), msd.parameters()), lr, 0.8, 0.99)
+
+    trainer = HiFiGANTrainer(
+        generator, mpd, msd, gen_opt, disc_opt,
+        train_loader, valid_loader,
+        max_step=max_step, valid_max_step=valid_max_step,
+        save_interval=save_interval, log_interval=log_interval,
+        save_dir=save_dir, save_prefix='hifi_gan', grad_norm=0.0, device=device)
+    return trainer.run()
+
+
+if __name__ == '__main__':
+    from pytorch_sound_tpu_torch.utils.cli import fire_like
+    fire_like(main)

@@ -26,9 +26,10 @@ A stage's resblocks are given as ``blocks``: one list per ResBlock1 of
 ``(weight (C, C, k), bias (C,), dilation)`` triples in execution order
 (convs1_0, convs2_0, convs1_1, convs2_1, ...). The kernel runs the resblock
 convs as 3xTF32 products on the tensor cores and reads each weight as TF32
-fragments (:func:`tf32_fragments`), made once per weight and kept on the
-weight tensor until it changes (its ``_version``); the transposed conv runs
-on the tensor cores the same way.
+fragments (:func:`tf32_fragments` is their plain version), which the entry
+point splits on every call, in a launch of its own before the stage's: a
+write to the weights by any route, ``.data`` included, reaches the next
+launch. The transposed conv runs on the tensor cores the same way.
 """
 
 from typing import Optional, Sequence, Tuple
@@ -116,20 +117,6 @@ def tf32_fragments(w: torch.Tensor) -> torch.Tensor:
     return torch.stack([order(hi), order(lo)], dim=-2).contiguous()
 
 
-def _fragments(w: torch.Tensor, transposed: bool = False) -> torch.Tensor:
-    """:func:`tf32_fragments` of w, or of its (C_out, C_in, k) transpose for a
-    ConvTranspose1d weight (C_in, C_out, k), kept on w while its version
-    holds (an inference tensor has no version: split per call)."""
-    def split(v):
-        return tf32_fragments(v.transpose(0, 1) if transposed else v)
-    if w.is_inference():
-        return split(w)
-    name = '_tf32_fragments_t' if transposed else '_tf32_fragments'
-    kept = getattr(w, name, None)
-    if kept is None or kept[0] != w._version:
-        kept = (w._version, split(w.detach()))
-        setattr(w, name, kept)
-    return kept[1]
 
 
 def _check_width(c: int):
@@ -223,19 +210,14 @@ def _device(x: torch.Tensor, name: str) -> bool:
     return x.device.type == 'cuda'
 
 
-def _plan_args(blocks: Sequence[Sequence[Conv]], frags: Sequence[torch.Tensor]):
-    """The C plan arguments; ``frags``: the convs' TF32 fragments, which the
-    caller holds until the launch has been queued."""
+def _plan_args(blocks: Sequence[Sequence[Conv]]):
+    """The C plan arguments of the resblock convs."""
     convs = [conv for block in blocks for conv in block]
     return (len(blocks), _build.int_array([len(b) // 2 for b in blocks]),
             _build.int_array([w.shape[2] for w, _, _ in convs]),
             _build.int_array([d for _, _, d in convs]),
-            _build.ptr_array(frags),
+            _build.ptr_array([w for w, _, _ in convs]),
             _build.ptr_array([b for _, b, _ in convs]))
-
-
-def _conv_fragments(blocks: Sequence[Sequence[Conv]]):
-    return [_fragments(w) for block in blocks for w, _, _ in block]
 
 
 def generator_stage(x: torch.Tensor, up_weight: torch.Tensor, up_bias: torch.Tensor,
@@ -255,11 +237,10 @@ def generator_stage(x: torch.Tensor, up_weight: torch.Tensor, up_bias: torch.Ten
     pre_w, pre_b = conv_pre if conv_pre is not None else (None, None)
     out = torch.empty((n, 1 if conv_post is not None else c, t_in * upsample_rate),
                       dtype=torch.float32, device=x.device)
-    up_frags, frags = _fragments(up_weight, transposed=True), _conv_fragments(blocks)
     with torch.cuda.device(x.device):
         code = _build.library().gen_stage_forward(
             x.data_ptr(), out.data_ptr(), n, c, t_in, upsample_rate, k_up,
-            up_frags.data_ptr(), up_bias.data_ptr(), *_plan_args(blocks, frags),
+            up_weight.data_ptr(), up_bias.data_ptr(), *_plan_args(blocks),
             post_w.data_ptr() if post_w is not None else None,
             post_b.data_ptr() if post_b is not None else None,
             post_w.shape[2] if post_w is not None else 0,
@@ -287,10 +268,9 @@ def resblock_stage(x: torch.Tensor, blocks: Sequence[Sequence[Conv]]) -> torch.T
     check_resblock_stage(x, blocks)
     n, c, t = x.shape
     out = torch.empty_like(x)
-    frags = _conv_fragments(blocks)
     with torch.cuda.device(x.device):
         code = _build.library().resblock_stage_forward(
-            x.data_ptr(), out.data_ptr(), n, c, t, *_plan_args(blocks, frags),
+            x.data_ptr(), out.data_ptr(), n, c, t, *_plan_args(blocks),
             torch.cuda.current_stream().cuda_stream)
     _build.check(code, 'resblock_stage_forward')
     resblock_stage.launches += 1

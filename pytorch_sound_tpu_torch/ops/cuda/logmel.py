@@ -97,7 +97,9 @@ def fused_log_mel(wav: torch.Tensor, sample_rate: int = 22050, mel_size: int = 8
     ``pad`` defaults to n_fft // 2 (centered); the HiFi-GAN convention is
     :func:`fused_hifigan_mel`. Requires hop | n_fft and n_fft == win_length,
     and on a CUDA tensor a power-of-two n_fft from 256 to 4096
-    (:func:`_kernel_geometry`).
+    (:func:`_kernel_geometry`). Any T >= 1 takes any pad, by numpy's reflect
+    rule (:func:`~pytorch_sound_tpu_torch.ops.mel.reflect_index`); input
+    shorter than one frame gives (B, mel_size, 0) and launches nothing.
     """
     if wav.ndim != 2:
         raise ValueError('fused_log_mel expects (B, T), got %s' % (tuple(wav.shape),))
@@ -118,14 +120,15 @@ def fused_log_mel(wav: torch.Tensor, sample_rate: int = 22050, mel_size: int = 8
     if wav.dtype != torch.float32 or not wav.is_contiguous():
         raise ValueError('fused_log_mel kernel takes contiguous float32 input')
     b, t = wav.shape
-    if not 0 <= pad < t:
-        raise ValueError('reflect pad %d needs more than %d samples' % (pad, t))
-    n_frames = 1 + (t + 2 * pad - n_fft) // hop_length
-    if n_frames < 1:
-        raise ValueError('input of %d samples is shorter than one frame' % t)
+    if t < 1 or pad < 0:
+        raise ValueError('fused_log_mel takes T >= 1 and pad >= 0, got T %d, pad %d'
+                         % (t, pad))
+    n_frames = mel_ops.n_frames(t, n_fft, hop_length, pad)
+    out = torch.empty((b, mel_size, n_frames), dtype=torch.float32, device=wav.device)
+    if n_frames == 0 or b == 0:
+        return out
     c = _constants(sample_rate, n_fft, win_length, mel_size, mel_min, mel_max,
                    str(wav.device))
-    out = torch.empty((b, mel_size, n_frames), dtype=torch.float32, device=wav.device)
     with torch.cuda.device(wav.device):
         code = _build.library().logmel_forward(
             wav.data_ptr(), out.data_ptr(), b, t, pad, n_fft, hop_length, n_frames,
@@ -172,7 +175,8 @@ def hifigan_mel_backward(wav: torch.Tensor, grad: torch.Tensor) -> torch.Tensor:
     kernels of ``csrc/logmel.cu`` (the frames' gradients by an inverse FFT into
     (B, frames, n_fft) scratch, then the overlap-add and the reflect pad's
     adjoint), counted once per call in
-    ``fused_hifigan_mel_trainable.bwd_launches``, or an error.
+    ``fused_hifigan_mel_trainable.bwd_launches``, or an error. Input shorter
+    than one frame has a zero gradient and launches nothing.
     """
     if wav.device.type == 'cpu':
         return hifigan_mel_vjp(wav, grad)
@@ -183,13 +187,13 @@ def hifigan_mel_backward(wav: torch.Tensor, grad: torch.Tensor) -> torch.Tensor:
         raise ValueError('the log-mel backward kernel takes contiguous float32 (B, T)')
     b, t = wav.shape
     pad = (n_fft - hop) // 2
-    if not 0 <= pad < t:
-        raise ValueError('reflect pad %d needs more than %d samples' % (pad, t))
-    n_frames = 1 + (t + 2 * pad - n_fft) // hop
+    n_frames = mel_ops.n_frames(t, n_fft, hop, pad)
     grad = grad.to(torch.float32).contiguous()
     if tuple(grad.shape) != (b, n_mels, n_frames) or grad.device != wav.device:
         raise ValueError('grad of shape %s on %s for wav %s'
                          % (tuple(grad.shape), grad.device, tuple(wav.shape)))
+    if n_frames == 0 or b == 0:
+        return torch.zeros_like(wav)
     c = _constants(22050, n_fft, n_fft, n_mels, 0.0, 8000.0, str(wav.device))
     dframes = torch.empty((b, n_frames, n_fft), dtype=torch.float32, device=wav.device)
     dwav = torch.empty_like(wav)
@@ -214,7 +218,7 @@ class _TrainableMel(torch.autograd.Function):
     def forward(ctx, wav):
         ctx.save_for_backward(wav)
         out = fused_hifigan_mel(wav)
-        if wav.device.type == 'cuda':
+        if wav.device.type == 'cuda' and out.numel():
             fused_hifigan_mel_trainable.launches += 1
         return out
 

@@ -44,6 +44,25 @@ def db_to_log(db: float) -> float:
     return float(db / 10.0 * np.log(10.0))
 
 
+def reflect_index(t: int, pad: int) -> np.ndarray:
+    """Source sample of each position of a (pad, pad) reflect pad of t
+    samples, by numpy's rule (``np.pad(mode='reflect')``, which ``jnp.pad``
+    follows): for pad >= t the signal reflects again and again, a period of
+    2 (t - 1); t == 1 repeats its one sample."""
+    q = np.arange(-pad, t + pad)
+    if t == 1:
+        return np.zeros_like(q)
+    period = 2 * (t - 1)
+    q = q % period
+    return np.where(q < t, q, period - q)
+
+
+def n_frames(t: int, n_fft: int, hop_length: int, pad: int) -> int:
+    """Frames of an uncentered STFT over t samples padded by ``pad`` a side;
+    0 where the padded signal is shorter than one window, as in JAX."""
+    return max(0, 1 + (t + 2 * pad - n_fft) // hop_length)
+
+
 def log_mel(wav: torch.Tensor, mel_filter: np.ndarray, n_fft: int,
             hop_length: int, win_length: int, pad: int,
             power_eps: float = 0.0, log_floor: float = 0.0,
@@ -55,11 +74,20 @@ def log_mel(wav: torch.Tensor, mel_filter: np.ndarray, n_fft: int,
     ``sqrt(re² + im² + power_eps)`` -> mel matmul ->
     ``log(max(mel, log_floor))`` if ``log_floor > 0`` else
     ``log(mel + log_offset)`` -> clip to [lo, hi]. Both conventions of the
-    JAX package are this function at different arguments.
+    JAX package are this function at different arguments. Any length takes
+    the pad (:func:`reflect_index` where pad >= T); a signal shorter than
+    one frame gives (..., n_mels, 0), as the JAX composite does.
     """
     lead = wav.shape[:-1]
-    x = wav.reshape(-1, wav.shape[-1])
-    if pad:
+    t = wav.shape[-1]
+    x = wav.reshape(-1, t)
+    if n_frames(t, n_fft, hop_length, pad) == 0:
+        # sliced from x, so autograd reaches wav with a zero gradient
+        return x[:, None, :0].expand(-1, mel_filter.shape[0], -1).reshape(
+            *lead, mel_filter.shape[0], 0)
+    if pad >= t:
+        x = x[:, torch.from_numpy(reflect_index(t, pad))]
+    elif pad:
         x = F.pad(x[:, None, :], (pad, pad), mode='reflect')[:, 0, :]
     window = torch.from_numpy(_cached_window(n_fft, win_length)).to(x)
     spec = torch.stft(x, n_fft, hop_length, n_fft, window=window,

@@ -11,9 +11,13 @@ bootstrap's lazy first batch, and checkpoints at the JAX layout
 (``<save_dir>/models/<prefix>/<ModelClass>/step_%06d.chkpt`` plus
 ``<prefix>/<ModelClass>.best.chkpt``), resumed from the highest step in a
 file name, with the numpy RNG state restored exactly and the trainer's torch
-generator state beside it. The file format is the port's own: ``torch.save``
-of state dicts. Multi-device meshes, rematerialisation, the profiler window
-and pinned-memory prefetch are not ported yet.
+generator state beside it, and the position of any dataset that has a
+``state_dict`` (the port's ``SpeechDataLoader``), so that a resumed run at
+``num_workers=0`` draws the batches the uninterrupted run drew. The file
+format is the port's own: ``torch.save`` of state dicts. Not ported yet:
+multi-device meshes, rematerialisation, the profiler window
+(``trainer.py:313`` of the JAX package), pinned-memory prefetch, and the
+tensorboard image and plot channels (``utils/plots.py``).
 
 Subclass contract::
 
@@ -118,6 +122,7 @@ class Trainer:
         self.scheduler = (torch.optim.lr_scheduler.LambdaLR(optimizer, scheduler)
                           if scheduler is not None else None)
 
+        self._sources = {'train': train_dataset, 'valid': valid_dataset}
         self.train_dataset = self.repeat(train_dataset) if train_dataset is not None else None
         self.valid_dataset = self.repeat(valid_dataset) if valid_dataset is not None else None
 
@@ -348,6 +353,7 @@ class Trainer:
         self.load_model_state(state['model'])
         if load_optim:
             self.load_optim_state(state['optim'])
+        self._load_data_state(state.get('data', {}))
         self.step = int(state['step'])
         log("checkpoint '{}' is loaded. previous step={}".format(latest_file, self.step))
         return True
@@ -364,6 +370,8 @@ class Trainer:
                           'pos': int(np_st[2]), 'has_gauss': int(np_st[3]),
                           'cached': float(np_st[4])},
             'rng': self.rng.get_state(),
+            'data': {key: src.state_dict() for key, src in self._sources.items()
+                     if hasattr(src, 'state_dict')},
         }
         save_path = self._checkpoint_dir()
         os.makedirs(save_path, exist_ok=True)
@@ -374,6 +382,19 @@ class Trainer:
             self.cur_best_valid_loss = self.best_valid_loss
 
         log('step %d / saved model.' % step)
+
+    def _load_data_state(self, states: Dict[str, Any]):
+        """Put each dataset back where the checkpoint left it, and restart
+        its repeat from there (the bootstrap's draw is discarded)."""
+        for key, state in states.items():
+            src = self._sources.get(key)
+            if src is None or not hasattr(src, 'load_state_dict'):
+                continue
+            src.load_state_dict(state)
+            if key == 'train':
+                self.train_dataset = self.repeat(src)
+            else:
+                self.valid_dataset = self.repeat(src)
 
     def load_pretrained_model(self):
         assert os.path.exists(self.pretrained_path), 'You must define pretrained path!'

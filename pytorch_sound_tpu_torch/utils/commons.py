@@ -1,7 +1,11 @@
-"""Logging helper, the port's copy of ``pytorch_sound_tpu/utils/commons.py``'s
-``log`` (a formatted, non-propagating INFO logger named 'main')."""
+"""Logging and a worker pool: the port's copies of ``log`` (a formatted,
+non-propagating INFO logger named 'main') and ``go_multiprocess`` from
+``pytorch_sound_tpu/utils/commons.py``."""
 
 import logging
+import os
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Callable, List, Sequence, Tuple
 
 
 def get_logger(name: str) -> logging.Logger:
@@ -24,3 +28,17 @@ LOGGER = get_logger('main')
 def log(msg: str):
     """Log through the global logger."""
     LOGGER.info(msg)
+
+
+def go_multiprocess(worker_func: Callable, inputs: Sequence[Tuple[Any, ...]],
+                    num_workers: int = None) -> List[Any]:
+    """``[worker_func(*args) for args in inputs]`` on a pool of
+    ``num_workers`` (default: half the cores) threads, results in input
+    order, as the JAX package's joblib pool returns them. Threads, not
+    processes: the workers the port runs here read file headers and
+    transcripts, which wait on I/O, and a thread starts without importing
+    the package again. A worker's exception is raised here."""
+    if not num_workers:
+        num_workers = max(1, (os.cpu_count() or 2) // 2)
+    with ThreadPoolExecutor(max_workers=num_workers) as pool:
+        return list(pool.map(lambda args: worker_func(*args), inputs))

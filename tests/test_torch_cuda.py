@@ -155,9 +155,9 @@ def test_stage_kernel_rerun_is_bit_identical(card, c, pre):
 
 @pytest.mark.parametrize('c', [64, 256])
 def test_stage_kernel_takes_inference_weights(card, c):
-    """Weights made under inference mode have no version to key the kept
-    TF32 fragments on, so they are split on every call: the stage kernel
-    gives the same bits as with the same weights as ordinary tensors."""
+    """Weights made under inference mode (which have no version counter) are
+    split like any others: the stage kernel gives the same bits as with the
+    same weights as ordinary tensors."""
     rng = np.random.default_rng(c + 11)
     w, blocks = _stage_weights(card, rng, c)
     args = dict(up_weight=w(2 * c, c, 16, scale=0.05), up_bias=w(c, scale=0.1),
@@ -173,7 +173,65 @@ def test_stage_kernel_takes_inference_weights(card, c):
     assert torch.equal(res, gs.resblock_stage(h, blocks))
 
 
+@pytest.mark.parametrize('c', [32, 256])
+def test_stage_kernel_sees_writes_through_data(card, c):
+    """Weights written through ``.data`` (which leaves their version alone)
+    reach the next launch: K1 and K3 match the plain version of the new
+    weights, and equal a launch on fresh tensors holding them."""
+    rng = np.random.default_rng(c + 23)
+    w, blocks = _stage_weights(card, rng, c)
+    up_w, up_b = w(2 * c, c, 16, scale=0.05), w(c, scale=0.1)
+    x, h = w(2, 2 * c, 40, scale=1.0), w(2, c, 320, scale=1.0)
+    gs.generator_stage(x, up_w, up_b, blocks, 8)
+    gs.resblock_stage(h, blocks)
+    versions = [t._version for t in [up_w] + [wt for block in blocks for wt, _, _ in block]]
+    up_w.data.copy_(up_w.data * -0.5)
+    for block in blocks:
+        for wt, _, _ in block:
+            wt.data.copy_(torch.flip(wt.data, dims=[2]))
+    assert versions == [t._version for t in [up_w] + [wt for block in blocks
+                                                       for wt, _, _ in block]]
+    out, res = gs.generator_stage(x, up_w, up_b, blocks, 8), gs.resblock_stage(h, blocks)
+    ref = gs.generator_stage_reference(x, up_w, up_b, blocks, 8)
+    assert float((out - ref).abs().max()) <= STAGE_TOL * float(ref.abs().max())
+    ref = gs.resblock_stage_reference(h, blocks)
+    assert float((res - ref).abs().max()) <= STAGE_TOL * float(ref.abs().max())
+    fresh = [[(wt.clone(), b, d) for wt, b, d in block] for block in blocks]
+    assert torch.equal(out, gs.generator_stage(x, up_w.clone(), up_b, fresh, 8))
+    assert torch.equal(res, gs.resblock_stage(h, fresh))
+
+
 MEL_TOL = 1e-4        # log-mel kernel vs plain (tests/test_pallas.py:98)
+
+
+@pytest.mark.parametrize('t', [1, 2, 255, 256, 383, 384, 385])
+def test_log_mel_kernel_short_inputs(card, t):
+    """Inputs the reflect pad exceeds, by numpy's rule: K2 in both
+    conventions and K4's backward against the plain version in fp64 (shape
+    (3, 80, 0) below one frame, with no launch and a zero gradient), reruns
+    bit-identical."""
+    from pytorch_sound_tpu_torch.ops import mel as mel_ops
+    from pytorch_sound_tpu_torch.ops.cuda import logmel as lm
+    rng = np.random.default_rng(t)
+    x = torch.from_numpy((rng.standard_normal((3, t)) * 0.2).astype(np.float32)).to(card)
+    filt = mel_ops.cached_mel_filter(22050, 1024, 80, 0.0, 8000.0)
+    for pad, kw in ((384, dict(power_eps=1e-9, log_floor=1e-5)), (512, {})):
+        before = lm.fused_log_mel.launches
+        got = lm.fused_log_mel(x, mel_max=8000.0, pad=pad, **kw)
+        frames = mel_ops.n_frames(t, 1024, 256, pad)
+        assert lm.fused_log_mel.launches == before + (frames > 0)
+        ref = mel_ops.log_mel(x.double(), filt, 1024, 256, 1024, pad, **kw)
+        assert got.shape == ref.shape == (3, 80, frames)
+        assert got.numel() == 0 or float((got.double() - ref).abs().max()) <= MEL_TOL
+        assert torch.equal(got, lm.fused_log_mel(x, mel_max=8000.0, pad=pad, **kw))
+    mel = lm.fused_hifigan_mel(x)
+    cot = torch.cos(mel)
+    before = lm.fused_hifigan_mel_trainable.bwd_launches
+    got = lm.hifigan_mel_backward(x, cot)
+    assert lm.fused_hifigan_mel_trainable.bwd_launches == before + (mel.numel() > 0)
+    ref = lm.hifigan_mel_vjp(x.double(), cot.double())
+    assert float((got.double() - ref).abs().max()) <= 1e-6 * max(float(ref.abs().max()), 1.0)
+    assert torch.equal(got, lm.hifigan_mel_backward(x, cot))
 
 
 def _tones(rng, b, t):

@@ -419,5 +419,46 @@ def test_fragments_are_the_kernel_b_operand():
                     assert hi0 + lo0 == w0 and hi1 + lo1 == w1
                     assert int(hi0.view(torch.int32)) & 0x1fff == 0
     up = torch.from_numpy(rng.standard_normal((32, 16, 16)).astype(np.float32))
-    assert torch.equal(gs._fragments(up, transposed=True),
+    assert torch.equal(gs.tf32_fragments(up.transpose(0, 1)),
                        gs.tf32_fragments(up.transpose(0, 1).contiguous()))
+
+
+def test_split_kernel_index_is_tf32_fragments():
+    """A numpy twin of tf32_split_kernel, read from the source: entry e of
+    the launch, decomposed as the kernel decomposes it, writes the
+    fragments of tf32_fragments bit for bit, for a stage's ConvTranspose1d
+    weight (read through its transpose) and its resblock convs in one
+    launch, each weight's fragments at twice its element offset, where the
+    stage kernel's pointers find them."""
+    for text in ('const long long src = jobs.transposed[j] ? (i * co + o) * k + tap : '
+                 '(o * ci + i) * k + tap;',
+                 'float* dst = out + 2 * jobs.start[j] + ((l >> 1) << 2) + h;',
+                 '__uint_as_float((__float_as_uint(v) + 0x1000u) & 0xffffe000u)',
+                 'if (s.k_up > 0) add(up_w, s.c, 2 * s.c, s.k_up, 1);',
+                 'add(static_cast<const float*>(conv_w[i]), s.c, s.c, conv_k[i], 0);',
+                 'if (s.k_up > 0) s.up_w = reinterpret_cast<const float4*>(frags);',
+                 'plan.w[i] = reinterpret_cast<const float4*>(frags + 2 * jobs.start[first + i]);'):
+        assert text in SRC
+    rng = np.random.default_rng(6)
+    weights = [(rng.standard_normal((32, 16, 16)).astype(np.float32), True),
+               (rng.standard_normal((16, 16, 3)).astype(np.float32), False),
+               (rng.standard_normal((16, 16, 11)).astype(np.float32), False)]
+    dims = [((w.shape[1], w.shape[0]) if tr else w.shape[:2]) + (w.shape[2],)
+            for w, tr in weights]
+    start = np.concatenate([[0], np.cumsum([co * ci * k for co, ci, k in dims])])
+    out = np.full(2 * start[-1], np.nan, dtype=np.float32)
+    for e in range(start[-1]):
+        j = int(np.searchsorted(start, e, side='right')) - 1
+        (w, tr), (co, ci, k), l = weights[j], dims[j], e - start[j]
+        h, t, g, r = l & 1, (l >> 1) & 3, (l >> 3) & 7, l >> 6
+        nt, r = r % (co // 8), r // (co // 8)
+        ks, tap = r % (ci // 8), r // (ci // 8)
+        o, i = 8 * nt + g, 8 * ks + 4 * h + t
+        v = w.reshape(-1)[(i * co + o) * k + tap if tr else (o * ci + i) * k + tap]
+        hi = ((v.view(np.uint32) + np.uint32(0x1000)) & np.uint32(0xffffe000)).view(np.float32)
+        dst = 2 * start[j] + ((l >> 1) << 2) + h
+        out[dst], out[dst + 2] = hi, v - hi
+    for (w, tr), a, b in zip(weights, start[:-1], start[1:]):
+        ref = gs.tf32_fragments(torch.from_numpy(w).transpose(0, 1).contiguous() if tr
+                                else torch.from_numpy(w))
+        np.testing.assert_array_equal(out[2 * a:2 * b], ref.reshape(-1).numpy())

@@ -118,15 +118,35 @@ def spectrum(frames, c):
 
 
 def reflect(p, t, pad):
-    s = p - pad
-    s = np.where(s < 0, -s, s)
-    return np.where(s >= t, 2 * (t - 1) - s, s)
+    """``reflect_index`` of the source: numpy's rule, period 2 (t - 1)."""
+    q = np.asarray(p) - pad
+    if t == 1:
+        return np.zeros_like(q)
+    period = 2 * (t - 1)
+    inside = (q >= 0) & (q < t)
+    m = q % period
+    return np.where(inside, q, np.where(m < t, m, period - m))
+
+
+def fold_order(s, t, pad):
+    """The unpadded positions q the overlap-add kernel sums for sample s, in
+    its order: s, then the class of -s modulo 2 (t - 1) ascending where it
+    differs from s's, then the rest of s's class ascending."""
+    lo, hi = -pad, t + pad - 1
+    if t == 1:
+        return [0] + [q for q in range(lo, hi + 1) if q != 0]
+    period = 2 * (t - 1)
+
+    def congruent(r):
+        return list(range(r - (r - lo) // period * period, hi + 1, period))
+    order = [s] + (congruent(-s) if 0 < s < t - 1 else [])
+    return order + [q for q in congruent(s) if q != s]
 
 
 def frames_of(wav, n_fft, hop, pad):
     """(B, frames, N) from the unpadded waveform, reflected by index."""
     b, t = wav.shape
-    n_frames = 1 + (t + 2 * pad - n_fft) // hop
+    n_frames = mel_ops.n_frames(t, n_fft, hop, pad)
     p = np.arange(n_frames)[:, None] * hop + np.arange(n_fft)[None, :]
     return wav[:, reflect(p, t, pad)]
 
@@ -197,12 +217,10 @@ def twin_hifigan_backward(wav, grad, c, dtype=np.float32, n_fft=1024, hop=256):
     padded = np.zeros((b, t + 2 * pad))
     for f in range(n_frames):
         padded[:, f * hop:f * hop + n_fft] += dframes[:, f]
-    s = np.arange(t)
-    dwav = padded[:, s + pad].copy()
-    left = (s >= 1) & (s <= pad)
-    dwav[:, left] += padded[:, pad - s[left]]
-    right = (s >= t - 1 - pad) & (s <= t - 2)
-    dwav[:, right] += padded[:, pad + 2 * (t - 1) - s[right]]
+    dwav = np.zeros((b, t))
+    for s in range(t):
+        for q in fold_order(s, t, pad):
+            dwav[:, s] += padded[:, q + pad]
     return dwav
 
 
@@ -311,12 +329,14 @@ def test_twin_matches_jax_centered_log_mel(fmax, f_used):
         max_db=20.0, mel_max=fmax).numpy())
 
 
-@pytest.mark.parametrize('shape', [(2, 3000), (1, 640), (1, 385)])
+@pytest.mark.parametrize('shape', [(2, 3000), (1, 640), (1, 385), (2, 384), (1, 300),
+                                   (1, 256)])
 def test_backward_twin_matches_fp64_autograd(shape):
     """With the mel in fp64, the twin's backward is the VJP of the port's
     plain composite in fp64 to 1e-10 of the gradient's largest entry: the
     adjoint of the trimmed DFT by one inverse FFT, the Nyquist fold, the
-    overlap-add and both mirrors of the reflect pad (t = 385 = pad + 1)."""
+    overlap-add and both mirrors of the reflect pad (t = 385 = pad + 1), and
+    the further reflections of a pad >= t (t = 384, 300, 256)."""
     rng = np.random.default_rng(shape[1])
     wav = (rng.standard_normal(shape) * 0.2).astype(np.float32)
     w = torch.from_numpy(wav.astype(np.float64)).requires_grad_(True)
@@ -369,6 +389,46 @@ def test_backward_twin_matches_jax_grad(signal):
     scale = float(np.abs(ref64).max())
     assert float(np.abs(got - ref64).max()) <= 1e-6 * scale
     assert float(np.abs(got - ref).max()) <= float(np.abs(ref - ref64).max()) + TOL * scale
+
+
+@pytest.mark.parametrize('t,pad', [(1, 384), (2, 384), (3, 5), (255, 384), (384, 384),
+                                   (385, 384), (640, 384), (5, 0), (1, 0)])
+def test_fold_order_covers_each_padded_position_once(t, pad):
+    """The overlap-add kernel's enumeration reaches every padded position
+    exactly once, at the sample the forward's ``reflect_index`` read it
+    from; for pad < t it is the order the single reflection had (s, left
+    mirror, right mirror)."""
+    seen = []
+    for s in range(t):
+        order = fold_order(s, t, pad)
+        assert order[0] == s and all(int(reflect(q + pad, t, pad)) == s for q in order)
+        seen += order
+    assert sorted(seen) == list(range(-pad, t + pad))
+    np.testing.assert_array_equal(reflect(np.arange(t + 2 * pad), t, pad),
+                                  mel_ops.reflect_index(t, pad))
+    if pad < t:
+        for s in range(t):
+            single = [s] + [q for q in (-s, 2 * (t - 1) - s)
+                            if q != s and -pad <= q < t + pad]
+            assert fold_order(s, t, pad) == single
+
+
+@pytest.mark.parametrize('t', [1, 2, 255, 256, 383, 384, 385])
+def test_twin_short_inputs_match_plain_fp64(t):
+    """Inputs the pad reflects more than once: the twin's frames and values
+    against the port's plain version in fp64 (HiFi-GAN convention; and
+    centered, the dB clip off), (B, 80, 0) below one frame."""
+    rng = np.random.default_rng(t)
+    wav = (rng.standard_normal((2, t)) * 0.2).astype(np.float32)
+    w64 = torch.from_numpy(wav).double()
+    got = twin_log_mel(wav, consts(), pad=384, power_eps=1e-9, log_floor=1e-5)
+    ref = mel_ops.hifigan_mel_spectrogram(w64).numpy()
+    assert got.shape == ref.shape == (2, 80, max(0, 1 + (t - 256) // 256))
+    assert got.size == 0 or float(np.abs(got - ref).max()) <= 1e-6
+    got = twin_log_mel(wav, consts())
+    ref = mel_ops.log_mel_spectrogram(w64, SR, 80, 1024, 1024, 256, mel_max=8000.0).numpy()
+    assert got.shape == ref.shape == (2, 80, 1 + t // 256)
+    np.testing.assert_allclose(got, ref, atol=1e-6, rtol=0)
 
 
 def test_band_sum_equals_dense_sum():

@@ -103,3 +103,37 @@ def test_fused_wrapper_guards():
         logmel.fused_log_mel(wav, n_fft=1024, win_length=800)
     with pytest.raises(RuntimeError, match='cpu or cuda'):
         logmel.fused_hifigan_mel(torch.zeros((2, 4096), device='meta'))
+
+
+SHORT = (1, 2, 255, 256, 383, 384, 385)
+
+
+@pytest.mark.parametrize('t', SHORT)
+def test_short_inputs_match_jax(t):
+    """Inputs the reflect pad exceeds (HiFi-GAN pad 384, centered pad 512):
+    both conventions reflect by numpy's rule, as ``jnp.pad`` does, and give
+    JAX's shapes, (2, 80, 0) below one HiFi-GAN frame, and values at 1e-4.
+    The fused wrappers' CPU path is the plain version, bit for bit."""
+    rng = np.random.default_rng(100 + t)
+    wav = (rng.standard_normal((2, t)) * 0.2).astype(np.float32)
+    x = torch.from_numpy(wav)
+    out = torch_mel.hifigan_mel_spectrogram(x).numpy()
+    ref = np.asarray(jax_mel.hifigan_mel_spectrogram(jnp.asarray(wav)))
+    assert out.shape == ref.shape == (2, 80, max(0, 1 + (t - 256) // 256))
+    np.testing.assert_allclose(out, ref, atol=1e-4)
+    np.testing.assert_array_equal(logmel.fused_hifigan_mel(x).numpy(), out)
+
+    kw = dict(min_db=s.MIN_DB, max_db=s.MAX_DB, mel_min=s.MEL_MIN, mel_max=s.MEL_MAX)
+    args = (s.SAMPLE_RATE, s.MEL_SIZE, s.N_FFT, s.WIN_LENGTH, s.HOP_LENGTH)
+    out = torch_mel.log_mel_spectrogram(x, *args, **kw).numpy()
+    ref = np.asarray(jax_mel.log_mel_spectrogram(jnp.asarray(wav), *args, **kw))
+    assert out.shape == ref.shape == (2, 80, 1 + t // 256)
+    np.testing.assert_allclose(out, ref, atol=1e-4)
+    np.testing.assert_array_equal(logmel.fused_log_mel(x, *args, **kw).numpy(), out)
+
+
+def test_reflect_index_is_numpys():
+    for t, pad in ((1, 4), (2, 7), (3, 9), (5, 4), (5, 12), (384, 384), (385, 384)):
+        x = np.arange(t)
+        np.testing.assert_array_equal(x[torch_mel.reflect_index(t, pad)],
+                                      np.pad(x, (pad, pad), mode='reflect'))

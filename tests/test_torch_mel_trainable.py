@@ -13,6 +13,7 @@ import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 import torch  # noqa: E402
 
+from pytorch_sound_tpu.ops import mel as jax_mel  # noqa: E402
 from pytorch_sound_tpu.ops.pallas.logmel import \
     fused_hifigan_mel_trainable as jax_trainable  # noqa: E402
 from pytorch_sound_tpu_torch.ops import mel as mel_ops  # noqa: E402
@@ -58,3 +59,23 @@ def test_trainable_mel_grad_is_the_composite_vjp():
 def test_trainable_mel_precision_guard():
     with pytest.raises(ValueError, match='highest'):
         lm.fused_hifigan_mel_trainable(torch.zeros((1, 4096)), precision='bf16x3')
+
+
+@pytest.mark.parametrize('t', [300, 384, 255])
+def test_trainable_mel_short_inputs_match_jax_grad(t):
+    """Inputs the HiFi-GAN pad (384) exceeds: K4's value and gradient
+    against JAX's K4 and ``jax.grad`` of the JAX composite (loss
+    sum(sin(mel))) at TOL; below one frame (t = 255) the mel is (1, 80, 0)
+    and the gradient zero, in both packages."""
+    rng = np.random.default_rng(t)
+    wav = (rng.standard_normal((2, t)) * 0.2).astype(np.float32)
+    ref = np.asarray(jax_trainable(jnp.asarray(wav), 'highest'))
+    ref_grad = np.asarray(jax.grad(lambda w: jnp.sum(jnp.sin(jax_mel.hifigan_mel_spectrogram(w))))(
+        jnp.asarray(wav)))
+    w = torch.from_numpy(wav).requires_grad_(True)
+    out = lm.fused_hifigan_mel_trainable(w)
+    torch.sum(torch.sin(out)).backward()
+    assert tuple(out.shape) == ref.shape == (2, 80, max(0, 1 + (t - 256) // 256))
+    np.testing.assert_allclose(out.detach().numpy(), ref, atol=TOL, rtol=0)
+    np.testing.assert_allclose(w.grad.numpy(), ref_grad, atol=TOL, rtol=0)
+    assert (ref_grad == 0).all() == (w.grad.numpy() == 0).all() == (t < 256)

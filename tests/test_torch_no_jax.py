@@ -1,6 +1,7 @@
 """The port imports torch and never jax, flax or the JAX package; its CUDA
 modules import without nvcc (the kernels build at their first CUDA launch).
-The serving path and the training path each run in a fresh interpreter."""
+The serving path, the training path and the data layer each run in a fresh
+interpreter; the data layer also loads none of pandas, tqdm or joblib."""
 
 import os
 import subprocess
@@ -116,6 +117,51 @@ assert not loaded, loaded
 '''
 
 
+DATA_SCRIPT = r'''
+import os, random, sys, tempfile
+
+
+class Absent:
+    """The port runs where none of these is installed: importing one fails
+    here too (torch.hub, which tries tqdm, then takes its own fallback)."""
+    def find_spec(self, name, path=None, target=None):
+        if name.split('.')[0] in ('pandas', 'tqdm', 'joblib'):
+            raise ModuleNotFoundError('No module named %r' % name)
+
+
+sys.meta_path.insert(0, Absent())
+import numpy as np
+import pytorch_sound_tpu_torch.examples.hifi_gan  # noqa: F401
+from pytorch_sound_tpu_torch import settings  # noqa: F401
+from pytorch_sound_tpu_torch.data.meta import ljspeech, libri_tts, voice_bank  # noqa: F401
+from pytorch_sound_tpu_torch.data.meta.vctk import VCTKMeta, get_datasets
+from pytorch_sound_tpu_torch.utils import cli, text  # noqa: F401
+from pytorch_sound_tpu_torch.utils.wavio import write_wav
+root = tempfile.mkdtemp()
+rng = np.random.default_rng(0)
+for s in range(2):
+    spk = 'p%03d' % (225 + s)
+    for sub in ('wav', 'txt'):
+        os.makedirs(os.path.join(root, 'raw', spk, sub))
+    for u in range(12):
+        key = '%s_%03d' % (spk, u)
+        write_wav(os.path.join(root, 'raw', spk, 'wav', key + '.wav'),
+                  rng.standard_normal(int(22050 * 2.2)) * 0.1, 22050, dtype='int16')
+        with open(os.path.join(root, 'raw', spk, 'txt', key + '.txt'), 'w') as f:
+            f.write('utterance %d.' % u)
+random.seed(0)
+VCTKMeta(os.path.join(root, 'meta')).make_meta(os.path.join(root, 'raw'))
+train, valid = get_datasets(os.path.join(root, 'meta'), 2, 2, fix_len=4096, pad_multiple=4096)
+wav, speaker, ids = next(iter(train))
+assert wav.shape == (2, 4096) and speaker.dtype == np.int64, (wav.shape, speaker.dtype)
+assert len(list(valid)) == 1
+forbidden = ('jax', 'jaxlib', 'flax', 'pytorch_sound_tpu', 'pandas', 'tqdm', 'joblib')
+loaded = sorted(m for m in sys.modules if m.split('.')[0] in forbidden)
+print('LOADED', loaded)
+assert not loaded, loaded
+'''
+
+
 def _run(script, *args):
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [ROOT] + [p for p in os.environ.get('PYTHONPATH', '').split(os.pathsep) if p]))
@@ -154,3 +200,11 @@ def test_attention_path_loads_neither_jax_nor_the_jax_package():
     kernels' backend, forward and backward on the CPU: the plain versions,
     no kernel library, no launch."""
     _run(ATTENTION_SCRIPT)
+
+
+def test_data_layer_loads_neither_jax_nor_pandas():
+    """The data layer and the recipe's module, with pandas, tqdm and joblib
+    made unimportable, as where the port runs: a VCTK meta made from wav
+    files and its loaders (with worker threads) draw batches, and none of
+    those, jax, flax or the JAX package is loaded."""
+    _run(DATA_SCRIPT)

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's HiFi-GAN serving and training paths, and the
-training recipe from wav files on disk, once on one GPU.
+training recipe from wav files on disk, and the DSP layer with the VoiceBank
+enhancement recipe, once on one GPU.
 
     python3 chip_smoke.py
 
@@ -82,11 +83,27 @@ Phases, one line each; any failure raises and the script exits non-zero:
    whose step-6 checkpoint equals the first run's bit for bit, 2 steps on
    the default (cuDNN) route, and ``python -m
    pytorch_sound_tpu_torch.examples.hifi_gan vctk ...`` once as a command;
-   the loader's ms per batch beside the recipe's and phase 8's step times.
+   the loader's ms per batch beside the recipe's and phase 8's step times;
+12. the DSP layer and the VoiceBank enhancement recipe: the log-mel kernel
+   on its direct DFT path (n_fft 400 / 100 at 16 kHz, 1000 / 250, 128 / 32,
+   8192 / 2048; both conventions against the plain version in fp64, reruns
+   bit-identical) and K4's backward there; the transforms' main path
+   (``LogMelSpectrogram`` on (N, T) and (N, 1, T), ``MFCC``, and
+   ``LogMelSpectrogram`` at 16 kHz, 400 / 100) with exact launch counts;
+   timings at 16 x 4 s; then a VoiceBank tree under ``$TMPDIR`` (56 pairs,
+   int16), its metas, the loader alone, ``examples.voice_bank.main`` with
+   ``spec_masker_base`` at 8 x 32768 for 6 steps and 3 steps plus a resume
+   to 6 (step-6 checkpoints equal bit for bit), one step on the card
+   against the CPU, the in-memory step time; ``enhance`` at 8 x 32768
+   against the CPU, its identity-mask round trip and time,
+   ``multi_stft_loss`` and the PQMF round trip against the CPU.
 
 The line before the last is a JSON object with one entry per kernel, each
 with its time, its plain version's, the least time the card could take for
 the same work (``bound_ms``, from the shapes, at the H100's published peaks;
+for K2's direct path, ``logmel_direct``, and K4's backward there an FFT's
+operations as for the FFT path, the direct DFT's beside them as
+``dft_bound_ms`` and ``direct_bwd_dft_bound_ms``;
 for K5 from the valid keys only, the count of the keys each kernel processes
 beside it as ``implemented_bound_ms``, and for the kernels that run 3xTF32
 on the tensor cores, K5's three and K6's dw, the same FLOPs three times at
@@ -101,6 +118,7 @@ others). The last line is
 
 import itertools
 import json
+import logging
 import os
 import shutil
 import subprocess
@@ -1162,6 +1180,29 @@ def same_state(a, b):
     return a == b
 
 
+class LogLines(logging.Handler):
+    """The trainer's log lines with their times, and the scalars of its
+    'train' lines by step."""
+
+    def __init__(self):
+        super().__init__()
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append((record.created, record.getMessage()))
+
+    def train_steps(self):
+        """({step: {name: value}}, {step: time}) of the 'train' lines."""
+        steps, times = {}, {}
+        for created, msg in self.lines:
+            parts = msg.split('\t')
+            if parts[0] == 'train':
+                step = int(parts[1].split()[0])
+                steps[step] = {k: float(v) for k, v in (p.split(': ') for p in parts[2:])}
+                times[step] = created
+        return steps, times
+
+
 def recipe_path(dev, card, k6_step_ms):
     """Phase 11: the recipe from wav files on disk. A VCTK tree under $TMPDIR,
     the port's metas of it, then ``examples.hifi_gan.main`` on the K6 route
@@ -1169,7 +1210,6 @@ def recipe_path(dev, card, k6_step_ms):
     the first run's bit for bit), on the default route (2 steps), and once
     as a command. Returns the K2, K4, K4-backward and K6 (forward, dx, dw)
     launches of the in-process runs."""
-    import logging
     import random
     import torch
     from pytorch_sound_tpu_torch.data.meta.vctk import VCTKMeta, get_datasets
@@ -1184,22 +1224,13 @@ def recipe_path(dev, card, k6_step_ms):
                 gc.conv1d_forward, gc.conv1d_input_grad, gc.conv1d_weight_grad)
     totals = np.zeros(6, dtype=np.int64)
 
-    class Lines(logging.Handler):
-        """The trainer's log lines with their times."""
-        def __init__(self):
-            super().__init__()
-            self.lines = []
-
-        def emit(self, record):
-            self.lines.append((record.created, record.getMessage()))
-
     def run_main(meta, save_dir, max_step, save_interval=3, **kw):
         """main() with every counter from zero; returns (best, launches (K2,
         K4, K4 bwd, K6 fwd, dx, dw), {step: logged scalars}, step times)."""
         for c in counters:
             c.launches = 0
         lm.fused_hifigan_mel_trainable.bwd_launches = 0
-        lines = Lines()
+        lines = LogLines()
         LOGGER.addHandler(lines)
         np.random.seed(0)
         torch.manual_seed(0)
@@ -1215,14 +1246,7 @@ def recipe_path(dev, card, k6_step_ms):
                     lm.fused_hifigan_mel_trainable.bwd_launches,
                     *(c.launches for c in counters[2:]))
         totals[:] += launches
-        steps, times = {}, {}
-        for created, msg in lines.lines:
-            parts = msg.split('\t')
-            if parts[0] == 'train':
-                step = int(parts[1].split()[0])
-                steps[step] = {k: float(v) for k, v in (p.split(': ') for p in parts[2:])}
-                times[step] = created
-        return best, launches, steps, times
+        return (best, launches, *lines.train_steps())
 
     def expected(kernel, steps, valid):
         gen = build_model('hifi_gan_v2')
@@ -1685,6 +1709,391 @@ def attention_path(dev, card):
             for i, e in enumerate(('fwd', 'dkv', 'dq'))]
 
 
+# the direct path's geometries: (sample rate, n_fft, hop, mels, fmax)
+DIRECT_GEOMETRIES = ((16000, 400, 100, 80, 8000.0), (22050, 1000, 250, 80, 8000.0),
+                     (8000, 128, 32, 40, None), (22050, 8192, 2048, 80, None))
+ENH_BATCH, ENH_SEG = 8, 32768     # the VoiceBank recipe's defaults (examples/voice_bank.py)
+ENH_RT_TOL = 1e-4                 # enhance with an identity mask vs its input, away from the edges
+PQMF_TOL = 1e-5                   # PQMF card vs CPU, ratio to max abs (tests/test_dsp.py:197)
+ENH_LOSSES = ('loss', 'mag_l1', 'log_l1')
+
+
+def direct_work(b, t, frames, n_fft, f_used, nnz, n_mels):
+    """(fp32 FLOPs, fp64 FLOPs, bytes) of the direct DFT K2's direct path
+    runs on b items of t samples, ``frames`` frames each: 2 FMAs per sample,
+    used bin and frame in fp64, the band mel in fp32 (2 per nonzero of the
+    filterbank); the waveform read and the log-mel written once. Kept as
+    ``dft_bound_ms`` beside the bound of the function (an FFT's work)."""
+    n = b * frames
+    return 2.0 * nnz * n, 4.0 * f_used * n_fft * n, 4.0 * (b * t + n_mels * n)
+
+
+def direct_bwd_work(b, t, frames, n_fft, hop, f_used, nnz, n_mels):
+    """(fp32 FLOPs, fp64 FLOPs, bytes) of the work K4's backward runs on the
+    direct path: the forward's DFT and band mel recomputed, dmag (2 per
+    nonzero), the bins' gradients (~12 per used bin), the adjoint DFT (2
+    FMAs per sample, used bin and frame), the window, and the overlap-add
+    (n_fft / hop adds per sample); the waveform and the mel's gradient read
+    and the waveform's gradient written once. Kept as
+    ``direct_bwd_dft_bound_ms`` beside the bound of the function
+    (:func:`logmel_bwd_work`, an inverse FFT's work)."""
+    n = b * frames
+    fp64 = (8.0 * f_used * n_fft + 2.0 * nnz + 12.0 * f_used + n_fft) * n \
+        + (n_fft // hop) * b * t
+    return 2.0 * nnz * n, fp64, 4.0 * (2 * b * t + n_mels * n)
+
+
+def dsp_path(dev, card, rng):
+    """Phase 12: K2 on its direct path (and K4's backward there), the
+    transforms' main path on K2, the VoiceBank recipe from disk, and
+    enhance. Returns the main path's K2 launches on the FFT path (those on
+    the direct path are the ``logmel_direct`` entry's), the JSON entry of
+    K2's direct path and the direct backward's keys for K4's entry."""
+    import copy
+    import random
+    import torch
+    from pytorch_sound_tpu_torch.data.meta.voice_bank import VoiceBankMeta, get_datasets
+    from pytorch_sound_tpu_torch.examples import voice_bank as vb
+    from pytorch_sound_tpu_torch.models import build_model, transforms as T
+    from pytorch_sound_tpu_torch.ops import mel as mel_ops, pqmf as pqmf_ops
+    from pytorch_sound_tpu_torch.ops import sound as sound_ops
+    from pytorch_sound_tpu_torch.ops.cuda import logmel as lm
+    from pytorch_sound_tpu_torch.trainer import adam
+    from pytorch_sound_tpu_torch.utils.commons import LOGGER
+    from pytorch_sound_tpu_torch.utils.wavio import write_wav
+
+    # 12a. K2 at n_fft off the FFT path (the direct DFT): both conventions,
+    #      noise and tones, against the plain version in fp64, one launch
+    #      each, reruns bit-identical
+    worst = 0.0
+    for sr, n_fft, hop, n_mels, fmax in DIRECT_GEOMETRIES:
+        filt = mel_ops.cached_mel_filter(sr, n_fft, n_mels, 0.0, fmax)
+        lo, hi = mel_ops.db_to_log(-100.0), mel_ops.db_to_log(20.0)
+        hpad = (n_fft - hop) // 2
+        conventions = {
+            'centered': (dict(min_db=-100.0, max_db=20.0), dict(pad=n_fft // 2, lo=lo, hi=hi)),
+            'hifigan': (dict(pad=hpad, power_eps=1e-9, log_floor=1e-5),
+                        dict(pad=hpad, power_eps=1e-9, log_floor=1e-5))}
+        t = 3 * sr + 17
+        for kind, wav in (('noise', rng.standard_normal((4, t)) * 0.2),
+                          ('tones', tones(rng, 4, t, am=False))):
+            x = torch.from_numpy(wav.astype(np.float32)).to(dev)
+            for conv, (kw, plain_kw) in conventions.items():
+                before = (lm.fused_log_mel.launches, lm.fused_log_mel.direct_launches)
+                ker = lm.fused_log_mel(x, sr, n_mels, n_fft, n_fft, hop, mel_max=fmax, **kw)
+                launched = (lm.fused_log_mel.launches - before[0],
+                            lm.fused_log_mel.direct_launches - before[1])
+                rerun = torch.equal(ker, lm.fused_log_mel(x, sr, n_mels, n_fft, n_fft, hop,
+                                                          mel_max=fmax, **kw))
+                ref64 = mel_ops.log_mel(x.double(), filt, n_fft, hop, n_fft, **plain_kw)
+                torch.cuda.synchronize()
+                err = max_err(ker.double(), ref64)
+                worst = max(worst, err)
+                log('direct', n_fft=n_fft, hop=hop, sr=sr, convention=conv, signal=kind,
+                    shape=tuple(ker.shape), launches='%d/%d' % launched,
+                    vs_fp64='%.3g' % err, rerun_bit_identical=rerun)
+                assert ker.shape == ref64.shape and launched == (1, 1), (n_fft, launched)
+                assert err <= MEL_TOL and rerun, (n_fft, conv, kind, err, rerun)
+
+    #     K4's backward on the direct path (16 kHz, 400 / 100) against
+    #     autograd of the plain version in fp64 on noise and tones, and of
+    #     the fp32 plain version on noise, each relative to its largest
+    #     entry (on tones the fp32 plain version is itself ~1e-3 off fp64
+    #     there: the gradient reaches ~1e3 through 1 / mel in quiet bands)
+    k4_geom = dict(sampling_rate=16000, n_fft=400, window_size=400, hop_size=100, num_mels=80,
+                   fmax=8000.0)
+
+    def k4_mel(x):
+        return lm.fused_log_mel(x, 16000, 80, 400, 400, 100, mel_max=8000.0, pad=150,
+                                power_eps=1e-9, log_floor=1e-5)
+
+    bwd_err = bwd_rel = 0.0
+    for kind, wav in (('noise', rng.standard_normal((4, 3 * 16000)) * 0.2),
+                      ('tones', tones(rng, 4, 3 * 16000, am=False))):
+        x = torch.from_numpy(wav.astype(np.float32)).to(dev)
+        cot = torch.cos(k4_mel(x))
+        before = lm.fused_hifigan_mel_trainable.bwd_launches
+        got = lm.hifigan_mel_backward(x, cot, **k4_geom)
+        launched = lm.fused_hifigan_mel_trainable.bwd_launches - before
+        rerun = torch.equal(got, lm.hifigan_mel_backward(x, cot, **k4_geom))
+        ref = lm.hifigan_mel_vjp(x, cot, **k4_geom)
+        ref64 = lm.hifigan_mel_vjp(x.double(), cot.double(), **k4_geom)
+        torch.cuda.synchronize()
+        err = max_err(got, ref) / float(ref.abs().max())
+        rel64 = max_err(got.double(), ref64) / float(ref64.abs().max())
+        bwd_rel = max(bwd_rel, rel64)
+        if kind == 'noise':
+            bwd_err = err
+        log('k4_bwd', geometry='16k_400_100', signal=kind, launches=launched,
+            vs_plain_rel='%.3g' % err, vs_fp64_rel='%.3g' % rel64,
+            grad_max='%.3g' % float(ref.abs().max()), rerun_bit_identical=rerun)
+        assert launched == 1 and rerun and rel64 <= GRAD_TOL, (kind, launched, rerun, rel64)
+        assert kind == 'tones' or err <= GRAD_TOL, (kind, err)
+
+    #     the main path: LogMelSpectrogram at the settings' geometry (the FFT
+    #     path) on (N, T) and (N, 1, T), MFCC on (N, 1, T), and
+    #     LogMelSpectrogram at 16 kHz, 400 / 100 (the direct path) on
+    #     (N, 1, T); counters from zero
+    settings_args = (SR, 80, 1024, 1024, 256, -50, 30, 0, 8000)
+    wav8 = torch.from_numpy(tones(rng, ENH_BATCH, ENH_SEG)).to(dev)
+    wav16 = torch.from_numpy(tones(rng, 16, 4 * 16000)).to(dev)
+    speech16 = (16000, 80, 400, 400, 100, -50, 30, 0, 8000)
+    lm.fused_log_mel.launches = lm.fused_log_mel.direct_launches = 0
+    lms = T.LogMelSpectrogram(*settings_args)
+    mel2, mel3 = lms(wav8), lms(wav8[:, None])
+    mfcc = T.MFCC(SR, 80, 1024, 1024, 40, 256, -50, 30, 0, 8000)(wav8[:, None])
+    mel16 = T.LogMelSpectrogram(*speech16)(wav16[:, None])
+    torch.cuda.synchronize()
+    main_launches = (lm.fused_log_mel.launches, lm.fused_log_mel.direct_launches)
+    err2 = max_err(mel2.double(), mel_ops.log_mel_spectrogram(wav8.double(), *settings_args))
+    err16 = max_err(mel16[:, 0].double(), mel_ops.log_mel_spectrogram(wav16.double(), *speech16))
+    mfcc_err = max_err(mfcc, mel_ops.mel_to_mfcc(mel3, 40, 80))
+    log('counts', what='transforms', logmel=main_launches[0], logmel_direct=main_launches[1],
+        settings_vs_fp64='%.3g' % err2, speech16k_vs_fp64='%.3g' % err16,
+        rank3_bit_identical=torch.equal(mel3[:, 0], mel2), mfcc_vs_dct='%.3g' % mfcc_err,
+        shapes='%s/%s/%s/%s' % (tuple(mel2.shape), tuple(mel3.shape), tuple(mfcc.shape),
+                                tuple(mel16.shape)))
+    assert main_launches == (4, 1), main_launches
+    assert mel3.shape == (ENH_BATCH, 1, 80, ENH_SEG // 256 + 1) and torch.equal(mel3[:, 0], mel2)
+    assert mfcc.shape == (ENH_BATCH, 1, 40, ENH_SEG // 256 + 1) and mfcc_err <= 1e-5
+    assert mel16.shape == (16, 1, 80, 641) and max(err2, err16) <= MEL_TOL, (err2, err16)
+    worst = max(worst, err2, err16)
+    #     the kernel has no gradient and takes float32: the transform raises
+    #     on the card where the CPU's plain version would differentiate or
+    #     run in float64
+    for arg, error in ((wav8.clone().requires_grad_(True), RuntimeError),
+                       (wav8.double(), ValueError)):
+        try:
+            lms(arg)
+        except error:
+            continue
+        raise AssertionError('LogMelSpectrogram took %s input that requires grad %s on the card'
+                             % (arg.dtype, arg.requires_grad))
+
+    #     timings at 16 kHz, 400 / 100, 16 x 4 s: K2 (LogMelSpectrogram's
+    #     geometry) and K4's backward (the HiFi-GAN convention) against their
+    #     plain versions
+    c = lm._constants(16000, 400, 400, 80, 0.0, 8000.0, str(dev))
+    f_used, nnz = c.mel_w.shape[1], int((c.mel_w != 0).sum())
+    x16 = wav16
+    with torch.inference_mode():
+        k_ms, p_ms, k_runs, p_runs = paired_ms(
+            lambda: mel_ops.log_mel_spectrogram(x16, *speech16),
+            lambda: lm.fused_log_mel(x16, 16000, 80, 400, 400, 100, -50, 30, 0, 8000), 20)
+    frames = 1 + x16.shape[1] // 100
+    k_bound, k_bound_by = bound(2.0 * nnz * 16 * frames, fft_flops(400, f_used) * 16 * frames,
+                                4.0 * (x16.numel() + 16 * 80 * frames),
+                                fp64_peak=PEAK_FP64_CUDA_CORES)
+    dft_bound, _ = bound(*direct_work(16, x16.shape[1], frames, 400, f_used, nnz, 80),
+                         fp64_peak=PEAK_FP64_CUDA_CORES)
+    cot16 = torch.cos(k4_mel(x16))
+    b_ms, bp_ms, b_runs, bp_runs = paired_ms(
+        lambda: lm.hifigan_mel_vjp(x16, cot16, **k4_geom),
+        lambda: lm.hifigan_mel_backward(x16, cot16, **k4_geom), 10)
+    bframes = cot16.shape[-1]
+    assert bframes == logmel_frames(x16.shape[1], 400, 100), bframes
+    b_bound, b_bound_by = bound(*logmel_bwd_work(16, x16.shape[1], f_used, nnz, 80, 400, 100),
+                                fp64_peak=PEAK_FP64_CUDA_CORES)
+    b_dft_bound, _ = bound(*direct_bwd_work(16, x16.shape[1], bframes, 400, 100, f_used,
+                                            nnz, 80), fp64_peak=PEAK_FP64_CUDA_CORES)
+    log('time', card=repr(card), what='k2_direct_16x4s_16k_400_100', kernel_ms='%.4f' % k_ms,
+        plain_ms='%.4f' % p_ms, kernel_runs='%.4f,%.4f' % k_runs,
+        plain_runs='%.4f,%.4f' % p_runs, bound_ms='%.5f' % k_bound, bound_by=k_bound_by,
+        dft_bound_ms='%.5f' % dft_bound, bwd_kernels_ms='%.4f' % b_ms,
+        plain_vjp_ms='%.4f' % bp_ms, bwd_runs='%.4f,%.4f' % b_runs,
+        plain_vjp_runs='%.4f,%.4f' % bp_runs, bwd_bound_ms='%.5f' % b_bound,
+        bwd_bound_by=b_bound_by, bwd_dft_bound_ms='%.5f' % b_dft_bound)
+    entry = {'name': 'logmel_direct', 'route': 'cuda', 'source': lm.SOURCE,
+             'replaces': 'pytorch_sound_tpu/ops/pallas/logmel.py:157',
+             'launches': main_launches[1], 'max_abs_err': worst, 'ms': k_ms, 'plain_ms': p_ms,
+             'bound_ms': k_bound, 'bound_by': k_bound_by, 'dft_bound_ms': dft_bound,
+             'shape': '16x64000_16k_400_100', 'library_ms': None}
+    k4_direct = {'direct_bwd_ms': b_ms, 'direct_plain_vjp_ms': bp_ms,
+                 'direct_bwd_bound_ms': b_bound, 'direct_bwd_bound_by': b_bound_by,
+                 'direct_bwd_dft_bound_ms': b_dft_bound,
+                 'direct_bwd_rel_err': bwd_err, 'direct_bwd_fp64_rel_err': bwd_rel}
+
+    # 12b. the recipe from disk: a VoiceBank tree (tones plus white noise, as
+    #      tests/test_e2e_voicebank.py:27-48), its metas, the loader alone,
+    #      main() with spec_masker_base at 8 x 32768 for 6 steps, and 3 steps
+    #      plus a resume to 6 whose step-6 checkpoint equals the first run's
+    deterministic = torch.backends.cudnn.deterministic
+    work = tempfile.mkdtemp(prefix='chip_smoke_vb_')
+    try:
+        vrng = np.random.default_rng(12)
+        raw = os.path.join(work, 'raw')
+        os.makedirs(os.path.join(raw, 'txt'))
+        n_bytes = 0
+        for phase, speakers in (('trainset', ('p280', 'p282')), ('validset', ('p281',))):
+            for kind in ('clean', 'noisy'):
+                os.makedirs(os.path.join(raw, '%s_%s_wav' % (phase, kind)))
+            for spk in speakers:
+                for u in range(24 if phase == 'trainset' else 8):
+                    key = '%s_%03d' % (spk, u)
+                    n = int(SR * vrng.uniform(2.5, 3.5))
+                    tt = np.arange(n) / SR
+                    clean = 0.3 * np.sin(2 * np.pi * vrng.uniform(100, 400) * tt)
+                    noisy = clean + 0.1 * vrng.standard_normal(n)
+                    for kind, sig in (('clean', clean), ('noisy', noisy)):
+                        path = os.path.join(raw, '%s_%s_wav' % (phase, kind), key + '.wav')
+                        write_wav(path, np.clip(sig, -1, 1).astype(np.float32), SR,
+                                  dtype='int16')
+                        n_bytes += os.path.getsize(path)
+                    with open(os.path.join(raw, 'txt', key + '.txt'), 'w') as f:
+                        f.write('synthetic utterance %d.' % u)
+        meta = os.path.join(work, 'meta')
+        random.seed(0)
+        t0 = time.perf_counter()
+        VoiceBankMeta(meta).make_meta(raw, 2, 15, 0)
+        meta_s = time.perf_counter() - t0
+        rows = [len(VoiceBankMeta(os.path.join(meta, name))) for name in META_FILES]
+        log('meta', what='voice_bank', wav_mb='%.1f' % (n_bytes / 1e6),
+            rows='/'.join(map(str, rows)), seconds='%.3f' % meta_s)
+        assert rows == [56, 48, 8], rows
+
+        loader_ms = {0: [], 2: []}
+        for workers in (0, 0, 2, 2, 0):
+            train, _ = get_datasets(meta, ENH_BATCH, workers, fix_len=ENH_SEG,
+                                    pad_multiple=ENH_SEG)
+            t0 = time.perf_counter()
+            batches = list(train)
+            loader_ms[workers].append((time.perf_counter() - t0) / len(batches) * 1e3)
+            assert len(batches) == 6 and batches[0][0].shape == (ENH_BATCH, ENH_SEG)
+        loader_ms[0].pop(0)
+
+        def run_main(save_dir, max_step):
+            lines = LogLines()
+            LOGGER.addHandler(lines)
+            np.random.seed(0)
+            torch.manual_seed(0)
+            try:
+                best = vb.main(meta, save_dir, batch_size=ENH_BATCH, num_workers=0,
+                               fix_len=ENH_SEG, max_step=max_step, valid_max_step=1,
+                               save_interval=3, log_interval=1, device=str(dev))
+                torch.cuda.synchronize()
+            finally:
+                LOGGER.removeHandler(lines)
+            return (best, *lines.train_steps())
+
+        torch.backends.cudnn.deterministic = True
+        save_a, save_b = os.path.join(work, 'save_a'), os.path.join(work, 'save_b')
+        t0 = time.perf_counter()
+        best, steps, times = run_main(save_a, 6)
+        main_s = time.perf_counter() - t0
+        for s_ in sorted(steps):
+            log('train', route='voice_bank', step=s_,
+                **{k: '%.6f' % steps[s_][k] for k in ENH_LOSSES})
+        assert sorted(steps) == list(range(1, 7)), sorted(steps)
+        assert all(np.isfinite(m[k]) for m in steps.values() for k in ENH_LOSSES), steps
+        assert np.isfinite(best), best
+        ckpt = os.path.join(save_a, 'models', 'voice_bank', 'SpectrogramMaskNet')
+        assert sorted(os.listdir(ckpt)) == ['step_000003.chkpt', 'step_000006.chkpt']
+        wall = [(times[i + 1] - times[i]) * 1e3 for i in (1, 2, 4, 5)]
+        trainer_ms = 1e3 / steps[6]['steps_per_sec']
+        run_main(save_b, 3)
+        _, steps_b, _ = run_main(save_b, 6)
+        states = [torch.load(os.path.join(d, 'models', 'voice_bank', 'SpectrogramMaskNet',
+                                          'step_000006.chkpt'),
+                             map_location='cpu', weights_only=True) for d in (save_a, save_b)]
+        same = same_state(*states)
+        log('resume', route='voice_bank', steps='4-6', logged=sorted(steps_b),
+            checkpoint_bit_identical=same, seconds='%.1f' % main_s,
+            best_valid_loss='%.6f' % best)
+        assert sorted(steps_b) == [4, 5, 6] and same, (sorted(steps_b), same)
+        torch.backends.cudnn.deterministic = deterministic
+
+        #     one step on the card against the same step on the CPU, from the
+        #     same weights (spec_masker_base from seed 0) and a batch of the
+        #     loader; then the in-memory step time and peak memory
+        torch.manual_seed(0)
+        model = build_model('spec_masker_base')
+        cpu_model = copy.deepcopy(model)
+        noisy, clean = next(iter(get_datasets(meta, ENH_BATCH, 0, fix_len=ENH_SEG,
+                                              pad_multiple=ENH_SEG)[0]))[:2]
+        trainers, results = [], []
+        for device, m in ((dev, model), ('cpu', cpu_model)):
+            t = vb.VoiceBankTrainer(m, adam(m.parameters(), 2e-4), None, None, max_step=1,
+                                    valid_max_step=1, save_interval=10 ** 9,
+                                    log_interval=10 ** 9, save_dir=os.path.join(work, 'step'),
+                                    grad_norm=5.0, seed=1, device=device)
+            loss, meta_ = t._train_step(t.to_device([noisy, clean]), is_logging=True)
+            results.append(({k: float(meta_[k][0].detach()) for k in ENH_LOSSES},
+                            {k: p.grad.detach().cpu().double() for k, p in m.named_parameters()}))
+            trainers.append(t)
+        (card_l, card_g), (cpu_l, cpu_g) = results
+        loss_rel = max(abs(card_l[k] - cpu_l[k]) / abs(cpu_l[k]) for k in ENH_LOSSES)
+        grad_rel, worst_grad = max((float((card_g[k] - g).norm()) / max(float(g.norm()), 1e-30),
+                                    k) for k, g in cpu_g.items())
+        log('card_cpu', route='voice_bank', losses=card_l, worst_loss_rel='%.3g' % loss_rel,
+            worst_grad_rel='%.3g' % grad_rel, worst_grad_param=worst_grad,
+            params=sum(p.numel() for p in model.parameters()))
+        assert loss_rel <= CARD_CPU_RTOL and grad_rel <= CARD_CPU_GRAD_TOL, \
+            (loss_rel, grad_rel, worst_grad)
+
+        t = trainers[0]
+        batch = t.to_device([noisy, clean])
+        for _ in range(3):
+            t._train_step(batch, is_logging=False)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        step_ms = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            t._train_step(batch, is_logging=False)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+
+        # 12c. enhance at 8 x 32768: against the CPU from the same weights, an
+        #      identity mask's round trip, its time; multi_stft_loss and the
+        #      PQMF round trip on the card against the CPU
+        model.eval()
+        cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+        noisy_d = batch[0]
+        out = vb.enhance(model, noisy_d)
+        cpu_out = vb.enhance(cpu_model, noisy_d.cpu())
+        ident = vb.enhance(torch.ones_like, noisy_d)
+        torch.cuda.synchronize()
+        enh_rel = max_err(out.cpu(), cpu_out) / float(cpu_out.abs().max())
+        rt_err = max_err(ident[:, 512:-512], noisy_d[:, 512:-512])
+        enh_ms = cuda_ms(lambda: vb.enhance(model, noisy_d), 10)
+        params = [(1024, 1024, 256), (2048, 2048, 512), (512, 512, 128)]
+        loss_d = sound_ops.multi_stft_loss(out, batch[1], params)
+        loss_c = sound_ops.multi_stft_loss(out.cpu(), batch[1].cpu(), params)
+        msl_rel = max(abs(float(a) - float(b)) / abs(float(b)) for a, b in zip(loss_d, loss_c))
+        sig = torch.from_numpy(tones(rng, ENH_BATCH, ENH_SEG)).to(dev)[:, None]
+        bands = pqmf_ops.analysis(sig)
+        rec = pqmf_ops.synthesis(bands)
+        rec_c = pqmf_ops.synthesis(pqmf_ops.analysis(sig.cpu()))
+        torch.cuda.synchronize()
+        pqmf_rel = max_err(rec.cpu(), rec_c) / float(rec_c.abs().max())
+        corr = min(float(np.corrcoef(r[0, 1:-1000], s[0, :-1001])[0, 1])
+                   for r, s in zip(rec.cpu().numpy(), sig.cpu().numpy()))
+        pqmf_ms = cuda_ms(lambda: pqmf_ops.synthesis(pqmf_ops.analysis(sig)), 10)
+        log('enhance', shape=tuple(out.shape), card_vs_cpu_rel='%.3g' % enh_rel,
+            identity_round_trip='%.3g' % rt_err, multi_stft_loss=[float(v) for v in loss_d],
+            multi_stft_loss_card_vs_cpu_rel='%.3g' % msl_rel, pqmf_bands=tuple(bands.shape),
+            pqmf_card_vs_cpu_rel='%.3g' % pqmf_rel, pqmf_round_trip_corr='%.5f' % corr)
+        assert out.shape == noisy_d.shape and bool(torch.isfinite(out).all())
+        assert enh_rel <= CARD_CPU_RTOL and rt_err <= ENH_RT_TOL, (enh_rel, rt_err)
+        assert msl_rel <= CARD_CPU_RTOL and pqmf_rel <= PQMF_TOL and corr > 0.98, \
+            (msl_rel, pqmf_rel, corr)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        shutil.rmtree(work, ignore_errors=True)
+
+    log('time', card=repr(card), what='voice_bank_8x32768', make_meta_s='%.3f' % meta_s,
+        loader_ms_per_batch_w0='/'.join('%.2f' % x for x in loader_ms[0]),
+        loader_ms_per_batch_w2='/'.join('%.2f' % x for x in loader_ms[2]),
+        main_step_wall_ms='/'.join('%.2f' % x for x in wall),
+        main_trainer_step_ms='%.2f' % trainer_ms,
+        in_memory_step_ms='%.3f' % float(np.median(step_ms)),
+        in_memory_step_ms_range='%.3f-%.3f' % (min(step_ms), max(step_ms)),
+        peak_memory_gb='%.3f' % peak_gb, enhance_ms='%.4f' % enh_ms,
+        pqmf_round_trip_ms='%.4f' % pqmf_ms)
+    return main_launches[0] - main_launches[1], entry, k4_direct
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2034,6 +2443,10 @@ def main():
     for entry, n in zip(k6_entries, recipe_launches[3:]):
         entry['launches'] += int(n)
 
+    # 12. the DSP layer and the VoiceBank enhancement recipe
+    dsp_logmel, direct_entry, k4_direct = dsp_path(dev, card, rng)
+    k4_entry.update(k4_direct)
+
     print(json.dumps({'kernels': [
         {'name': 'gen_stage', 'route': 'cuda', 'source': gs.SOURCE,
          'replaces': 'pytorch_sound_tpu/ops/pallas/gen_stage.py:282',
@@ -2043,10 +2456,11 @@ def main():
          'tc_bound_ms': st_tc, 'library_ms': None},
         {'name': 'logmel', 'route': 'cuda', 'source': lm.SOURCE,
          'replaces': 'pytorch_sound_tpu/ops/pallas/logmel.py:157',
-         'launches': launches['logmel'] + train_logmel + int(recipe_launches[0]),
+         'launches': launches['logmel'] + train_logmel + int(recipe_launches[0]) + dsp_logmel,
          'max_abs_err': errs['logmel'],
          'ms': enc_k, 'plain_ms': enc_p, 'bound_ms': enc_bound, 'bound_by': enc_bound_by,
          'dft_bound_ms': enc_dft_bound, 'stft_ms': stft_ms, 'library_ms': None},
+        direct_entry,
         k4_entry,
         *k6_entries,
         *v1_entries,

@@ -9,9 +9,12 @@ What runs today is the HiFi-GAN serving path (``interface.hifi_gan``): the
 log-mel encode and the v2 generator decode, with hand-written CUDA kernels for
 the fused generator stage and the log-mel frontend (``ops/cuda``, ``csrc/``);
 and HiFi-GAN adversarial training (``examples.hifi_gan.HiFiGANTrainer`` on
-``trainer.Trainer``, the MPD / MSD critics, the trainable log-mel K4); and the
+``trainer.Trainer``, the MPD / MSD critics, the trainable log-mel K4); the
 attention building blocks (``models.modules``, ``ops.attention``), whose
-blockwise route runs the flash-attention kernels.
+blockwise route runs the flash-attention kernels; and the DSP layer
+(``ops.stft``, ``ops.sound``, ``ops.pqmf``, ``models.transforms``,
+``models.sound``) with the VoiceBank enhancement recipe
+(``examples.voice_bank``, ``models.enhancement``).
 """
 
 __version__ = '0.1.0'

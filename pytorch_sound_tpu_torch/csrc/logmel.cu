@@ -22,7 +22,12 @@
 // scales with the frame's loudest partial, not with its own energy, and
 // shows in the log of quiet bands (~1e-4 on tones).
 //
-// The plan, per frame of N = n_fft samples (a power of two, 256 to 4096):
+// Two paths take every geometry the TPU kernel takes (n_fft == win, hop |
+// n_fft): the FFT below for a power-of-two n_fft from 256 to 4096, and a
+// direct DFT for every other n_fft (400 / 100 at 16 kHz, 1000 / 250, 128,
+// 8192; see "The direct path" further down).
+//
+// The FFT plan, per frame of N = n_fft samples (a power of two, 256 to 4096):
 //   - Packing: z[m] = x[2m] w[2m] + i x[2m+1] w[2m+1], m < M = N / 2, read
 //     straight from the block's span of the waveform in shared memory (the
 //     reflect pad is done by index when the span is staged; no padded copy).
@@ -76,6 +81,21 @@
 //      pads add the further reflections. Each position sums its frames f
 //      with f hop <= p < f hop + N in ascending f, in fp64. The order is
 //      fixed, so reruns are bit-identical.
+//
+// The direct path (any other n_fft), the design of the port's first K2:
+// a block owns W (8, 4, 2 or 1) consecutive frames of one item and stages
+// their span as above; each thread owns used bins k and keeps the W frames'
+// fp64 sums of x[n] w[n] e^(-2 pi i k n / N) in registers, one span sample
+// broadcast per frame and step. The twiddle runs as a recurrence
+// z <- z e^(-2 pi i k / N), re-read from the N-point fp64 table every
+// kSync steps (index k n mod N), so no sincos is called and the drift stays
+// at ~kSync ulps. Work is f_used N per frame instead of the FFT's
+// ~N log N: a simple kernel for the geometries that are not a power of two.
+// Magnitude, band mel and epilogue are the FFT path's. Its backward
+// recomputes X the same way (so the floor mask is the forward's), forms G
+// as above, and runs the adjoint per sample n: dframe[n] =
+// w[n] Re sum_{k < f_used} G[k] e^(+2 pi i k n / N), with the same
+// recurrence over k; then the shared overlap-add kernel.
 
 #include <cuda_runtime.h>
 
@@ -86,6 +106,9 @@ namespace {
 constexpr int kMaxFrames = 4;             // frames per block, at most
 constexpr int kMaxThreads = 256;          // threads per block, at most (M / 8 a frame)
 constexpr int kMaxSmem = 232448;          // bytes of shared memory a block may use
+constexpr int kDirectThreads = 256;       // threads per block of the direct path
+constexpr int kDirectFrames = 8;          // frames per block of the direct path, at most
+constexpr int kSync = 64;                 // recurrence steps between twiddle table reads
 
 __host__ __device__ constexpr int pidx(int i) { return i + (i >> 3); }
 
@@ -237,7 +260,7 @@ __device__ __forceinline__ void stage_span(float* xs, const float* __restrict__ 
 
 struct Consts {
   const double* win;        // (N,) window
-  const double2* tw;        // (M,) W_M^e
+  const double2* tw;        // (M,) W_M^e; the direct path: (N,) e^(-2 pi i j / N)
   const double2* st;        // (f_used,) e^(-2 pi i k / N)
   const float* mel_w;       // (n_mels, f_used)
   const int2* bands;        // (n_mels,) nonzero bins [k0, k1) of each mel
@@ -276,16 +299,21 @@ __device__ __forceinline__ void spectrum(const Layout& L, const Consts& c, char*
   __syncthreads();
 }
 
-// mel m of the block's frame f: the band's ascending fp32 sum.
-__device__ __forceinline__ float band_mel(const Layout& L, const Consts& c, const char* smem,
-                                          int m, int f) {
-  const float* mag = reinterpret_cast<const float*>(smem + L.buf()) +
-                     static_cast<size_t>(f) * c.f_used;
+// mel m of one frame's magnitudes (f_used of them): the band's ascending
+// fp32 sum.
+__device__ __forceinline__ float band_mel(const Consts& c, const float* mag, int m) {
   const int2 band = __ldg(c.bands + m);
   const float* wrow = c.mel_w + static_cast<size_t>(m) * c.f_used;
   float a = 0.f;
   for (int k = band.x; k < band.y; ++k) a = fmaf(__ldg(wrow + k), mag[k], a);
   return a;
+}
+
+// log(max(a, floor)) or log(a + offset), clipped to [lo, hi].
+__device__ __forceinline__ float log_mel(float a, float log_floor, float log_offset,
+                                         float lo, float hi) {
+  const float v = log_floor > 0.f ? logf(fmaxf(a, log_floor)) : logf(a + log_offset);
+  return fminf(fmaxf(v, lo), hi);
 }
 
 template <int LOG_M>
@@ -304,19 +332,17 @@ __global__ void __launch_bounds__(kMaxThreads) logmel_fft_kernel(const float* __
     const int m = e / L.w;
     const int fe = e % L.w;
     if (f0 + fe >= n_frames) continue;
-    const float a = band_mel(L, c, smem, m, fe);
-    float v = log_floor > 0.f ? logf(fmaxf(a, log_floor)) : logf(a + log_offset);
-    v = fminf(fmaxf(v, lo), hi);
-    out[(static_cast<size_t>(b) * c.n_mels + m) * n_frames + f0 + fe] = v;
+    const float* mag = reinterpret_cast<const float*>(smem + L.buf()) +
+                       static_cast<size_t>(fe) * c.f_used;
+    out[(static_cast<size_t>(b) * c.n_mels + m) * n_frames + f0 + fe] =
+        log_mel(band_mel(c, mag, m), log_floor, log_offset, lo, hi);
   }
 }
 
-// G[k] = dmag (re + i im) / mag for bin k (zero past the used bins), from the
-// block's dmel and the frame's Z pair (za = Z[k mod M], zb = Z[(M-k) mod M]).
-__device__ __forceinline__ double2 bin_grad(const Consts& c, const float* dmel, int k,
-                                            double2 za, double2 zb) {
-  if (k >= c.f_used) return make_double2(0.0, 0.0);
-  const double2 x = split(za, zb, __ldg(c.st + k));
+// G[k] = dmag (re + i im) / mag for used bin k of spectrum value x, from the
+// frame's dmel.
+__device__ __forceinline__ double2 spectrum_grad(const Consts& c, const float* dmel, int k,
+                                                 double2 x) {
   const double mag = sqrt(x.x * x.x + x.y * x.y + static_cast<double>(c.power_eps));
   const int2 ms = __ldg(c.bin_mels + k);
   double dmag = 0.0;
@@ -325,6 +351,14 @@ __device__ __forceinline__ double2 bin_grad(const Consts& c, const float* dmel, 
                static_cast<double>(dmel[m]), dmag);
   const double s = dmag / mag;
   return make_double2(s * x.x, s * x.y);
+}
+
+// G[k] (zero past the used bins) from the frame's Z pair (za = Z[k mod M],
+// zb = Z[(M-k) mod M]).
+__device__ __forceinline__ double2 bin_grad(const Consts& c, const float* dmel, int k,
+                                            double2 za, double2 zb) {
+  if (k >= c.f_used) return make_double2(0.0, 0.0);
+  return spectrum_grad(c, dmel, k, split(za, zb, __ldg(c.st + k)));
 }
 
 template <int LOG_M>
@@ -349,7 +383,8 @@ __global__ void __launch_bounds__(kMaxThreads) logmel_frame_grad_kernel(const fl
     const int fe = e % L.w;
     float d = 0.f;
     if (f0 + fe < n_frames) {
-      const float a = band_mel(L, c, smem, m, fe);
+      const float a = band_mel(c, reinterpret_cast<const float*>(smem + L.buf()) +
+                                      static_cast<size_t>(fe) * c.f_used, m);
       if (a >= log_floor)
         d = grad[(static_cast<size_t>(b) * c.n_mels + m) * n_frames + f0 + fe] / a;
     }
@@ -452,17 +487,163 @@ __global__ void logmel_overlap_add_kernel(const float* __restrict__ dframes,
   dwav[static_cast<size_t>(b) * t + s] = static_cast<float>(acc);
 }
 
+// ---- The direct path: any n_fft, an fp64 DFT per frame over the used bins.
+
+struct DLayout {            // one direct-path block's shared memory, in bytes
+  int w, n_fft, f_used, n_mels, span;
+  bool grad;                // the backward also keeps X (then G) and dmel
+  __host__ __device__ size_t spec() const {
+    return grad ? static_cast<size_t>(w) * f_used * 16 : 0;
+  }
+  __host__ __device__ size_t mag() const { return static_cast<size_t>(w) * f_used * 4; }
+  __host__ __device__ size_t mel() const {
+    return grad ? static_cast<size_t>(w) * n_mels * 4 : 0;
+  }
+  __host__ __device__ size_t bytes() const {
+    return spec() + mag() + mel() + static_cast<size_t>(span) * 4;
+  }
+};
+
+// The block's W frames up to the magnitudes: stage the span, then per used
+// bin k the W frames' windowed DFT sums in registers. c.tw is the N-point
+// table e^(-2 pi i j / N). With `spec` the spectrum X is kept too.
+template <int W>
+__device__ __forceinline__ void direct_spectrum(const DLayout& L, const Consts& c, char* smem,
+                                                const float* __restrict__ wb, int t, int pad,
+                                                int hop, int f0, double2* spec) {
+  const int n_fft = L.n_fft;
+  float* mag = reinterpret_cast<float*>(smem + L.spec());
+  float* xs = reinterpret_cast<float*>(smem + L.spec() + L.mag() + L.mel());
+  stage_span(xs, wb, t, pad, f0, hop, L.span);
+  __syncthreads();
+  for (int k = threadIdx.x; k < c.f_used; k += blockDim.x) {
+    double re[W], im[W];
+#pragma unroll
+    for (int f = 0; f < W; ++f) re[f] = im[f] = 0.0;
+    const double2 step = __ldg(c.tw + k);                  // e^(-2 pi i k / N)
+    for (int n0 = 0; n0 < n_fft; n0 += kSync) {
+      double2 z = __ldg(c.tw + static_cast<long long>(k) * n0 % n_fft);
+      const int n1 = n0 + kSync < n_fft ? n0 + kSync : n_fft;
+      for (int n = n0; n < n1; ++n) {
+        const double wn = __ldg(c.win + n);
+        const double zr = z.x * wn, zi = z.y * wn;
+#pragma unroll
+        for (int f = 0; f < W; ++f) {
+          const double x = static_cast<double>(xs[f * hop + n]);
+          re[f] = fma(x, zr, re[f]);
+          im[f] = fma(x, zi, im[f]);
+        }
+        z = cmul(z, step);
+      }
+    }
+#pragma unroll
+    for (int f = 0; f < W; ++f) {
+      const size_t i = static_cast<size_t>(f) * c.f_used + k;
+      if (spec != nullptr) spec[i] = make_double2(re[f], im[f]);
+      mag[i] = static_cast<float>(
+          sqrt(re[f] * re[f] + im[f] * im[f] + static_cast<double>(c.power_eps)));
+    }
+  }
+  __syncthreads();
+}
+
+template <int W>
+__global__ void __launch_bounds__(kDirectThreads) logmel_direct_kernel(
+    const float* __restrict__ wav, float* __restrict__ out, int t, int pad, int hop,
+    int n_frames, DLayout L, Consts c, float log_floor, float log_offset, float lo,
+    float hi) {
+  extern __shared__ __align__(16) char smem[];
+  const int b = blockIdx.y;
+  const int f0 = blockIdx.x * W;
+  direct_spectrum<W>(L, c, smem, wav + static_cast<size_t>(b) * t, t, pad, hop, f0, nullptr);
+  const float* mag = reinterpret_cast<const float*>(smem + L.spec());
+  for (int e = threadIdx.x; e < c.n_mels * W; e += blockDim.x) {
+    const int m = e / W;
+    const int fe = e % W;
+    if (f0 + fe >= n_frames) continue;
+    out[(static_cast<size_t>(b) * c.n_mels + m) * n_frames + f0 + fe] = log_mel(
+        band_mel(c, mag + static_cast<size_t>(fe) * c.f_used, m), log_floor, log_offset,
+        lo, hi);
+  }
+}
+
+template <int W>
+__global__ void __launch_bounds__(kDirectThreads) logmel_direct_grad_kernel(
+    const float* __restrict__ wav, const float* __restrict__ grad,
+    float* __restrict__ dframes, int t, int pad, int hop, int n_frames, DLayout L,
+    Consts c, float log_floor) {
+  extern __shared__ __align__(16) char smem[];
+  const int b = blockIdx.y;
+  const int f0 = blockIdx.x * W;
+  const int n_fft = L.n_fft;
+  double2* spec = reinterpret_cast<double2*>(smem);
+  direct_spectrum<W>(L, c, smem, wav + static_cast<size_t>(b) * t, t, pad, hop, f0, spec);
+
+  const float* mag = reinterpret_cast<const float*>(smem + L.spec());
+  float* dmel = reinterpret_cast<float*>(smem + L.spec() + L.mag());
+  for (int e = threadIdx.x; e < c.n_mels * W; e += blockDim.x) {
+    const int m = e / W;
+    const int fe = e % W;
+    float d = 0.f;
+    if (f0 + fe < n_frames) {
+      const float a = band_mel(c, mag + static_cast<size_t>(fe) * c.f_used, m);
+      if (a >= log_floor)
+        d = grad[(static_cast<size_t>(b) * c.n_mels + m) * n_frames + f0 + fe] / a;
+    }
+    dmel[fe * c.n_mels + m] = d;
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < c.f_used * W; e += blockDim.x) {   // X -> G in place
+    const int fe = e / c.f_used;
+    const int k = e % c.f_used;
+    spec[e] = spectrum_grad(c, dmel + fe * c.n_mels, k, spec[e]);
+  }
+  __syncthreads();
+
+  // the adjoint, one sample n per thread: Re sum_k G[k] e^(+2 pi i k n / N)
+  for (int n = threadIdx.x; n < n_fft; n += blockDim.x) {
+    double acc[W];
+#pragma unroll
+    for (int f = 0; f < W; ++f) acc[f] = 0.0;
+    const double2 step = cconj(__ldg(c.tw + n));           // e^(+2 pi i n / N)
+    for (int k0 = 0; k0 < c.f_used; k0 += kSync) {
+      double2 z = cconj(__ldg(c.tw + static_cast<long long>(k0) * n % n_fft));
+      const int k1 = k0 + kSync < c.f_used ? k0 + kSync : c.f_used;
+      for (int k = k0; k < k1; ++k) {
+#pragma unroll
+        for (int f = 0; f < W; ++f) {
+          const double2 g = spec[static_cast<size_t>(f) * c.f_used + k];
+          acc[f] = fma(g.x, z.x, acc[f]);
+          acc[f] = fma(-g.y, z.y, acc[f]);
+        }
+        z = cmul(z, step);
+      }
+    }
+    const double wn = __ldg(c.win + n);
+#pragma unroll
+    for (int f = 0; f < W; ++f) {
+      if (f0 + f >= n_frames) break;
+      dframes[(static_cast<size_t>(b) * n_frames + f0 + f) * n_fft + n] =
+          static_cast<float>(wn * acc[f]);
+    }
+  }
+}
+
 int log2_exact(int n) {
   int l = 0;
   while ((1 << l) < n) ++l;
   return (1 << l) == n ? l : -1;
 }
 
+// A power-of-two n_fft from 256 to 4096 takes the FFT, any other the direct DFT.
+bool fft_geometry(int n_fft) {
+  const int lg = log2_exact(n_fft);
+  return lg >= 8 && lg <= 12;
+}
+
 bool bad_geometry(int b, int t, int pad, int n_fft, int hop, int n_frames, int f_used,
                   int n_mels) {
-  const int lg = log2_exact(n_fft);
-  return b < 1 || t < 1 || pad < 0 || hop < 1 || lg < 8 || lg > 12 ||
-         n_fft % hop != 0 || n_frames < 1 || f_used < 1 || f_used > n_fft / 2 + 1 ||
+  return b < 1 || t < 1 || pad < 0 || hop < 1 || n_fft < 1 || n_fft % hop != 0 || n_frames < 1 || f_used < 1 || f_used > n_fft / 2 + 1 ||
          n_mels < 1 || (n_frames - 1) * hop + n_fft > t + 2 * pad;
 }
 
@@ -484,17 +665,50 @@ Layout plan(int b, int n_fft, int hop, int n_frames, int f_used, int n_mels,
   return L;
 }
 
+// The direct path's layout: the most frames per block (at most
+// kDirectFrames) that still gives every SM a block and fits in shared memory.
+DLayout plan_direct(int b, int n_fft, int hop, int n_frames, int f_used, int n_mels,
+                    bool grad) {
+  int sms = 132, dev = 0;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  DLayout L{kDirectFrames, n_fft, f_used, n_mels, 0, grad};
+  for (;; L.w /= 2) {
+    L.span = (L.w - 1) * hop + n_fft;
+    const long long blocks = static_cast<long long>(b) * ((n_frames + L.w - 1) / L.w);
+    if (L.w == 1 || (blocks >= sms && L.bytes() <= static_cast<size_t>(kMaxSmem))) break;
+  }
+  return L;
+}
+
 template <typename K>
-int launch(K kernel, const Layout& L, int b, int n_frames, cudaStream_t stream,
-           void** args) {
-  const int bytes = static_cast<int>(L.bytes());
+int launch_grid(K kernel, size_t smem_bytes, dim3 grid, int threads, cudaStream_t stream,
+                void** args) {
+  if (smem_bytes > static_cast<size_t>(kMaxSmem)) return static_cast<int>(cudaErrorInvalidValue);
+  const int bytes = static_cast<int>(smem_bytes);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((n_frames + L.w - 1) / L.w, b);
-  err = cudaLaunchKernel(kernel, grid, dim3(L.w * L.m / 8), args, bytes, stream);
+  err = cudaLaunchKernel(kernel, grid, dim3(threads), args, bytes, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename K>
+int launch(K kernel, const Layout& L, int b, int n_frames, cudaStream_t stream,
+           void** args) {
+  return launch_grid(kernel, L.bytes(), dim3((n_frames + L.w - 1) / L.w, b), L.w * L.m / 8,
+                     stream, args);
+}
+
+// One of a direct kernel's instantiations (W = 8, 4, 2, 1: the same
+// signature), picked by the planned W.
+template <typename K>
+int launch_direct(K k8, K k4, K k2, K k1, const DLayout& L, int b, int n_frames,
+                  cudaStream_t stream, void** args) {
+  const K kernel = L.w == 8 ? k8 : L.w == 4 ? k4 : L.w == 2 ? k2 : k1;
+  return launch_grid(kernel, L.bytes(), dim3((n_frames + L.w - 1) / L.w, b), kDirectThreads,
+                     stream, args);
 }
 
 template <int LOG_M>
@@ -518,10 +732,13 @@ int frame_grad_at(const float* wav, const float* grad, float* dframes, int b, in
 }  // namespace
 
 // wav (b, t) -> out (b, n_mels, n_frames). window (n_fft,) fp64; twiddles
-// (n_fft / 2,) and split (f_used,) fp64 complex (interleaved re, im); mel_w
-// (n_mels, f_used) fp32; bands (n_mels, 2) int32. n_fft a power of two from
-// 256 to 4096, hop | n_fft, t >= 1, pad >= 0 (any pad: numpy's reflect rule),
-// n_frames >= 1. Returns a cudaError_t; 0 when launched.
+// fp64 complex (interleaved re, im): W_M^e, e < M = n_fft / 2, on the FFT
+// path (a power-of-two n_fft from 256 to 4096), e^(-2 pi i j / n_fft),
+// j < n_fft, on the direct path (any other n_fft); split (f_used,) fp64
+// complex; mel_w (n_mels, f_used) fp32; bands (n_mels, 2) int32. hop | n_fft,
+// t >= 1, pad >= 0 (any pad: numpy's reflect rule), n_frames >= 1. Returns a
+// cudaError_t; 0 when launched (cudaErrorInvalidValue also where one frame's
+// shared memory exceeds a block's).
 extern "C" int logmel_forward(const float* wav, float* out, int b, int t, int pad,
                               int n_fft, int hop, int n_frames, const double* window,
                               const double* twiddles, const double* split_tw,
@@ -530,11 +747,19 @@ extern "C" int logmel_forward(const float* wav, float* out, int b, int t, int pa
                               float log_offset, float lo, float hi, void* stream) {
   if (bad_geometry(b, t, pad, n_fft, hop, n_frames, f_used, n_mels))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Layout L = plan(b, n_fft, hop, n_frames, f_used, n_mels, false);
   const Consts c{window, reinterpret_cast<const double2*>(twiddles),
                  reinterpret_cast<const double2*>(split_tw), mel_w,
                  reinterpret_cast<const int2*>(bands), nullptr, f_used, n_mels, power_eps};
   const auto s = static_cast<cudaStream_t>(stream);
+  if (!fft_geometry(n_fft)) {
+    DLayout L = plan_direct(b, n_fft, hop, n_frames, f_used, n_mels, false);
+    void* args[] = {&wav, &out, &t, &pad, &hop, &n_frames, &L, const_cast<Consts*>(&c),
+                    &log_floor, &log_offset, &lo, &hi};
+    return launch_direct(logmel_direct_kernel<8>, logmel_direct_kernel<4>,
+                         logmel_direct_kernel<2>, logmel_direct_kernel<1>, L, b, n_frames, s,
+                         args);
+  }
+  const Layout L = plan(b, n_fft, hop, n_frames, f_used, n_mels, false);
   switch (log2_exact(n_fft)) {
     case 8: return forward_at<7>(wav, out, b, t, pad, hop, n_frames, L, c, log_floor, log_offset, lo, hi, s);
     case 9: return forward_at<8>(wav, out, b, t, pad, hop, n_frames, L, c, log_floor, log_offset, lo, hi, s);
@@ -547,7 +772,8 @@ extern "C" int logmel_forward(const float* wav, float* out, int b, int t, int pa
 // K4's backward, HiFi-GAN convention (log(max(mel, log_floor)), no clip):
 // grad (b, n_mels, n_frames) -> dwav (b, t), through dframes, scratch of
 // (b, n_frames, n_fft) fp32. bin_mels (f_used, 2) int32: the mels whose band
-// holds each bin. Two launches; returns a cudaError_t, 0 when launched.
+// holds each bin; the other tables as for logmel_forward, on the same two
+// paths. Two launches; returns a cudaError_t, 0 when launched.
 extern "C" int logmel_backward(const float* wav, const float* grad, float* dframes,
                                float* dwav, int b, int t, int pad, int n_fft, int hop,
                                int n_frames, const double* window, const double* twiddles,
@@ -556,19 +782,28 @@ extern "C" int logmel_backward(const float* wav, const float* grad, float* dfram
                                float power_eps, float log_floor, void* stream) {
   if (bad_geometry(b, t, pad, n_fft, hop, n_frames, f_used, n_mels) || !(log_floor > 0.f))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Layout L = plan(b, n_fft, hop, n_frames, f_used, n_mels, true);
   const Consts c{window, reinterpret_cast<const double2*>(twiddles),
                  reinterpret_cast<const double2*>(split_tw), mel_w,
                  reinterpret_cast<const int2*>(bands),
                  reinterpret_cast<const int2*>(bin_mels), f_used, n_mels, power_eps};
   const auto s = static_cast<cudaStream_t>(stream);
   int err;
-  switch (log2_exact(n_fft)) {
-    case 8: err = frame_grad_at<7>(wav, grad, dframes, b, t, pad, hop, n_frames, L, c, log_floor, s); break;
-    case 9: err = frame_grad_at<8>(wav, grad, dframes, b, t, pad, hop, n_frames, L, c, log_floor, s); break;
-    case 10: err = frame_grad_at<9>(wav, grad, dframes, b, t, pad, hop, n_frames, L, c, log_floor, s); break;
-    case 11: err = frame_grad_at<10>(wav, grad, dframes, b, t, pad, hop, n_frames, L, c, log_floor, s); break;
-    default: err = frame_grad_at<11>(wav, grad, dframes, b, t, pad, hop, n_frames, L, c, log_floor, s); break;
+  if (!fft_geometry(n_fft)) {
+    DLayout L = plan_direct(b, n_fft, hop, n_frames, f_used, n_mels, true);
+    void* args[] = {&wav, &grad, &dframes, &t, &pad, &hop, &n_frames, &L,
+                    const_cast<Consts*>(&c), &log_floor};
+    err = launch_direct(logmel_direct_grad_kernel<8>, logmel_direct_grad_kernel<4>,
+                        logmel_direct_grad_kernel<2>, logmel_direct_grad_kernel<1>, L, b,
+                        n_frames, s, args);
+  } else {
+    const Layout L = plan(b, n_fft, hop, n_frames, f_used, n_mels, true);
+    switch (log2_exact(n_fft)) {
+      case 8: err = frame_grad_at<7>(wav, grad, dframes, b, t, pad, hop, n_frames, L, c, log_floor, s); break;
+      case 9: err = frame_grad_at<8>(wav, grad, dframes, b, t, pad, hop, n_frames, L, c, log_floor, s); break;
+      case 10: err = frame_grad_at<9>(wav, grad, dframes, b, t, pad, hop, n_frames, L, c, log_floor, s); break;
+      case 11: err = frame_grad_at<10>(wav, grad, dframes, b, t, pad, hop, n_frames, L, c, log_floor, s); break;
+      default: err = frame_grad_at<11>(wav, grad, dframes, b, t, pad, hop, n_frames, L, c, log_floor, s); break;
+    }
   }
   if (err != 0) return err;
   const dim3 grid((t + 255) / 256, b);

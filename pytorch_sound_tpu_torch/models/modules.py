@@ -125,9 +125,10 @@ class PositionalEncoding(nn.Module):
 def load_jax_params(module: nn.Module, tree: Dict[str, Any]) -> nn.Module:
     """Load a flax parameter tree of numpy arrays (with or without the
     top-level 'params' key) into ``module``, whose submodules carry the flax
-    names: a Dense ``kernel`` (in, out) becomes a Linear ``weight`` (out, in),
-    a LayerNorm ``scale`` its ``weight``, every ``bias`` itself. Strict: a
-    parameter missing on either side raises."""
+    names: a Dense ``kernel`` (in, out) becomes a Linear ``weight`` (out, in)
+    and a Conv ``kernel`` (k, in, out) a Conv1d ``weight`` (out, in, k), its
+    axes reversed; a LayerNorm ``scale`` its ``weight``, every ``bias``
+    itself. Strict: a parameter missing on either side raises."""
     state = {}
 
     def walk(node, prefix):
@@ -137,7 +138,7 @@ def load_jax_params(module: nn.Module, tree: Dict[str, Any]) -> nn.Module:
                 continue
             arr = torch.from_numpy(np.array(val, dtype=np.float32))
             if key == 'kernel':
-                state[prefix + 'weight'] = arr.T.contiguous()
+                state[prefix + 'weight'] = arr.permute(*range(arr.ndim - 1, -1, -1)).contiguous()
             else:
                 state[prefix + ('weight' if key == 'scale' else key)] = arr
 

@@ -3,9 +3,11 @@
 Counterpart of ``pytorch_sound_tpu/ops/pallas/logmel.py`` (``fused_log_mel``,
 ``fused_hifigan_mel``): reflect pad -> frames -> windowed DFT over the bins the
 mel filterbank uses -> magnitude -> mel -> log -> clip, in one launch; the
-spectrum never reaches device memory. On the card the DFT is an in-block fp64
-FFT, which takes a power-of-two ``n_fft`` from 256 to 4096 (the JAX kernel's
-matmul DFT took any ``n_fft``); the plain version takes every geometry.
+spectrum never reaches device memory. The card kernel takes the JAX kernel's
+geometry, ``win_length == n_fft`` and ``hop_length | n_fft``, on two paths:
+an in-block fp64 FFT for a power-of-two ``n_fft`` from 256 to 4096
+(:func:`fft_path`), a direct fp64 DFT over the used bins for every other
+``n_fft`` (400 / 100 at 16 kHz, 1000 / 250, 128 / 32, 8192 / 2048).
 
 The wrapper dispatches on the tensor's device: on the CPU it runs the plain
 version (:func:`pytorch_sound_tpu_torch.ops.mel.log_mel`), on a CUDA tensor it
@@ -30,23 +32,29 @@ SOURCE = 'pytorch_sound_tpu_torch/csrc/logmel.cu'
 class FFTConstants(NamedTuple):
     """The kernels' host-made tables, on one device."""
     window: torch.Tensor      # (n_fft,) float64, the centered periodic Hann window
-    twiddles: torch.Tensor    # (n_fft // 2, 2) float64, W_M^e = exp(-2 pi i e / M), M = n_fft / 2
+    twiddles: torch.Tensor    # FFT path: (n_fft // 2, 2) float64, W_M^e = exp(-2 pi i e / M),
+                              # M = n_fft / 2; direct path: (n_fft, 2), exp(-2 pi i j / n_fft)
     split: torch.Tensor       # (f_used, 2) float64, exp(-2 pi i k / n_fft)
     mel_w: torch.Tensor       # (n_mels, f_used) float32, the filterbank's used bins
     bands: torch.Tensor       # (n_mels, 2) int32, each mel's nonzero bins [k0, k1)
     bin_mels: torch.Tensor    # (f_used, 2) int32, the mels [m0, m1) weighting each bin
 
 
+def fft_path(n_fft: int) -> bool:
+    """Whether the kernels take ``n_fft`` on the FFT path (a power of two from
+    256 to 4096, ``fft_geometry`` in ``csrc/logmel.cu``); every other
+    ``n_fft`` takes the direct DFT."""
+    return 256 <= n_fft <= 4096 and not n_fft & (n_fft - 1)
+
+
 def _kernel_geometry(n_fft: int, hop_length: int, win_length: int):
-    """Raises ``ValueError`` unless n_fft == win_length, hop_length | n_fft
-    and n_fft is a power of two from 256 to 4096: the geometry the FFT
-    kernels take."""
-    if (win_length != n_fft or n_fft < 256 or n_fft > 4096 or n_fft & (n_fft - 1)
-            or hop_length < 1 or n_fft % hop_length):
+    """Raises ``ValueError`` unless n_fft == win_length and hop_length |
+    n_fft: the geometry of the JAX kernel (``ops/pallas/logmel.py:181-182``),
+    which the kernels take on one of their two paths."""
+    if win_length != n_fft or hop_length < 1 or n_fft % hop_length:
         raise ValueError(
-            'the log-mel FFT kernel takes the geometry n_fft == win, hop | n_fft, n_fft '
-            'a power of two from 256 to 4096; got n_fft %d, hop %d, win %d'
-            % (n_fft, hop_length, win_length))
+            'the log-mel kernel takes the geometry n_fft == win, hop | n_fft; got n_fft '
+            '%d, hop %d, win %d' % (n_fft, hop_length, win_length))
 
 
 def _ranges(nonzero: np.ndarray) -> np.ndarray:
@@ -66,17 +74,18 @@ def _complex_pairs(z: np.ndarray) -> np.ndarray:
 @functools.lru_cache(maxsize=8)
 def _constants(sample_rate: int, n_fft: int, win_length: int, n_mels: int,
                fmin: float, fmax: Optional[float], device: str) -> FFTConstants:
-    """The FFT kernels' tables for one geometry, on ``device``.
+    """The kernels' tables for one geometry, on ``device``.
 
     f_used counts only the spectral bins the mel filterbank weights (372 of
     513 at fmax 8 kHz); higher bins have exactly-zero mel weight and are never
     formed. Window and twiddles are fp64 from numpy: the kernels call no
-    sincos.
+    sincos. The twiddles are the FFT's n_fft / 2-point table on the FFT path,
+    the n_fft-point one on the direct path.
     """
     mel = filters.mel_filterbank(sample_rate, n_fft, n_mels, fmin, fmax)
     nz = np.nonzero(np.any(mel != 0.0, axis=0))[0]
     f_used = int(nz[-1]) + 1 if nz.size else n_fft // 2 + 1
-    m = n_fft // 2
+    m = n_fft // 2 if fft_path(n_fft) else n_fft
     mel_w = np.asarray(mel[:, :f_used], dtype=np.float32)
     arrays = (filters.pad_center(filters.hann_window(win_length), n_fft),
               _complex_pairs(np.exp(-2j * np.pi * np.arange(m) / m)),
@@ -95,16 +104,22 @@ def fused_log_mel(wav: torch.Tensor, sample_rate: int = 22050, mel_size: int = 8
     """Log-mel: wav (B, T) float32 -> (B, mel_size, n_frames).
 
     ``pad`` defaults to n_fft // 2 (centered); the HiFi-GAN convention is
-    :func:`fused_hifigan_mel`. Requires hop | n_fft and n_fft == win_length,
-    and on a CUDA tensor a power-of-two n_fft from 256 to 4096
-    (:func:`_kernel_geometry`). Any T >= 1 takes any pad, by numpy's reflect
+    :func:`fused_hifigan_mel`. Requires hop | n_fft and n_fft == win_length
+    (:func:`_kernel_geometry`), on a CPU tensor as on a CUDA one, where the
+    kernel runs on its FFT or its direct path (:func:`fft_path`). Any T >= 1
+    takes any pad, by numpy's reflect
     rule (:func:`~pytorch_sound_tpu_torch.ops.mel.reflect_index`); input
     shorter than one frame gives (B, mel_size, 0) and launches nothing.
+
+    The kernel takes float32 and has no gradient of its own (as the JAX
+    kernel has none): on a CUDA tensor that requires a gradient while
+    autograd records, or of another dtype, it raises rather than return a
+    result without ``grad_fn`` or a cast one. The differentiable form is
+    :func:`fused_hifigan_mel_trainable`.
     """
     if wav.ndim != 2:
         raise ValueError('fused_log_mel expects (B, T), got %s' % (tuple(wav.shape),))
-    if n_fft % hop_length or win_length != n_fft:
-        raise ValueError('fused log-mel supports the n_fft == win, hop | n_fft geometry')
+    _kernel_geometry(n_fft, hop_length, win_length)
     pad = n_fft // 2 if pad is None else pad
     lo = mel_ops.db_to_log(min_db) if min_db else -np.inf
     hi = mel_ops.db_to_log(max_db) if max_db else np.inf
@@ -116,9 +131,13 @@ def fused_log_mel(wav: torch.Tensor, sample_rate: int = 22050, mel_size: int = 8
     if wav.device.type != 'cuda':
         raise RuntimeError('fused_log_mel runs on cpu or cuda, not %s' % wav.device)
 
-    _kernel_geometry(n_fft, hop_length, win_length)
     if wav.dtype != torch.float32 or not wav.is_contiguous():
-        raise ValueError('fused_log_mel kernel takes contiguous float32 input')
+        raise ValueError('the log-mel kernel takes contiguous float32 input, got %s%s'
+                         % (wav.dtype, '' if wav.is_contiguous() else ', not contiguous'))
+    if wav.requires_grad and torch.is_grad_enabled():
+        raise RuntimeError(
+            'the log-mel kernel has no gradient: call it under torch.no_grad() or on '
+            'a detached tensor, or use fused_hifigan_mel_trainable')
     b, t = wav.shape
     if t < 1 or pad < 0:
         raise ValueError('fused_log_mel takes T >= 1 and pad >= 0, got T %d, pad %d'
@@ -138,10 +157,13 @@ def fused_log_mel(wav: torch.Tensor, sample_rate: int = 22050, mel_size: int = 8
             torch.cuda.current_stream().cuda_stream)
     _build.check(code, 'logmel_forward')
     fused_log_mel.launches += 1
+    if not fft_path(n_fft):
+        fused_log_mel.direct_launches += 1
     return out
 
 
 fused_log_mel.launches = 0
+fused_log_mel.direct_launches = 0     # of launches, those on the direct path
 
 
 def fused_hifigan_mel(wav: torch.Tensor, sampling_rate: int = 22050,
@@ -156,33 +178,45 @@ def fused_hifigan_mel(wav: torch.Tensor, sampling_rate: int = 22050,
         power_eps=1e-9, log_floor=1e-5)
 
 
-def hifigan_mel_vjp(wav: torch.Tensor, grad: torch.Tensor) -> torch.Tensor:
+def hifigan_mel_vjp(wav: torch.Tensor, grad: torch.Tensor, sampling_rate: int = 22050,
+                    n_fft: int = 1024, window_size: int = 1024, hop_size: int = 256,
+                    num_mels: int = 80, fmin: float = 0.0,
+                    fmax: Optional[float] = 8000.0) -> torch.Tensor:
     """Plain version of K4's backward: the VJP of the composite
-    ``ops.mel.hifigan_mel_spectrogram`` at ``wav`` for the cotangent ``grad``
-    (the JAX package's ``_fhm_bwd``), by autograd."""
+    ``ops.mel.hifigan_mel_spectrogram`` (at the given settings) at ``wav``
+    for the cotangent ``grad`` (the JAX package's ``_fhm_bwd``), by
+    autograd."""
     with torch.enable_grad():
         w = wav.detach().requires_grad_(True)
-        mel = mel_ops.hifigan_mel_spectrogram(w)
+        mel = mel_ops.hifigan_mel_spectrogram(w, sampling_rate, n_fft, window_size,
+                                              hop_size, num_mels, fmin, fmax)
         dwav, = torch.autograd.grad(mel, w, grad)
     return dwav
 
 
-def hifigan_mel_backward(wav: torch.Tensor, grad: torch.Tensor) -> torch.Tensor:
-    """K4's backward at the HiFi-GAN settings (22.05 kHz, n_fft 1024, hop
-    256, 80 mels to 8 kHz): wav (B, T), grad (B, 80, frames) -> dwav (B, T).
+def hifigan_mel_backward(wav: torch.Tensor, grad: torch.Tensor, sampling_rate: int = 22050,
+                         n_fft: int = 1024, window_size: int = 1024, hop_size: int = 256,
+                         num_mels: int = 80, fmin: float = 0.0,
+                         fmax: Optional[float] = 8000.0) -> torch.Tensor:
+    """K4's backward, by default at the HiFi-GAN settings (22.05 kHz, n_fft
+    1024, hop 256, 80 mels to 8 kHz): wav (B, T), grad (B, num_mels, frames)
+    -> dwav (B, T). Any geometry of :func:`fused_hifigan_mel` takes it.
 
     On a CPU tensor, :func:`hifigan_mel_vjp`. On a CUDA tensor, the backward
-    kernels of ``csrc/logmel.cu`` (the frames' gradients by an inverse FFT into
+    kernels of ``csrc/logmel.cu`` (the frames' gradients, by an inverse FFT
+    on the FFT path or the direct adjoint DFT on the direct path, into
     (B, frames, n_fft) scratch, then the overlap-add and the reflect pad's
     adjoint), counted once per call in
     ``fused_hifigan_mel_trainable.bwd_launches``, or an error. Input shorter
     than one frame has a zero gradient and launches nothing.
     """
+    settings = (sampling_rate, n_fft, window_size, hop_size, num_mels, fmin, fmax)
     if wav.device.type == 'cpu':
-        return hifigan_mel_vjp(wav, grad)
+        return hifigan_mel_vjp(wav, grad, *settings)
     if wav.device.type != 'cuda':
         raise RuntimeError('the log-mel backward runs on cpu or cuda, not %s' % wav.device)
-    n_fft, hop, n_mels = 1024, 256, 80
+    _kernel_geometry(n_fft, hop_size, window_size)
+    hop, n_mels = hop_size, num_mels
     if wav.dtype != torch.float32 or not wav.is_contiguous() or wav.ndim != 2:
         raise ValueError('the log-mel backward kernel takes contiguous float32 (B, T)')
     b, t = wav.shape
@@ -194,7 +228,7 @@ def hifigan_mel_backward(wav: torch.Tensor, grad: torch.Tensor) -> torch.Tensor:
                          % (tuple(grad.shape), grad.device, tuple(wav.shape)))
     if n_frames == 0 or b == 0:
         return torch.zeros_like(wav)
-    c = _constants(22050, n_fft, n_fft, n_mels, 0.0, 8000.0, str(wav.device))
+    c = _constants(sampling_rate, n_fft, window_size, n_mels, fmin, fmax, str(wav.device))
     dframes = torch.empty((b, n_frames, n_fft), dtype=torch.float32, device=wav.device)
     dwav = torch.empty_like(wav)
     with torch.cuda.device(wav.device):

@@ -3,6 +3,7 @@ the repository on a card, so that two trees (a commit and its parent) are
 compared on one machine, in turns.
 
     python pytorch_sound_tpu_torch/ops/cuda/logmel_probe.py [ROOT] [--profile]
+        [--direct] [--direct-frames W]
 
 ROOT (default: the checkout holding this file) is the root of the tree whose
 ``pytorch_sound_tpu_torch`` is imported and built; the script only calls the
@@ -19,12 +20,29 @@ called alone and K4 forward + backward through autograd with
 and the host time of the busiest operators per call; and times, as K4's
 backward is timed, an autograd function whose forward is K2 and whose
 backward only returns zeros: the part of that time autograd itself takes.
+
+``--direct`` also times K2's direct path (an n_fft that is not a power of
+two) at 16 x 4 s of tones for each of ``chip_smoke.py``'s direct geometries
+(400 / 100 at 16 kHz, 1000 / 250, 128 / 32 at 8 kHz, 8192 / 2048), and K4's
+backward there at 400 / 100, each the mean of 20 calls after 2 warm-ups.
+``--direct-frames W`` runs all of it on a copy of ROOT's package, kept in
+ROOT's ignored build directory, whose direct kernels take at most W frames
+per block (``kDirectFrames`` in ``csrc/logmel.cu``) instead of ROOT's
+planned number, so that the two are compared in one call, in turns:
+
+    python logmel_probe.py --direct; python logmel_probe.py --direct --direct-frames 1
 """
 
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
+
+# (sample rate, n_fft, hop, mels, fmax) of the direct path, as in chip_smoke.py
+DIRECT_GEOMETRIES = ((16000, 400, 100, 80, 8000.0), (22050, 1000, 250, 80, 8000.0),
+                     (8000, 128, 32, 40, None), (22050, 8192, 2048, 80, None))
 
 
 def tones(rng, n, samples, sr=22050):
@@ -76,10 +94,61 @@ def profile(name, fn, iters=20):
                       'host_ms_per_call': {k: v for v, k in host}}), flush=True)
 
 
+def direct_frames_copy(root, frames):
+    """ROOT's package copied under its build directory with the direct
+    kernels' frames per block capped at ``frames``; returns the copy's root
+    (reused by a later call with the same ``frames``)."""
+    package = os.path.join(root, 'pytorch_sound_tpu_torch')
+    out = os.path.join(package, 'csrc', 'build', 'probe_direct_frames_%d' % frames)
+    if not os.path.isdir(out):
+        tmp = '%s.%d' % (out, os.getpid())
+        shutil.copytree(package, os.path.join(tmp, 'pytorch_sound_tpu_torch'),
+                        ignore=shutil.ignore_patterns('build', '__pycache__'))
+        path = os.path.join(tmp, 'pytorch_sound_tpu_torch', 'csrc', 'logmel.cu')
+        with open(path) as f:
+            src = f.read()
+        capped, n = re.subn(r'constexpr int kDirectFrames = \d+;',
+                            'constexpr int kDirectFrames = %d;' % frames, src)
+        if n != 1:
+            raise SystemExit('logmel_probe: no kDirectFrames in %s' % path)
+        with open(path, 'w') as f:
+            f.write(capped)
+        os.rename(tmp, out)
+    return out
+
+
+def direct_times(lm, dev, rng):
+    """ms of K2 on its direct path per geometry and of K4's backward there at
+    400 / 100, each at 16 x 4 s of tones."""
+    import torch
+    k2 = {}
+    for sr, n_fft, hop, n_mels, fmax in DIRECT_GEOMETRIES:
+        x = torch.from_numpy(tones(rng, 16, 4 * sr, sr)).to(dev)
+        with torch.inference_mode():
+            k2['%d_%d' % (n_fft, hop)] = cuda_ms(
+                lambda: lm.fused_log_mel(x, sr, n_mels, n_fft, n_fft, hop, -50, 30, 0, fmax))
+    x = torch.from_numpy(tones(rng, 16, 4 * 16000, 16000)).to(dev)
+    kw = dict(sampling_rate=16000, n_fft=400, window_size=400, hop_size=100, num_mels=80,
+              fmax=8000.0)
+    cot = torch.cos(lm.fused_log_mel(x, 16000, 80, 400, 400, 100, mel_max=8000.0, pad=150,
+                                     power_eps=1e-9, log_floor=1e-5))
+    with torch.inference_mode():
+        k4 = cuda_ms(lambda: lm.hifigan_mel_backward(x, cot, **kw))
+    return {'k2_direct_16x4s_ms': k2, 'k4_direct_bwd_16x4s_400_100_ms': k4}
+
+
 def main():
-    args = [a for a in sys.argv[1:] if a != '--profile']
+    argv = sys.argv[1:]
+    frames = None
+    if '--direct-frames' in argv:
+        i = argv.index('--direct-frames')
+        frames = int(argv[i + 1])
+        del argv[i:i + 2]
+    args = [a for a in argv if a not in ('--profile', '--direct')]
     root = os.path.abspath(args[0] if args else
                            os.path.join(os.path.dirname(os.path.abspath(__file__)), '..', '..', '..'))
+    if frames is not None:
+        root = direct_frames_copy(root, frames)
     sys.path.insert(0, root)
     import numpy as np
     import torch
@@ -114,6 +183,9 @@ def main():
                       'plain_encode_16x2s_ms': enc_p, 'k4_fwd_16x8192_ms': fwd_k,
                       'plain_fwd_16x8192_ms': fwd_p, 'k4_bwd_16x8192_ms': fb_k - fwd_k,
                       'plain_bwd_16x8192_ms': fb_p - fwd_p}), flush=True)
+    if '--direct' in argv:
+        print(json.dumps({'root': root, 'card': card, 'direct_frames_cap': frames,
+                          **direct_times(lm, dev, rng)}), flush=True)
     if '--profile' in sys.argv:
         cot = torch.cos(lm.fused_hifigan_mel(train))
         with torch.inference_mode():

@@ -64,6 +64,14 @@ def adamw(params: Iterable[torch.nn.Parameter], lr: float, b1: float = 0.9,
                              weight_decay=weight_decay)
 
 
+def adam(params: Iterable[torch.nn.Parameter], lr: float, b1: float = 0.9,
+         b2: float = 0.999, eps: float = 1e-8) -> torch.optim.Adam:
+    """``torch.optim.Adam`` at ``optax.adam``'s defaults. Its update,
+    ``lr / (1 - b1^t) * m / (sqrt(v) / sqrt(1 - b2^t) + eps)``, is optax's
+    ``lr * m_hat / (sqrt(v_hat) + eps)`` (``eps_root`` 0) written out."""
+    return torch.optim.Adam(params, lr=lr, betas=(b1, b2), eps=eps)
+
+
 def clip_grads(params: Iterable[torch.nn.Parameter], grad_clip: float = 0.0,
                grad_norm: float = 0.0):
     """Clip gradients in place: by value to [-grad_clip, grad_clip], then by

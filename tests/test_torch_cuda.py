@@ -243,12 +243,14 @@ def _tones(rng, b, t):
 @pytest.mark.parametrize('n_fft,t,conv', [
     (1024, 66150, 'hifigan'), (1024, 50001, 'centered'), (1024, 20000, 'centered_all_bins'),
     (1024, 640, 'hifigan'), (1024, 385, 'hifigan'), (512, 30000, 'hifigan'),
-    (2048, 30000, 'centered'), (256, 9000, 'centered'), (4096, 30000, 'hifigan')])
+    (2048, 30000, 'centered'), (256, 9000, 'centered'), (4096, 30000, 'hifigan'),
+    (400, 30000, 'centered'), (1000, 30000, 'hifigan'), (128, 5000, 'centered_all_bins'),
+    (8192, 60000, 'hifigan'), (300, 301, 'centered')])
 def test_log_mel_kernel_matches_plain(card, n_fft, t, conv):
-    """K2, the in-block fp64 FFT, against the plain version run in fp64 on the
-    same card tensor: noise and tones, both conventions, every bin to fmax
-    None, short inputs (t = 640 and t = pad + 1 at the HiFi-GAN pad 384) and
-    the power-of-two n_fft the kernel takes."""
+    """K2 against the plain version run in fp64 on the same card tensor:
+    noise and tones, both conventions, every bin to fmax None, short inputs
+    (t = 640 and t = pad + 1 at the HiFi-GAN pad 384), the power-of-two n_fft
+    of the in-block FFT and the other n_fft of the direct DFT."""
     from pytorch_sound_tpu_torch.ops import mel as mel_ops
     from pytorch_sound_tpu_torch.ops.cuda import logmel as lm
     rng = np.random.default_rng(n_fft + t)
@@ -280,10 +282,37 @@ def test_log_mel_kernel_batch_equals_items(card):
 
 
 def test_kernel_rejects_unsupported_n_fft(card):
+    """The kernel takes the JAX kernel's geometry, hop | n_fft and win ==
+    n_fft, and raises on the others (no plain route on the card)."""
     from pytorch_sound_tpu_torch.ops.cuda import logmel as lm
     x = torch.zeros((1, 9000), device=card)
-    with pytest.raises(ValueError, match='geometry'):
-        lm.fused_log_mel(x, n_fft=1000, win_length=1000, hop_length=250)
+    for n_fft, hop, win in ((1024, 384, 1024), (1000, 250, 800)):
+        with pytest.raises(ValueError, match='geometry'):
+            lm.fused_log_mel(x, n_fft=n_fft, win_length=win, hop_length=hop)
+
+
+@pytest.mark.parametrize('n_fft,hop', [(1024, 256), (400, 100)])
+def test_log_mel_transform_raises_on_grad_and_dtype(card, n_fft, hop):
+    """LogMelSpectrogram (and MFCC through it) on the card, on both kernel
+    paths: the kernel has no gradient, so an input that requires one while
+    autograd records raises, as does float64 input, where the CPU runs the
+    plain version; under no_grad the same input launches the kernel."""
+    from pytorch_sound_tpu_torch.models import transforms as T
+    from pytorch_sound_tpu_torch.ops.cuda import logmel as lm
+    x = torch.from_numpy(_tones(np.random.default_rng(5), 2, 8000)).to(card)
+    lms = T.LogMelSpectrogram(22050, 80, n_fft, n_fft, hop, -50, 30, 0, 8000)
+    mfcc = T.MFCC(22050, 80, n_fft, n_fft, 20, hop, -50, 30, 0, 8000)
+    w = x.clone().requires_grad_(True)
+    for fn, arg in ((lms, w), (mfcc, w[:, None])):
+        with pytest.raises(RuntimeError, match='no gradient'):
+            fn(arg)
+    with pytest.raises(ValueError, match='float32'):
+        lms(x.double())
+    assert lms(w.cpu()).grad_fn is not None
+    before = lm.fused_log_mel.launches
+    with torch.no_grad():
+        got = lms(w)
+    assert lm.fused_log_mel.launches == before + 1 and torch.equal(got, lms(x))
 
 
 def test_trainable_mel_kernel_matches_plain(card):
@@ -320,6 +349,31 @@ def test_trainable_mel_kernel_matches_plain(card):
     got = lm.hifigan_mel_backward(tonal, cot)
     ref = lm.hifigan_mel_vjp(tonal.double(), cot.double())
     assert float((got.double() - ref).abs().max()) <= 1e-6 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize('sr,n_fft,hop', [(16000, 400, 100), (22050, 1000, 250)])
+def test_direct_backward_matches_plain(card, sr, n_fft, hop):
+    """K4's backward on the direct path (n_fft not a power of two): one
+    launch, autograd of the fp32 plain version and fp64 autograd, each
+    relative to its largest entry (at 16 kHz the gradient reaches ~30, and
+    the fp32 plain version is ~2e-4 off fp64 there), a bit-identical
+    rerun."""
+    from pytorch_sound_tpu_torch.ops.cuda import logmel as lm
+    rng = np.random.default_rng(n_fft)
+    wav = torch.from_numpy((rng.standard_normal((4, 3 * sr)) * 0.2).astype(np.float32)).to(card)
+    kw = dict(sampling_rate=sr, n_fft=n_fft, window_size=n_fft, hop_size=hop, num_mels=80,
+              fmax=8000.0)
+    mel = lm.fused_log_mel(wav, sr, 80, n_fft, n_fft, hop, mel_max=8000.0,
+                           pad=(n_fft - hop) // 2, power_eps=1e-9, log_floor=1e-5)
+    cot = torch.cos(mel)
+    before = lm.fused_hifigan_mel_trainable.bwd_launches
+    got = lm.hifigan_mel_backward(wav, cot, **kw)
+    assert lm.fused_hifigan_mel_trainable.bwd_launches == before + 1
+    plain = lm.hifigan_mel_vjp(wav, cot, **kw)
+    assert float((got - plain).abs().max()) <= 1e-4 * float(plain.abs().max())
+    ref = lm.hifigan_mel_vjp(wav.double(), cot.double(), **kw)
+    assert float((got.double() - ref).abs().max()) <= 1e-6 * float(ref.abs().max())
+    assert torch.equal(got, lm.hifigan_mel_backward(wav, cot, **kw))
 
 
 GC_FWD_TOL = 1e-5     # max abs error over the plain version's max abs

@@ -446,15 +446,85 @@ def test_band_sum_equals_dense_sum():
 
 
 def test_kernel_geometry_guard():
-    """The FFT kernels take a power-of-two n_fft from 256 to 4096 with hop |
-    n_fft and win == n_fft; the CPU path takes every geometry it took."""
+    """The kernels take the JAX kernel's geometry, hop | n_fft and win ==
+    n_fft: a power-of-two n_fft from 256 to 4096 on the FFT path (the
+    source's ``fft_geometry``), every other n_fft on the direct path; the
+    CPU path takes every geometry it took."""
+    assert re.search(r'return lg >= 8 && lg <= 12;', SRC)
     for n_fft in (256, 512, 1024, 2048, 4096):
         lm._kernel_geometry(n_fft, 128, n_fft)
-    for n_fft, hop, win in ((1000, 250, 1000), (8192, 256, 8192), (128, 64, 128),
-                            (1024, 384, 1024), (1024, 256, 800)):
+        assert lm.fft_path(n_fft)
+    for n_fft, hop in ((1000, 250), (8192, 256), (128, 64), (400, 100), (2, 1), (6000, 3)):
+        lm._kernel_geometry(n_fft, hop, n_fft)
+        assert not lm.fft_path(n_fft)
+    for n_fft, hop, win in ((1024, 384, 1024), (1024, 256, 800), (400, 0, 400)):
         with pytest.raises(ValueError, match='geometry'):
             lm._kernel_geometry(n_fft, hop, win)
     wav = torch.from_numpy((np.random.default_rng(0).standard_normal((1, 4000)) * 0.2)
                            .astype(np.float32))
     out = lm.fused_log_mel(wav, n_fft=1000, win_length=1000, hop_length=250)
     assert out.shape == (1, 80, 1 + 4000 // 250) and bool(torch.isfinite(out).all())
+
+
+# ---------------------------------------------------------------- the direct path
+
+def kernel_constant(name):
+    return int(re.search(r'constexpr int %s = (\d+);' % name, SRC).group(1))
+
+
+def twin_direct_spectrum(frames, c):
+    """The direct path's sums (``direct_spectrum``): per used bin k, the
+    windowed samples times the twiddle z, run as the recurrence
+    z <- z e^(-2 pi i k / N) and re-read from the N-point table every kSync
+    steps at index k n0 mod N. frames (..., N) fp64 -> X (..., f_used)."""
+    win, tw, st, *_ = tables(c)
+    n, sync = frames.shape[-1], kernel_constant('kSync')
+    k = np.arange(len(st))
+    assert re.search(r'c\.tw \+ static_cast<long long>\(k\) \* n0 % n_fft', SRC)
+    x = np.zeros(frames.shape[:-1] + (len(k),), dtype=np.complex128)
+    for n0 in range(0, n, sync):
+        z = tw[k * n0 % n]
+        for j in range(n0, min(n0 + sync, n)):
+            x += frames[..., j:j + 1] * (z * win[j])
+            z = z * tw[k]
+    return x
+
+
+def twin_direct_adjoint(g, c):
+    """The direct backward's adjoint (``logmel_direct_grad_kernel``): per
+    sample n, w[n] Re sum_k G[k] e^(+2 pi i k n / N), the twiddle by the
+    recurrence over k re-read every kSync bins. g (..., f_used) -> (..., N)."""
+    win, tw, *_ = tables(c)
+    n_fft, f_used, sync = len(win), g.shape[-1], kernel_constant('kSync')
+    n = np.arange(n_fft)
+    acc = np.zeros(g.shape[:-1] + (n_fft,))
+    for k0 in range(0, f_used, sync):
+        z = np.conj(tw[k0 * n % n_fft])
+        for k in range(k0, min(k0 + sync, f_used)):
+            acc += g[..., k:k + 1].real * z.real - g[..., k:k + 1].imag * z.imag
+            z = z * np.conj(tw[n])
+    return win * acc
+
+
+@pytest.mark.parametrize('sr,n_fft,fmax', [(16000, 400, None), (22050, 1000, 8000.0),
+                                          (8000, 128, None), (22050, 8192, 8000.0),
+                                          (16000, 300, None)])
+def test_direct_twin_matches_rfft_and_its_adjoint(sr, n_fft, fmax):
+    """The direct path's tables (the N-point twiddles), its recurrence against
+    numpy's rfft and its adjoint against the explicit transposed DFT, both
+    within 1e-12 of the norms: the drift of kSync recurrence steps is ~1e-15."""
+    c = lm._constants(sr, n_fft, n_fft, 40, 0.0, fmax, 'cpu')
+    assert not lm.fft_path(n_fft) and tuple(c.twiddles.shape) == (n_fft, 2)
+    win, tw, st, *_ = tables(c)
+    np.testing.assert_array_equal(tw, np.exp(-2j * np.pi * np.arange(n_fft) / n_fft))
+    f_used = len(st)
+    rng = np.random.default_rng(n_fft)
+    frames = rng.standard_normal((2, n_fft))
+    x = twin_direct_spectrum(frames, c)
+    ref = np.fft.rfft(frames * win)[..., :f_used]
+    assert float(np.abs(x - ref).max()) <= 1e-12 * float(np.linalg.norm(frames))
+    g = rng.standard_normal((2, f_used)) + 1j * rng.standard_normal((2, f_used))
+    k, n = np.arange(f_used)[:, None], np.arange(n_fft)[None, :]
+    ref = win * (g @ np.exp(2j * np.pi * k * n / n_fft)).real
+    assert float(np.abs(twin_direct_adjoint(g, c) - ref).max()) <= \
+        1e-12 * float(np.abs(g).sum())

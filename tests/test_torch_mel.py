@@ -12,9 +12,12 @@ import pytest  # noqa: E402
 import torch  # noqa: E402
 
 from pytorch_sound_tpu import settings as s  # noqa: E402
+from pytorch_sound_tpu.models.transforms import LogMelSpectrogram as JaxLogMel  # noqa: E402
 from pytorch_sound_tpu.ops import filters as jax_filters  # noqa: E402
 from pytorch_sound_tpu.ops import mel as jax_mel  # noqa: E402
 from pytorch_sound_tpu.ops.pallas.logmel import fused_hifigan_mel as jax_fused_hifigan_mel  # noqa: E402
+from pytorch_sound_tpu.ops.pallas.logmel import fused_log_mel as jax_fused_log_mel  # noqa: E402
+from pytorch_sound_tpu_torch.models.transforms import LogMelSpectrogram  # noqa: E402
 from pytorch_sound_tpu_torch.ops import filters as torch_filters  # noqa: E402
 from pytorch_sound_tpu_torch.ops import mel as torch_mel  # noqa: E402
 from pytorch_sound_tpu_torch.ops.cuda import logmel  # noqa: E402
@@ -137,3 +140,48 @@ def test_reflect_index_is_numpys():
         x = np.arange(t)
         np.testing.assert_array_equal(x[torch_mel.reflect_index(t, pad)],
                                       np.pad(x, (pad, pad), mode='reflect'))
+
+
+@pytest.mark.parametrize('sr,n_fft,hop,n_mels', [(16000, 400, 100, 40), (8000, 128, 32, 20)])
+def test_direct_geometry_matches_jax(sr, n_fft, hop, n_mels):
+    """Geometries off the FFT path (n_fft not a power of two from 256 to
+    4096), which the card kernel takes on its direct path: the port's
+    fused_log_mel in both conventions against JAX's fused_log_mel (Pallas in
+    interpret mode), and LogMelSpectrogram on (N, T) and (N, 1, T) against
+    JAX's, at 1e-4."""
+    assert not logmel.fft_path(n_fft)
+    rng = np.random.default_rng(n_fft)
+    wav = (rng.standard_normal((2, 12 * n_fft + 7)) * 0.2).astype(np.float32)
+    x = torch.from_numpy(wav)
+    conventions = {
+        'centered': dict(min_db=-100.0, max_db=20.0, mel_max=None),
+        'hifigan': dict(pad=(n_fft - hop) // 2, power_eps=1e-9, log_floor=1e-5),
+    }
+    for kw in conventions.values():
+        out = logmel.fused_log_mel(x, sr, n_mels, n_fft, n_fft, hop, **kw).numpy()
+        ref = np.asarray(jax_fused_log_mel(jnp.asarray(wav), sr, n_mels, n_fft, n_fft, hop,
+                                           **kw))
+        assert out.shape == ref.shape and out.shape[-1] > 10
+        np.testing.assert_allclose(out, ref, atol=1e-4)
+    args = (sr, n_mels, n_fft, n_fft, hop, s.MIN_DB, s.MAX_DB)
+    for inp in (wav, wav[:, None, :]):
+        out = LogMelSpectrogram(*args)(torch.from_numpy(inp)).numpy()
+        ref = np.asarray(JaxLogMel(*args)(jnp.asarray(inp)))
+        assert out.shape == ref.shape == inp.shape[:-1] + (n_mels, 1 + inp.shape[-1] // hop)
+        np.testing.assert_allclose(out, ref, atol=1e-4)
+
+
+def test_constants_made_in_inference_mode_serve_autograd():
+    """The plain version's device constants (window, filterbank), first made
+    by a call under ``torch.inference_mode`` (as a serving encode makes
+    them), are normal tensors: a later differentiable call at the same
+    geometry saves them for backward."""
+    wav = torch.from_numpy((np.random.default_rng(9).standard_normal((1, 3000)) * 0.2)
+                           .astype(np.float32))
+    kw = dict(n_fft=768, window_size=768, hop_size=192)     # a geometry of this test alone
+    with torch.inference_mode():
+        first = torch_mel.hifigan_mel_spectrogram(wav, **kw)
+    w = wav.clone().requires_grad_(True)
+    out = torch_mel.hifigan_mel_spectrogram(w, **kw)
+    out.sum().backward()
+    assert torch.equal(out.detach(), first) and bool(torch.isfinite(w.grad).all())

@@ -1,7 +1,8 @@
 """The port imports torch and never jax, flax or the JAX package; its CUDA
 modules import without nvcc (the kernels build at their first CUDA launch).
-The serving path, the training path and the data layer each run in a fresh
-interpreter; the data layer also loads none of pandas, tqdm or joblib."""
+The serving path, the training path, the data layer and the enhancement path
+each run in a fresh interpreter; the data layer also loads none of pandas,
+tqdm or joblib."""
 
 import os
 import subprocess
@@ -162,6 +163,39 @@ assert not loaded, loaded
 '''
 
 
+ENHANCE_SCRIPT = r'''
+import sys, tempfile
+import numpy as np
+import torch
+from pytorch_sound_tpu_torch.examples.voice_bank import VoiceBankTrainer, enhance
+from pytorch_sound_tpu_torch.models import build_model, sound, transforms as T
+from pytorch_sound_tpu_torch.ops.cuda import _build, logmel
+from pytorch_sound_tpu_torch.trainer import adam
+rng = np.random.default_rng(0)
+wav = torch.from_numpy((rng.standard_normal((2, 4096)) * 0.1).astype(np.float32))
+assert T.LogMelSpectrogram(16000, 40, 400, 400, 100)(wav[:, None]).shape == (2, 1, 40, 41)
+assert T.MFCC(22050, 80, 1024, 1024, 40, 256, -50, 30)(wav[:, None]).shape == (2, 1, 40, 17)
+mag, phase = T.STFT(1024, 256).transform(wav)
+assert T.STFT(1024, 256).inverse(mag, phase).shape == (2, 4096)
+assert T.PQMF().synthesis(T.PQMF().analysis(wav[:, None])).shape == (2, 1, 4096)
+assert T.LearnableSTFT(512, 128)(wav)[0].shape == (2, 257, 33)
+assert sound.InversePreEmphasis()(sound.PreEmphasis()(wav[:, None])).shape == (2, 1, 4096)
+model = build_model('spec_masker_small')
+with tempfile.TemporaryDirectory() as tmp:
+    t = VoiceBankTrainer(model, adam(model.parameters(), 1e-3), [[wav, wav]], [[wav, wav]],
+                         max_step=1, valid_max_step=1, save_interval=1, log_interval=1,
+                         save_dir=tmp, grad_norm=5.0, seed=1, device='cpu')
+    assert np.isfinite(t.run()) and t.step == 1
+assert enhance(model, wav).shape == (2, 4096)
+assert _build._lib is None, 'the kernel library must not load on the CPU path'
+assert logmel.fused_log_mel.launches == 0
+loaded = sorted(m for m in sys.modules
+                if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'pytorch_sound_tpu'))
+print('LOADED', loaded)
+assert not loaded, loaded
+'''
+
+
 def _run(script, *args):
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [ROOT] + [p for p in os.environ.get('PYTHONPATH', '').split(os.pathsep) if p]))
@@ -208,3 +242,12 @@ def test_data_layer_loads_neither_jax_nor_pandas():
     files and its loaders (with worker threads) draw batches, and none of
     those, jax, flax or the JAX package is loaded."""
     _run(DATA_SCRIPT)
+
+
+def test_enhancement_path_loads_neither_jax_nor_the_jax_package():
+    """The transforms (LogMelSpectrogram at 400 / 100 on (N, 1, T), MFCC, the
+    conv STFT, PQMF, LearnableSTFT, the pre-emphasis pair) and the VoiceBank
+    recipe (one CPU step of spec_masker_small, a validation, a checkpoint,
+    enhance): no kernel library, no launch, and none of jax, flax, optax or
+    the JAX package loaded."""
+    _run(ENHANCE_SCRIPT)

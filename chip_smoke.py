@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's HiFi-GAN serving and training paths, and the
-training recipe from wav files on disk, and the DSP layer with the VoiceBank
-enhancement recipe, once on one GPU.
+training recipe from wav files on disk, the DSP layer with the VoiceBank
+enhancement recipe, and feature extraction from a wav tree, once on one GPU.
 
     python3 chip_smoke.py
 
@@ -93,10 +93,26 @@ Phases, one line each; any failure raises and the script exits non-zero:
    timings at 16 x 4 s; then a VoiceBank tree under ``$TMPDIR`` (56 pairs,
    int16), its metas, the loader alone, ``examples.voice_bank.main`` with
    ``spec_masker_base`` at 8 x 32768 for 6 steps and 3 steps plus a resume
-   to 6 (step-6 checkpoints equal bit for bit), one step on the card
+   to 6 (step-6 checkpoints equal bit for bit; the trainer's default
+   device prefetch of 2 batches, as in phase 11), the from-disk step time
+   at prefetch 0 and 2 with 0 and 2 loader threads, one step on the card
    against the CPU, the in-memory step time; ``enhance`` at 8 x 32768
    against the CPU, its identity-mask round trip and time,
-   ``multi_stft_loss`` and the PQMF round trip against the CPU.
+   ``multi_stft_loss`` and the PQMF round trip against the CPU;
+13. feature extraction (``scripts.preprocess.Processor.extract_features``):
+   a VCTK-shaped tree under ``$TMPDIR`` (4 speakers x 48 speech-like int16
+   utterances of 1.5-9 s at 48 kHz, 16 white-noise files at 44.1 kHz, 16
+   at 22.05 kHz, 2 stereo files, 1 with no data; ~110 MB); the native
+   runtime built with g++ from ``csrc/tpusound.cc`` and its int16 loader
+   against the WAV reader on every file; ``resample_poly`` on the card at
+   48 / 44.1 -> 22.05 kHz against the native resampler and the CPU, with
+   TF32 off and on; the pipeline at the JAX defaults (batch 16, bf16 wire,
+   stages 2) within one bf16 ulp of its CPU run, at batch 64 on the f32
+   wire at stages 2 and 3 within 1e-4, and on the host-resampled wires at
+   int8 at the JAX test's gates, each with K2 launched once per batch;
+   every 48 kHz batch's K2 output against K2's plain version on that
+   batch's card tensors; utterances per second and per-batch decode /
+   staging / H2D / program / D2H / save times, the card's busy share.
 
 The line before the last is a JSON object with one entry per kernel, each
 with its time, its plain version's, the least time the card could take for
@@ -2002,6 +2018,38 @@ def dsp_path(dev, card, rng):
         assert sorted(steps_b) == [4, 5, 6] and same, (sorted(steps_b), same)
         torch.backends.cudnn.deterministic = deterministic
 
+        #     the from-disk step at the trainer's prefetch_size 0 and 2 (its
+        #     default), with 0 and 2 loader threads: wall ms between the
+        #     train log lines of steps 3-10 (each step ends in the NaN
+        #     guard's sync), in turns 0, 2, 2, 0
+        def from_disk_ms(prefetch_size, workers):
+            np.random.seed(0)
+            torch.manual_seed(0)
+            train, valid = get_datasets(meta, ENH_BATCH, workers, fix_len=ENH_SEG,
+                                        pad_multiple=ENH_SEG)
+            m = build_model('spec_masker_base')
+            t = vb.VoiceBankTrainer(m, adam(m.parameters(), 2e-4), train, valid, max_step=10,
+                                    valid_max_step=1, save_interval=10 ** 9, log_interval=1,
+                                    save_dir=os.path.join(work, 'prefetch'), grad_norm=5.0,
+                                    device=dev, prefetch_size=prefetch_size)
+            lines = LogLines()
+            LOGGER.addHandler(lines)
+            try:
+                t.run()
+                torch.cuda.synchronize()
+            finally:
+                LOGGER.removeHandler(lines)
+            _, times = lines.train_steps()
+            return float(np.median([(times[i + 1] - times[i]) * 1e3 for i in range(3, 10)]))
+
+        prefetch_ms = {}
+        for workers in (0, 2):
+            for size in (0, 2, 2, 0):
+                prefetch_ms.setdefault((size, workers), []).append(from_disk_ms(size, workers))
+        log('time', card=repr(card), what='voice_bank_from_disk_prefetch',
+            **{'step_ms_prefetch%d_w%d' % k: '/'.join('%.2f' % x for x in v)
+               for k, v in prefetch_ms.items()})
+
         #     one step on the card against the same step on the CPU, from the
         #     same weights (spec_masker_base from seed 0) and a batch of the
         #     loader; then the in-memory step time and peak memory
@@ -2092,6 +2140,319 @@ def dsp_path(dev, card, rng):
         peak_memory_gb='%.3f' % peak_gb, enhance_ms='%.4f' % enh_ms,
         pqmf_round_trip_ms='%.4f' % pqmf_ms)
     return main_launches[0] - main_launches[1], entry, k4_direct
+
+
+FEATURE_SRS = {48000: 192, 44100: 16, 22050: 16}   # phase 13: files per source rate
+
+
+def speech_like(rng, n, sr):
+    """A voiced-speech stand-in at ``sr``: a 100-300 Hz harmonic series
+    with a slow pitch glide and a syllable-rate envelope, light noise."""
+    t = np.arange(n) / sr
+    f0 = rng.uniform(100.0, 300.0) * (1 + 0.05 * np.sin(2 * np.pi * 0.7 * t))
+    phase = 2 * np.pi * np.cumsum(f0) / sr
+    wav = sum(0.5 / h * np.sin(h * phase) for h in (1, 2, 3, 4))
+    wav = wav * (0.55 + 0.45 * np.sin(2 * np.pi * rng.uniform(2.5, 5.0) * t)) \
+        + 0.01 * rng.standard_normal(n)
+    return (0.5 * wav / np.abs(wav).max()).astype(np.float32)
+
+
+def feature_path(dev, card):
+    """Phase 13: feature extraction (``scripts.preprocess.Processor.
+    extract_features``) on the card from a VCTK-shaped tree under $TMPDIR:
+    the native runtime built from its source and its int16 loader against
+    the WAV reader; the resampler on the card against the native one and the
+    CPU, with TF32 off and on; the pipeline at the JAX defaults, at batch 64
+    on the f32 wire at stages 2 and 3, and on the host-resampled wires at
+    int8, each against the CPU run of the same call, with K2's launches per
+    batch, K2 against its plain version on the batches' own card tensors,
+    and the timings. Returns (K2's main-path launches, K2's fields at the
+    pipeline's shape)."""
+    import torch
+    from pytorch_sound_tpu_torch import native, settings
+    from pytorch_sound_tpu_torch.ops import mel as mel_ops
+    from pytorch_sound_tpu_torch.ops.cuda import logmel as lm
+    from pytorch_sound_tpu_torch.ops.resample import resample_out_len, resample_poly
+    from pytorch_sound_tpu_torch.parallel import PinnedCopier
+    from pytorch_sound_tpu_torch.scripts import preprocess as pre
+    from pytorch_sound_tpu_torch.utils import wavio
+
+    hop = settings.HOP_LENGTH
+    mel_args = (SR, settings.MEL_SIZE, settings.N_FFT, settings.WIN_LENGTH, hop,
+                settings.MIN_DB, settings.MAX_DB, settings.MEL_MIN, settings.MEL_MAX)
+    work = tempfile.mkdtemp(prefix='chip_smoke_features_')
+    launches = 0
+    try:
+        # 13.0 the tree: 4 speakers x 48 speech-like utterances of 1.5-9 s at
+        #      48 kHz, 16 files of white noise at 44.1 kHz and 16 speech-like
+        #      at 22.05 kHz (no resample), 2 stereo files, 1 file with a
+        #      header and no data (the decoder drops it)
+        rng = np.random.default_rng(13)
+        tree = os.path.join(work, 'in')
+        info, n_bytes = {}, 0
+        t0 = time.perf_counter()
+        for sr, count in FEATURE_SRS.items():
+            for i in range(count):
+                spk = 'p%03d' % (225 + i // 48) if sr == 48000 else 'sr%d' % sr
+                os.makedirs(os.path.join(tree, spk), exist_ok=True)
+                name = '%s_%03d' % (spk, i % 48) if sr == 48000 else '%s_%02d' % (spk, i)
+                path = os.path.join(tree, spk, name + '.wav')
+                wavio.write_wav(path, speech_like(rng, int(sr * rng.uniform(1.5, 9.0)), sr), sr,
+                                dtype='int16')
+                info[name] = path
+        for name in sorted(info):
+            if name.startswith('sr44100'):       # tests/test_preprocess.py's signal
+                n = wavio.read_wav_info(info[name])[1]
+                wavio.write_wav(info[name], (0.1 * rng.standard_normal(n)).astype(np.float32),
+                                44100, dtype='int16')
+        for i in range(2):
+            path = os.path.join(tree, 'p225', 'p225_stereo%d.wav' % i)
+            n = int(48000 * rng.uniform(1.5, 9.0))
+            wavio.write_wav(path, np.stack([speech_like(rng, n, 48000),
+                                            speech_like(rng, n, 48000)]), 48000, dtype='int16')
+            info['p225_stereo%d' % i] = path
+        broken = os.path.join(tree, 'p226', 'p226_broken.wav')
+        with open(broken, 'wb') as f:           # RIFF / fmt with no data chunk
+            f.write(b'RIFF\x24\x00\x00\x00WAVEfmt \x10\x00\x00\x00\x01\x00\x01\x00'
+                    b'\x80\xbb\x00\x00\x00\x77\x01\x00\x02\x00\x10\x00')
+        n_bytes = sum(os.path.getsize(p) for p in list(info.values()) + [broken])
+        heads = {name: wavio.read_wav_info(p) for name, p in info.items()}
+        assert wavio.read_wav_info(broken)[:2] == (48000, 0)
+        log('features', what='tree', files=len(info) + 1, mb='%.1f' % (n_bytes / 1e6),
+            seconds='%.1f' % (time.perf_counter() - t0),
+            rates='/'.join('%d:%d' % (sr, sum(h[0] == sr for h in heads.values()))
+                           for sr in sorted(FEATURE_SRS)))
+        assert len(info) == 226 and 100e6 < n_bytes < 130e6, (len(info), n_bytes)
+
+        # 13.1 the native runtime, built from the port's source, and its int16
+        #      loader against the WAV reader (stereo mixed down, quantised as
+        #      the loader does) on every file; the broken one gives lens < 0
+        t0 = time.perf_counter()
+        lib_path = native.build()
+        build_s = time.perf_counter() - t0
+        names = sorted(info)
+        pad = max(h[1] for h in heads.values())
+        mat, lens, srs = native.batch_load_i16([info[n] for n in names] + [broken], pad)
+        for i, name in enumerate(names):
+            wav = wavio.load_wav(info[name])[0]
+            want = np.clip(np.rint(wav.astype(np.float64) * 32768.0), -32768, 32767)
+            assert lens[i] == len(wav) and srs[i] == heads[name][0], name
+            assert np.array_equal(mat[i, :lens[i]], want.astype(np.int16)), name
+            assert not mat[i, lens[i]:].any(), name
+        log('features', what='native', library=os.path.relpath(lib_path),
+            build_seconds='%.2f' % build_s, source=os.path.relpath(native.SOURCE),
+            batch_load_i16_equals_read_wav=len(names), broken_len=int(lens[-1]))
+        assert lens[-1] < 0 and lib_path.startswith(native.BUILD_DIR)
+        del mat
+
+        # 13.2 resample_poly on the card at 48 -> 22.05 and 44.1 -> 22.05 kHz,
+        #      16 rows of 10 s, against the native resampler row by row and
+        #      the CPU; again with TF32 turned on globally
+        resampled = {}
+        for sr in (48000, 44100):
+            rows = [n for n in names if heads[n][0] == sr][:16]
+            x, xl, _ = native.batch_load_i16([info[n] for n in rows], 10 * sr)
+            xf = x.astype(np.float32) / 32768.0
+            ref = np.stack([native.resample(r, sr, SR) for r in xf])
+            cpu = resample_poly(torch.from_numpy(xf), sr, SR)
+            xd = torch.from_numpy(xf).to(dev)
+            flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+                     torch.get_float32_matmul_precision())
+            errs = {}
+            try:
+                for tf32 in (False, True):
+                    torch.backends.cuda.matmul.allow_tf32 = tf32
+                    torch.backends.cudnn.allow_tf32 = tf32
+                    torch.set_float32_matmul_precision('high' if tf32 else 'highest')
+                    got = resample_poly(xd, sr, SR).cpu()
+                    errs[tf32] = (float(np.abs(got.numpy() - ref).max()),
+                                  max_err(got, cpu), int((got.numpy() != ref).sum()))
+                    resampled.setdefault(sr, got)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags[:2]
+                torch.set_float32_matmul_precision(flags[2])
+            ms = cuda_ms(lambda: resample_poly(xd, sr, SR), 10)
+            log('features', what='resample_%d' % sr, shape=tuple(xd.shape),
+                out=tuple(resampled[sr].shape), vs_native='%.3g' % errs[False][0],
+                vs_cpu='%.3g' % errs[False][1], differing_samples=errs[False][2],
+                tf32_on_vs_native='%.3g' % errs[True][0], tf32_on_vs_cpu='%.3g' % errs[True][1],
+                card=repr(card), ms='%.4f' % ms)
+            assert resampled[sr].shape == (len(rows), resample_out_len(10 * sr, sr, SR))
+            assert max(max(e[:2]) for e in errs.values()) <= 2e-6, errs
+
+        # 13.3-13.5 the pipeline on the card and on the CPU. K2's counter from
+        #      zero for each card run: one launch per batch, exactly
+        def expected_batches(bs):
+            groups = {}
+            for h in heads.values():
+                groups[h[0]] = groups.get(h[0], 0) + 1
+            groups[48000] += 1                      # the broken file, dropped in its batch
+            return sum(-(-n // bs) for n in groups.values())
+
+        def run(tag, device, **kw):
+            nonlocal launches
+            out = os.path.join(work, tag)
+            lm.fused_log_mel.launches = 0
+            stats = pre.Processor.extract_features(tree, out, device=str(device), **kw)
+            if str(device) != 'cpu':
+                torch.cuda.synchronize()
+                n = lm.fused_log_mel.launches
+                launches += n
+                want = expected_batches(kw.get('batch_size', 16))
+                assert n == want == stats['batches'], (tag, n, want, stats['batches'])
+            assert stats['utterances'] == len(names), (tag, stats['utterances'])
+            assert sorted(os.listdir(out)) == sorted(n + '.mel.npy' for n in names), tag
+            mels = {}
+            for name in names:
+                mel = np.load(os.path.join(out, name + '.mel.npy'))
+                n = resample_out_len(*heads[name][1::-1], SR)
+                assert mel.dtype == np.float32 and np.isfinite(mel).all(), (tag, name)
+                assert mel.shape == (80, n // hop + 1), (tag, name, mel.shape)
+                mels[name] = mel
+            shutil.rmtree(out)
+            return mels, stats
+
+        cpu, cpu_stats = run('cpu_f32', 'cpu', batch_size=16, wire='f32')
+        runs = {}
+        #      first-use costs (K2's constants made on the host, the first
+        #      launches of the program's kernels) out of the timed runs
+        for wire in pre.WIRES:
+            for x, sr in ((torch.zeros(2, 48000, dtype=torch.int16, device=dev), 48000),
+                          (torch.full((2, 22050), 128, dtype=torch.uint8, device=dev), SR)):
+                pre.feature_program(x, torch.full((2,), 20000, device=dev), sr, SR,
+                                    'bf16x3', wire)
+        torch.cuda.synchronize()
+
+        #      13.3 the JAX defaults (batch 16, bf16, i16_src, stages 2): within
+        #      one bf16 ulp of the CPU run's features (their bf16 rounding)
+        runs['defaults'] = run('defaults', dev)
+        ulps = 0.0
+        for name in names:
+            want = torch.from_numpy(cpu[name]).bfloat16().float().numpy()
+            got = runs['defaults'][0][name]
+            ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want), 1e-30))) - 7)
+            ulps = max(ulps, float((np.abs(got - want) / ulp).max()))
+            assert np.array_equal(got, torch.from_numpy(got).bfloat16().float().numpy())
+        log('features', what='defaults_b16_bf16', vs_cpu_max_bf16_ulps='%.3g' % ulps,
+            k2_launches=runs['defaults'][1]['batches'])
+        assert ulps <= 1.0, ulps
+
+        #      13.4 batch 64, the f32 wire, stages 2 and 3: within MEL_TOL of
+        #      the CPU run
+        for stages in (2, 3):
+            tag = 'b64_f32_s%d' % stages
+            runs[tag] = run(tag, dev, batch_size=64, wire='f32', stages=stages)
+            err = max(float(np.abs(runs[tag][0][n] - cpu[n]).max()) for n in names)
+            log('features', what=tag, vs_cpu_max_abs='%.3g' % err,
+                k2_launches=runs[tag][1]['batches'])
+            assert err <= MEL_TOL, (tag, err)
+
+        #      every batch of the 48 kHz group: the pipeline's K2 output (its
+        #      f32 .npy) is K2 on that batch's card tensors, bit for bit, and
+        #      within MEL_TOL of K2's plain version on them, run in fp64 (the
+        #      kernel's DFT is fp64; the fp32 plain version carries ~4e-4 of
+        #      rounding in the quiet bands of tonal input, printed beside)
+        group = sorted(p for p in [info[n] for n in names] + [broken]
+                       if wavio.read_wav_info(p)[0] == 48000)
+        copier = PinnedCopier(dev)
+        plain_err = plain32_err = 0.0
+        batches_checked, y64 = 0, None
+        with torch.inference_mode():
+            for i in range(0, len(group), 64):
+                mat, blens, bnames = pre.decode_batch(group[i:i + 64], 48000, SR, 10 * 48000)
+                x, lengths = copier.take(copier.put([mat, np.asarray(blens, np.int64)]))
+                y = pre.batch_audio(x, lengths, 48000, SR)
+                ker = lm.fused_log_mel(y, *mel_args)
+                plain = mel_ops.log_mel_spectrogram(y.double(), *mel_args)
+                plain32 = mel_ops.log_mel_spectrogram(y, *mel_args)
+                torch.cuda.synchronize()
+                for j, (n, name) in enumerate(zip(blens, bnames)):
+                    saved = torch.from_numpy(runs['b64_f32_s2'][0][name]).to(dev)
+                    assert torch.equal(ker[j, :, :n // hop + 1], saved), name
+                plain_err = max(plain_err, max_err(ker.double(), plain))
+                plain32_err = max(plain32_err, max_err(ker, plain32))
+                batches_checked += 1
+                y64 = y if y64 is None else y64
+        log('features', what='k2_vs_plain_48k_batches', batches=batches_checked,
+            shape=tuple(y64.shape), vs_fp64_plain='%.3g' % plain_err,
+            vs_fp32_plain='%.3g' % plain32_err)
+        assert batches_checked == 4 and plain_err <= MEL_TOL, (batches_checked, plain_err)
+
+        #      13.5 the host-resampled wires at int8, against the f32 i16_src
+        #      run: at the JAX test's gates on its signal (the white-noise
+        #      files at 44.1 kHz), plus one int8 step (range / 254); the
+        #      speech-like files' deltas printed (mu-law's ~38 dB SNR lifts
+        #      the quiet bands of tonal input); the card against the CPU run
+        #      of the same call on the 44.1 kHz files, within one step
+        noise = [n for n in names if heads[n][0] == 44100]
+        for h2d, gate_max, gate_mean in (('i16_tgt', 0.05, None), ('mulaw8_tgt', 0.5, 0.02)):
+            tag = '%s_int8' % h2d
+            runs[tag] = run(tag, dev, batch_size=64, wire='int8', h2d=h2d)
+            sub_out = os.path.join(work, tag + '_cpu')
+            pre.Processor.extract_features(os.path.join(tree, 'sr44100'), sub_out, batch_size=64,
+                                           wire='int8', h2d=h2d, device='cpu')
+            worst = {True: [0.0, 0.0], False: [0.0, 0.0]}
+            card_cpu_steps = 0.0
+            for name in names:
+                ref, got = runs['b64_f32_s2'][0][name], runs[tag][0][name]
+                assert abs(ref.shape[1] - got.shape[1]) <= 1, (tag, name)
+                t = min(ref.shape[1], got.shape[1]) - 2
+                step = (ref.max() - ref.min()) / 254
+                d = np.abs(got[:, :t] - ref[:, :t])
+                w = worst[name in noise]
+                w[0], w[1] = max(w[0], float(d.max() - step)), max(w[1], float(d.mean() - step))
+                if name in noise:
+                    cpu_mel = np.load(os.path.join(sub_out, name + '.mel.npy'))
+                    cpu_step = (cpu_mel.max() - cpu_mel.min()) / 254
+                    card_cpu_steps = max(card_cpu_steps,
+                                         float(np.abs(got - cpu_mel).max() / cpu_step))
+            log('features', what=tag, noise_max_abs_less_step='%.4f' % worst[True][0],
+                noise_mean_abs_less_step='%.4f' % worst[True][1], gate_max=gate_max,
+                gate_mean=gate_mean, speech_max_abs_less_step='%.4f' % worst[False][0],
+                speech_mean_abs_less_step='%.4f' % worst[False][1],
+                card_vs_cpu_int8_steps='%.3f' % card_cpu_steps,
+                k2_launches=runs[tag][1]['batches'])
+            assert worst[True][0] < gate_max and (gate_mean is None or worst[True][1] < gate_mean), \
+                (tag, worst)
+            assert card_cpu_steps <= 1.0 + 1e-3, (tag, card_cpu_steps)
+
+        # 13.6 timings: utterances per second from the first decode to the
+        #      last save; per batch medians of the host decode, the host's
+        #      staging into pinned memory, the H2D copy, the batch program
+        #      (CUDA events) and K2's share of it, the D2H copy, the save;
+        #      the card's busy share
+        k2_ms = cuda_ms(lambda: lm.fused_log_mel(y64, *mel_args), 10)
+        k2_plain_ms = cuda_ms(lambda: mel_ops.log_mel_spectrogram(y64, *mel_args), 10)
+        consts = lm._constants(SR, 1024, 1024, 80, 0.0, 8000.0, str(dev))
+        f_used, nnz = consts.mel_w.shape[1], int((consts.mel_w != 0).sum())
+        b, t = y64.shape
+        frames = (1 + t // hop) * b
+        k2_bound, k2_bound_by = bound(2.0 * nnz * frames, fft_flops(1024, f_used) * frames,
+                                      4.0 * (b * t + 80 * frames),
+                                      fp64_peak=PEAK_FP64_CUDA_CORES)
+        med = {}
+        for tag, (_, st) in runs.items():
+            m = {k: float(np.median(st[k])) for k in ('decode_ms', 'stage_ms', 'h2d_ms',
+                                                      'program_ms', 'd2h_ms', 'save_ms')}
+            # the program's events also hold the host's launch gaps
+            busy = sum(st['program_ms']) / (st['seconds'] * 1e3)
+            copies = (sum(st['h2d_ms']) + sum(st['d2h_ms'])) / (st['seconds'] * 1e3)
+            med[tag] = m
+            log('time', card=repr(card), what='extract_features_' + tag,
+                utt_per_s='%.1f' % (st['utterances'] / st['seconds']),
+                seconds='%.3f' % st['seconds'], batches=st['batches'],
+                **{k: '%.3f' % v for k, v in m.items()},
+                card_busy_share='%.4f' % busy, copy_busy_share='%.4f' % copies)
+        log('time', card=repr(card), what='extract_features_cpu_reference',
+            utt_per_s='%.1f' % (cpu_stats['utterances'] / cpu_stats['seconds']),
+            seconds='%.1f' % cpu_stats['seconds'])
+        log('time', card=repr(card), what='k2_64x10s', kernel_ms='%.4f' % k2_ms,
+            plain_ms='%.4f' % k2_plain_ms, bound_ms='%.5f' % k2_bound, bound_by=k2_bound_by,
+            share_of_b64_program='%.3f' % (k2_ms / med['b64_f32_s2']['program_ms']))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return launches, {'extract_ms': k2_ms, 'extract_plain_ms': k2_plain_ms,
+                      'extract_bound_ms': k2_bound, 'extract_shape': list(y64.shape)}
 
 
 def main():
@@ -2447,6 +2808,10 @@ def main():
     dsp_logmel, direct_entry, k4_direct = dsp_path(dev, card, rng)
     k4_entry.update(k4_direct)
 
+    # 13. feature extraction: the native runtime, the resampler and
+    #     extract_features on K2
+    feature_logmel, k2_extract = feature_path(dev, card)
+
     print(json.dumps({'kernels': [
         {'name': 'gen_stage', 'route': 'cuda', 'source': gs.SOURCE,
          'replaces': 'pytorch_sound_tpu/ops/pallas/gen_stage.py:282',
@@ -2456,10 +2821,11 @@ def main():
          'tc_bound_ms': st_tc, 'library_ms': None},
         {'name': 'logmel', 'route': 'cuda', 'source': lm.SOURCE,
          'replaces': 'pytorch_sound_tpu/ops/pallas/logmel.py:157',
-         'launches': launches['logmel'] + train_logmel + int(recipe_launches[0]) + dsp_logmel,
+         'launches': (launches['logmel'] + train_logmel + int(recipe_launches[0]) + dsp_logmel
+                      + feature_logmel),
          'max_abs_err': errs['logmel'],
          'ms': enc_k, 'plain_ms': enc_p, 'bound_ms': enc_bound, 'bound_by': enc_bound_by,
-         'dft_bound_ms': enc_dft_bound, 'stft_ms': stft_ms, 'library_ms': None},
+         'dft_bound_ms': enc_dft_bound, 'stft_ms': stft_ms, **k2_extract, 'library_ms': None},
         direct_entry,
         k4_entry,
         *k6_entries,

@@ -14,7 +14,10 @@ attention building blocks (``models.modules``, ``ops.attention``), whose
 blockwise route runs the flash-attention kernels; and the DSP layer
 (``ops.stft``, ``ops.sound``, ``ops.pqmf``, ``models.transforms``,
 ``models.sound``) with the VoiceBank enhancement recipe
-(``examples.voice_bank``, ``models.enhancement``).
+(``examples.voice_bank``, ``models.enhancement``); and feature extraction
+(``scripts.preprocess``: the native audio runtime ``native`` built with g++
+from ``csrc/tpusound.cc``, the resampler ``ops.resample``, the pinned-memory
+prefetch ``parallel``, and the log-mel kernel).
 """
 
 __version__ = '0.1.0'

@@ -5,8 +5,9 @@
 - :class:`SpeechDataLoader` is an iterable of collated **numpy** batches, with
   a thread-pool prefetch in place of worker processes; batches are
   zero-padded per field, with an optional ``pad_multiple`` that rounds the
-  time axis up. The trainer moves batches to the card
-  (``Trainer.to_device``); ``pin_memory`` is accepted and ignored.
+  time axis up. The trainer moves batches to the card through pinned
+  memory (``parallel.prefetch_to_device``); ``pin_memory`` is accepted and
+  ignored.
 
 Random draws (crops, bucket shuffles and choices, shuffles) come from an
 ``np.random.RandomState`` given as ``rng``, by default the global numpy
@@ -16,12 +17,13 @@ the same batches, bit for bit. With workers, crops are drawn from worker
 threads in an order that varies between runs, in both packages.
 
 A loader can resume the epoch in progress: :meth:`SpeechDataLoader.state_dict`
-holds the batches (or the bucket sampler's buckets) it has not yet yielded,
-and after :meth:`~SpeechDataLoader.load_state_dict` the next iteration goes on
-from there. With the global numpy state restored beside it, as the trainer's
-checkpoints do, a resumed run at ``num_workers=0`` draws the batches and
-crops the uninterrupted run drew. (With workers the prefetch runs ahead of
-what was consumed.)
+holds the batches (or the bucket sampler's buckets) that come after the last
+batch it yielded, whatever its worker threads have drawn ahead, and after
+:meth:`~SpeechDataLoader.load_state_dict` the next iteration goes on from
+there. With the numpy state restored beside it, as the trainer's checkpoints
+do, a resumed run draws the batches and crops the uninterrupted run drew
+(with workers, where the crops draw nothing from numpy: the threads' crops
+come in an order that varies between runs).
 """
 
 import math
@@ -176,12 +178,12 @@ class BucketRandomBatchSampler:
 
     def state_dict(self) -> Dict[str, Any]:
         """The buckets of the epoch in progress, less what was yielded."""
-        return {'buckets': [[int(i) for i in b] for b in self._live]}
+        return {'buckets': [list(b) for b in self._live]}
 
     def load_state_dict(self, state: Dict[str, Any]):
         """The next iteration goes on with these buckets (a new epoch if
         they are empty)."""
-        self._resume = [list(b) for b in state['buckets']]
+        self._resume = [[int(i) for i in b] for b in state['buckets']]
 
     def __len__(self):
         return self.bucket_size * self.n_buckets // self.batch_size
@@ -217,6 +219,7 @@ class SpeechDataLoader:
             self.batch_sampler = BucketRandomBatchSampler(
                 dataset, n_buckets=n_buckets, batch_size=batch_size,
                 skip_last_bucket=skip_last_bucket, rng=rng)
+        self._position = self._live_state()     # after the last batch yielded
 
     def _batch_indices(self):
         if self.batch_sampler is not None:
@@ -237,11 +240,17 @@ class SpeechDataLoader:
         while self._live:
             yield self._live.pop(0)
 
-    def state_dict(self) -> Dict[str, Any]:
-        """What the epoch in progress has not yet yielded."""
+    def _live_state(self) -> Dict[str, Any]:
+        """Where the batch index generator stands now."""
         if self.batch_sampler is not None:
             return self.batch_sampler.state_dict()
         return {'batches': [list(b) for b in self._live]}
+
+    def state_dict(self) -> Dict[str, Any]:
+        """What the epoch in progress has left after the last batch yielded
+        (the batch index generator may stand further on, where worker
+        threads load ahead)."""
+        return self._position
 
     def load_state_dict(self, state: Dict[str, Any]):
         """The next iteration goes on with the epoch in ``state`` (a new
@@ -249,7 +258,8 @@ class SpeechDataLoader:
         if self.batch_sampler is not None:
             self.batch_sampler.load_state_dict(state)
         else:
-            self._resume = [list(b) for b in state['batches']]
+            self._resume = [[int(i) for i in b] for b in state['batches']]
+        self._position = state
 
     def _load_batch(self, ids: List[int]) -> List[Any]:
         return self.pad_collate_fn([self.dataset[i] for i in ids],
@@ -258,22 +268,27 @@ class SpeechDataLoader:
     def __iter__(self):
         if self.num_workers <= 0:
             for ids in self._batch_indices():
-                yield self._load_batch(ids)
+                batch = self._load_batch(ids)
+                self._position = self._live_state()
+                yield batch
             return
-        # pipelined: keep `prefetch_batches` batch-futures in flight
+        # pipelined: keep `prefetch_batches` batch-futures in flight, each
+        # with the position the generator had right after drawing it
         with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
             pending = []
             it = self._batch_indices()
             for ids in it:
-                pending.append(pool.submit(self._load_batch, ids))
+                pending.append((pool.submit(self._load_batch, ids), self._live_state()))
                 if len(pending) == self.prefetch_batches:
                     break
             for ids in it:
-                nxt = pool.submit(self._load_batch, ids)
-                yield pending.pop(0).result()
+                nxt = (pool.submit(self._load_batch, ids), self._live_state())
+                future, self._position = pending.pop(0)
+                yield future.result()
                 pending.append(nxt)
             while pending:
-                yield pending.pop(0).result()
+                future, self._position = pending.pop(0)
+                yield future.result()
 
     def __len__(self):
         if self.batch_sampler is not None:

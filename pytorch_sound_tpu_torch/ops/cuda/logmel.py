@@ -27,6 +27,7 @@ from pytorch_sound_tpu_torch.ops import mel as mel_ops
 from pytorch_sound_tpu_torch.ops.cuda import _build
 
 SOURCE = 'pytorch_sound_tpu_torch/csrc/logmel.cu'
+PRECISIONS = ('highest', 'bf16x3', 'default')     # the JAX kernel's modes
 
 
 class FFTConstants(NamedTuple):
@@ -100,8 +101,15 @@ def fused_log_mel(wav: torch.Tensor, sample_rate: int = 22050, mel_size: int = 8
                   min_db: Optional[float] = None, max_db: Optional[float] = None,
                   mel_min: float = 0.0, mel_max: Optional[float] = None,
                   log_offset: float = 1e-6, pad: Optional[int] = None,
-                  power_eps: float = 0.0, log_floor: float = 0.0) -> torch.Tensor:
+                  power_eps: float = 0.0, log_floor: float = 0.0,
+                  precision: str = 'highest') -> torch.Tensor:
     """Log-mel: wav (B, T) float32 -> (B, mel_size, n_frames).
+
+    ``precision`` takes the JAX kernel's modes, 'highest', 'bf16x3' and
+    'default' (:data:`PRECISIONS`), and computes each of them as the fp64
+    kernel (on the CPU the plain version) computes 'highest': the fast modes
+    are not ported, and each result is at least as exact as JAX's in that
+    mode. Any other value raises.
 
     ``pad`` defaults to n_fft // 2 (centered); the HiFi-GAN convention is
     :func:`fused_hifigan_mel`. Requires hop | n_fft and n_fft == win_length
@@ -119,6 +127,8 @@ def fused_log_mel(wav: torch.Tensor, sample_rate: int = 22050, mel_size: int = 8
     """
     if wav.ndim != 2:
         raise ValueError('fused_log_mel expects (B, T), got %s' % (tuple(wav.shape),))
+    if precision not in PRECISIONS:
+        raise ValueError('precision is one of %s, got %r' % (PRECISIONS, precision))
     _kernel_geometry(n_fft, hop_length, win_length)
     pad = n_fft // 2 if pad is None else pad
     lo = mel_ops.db_to_log(min_db) if min_db else -np.inf

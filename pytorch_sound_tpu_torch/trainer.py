@@ -7,17 +7,26 @@ LogType-typed console (and, on request, tensorboard) logging, the
 NaN/Inf-loss update skip, value-then-global-norm gradient clipping with the
 JAX formula, an optional per-step scheduler, validation with best-loss
 tracking, the infinite dataset repeat that raises on an empty dataset, the
-bootstrap's lazy first batch, and checkpoints at the JAX layout
+bootstrap's lazy first batch, the device prefetch (``prefetch_size``
+batches drawn ahead and copied to the card from pinned memory on a side
+stream, ``parallel.prefetch_to_device``), and checkpoints at the JAX layout
 (``<save_dir>/models/<prefix>/<ModelClass>/step_%06d.chkpt`` plus
 ``<prefix>/<ModelClass>.best.chkpt``), resumed from the highest step in a
-file name, with the numpy RNG state restored exactly and the trainer's torch
-generator state beside it, and the position of any dataset that has a
-``state_dict`` (the port's ``SpeechDataLoader``), so that a resumed run at
-``num_workers=0`` draws the batches the uninterrupted run drew. The file
-format is the port's own: ``torch.save`` of state dicts. Not ported yet:
-multi-device meshes, rematerialisation, the profiler window
-(``trainer.py:313`` of the JAX package), pinned-memory prefetch, and the
-tensorboard image and plot channels (``utils/plots.py``).
+file name.
+
+A resumed run is the uninterrupted run, bit for bit, at any prefetch size
+and any loader ``num_workers`` (with workers, where the loader's crops draw
+nothing from numpy). The lookahead has drawn batches that no step has
+taken yet, and their draws moved the numpy stream and the loader. So a
+checkpoint holds, per dataset, the loader's position after the last batch a
+step took (``state_dict`` of the port's ``SpeechDataLoader``) and the numpy
+state before each draw still in flight; a resume puts the loader back there
+and draws those batches again, each from its own numpy state, before it
+restores the numpy state and the trainer's torch generator (``self.rng``)
+as they stood at the save. The file format is the port's own: ``torch.save``
+of state dicts. Not ported yet: multi-device meshes, rematerialisation, the
+profiler window (``trainer.py:313`` of the JAX package), and the tensorboard
+image and plot channels (``utils/plots.py``).
 
 Subclass contract::
 
@@ -29,17 +38,20 @@ Subclass contract::
             return loss, meta
 """
 
+import collections
 import enum
 import glob
+import itertools
 import os
 import re
 import time
 from collections import defaultdict
-from typing import Any, Callable, Dict, Iterable, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from pytorch_sound_tpu_torch.parallel.prefetch import prefetch_to_device
 from pytorch_sound_tpu_torch.utils.commons import log
 from pytorch_sound_tpu_torch.utils.tensor import to_numpy
 
@@ -106,6 +118,9 @@ class Trainer:
         seed: seeds ``np.random`` and the trainer's ``torch.Generator``
             (``self.rng``); both states go into checkpoints
         device: where batches and models live; 'cuda' raises without a card
+        prefetch_size: batches drawn ahead of the step and copied to the
+            device meanwhile (pinned memory, a side stream); 0 draws each
+            batch when its step takes it
         tensorboard: also write tensorboard event files under
             ``<save_dir>/logs/<prefix>`` when ``torch.utils.tensorboard``
             imports. Off by default: that import loads TensorFlow where it is
@@ -119,7 +134,7 @@ class Trainer:
                  grad_norm: float = 0.0, pretrained_path: str = None, sr: int = None,
                  scheduler: Optional[Callable[[int], float]] = None,
                  seed: int = None, device: Union[str, torch.device] = 'cuda',
-                 tensorboard: bool = False):
+                 prefetch_size: int = 2, tensorboard: bool = False):
         self.device = torch.device(device)
         if self.device.type == 'cuda' and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' requested but no CUDA device is "
@@ -130,9 +145,9 @@ class Trainer:
         self.scheduler = (torch.optim.lr_scheduler.LambdaLR(optimizer, scheduler)
                           if scheduler is not None else None)
 
-        self._sources = {'train': train_dataset, 'valid': valid_dataset}
-        self.train_dataset = self.repeat(train_dataset) if train_dataset is not None else None
-        self.valid_dataset = self.repeat(valid_dataset) if valid_dataset is not None else None
+        self.prefetch_size = prefetch_size
+        self.train_dataset = self._stream(train_dataset)
+        self.valid_dataset = self._stream(valid_dataset)
 
         self.step = 0
         self.sr = sr if sr else SAMPLE_RATE
@@ -240,7 +255,9 @@ class Trainer:
         return self.forward(*batch, is_logging=True)
 
     def to_device(self, batch):
-        """A batch (list of arrays or tensors) on ``self.device``."""
+        """A batch (list of arrays or tensors) on ``self.device``, for a
+        batch from outside the datasets (the loop's batches come through the
+        prefetch)."""
         return [torch.as_tensor(x).to(self.device, non_blocking=True) for x in batch]
 
     def _sync(self):
@@ -256,7 +273,6 @@ class Trainer:
         else:
             batch = next(self.train_dataset)
         self._ensure_initialized(batch)
-        batch = self.to_device(batch)
 
         t0 = time.perf_counter()
         loss, meta = self._train_step(batch, is_logging=log_flag)
@@ -287,7 +303,7 @@ class Trainer:
         for i in range(self.valid_max_step):
             batch = next(self.valid_dataset)
             self._ensure_initialized(batch)
-            batch_loss, meta = self._eval_step(self.to_device(batch))
+            batch_loss, meta = self._eval_step(batch)
             loss += float(batch_loss)
             meta = _meta_to_host(meta)
             for key, (value, log_type) in meta.items():
@@ -352,34 +368,32 @@ class Trainer:
         latest_file = max(check_files, key=step_of)
         state = torch.load(latest_file, map_location=self.device, weights_only=True)
         self.seed = int(state['seed'])
-        # exact RNG restore: resumed steps replay the streams the
-        # uninterrupted run saw after this checkpoint's save
-        st = state['np_random']
-        np.random.set_state(('MT19937', st['keys'].cpu().numpy().astype(np.uint32),
-                             int(st['pos']), int(st['has_gauss']), float(st['cached'])))
-        self.rng.set_state(state['rng'].cpu())
         self.load_model_state(state['model'])
         if load_optim:
             self.load_optim_state(state['optim'])
-        self._load_data_state(state.get('data', {}))
+        self._load_data_state(state.get('data', {}), state.get('data_in_flight', {}))
+        # exact RNG restore, after the in-flight draws are replayed: resumed
+        # steps see the streams the uninterrupted run saw after the save
+        np.random.set_state(_np_state(state['np_random']))
+        self.rng.set_state(state['rng'].cpu())
         self.step = int(state['step'])
         log("checkpoint '{}' is loaded. previous step={}".format(latest_file, self.step))
         return True
 
     def save(self, step: int):
-        np_st = np.random.get_state()
+        streams = {'train': self.train_dataset, 'valid': self.valid_dataset}
         state = {
             'step': step,
             'model': self.model_state(),
             'optim': self.optim_state(),
             'pretrained_step': step,
             'seed': self.seed,
-            'np_random': {'keys': torch.from_numpy(np_st[1].astype(np.int64)),
-                          'pos': int(np_st[2]), 'has_gauss': int(np_st[3]),
-                          'cached': float(np_st[4])},
+            'np_random': _np_state_dict(np.random.get_state()),
             'rng': self.rng.get_state(),
-            'data': {key: src.state_dict() for key, src in self._sources.items()
-                     if hasattr(src, 'state_dict')},
+            'data': {key: s.position for key, s in streams.items()
+                     if s is not None and s.position is not None},
+            'data_in_flight': {key: [_np_state_dict(st) for st in s.in_flight()]
+                               for key, s in streams.items() if s is not None},
         }
         save_path = self._checkpoint_dir()
         os.makedirs(save_path, exist_ok=True)
@@ -391,18 +405,19 @@ class Trainer:
 
         log('step %d / saved model.' % step)
 
-    def _load_data_state(self, states: Dict[str, Any]):
-        """Put each dataset back where the checkpoint left it, and restart
-        its repeat from there (the bootstrap's draw is discarded)."""
-        for key, state in states.items():
-            src = self._sources.get(key)
-            if src is None or not hasattr(src, 'load_state_dict'):
+    def _load_data_state(self, positions: Dict[str, Any], in_flight: Dict[str, List]):
+        """Put each dataset back where the checkpoint left it and draw again
+        the batches that were in flight (the bootstrap's draws are
+        discarded)."""
+        for key in ('train', 'valid'):
+            stream = getattr(self, key + '_dataset')
+            if stream is None:
                 continue
-            src.load_state_dict(state)
-            if key == 'train':
-                self.train_dataset = self.repeat(src)
-            else:
-                self.valid_dataset = self.repeat(src)
+            stream.close()
+            if key in positions and hasattr(stream.source, 'load_state_dict'):
+                stream.source.load_state_dict(positions[key])
+            setattr(self, key + '_dataset', self._stream(
+                stream.source, [_np_state(st) for st in in_flight.get(key, [])]))
 
     def load_pretrained_model(self):
         assert os.path.exists(self.pretrained_path), 'You must define pretrained path!'
@@ -436,6 +451,11 @@ class Trainer:
 
     # ------------------------------------------------------------------ data
 
+    def _stream(self, source, replay=()):
+        if source is None:
+            return None
+        return _DeviceStream(source, self.prefetch_size, self.device, replay)
+
     @staticmethod
     def repeat(iterable):
         """Iterate ``iterable`` forever; raise if a pass yields nothing."""
@@ -446,6 +466,64 @@ class Trainer:
                 yield x
             if not yielded:   # an empty dataset would otherwise spin forever
                 raise ValueError('dataset yielded no batches — is the split empty?')
+
+
+class _DeviceStream:
+    """One dataset's batches on the trainer's device, drawn ahead by the
+    prefetch, with what a checkpoint needs to draw the ones in flight again:
+    per batch drawn and not yet taken, the numpy state before its draw, and
+    the source's position after the last batch taken (None for a source
+    without ``state_dict``).
+
+    ``replay`` holds numpy states of batches to draw first, each from its
+    state, right away (a resume)."""
+
+    def __init__(self, source, size: int, device: torch.device, replay=()):
+        self.source = source
+        self._stateful = hasattr(source, 'state_dict')
+        self.position = source.state_dict() if self._stateful else None
+        self._host = Trainer.repeat(source)
+        self._drawn = collections.deque()
+        ready = []
+        for np_state in replay:
+            np.random.set_state(np_state)
+            ready.append(self._draw())
+        self._it = prefetch_to_device(itertools.chain(ready, self._draws()), size, device)
+
+    def _draw(self):
+        before = np.random.get_state()
+        batch = next(self._host)
+        self._drawn.append((before, self.source.state_dict() if self._stateful else None))
+        return batch
+
+    def _draws(self):
+        while True:
+            yield self._draw()
+
+    def __next__(self):
+        batch = next(self._it)
+        _, self.position = self._drawn.popleft()
+        return batch
+
+    def in_flight(self) -> List[tuple]:
+        """The numpy state before each draw not yet taken, oldest first."""
+        return [before for before, _ in self._drawn]
+
+    def close(self):
+        """Stop the prefetch and the source's iteration (its worker threads)."""
+        self._it.close()
+        self._host.close()
+
+
+def _np_state_dict(st) -> Dict[str, Any]:
+    """numpy's global RNG state as a checkpoint entry."""
+    return {'keys': torch.from_numpy(st[1].astype(np.int64)), 'pos': int(st[2]),
+            'has_gauss': int(st[3]), 'cached': float(st[4])}
+
+
+def _np_state(st: Dict[str, Any]) -> tuple:
+    return ('MT19937', st['keys'].cpu().numpy().astype(np.uint32), int(st['pos']),
+            int(st['has_gauss']), float(st['cached']))
 
 
 def _meta_to_host(meta: Dict[str, Tuple[Any, LogType]]) -> Dict[str, Tuple[Any, LogType]]:

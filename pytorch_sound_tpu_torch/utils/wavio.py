@@ -2,16 +2,20 @@
 ``pytorch_sound_tpu/utils/wavio.py``.
 
 PCM 8/16/24/32-bit and IEEE float32/64 in, float32 or int16 out, mono
-mixdown and header-only queries. The JAX package's native decoder
-(``csrc/tpusound.cc``) and its resampler are not ported yet:
-:func:`load_wav` reads every file here, and raises where the caller asks
-for a rate other than the file's.
+mixdown and header-only queries. Files are read here, in Python;
+:func:`resample` is the native runtime's Kaiser polyphase resampler
+(:mod:`pytorch_sound_tpu_torch.native`, ``csrc/tpusound.cc``), which
+:func:`load_wav` takes where the caller asks for a rate other than the
+file's. It has no fallback: where the native library cannot be built, it
+raises.
 """
 
 import struct
 from typing import Optional, Tuple
 
 import numpy as np
+
+from pytorch_sound_tpu_torch import native
 
 _WAVE_FORMAT_PCM = 0x0001
 _WAVE_FORMAT_IEEE_FLOAT = 0x0003
@@ -127,17 +131,27 @@ def write_wav(path: str, samples: np.ndarray, sr: int, dtype: str = 'float32'):
         f.write(body)
 
 
+def resample(wav: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
+    """Polyphase rational resampling of a 1-D signal (Kaiser beta 8.6, 24
+    taps per phase) by the native library: the filter that
+    ``ops.resample.resample_poly`` computes on tensors. The JAX package's
+    ``wavio.resample`` takes scipy's ``resample_poly`` (another filter) where
+    its library is missing; this one raises."""
+    if orig_sr == target_sr:
+        return wav
+    return native.resample(np.asarray(wav, np.float32), int(orig_sr), int(target_sr))
+
+
 def load_wav(path: str, sr: Optional[int] = None, mono: bool = True) -> Tuple[np.ndarray, int]:
-    """librosa.load-style helper: read, mono-mix. The mixdown sums the
-    channels in float64 and scales by 1 / channels, as the JAX package's
-    native decoder (``csrc/tpusound.cc``), which its ``load_wav`` takes
-    where that library is built, does. ``sr`` other than the file's rate
-    raises ``NotImplementedError``: the resampler, which must bit-match the
-    native one, is not ported yet."""
+    """librosa.load-style helper: read, mono-mix, resample to ``sr`` where
+    it is given and differs from the file's rate; returns (samples, rate).
+    The mixdown sums the channels in float64 and scales by 1 / channels, as
+    the native decoder (``csrc/tpusound.cc``), which the JAX package's
+    ``load_wav`` takes, does."""
     wav, orig_sr = read_wav(path)
     if mono and wav.ndim == 2:
         wav = (wav.astype(np.float64).sum(axis=0) * (1.0 / wav.shape[0])).astype(np.float32)
     if sr is not None and sr != orig_sr:
-        raise NotImplementedError(
-            '{} is at {} Hz, {} Hz asked: resampling is not ported yet'.format(path, orig_sr, sr))
+        wav = resample(wav, orig_sr, sr)
+        orig_sr = sr
     return wav, orig_sr

@@ -185,3 +185,39 @@ def test_constants_made_in_inference_mode_serve_autograd():
     out = torch_mel.hifigan_mel_spectrogram(w, **kw)
     out.sum().backward()
     assert torch.equal(out.detach(), first) and bool(torch.isfinite(w.grad).all())
+
+
+@pytest.mark.parametrize('signal', ['noise', 'tones'])
+def test_precision_modes_against_jax_bf16x3(signal):
+    """K2's ``precision=`` at the extract_features settings (centered, 80
+    mels to 8 kHz, clipped to -50 .. 30 dB). The port computes every mode
+    as 'highest' (bit-identical results), and so sits closer to fp64 than
+    JAX's kernel at 'bf16x3' (interpret mode) does. Measured distance of
+    the port from JAX's 'bf16x3' output: 3.0e-5 on noise, 7.7e-2 on pure
+    tones (whose quiet bands the bf16 split moves); from JAX's 'highest':
+    1.4e-6 and 3.4e-3 (fp32 rounding of those bands on both sides)."""
+    rng = np.random.default_rng(5)
+    if signal == 'noise':
+        wav = (rng.standard_normal((2, 22050)) * 0.1).astype(np.float32)
+    else:
+        t = np.arange(22050) / 22050
+        wav = np.stack([0.3 * np.sin(2 * np.pi * 220 * t),
+                        0.2 * np.sin(2 * np.pi * 440 * t)
+                        + 0.001 * rng.standard_normal(22050)]).astype(np.float32)
+    args = (s.SAMPLE_RATE, s.MEL_SIZE, s.N_FFT, s.WIN_LENGTH, s.HOP_LENGTH, s.MIN_DB,
+            s.MAX_DB, s.MEL_MIN, s.MEL_MAX)
+    x = torch.from_numpy(wav)
+    port = {p: logmel.fused_log_mel(x, *args, precision=p).numpy()
+            for p in logmel.PRECISIONS}
+    fp64 = logmel.fused_log_mel(x.double(), *args).numpy()
+    jax_hi, jax_b3 = (np.asarray(jax_fused_log_mel(jnp.asarray(wav), *args, precision=p))
+                      for p in ('highest', 'bf16x3'))
+    assert all(np.array_equal(port[p], port['highest']) for p in logmel.PRECISIONS)
+    out = port['bf16x3']
+    assert out.shape == jax_b3.shape == (2, 80, 87)
+    to_b3, to_hi = np.abs(out - jax_b3).max(), np.abs(out - jax_hi).max()
+    assert np.abs(out - fp64).max() <= np.abs(jax_b3 - fp64).max()
+    assert to_hi <= (1e-4 if signal == 'noise' else 5e-3), to_hi
+    assert to_b3 <= (1e-4 if signal == 'noise' else 0.1), to_b3
+    with pytest.raises(ValueError, match='precision'):
+        logmel.fused_log_mel(x, *args, precision='fp8')

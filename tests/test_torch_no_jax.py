@@ -1,8 +1,8 @@
 """The port imports torch and never jax, flax or the JAX package; its CUDA
 modules import without nvcc (the kernels build at their first CUDA launch).
 The serving path, the training path, the data layer and the enhancement path
-each run in a fresh interpreter; the data layer also loads none of pandas,
-tqdm or joblib."""
+each run in a fresh interpreter; the data layer and the preprocess path also
+load none of pandas, tqdm or joblib."""
 
 import os
 import subprocess
@@ -196,6 +196,47 @@ assert not loaded, loaded
 '''
 
 
+PREPROCESS_SCRIPT = r'''
+import os, sys, tempfile
+
+
+class Absent:
+    """As where the port runs: pandas, tqdm and joblib do not import."""
+    def find_spec(self, name, path=None, target=None):
+        if name.split('.')[0] in ('pandas', 'tqdm', 'joblib'):
+            raise ModuleNotFoundError('No module named %r' % name)
+
+
+sys.meta_path.insert(0, Absent())
+import numpy as np
+import torch
+from pytorch_sound_tpu_torch import native
+from pytorch_sound_tpu_torch.ops.cuda import _build, logmel
+from pytorch_sound_tpu_torch.ops.resample import resample_poly
+from pytorch_sound_tpu_torch.parallel import prefetch_to_device
+from pytorch_sound_tpu_torch.scripts.preprocess import Processor
+from pytorch_sound_tpu_torch.utils.wavio import write_wav
+root = tempfile.mkdtemp()
+os.makedirs(os.path.join(root, 'in'))
+rng = np.random.default_rng(0)
+for i, sr in enumerate((48000, 22050)):
+    write_wav(os.path.join(root, 'in', 'u%d.wav' % i),
+              (0.1 * rng.standard_normal(sr)).astype(np.float32), sr, dtype='int16')
+stats = Processor.extract_features(os.path.join(root, 'in'), os.path.join(root, 'out'),
+                                   batch_size=2, pad_seconds=1.5, device='cpu')
+assert stats['utterances'] == 2, stats
+assert np.load(os.path.join(root, 'out', 'u0.mel.npy')).shape == (80, 87)
+assert resample_poly(torch.zeros(2, 480), 48000, 22050).shape == (2, 221)
+assert len(list(prefetch_to_device([[np.zeros(3)]] * 3, size=2, device='cpu'))) == 3
+assert native.load_library() is not None
+assert _build._lib is None and logmel.fused_log_mel.launches == 0
+forbidden = ('jax', 'jaxlib', 'flax', 'pytorch_sound_tpu', 'pandas', 'tqdm', 'joblib')
+loaded = sorted(m for m in sys.modules if m.split('.')[0] in forbidden)
+print('LOADED', loaded)
+assert not loaded, loaded
+'''
+
+
 def _run(script, *args):
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [ROOT] + [p for p in os.environ.get('PYTHONPATH', '').split(os.pathsep) if p]))
@@ -251,3 +292,11 @@ def test_enhancement_path_loads_neither_jax_nor_the_jax_package():
     enhance): no kernel library, no launch, and none of jax, flax, optax or
     the JAX package loaded."""
     _run(ENHANCE_SCRIPT)
+
+
+def test_preprocess_path_loads_neither_jax_nor_pandas():
+    """The feature pipeline (scripts.preprocess with extract_features on the
+    CPU, the native runtime, the tensor resampler, the prefetch), with
+    pandas, tqdm and joblib made unimportable: no kernel library, no launch,
+    and none of those, jax, flax or the JAX package loaded."""
+    _run(PREPROCESS_SCRIPT)

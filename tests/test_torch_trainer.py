@@ -117,30 +117,34 @@ class StreamRecorder:
             yield [x, (x @ w).astype(np.float32)]
 
 
-def _stream_trainer(tmp_path, log, max_step):
+def _stream_trainer(tmp_path, log, max_step, prefetch_size=2):
     return make_trainer(tmp_path, max_step=max_step, seed=7, train=StreamRecorder(log),
-                        save_interval=5)
+                        save_interval=5, prefetch_size=prefetch_size)
 
 
 def test_resume_reproduces_data_stream(tmp_path):
     """Interrupt + resume replays the exact data stream of an uninterrupted
-    run (np.random and the torch generator are checkpointed)."""
-    full_log = []
-    _stream_trainer(tmp_path / 'full', full_log, max_step=20).run()
-    assert len(full_log) == 20   # one draw per step, no lookahead
+    run (np.random and the torch generator are checkpointed), with no
+    lookahead and with the default prefetch, whose draws in flight at the
+    save are drawn again, each from its own numpy state."""
+    for size in (0, 2):
+        full_log = []
+        _stream_trainer(tmp_path / ('full%d' % size), full_log, 20, size).run()
+        assert len(full_log) == 20 + size   # one draw per step, and the lookahead
 
-    part_log = []
-    _stream_trainer(tmp_path / 'res', part_log, max_step=10).run()
-    resumed_log = []
-    t = _stream_trainer(tmp_path / 'res', resumed_log, max_step=20)
-    t.run()
-    assert t.step == 20
-    # the bootstrap draw is discarded on resume; the rest equal steps 11..20
-    np.testing.assert_array_equal(resumed_log[1:], full_log[10:20])
-    tf = _stream_trainer(tmp_path / 'full', [], max_step=20)
-    tf._bootstrap()              # reload the finished run's last checkpoint
-    torch.testing.assert_close(first_param(t), first_param(tf), atol=1e-6, rtol=0)
-    assert torch.equal(t.rng.get_state(), tf.rng.get_state())
+        part_log = []
+        _stream_trainer(tmp_path / ('res%d' % size), part_log, 10, size).run()
+        resumed_log = []
+        t = _stream_trainer(tmp_path / ('res%d' % size), resumed_log, 20, size)
+        t.run()
+        assert t.step == 20
+        # the bootstrap's draws (one, and the lookahead's) are discarded on
+        # resume; the rest equal the draws of steps 11..20 and the lookahead
+        np.testing.assert_array_equal(resumed_log[1 + size:], full_log[10:20 + size])
+        tf = _stream_trainer(tmp_path / ('full%d' % size), [], 20, size)
+        tf._bootstrap()              # reload the finished run's last checkpoint
+        torch.testing.assert_close(first_param(t), first_param(tf), atol=1e-6, rtol=0)
+        assert torch.equal(t.rng.get_state(), tf.rng.get_state())
 
 
 def test_trainer_grad_clip(tmp_path):

@@ -102,12 +102,26 @@ def test_probes_fail_alike(tmp_path):
         wavio.read_wav(foreign)
 
 
-def test_load_wav_raises_on_another_rate(tmp_path):
-    """No resampler yet: asking for another rate raises, with no fallback."""
-    path = str(tmp_path / 'a.wav')
+def test_load_wav_raises_on_another_rate(tmp_path, monkeypatch):
+    """Another rate goes through the native resampler: equal to the JAX
+    package's ``load_wav`` bit for bit, stereo mixed down first. Without the
+    native library it raises, with no fallback (the JAX package takes
+    scipy's filter there)."""
+    from pytorch_sound_tpu_torch import native
+    path, stereo = str(tmp_path / 'a.wav'), str(tmp_path / 'b.wav')
     wavio.write_wav(path, _signal(1), SR)
+    wavio.write_wav(stereo, _signal(2), SR, dtype='int16')
     assert wavio.load_wav(path, sr=SR)[1] == SR
-    with pytest.raises(NotImplementedError, match='resampl'):
+    for p in (path, stereo):
+        got, ref = wavio.load_wav(p, sr=16000), jax_wavio.load_wav(p, sr=16000)
+        assert got[1] == ref[1] == 16000 and got[0].dtype == np.float32
+        assert np.array_equal(got[0], ref[0]), float(np.abs(got[0] - ref[0]).max())
+
+    def no_compiler():
+        raise RuntimeError('building the native audio runtime failed')
+    monkeypatch.setattr(native, '_lib', None)
+    monkeypatch.setattr(native, 'build', no_compiler)
+    with pytest.raises(RuntimeError, match='native audio runtime'):
         wavio.load_wav(path, sr=16000)
     with pytest.raises(ValueError, match='dtype'):
         wavio.write_wav(path, _signal(1), SR, dtype='int8')

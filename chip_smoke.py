@@ -85,13 +85,20 @@ Phases, one line each; any failure raises and the script exits non-zero:
    pytorch_sound_tpu_torch.examples.hifi_gan vctk ...`` once as a command;
    the loader's ms per batch beside the recipe's and phase 8's step times;
 12. the DSP layer and the VoiceBank enhancement recipe: the log-mel kernel
-   on its direct DFT path (n_fft 400 / 100 at 16 kHz, 1000 / 250, 128 / 32,
-   8192 / 2048; both conventions against the plain version in fp64, reruns
-   bit-identical) and K4's backward there; the transforms' main path
-   (``LogMelSpectrogram`` on (N, T) and (N, 1, T), ``MFCC``, and
-   ``LogMelSpectrogram`` at 16 kHz, 400 / 100) with exact launch counts;
-   timings at 16 x 4 s; then a VoiceBank tree under ``$TMPDIR`` (56 pairs,
-   int16), its metas, the loader alone, ``examples.voice_bank.main`` with
+   on its mixed-radix FFT at the n_fft that are not powers of two
+   (``FFT_GEOMETRIES``: 400 / 100 at 16 kHz, 1000 / 250, 128 / 32, 8192 /
+   2048, 300 / 100, odd 375 / 125) and on its direct DFT where the FFT size
+   has a prime factor above 7 (``DIRECT_GEOMETRIES``: 802 / 401, 1102 /
+   551), both conventions against the plain version in fp64, reruns
+   bit-identical, each launch counted on the path it must take; K4's
+   backward at 400 / 100 and at 802 / 401; the transforms' main path
+   (``LogMelSpectrogram`` on (N, T) and (N, 1, T), ``MFCC``,
+   ``LogMelSpectrogram`` at 16 kHz, 400 / 100) with exact launch counts,
+   none of them on the direct DFT; timings at 16 x 4 s of K2 and K4's
+   backward at 400 / 100 on the FFT and, in the same run, on the direct DFT
+   (``logmel._direct_log_mel`` / ``_direct_backward``); then a VoiceBank
+   tree under ``$TMPDIR`` (56 pairs, int16), its metas, the loader alone,
+   ``examples.voice_bank.main`` with
    ``spec_masker_base`` at 8 x 32768 for 6 steps and 3 steps plus a resume
    to 6 (step-6 checkpoints equal bit for bit; the trainer's default
    device prefetch of 2 batches, as in phase 11), the from-disk step time
@@ -117,9 +124,10 @@ Phases, one line each; any failure raises and the script exits non-zero:
 The line before the last is a JSON object with one entry per kernel, each
 with its time, its plain version's, the least time the card could take for
 the same work (``bound_ms``, from the shapes, at the H100's published peaks;
-for K2's direct path, ``logmel_direct``, and K4's backward there an FFT's
-operations as for the FFT path, the direct DFT's beside them as
-``dft_bound_ms`` and ``direct_bwd_dft_bound_ms``;
+for K2's direct path, ``logmel_direct``, timed at 400 / 100 through
+``_direct_log_mel``, and K4's backward there an FFT's operations as for the
+FFT path, the direct DFT's beside them as ``dft_bound_ms`` and
+``direct_bwd_dft_bound_ms``;
 for K5 from the valid keys only, the count of the keys each kernel processes
 beside it as ``implemented_bound_ms``, and for the kernels that run 3xTF32
 on the tensor cores, K5's three and K6's dw, the same FLOPs three times at
@@ -1725,9 +1733,13 @@ def attention_path(dev, card):
             for i, e in enumerate(('fwd', 'dkv', 'dq'))]
 
 
-# the direct path's geometries: (sample rate, n_fft, hop, mels, fmax)
-DIRECT_GEOMETRIES = ((16000, 400, 100, 80, 8000.0), (22050, 1000, 250, 80, 8000.0),
-                     (8000, 128, 32, 40, None), (22050, 8192, 2048, 80, None))
+# (sample rate, n_fft, hop, mels, fmax): n_fft that are not powers of two and
+# that K2 takes on its mixed-radix FFT, then n_fft whose FFT size has a prime
+# factor above 7, which it takes on the direct DFT
+FFT_GEOMETRIES = ((16000, 400, 100, 80, 8000.0), (22050, 1000, 250, 80, 8000.0),
+                  (8000, 128, 32, 40, None), (22050, 8192, 2048, 80, None),
+                  (16000, 300, 100, 80, 8000.0), (16000, 375, 125, 80, 8000.0))
+DIRECT_GEOMETRIES = ((16000, 802, 401, 80, 8000.0), (44100, 1102, 551, 80, 8000.0))
 ENH_BATCH, ENH_SEG = 8, 32768     # the VoiceBank recipe's defaults (examples/voice_bank.py)
 ENH_RT_TOL = 1e-4                 # enhance with an identity mask vs its input, away from the edges
 PQMF_TOL = 1e-5                   # PQMF card vs CPU, ratio to max abs (tests/test_dsp.py:197)
@@ -1760,11 +1772,13 @@ def direct_bwd_work(b, t, frames, n_fft, hop, f_used, nnz, n_mels):
 
 
 def dsp_path(dev, card, rng):
-    """Phase 12: K2 on its direct path (and K4's backward there), the
-    transforms' main path on K2, the VoiceBank recipe from disk, and
-    enhance. Returns the main path's K2 launches on the FFT path (those on
-    the direct path are the ``logmel_direct`` entry's), the JSON entry of
-    K2's direct path and the direct backward's keys for K4's entry."""
+    """Phase 12: K2 at the n_fft off the powers of two, on its mixed-radix
+    FFT and on its direct DFT (and K4's backward on both), the transforms'
+    main path on K2, the VoiceBank recipe from disk, and enhance. Returns
+    the main path's K2 launches on the FFT (those on the direct DFT are the
+    ``logmel_direct`` entry's), the ``logmel`` entry's keys for 400 / 100,
+    the JSON entry of K2's direct DFT and the keys of K4's entry for 400 /
+    100."""
     import copy
     import random
     import torch
@@ -1778,11 +1792,14 @@ def dsp_path(dev, card, rng):
     from pytorch_sound_tpu_torch.utils.commons import LOGGER
     from pytorch_sound_tpu_torch.utils.wavio import write_wav
 
-    # 12a. K2 at n_fft off the FFT path (the direct DFT): both conventions,
-    #      noise and tones, against the plain version in fp64, one launch
-    #      each, reruns bit-identical
-    worst = 0.0
-    for sr, n_fft, hop, n_mels, fmax in DIRECT_GEOMETRIES:
+    # 12a. K2 at n_fft that are not powers of two, on the mixed-radix FFT,
+    #      and at n_fft it takes on the direct DFT: both conventions, noise
+    #      and tones, against the plain version in fp64, one launch each on
+    #      the path the geometry must take, reruns bit-identical
+    worst = worst_direct = 0.0
+    for sr, n_fft, hop, n_mels, fmax in FFT_GEOMETRIES + DIRECT_GEOMETRIES:
+        direct = (sr, n_fft, hop, n_mels, fmax) in DIRECT_GEOMETRIES
+        assert lm.fft_path(n_fft) != direct, n_fft
         filt = mel_ops.cached_mel_filter(sr, n_fft, n_mels, 0.0, fmax)
         lo, hi = mel_ops.db_to_log(-100.0), mel_ops.db_to_log(20.0)
         hpad = (n_fft - hop) // 2
@@ -1804,52 +1821,61 @@ def dsp_path(dev, card, rng):
                 ref64 = mel_ops.log_mel(x.double(), filt, n_fft, hop, n_fft, **plain_kw)
                 torch.cuda.synchronize()
                 err = max_err(ker.double(), ref64)
-                worst = max(worst, err)
-                log('direct', n_fft=n_fft, hop=hop, sr=sr, convention=conv, signal=kind,
-                    shape=tuple(ker.shape), launches='%d/%d' % launched,
-                    vs_fp64='%.3g' % err, rerun_bit_identical=rerun)
-                assert ker.shape == ref64.shape and launched == (1, 1), (n_fft, launched)
+                if direct:
+                    worst_direct = max(worst_direct, err)
+                else:
+                    worst = max(worst, err)
+                log('k2_path', n_fft=n_fft, hop=hop, sr=sr, path='direct' if direct else 'fft',
+                    convention=conv, signal=kind, shape=tuple(ker.shape),
+                    launches='%d/%d' % launched, vs_fp64='%.3g' % err,
+                    rerun_bit_identical=rerun)
+                assert ker.shape == ref64.shape and launched == (1, int(direct)), (n_fft, launched)
                 assert err <= MEL_TOL and rerun, (n_fft, conv, kind, err, rerun)
 
-    #     K4's backward on the direct path (16 kHz, 400 / 100) against
-    #     autograd of the plain version in fp64 on noise and tones, and of
-    #     the fp32 plain version on noise, each relative to its largest
-    #     entry (on tones the fp32 plain version is itself ~1e-3 off fp64
-    #     there: the gradient reaches ~1e3 through 1 / mel in quiet bands)
-    k4_geom = dict(sampling_rate=16000, n_fft=400, window_size=400, hop_size=100, num_mels=80,
-                   fmax=8000.0)
+    #     K4's backward at 16 kHz, 400 / 100 (the mixed-radix FFT) and at
+    #     802 / 401 (the direct DFT) against autograd of the plain version in
+    #     fp64 on noise and tones, and of the fp32 plain version on noise,
+    #     each relative to its largest entry (on tones the fp32 plain version
+    #     is itself ~1e-3 off fp64 there: the gradient reaches ~1e3 through
+    #     1 / mel in quiet bands)
+    def k4_geom(n_fft, hop):
+        return dict(sampling_rate=16000, n_fft=n_fft, window_size=n_fft, hop_size=hop,
+                    num_mels=80, fmax=8000.0)
 
-    def k4_mel(x):
-        return lm.fused_log_mel(x, 16000, 80, 400, 400, 100, mel_max=8000.0, pad=150,
-                                power_eps=1e-9, log_floor=1e-5)
+    def k4_mel(x, n_fft=400, hop=100):
+        return lm.fused_log_mel(x, 16000, 80, n_fft, n_fft, hop, mel_max=8000.0,
+                                pad=(n_fft - hop) // 2, power_eps=1e-9, log_floor=1e-5)
 
-    bwd_err = bwd_rel = 0.0
-    for kind, wav in (('noise', rng.standard_normal((4, 3 * 16000)) * 0.2),
-                      ('tones', tones(rng, 4, 3 * 16000, am=False))):
-        x = torch.from_numpy(wav.astype(np.float32)).to(dev)
-        cot = torch.cos(k4_mel(x))
-        before = lm.fused_hifigan_mel_trainable.bwd_launches
-        got = lm.hifigan_mel_backward(x, cot, **k4_geom)
-        launched = lm.fused_hifigan_mel_trainable.bwd_launches - before
-        rerun = torch.equal(got, lm.hifigan_mel_backward(x, cot, **k4_geom))
-        ref = lm.hifigan_mel_vjp(x, cot, **k4_geom)
-        ref64 = lm.hifigan_mel_vjp(x.double(), cot.double(), **k4_geom)
-        torch.cuda.synchronize()
-        err = max_err(got, ref) / float(ref.abs().max())
-        rel64 = max_err(got.double(), ref64) / float(ref64.abs().max())
-        bwd_rel = max(bwd_rel, rel64)
-        if kind == 'noise':
-            bwd_err = err
-        log('k4_bwd', geometry='16k_400_100', signal=kind, launches=launched,
-            vs_plain_rel='%.3g' % err, vs_fp64_rel='%.3g' % rel64,
-            grad_max='%.3g' % float(ref.abs().max()), rerun_bit_identical=rerun)
-        assert launched == 1 and rerun and rel64 <= GRAD_TOL, (kind, launched, rerun, rel64)
-        assert kind == 'tones' or err <= GRAD_TOL, (kind, err)
+    bwd_err, bwd_rel = {}, {}
+    for n_fft, hop in ((400, 100), (802, 401)):
+        geom = k4_geom(n_fft, hop)
+        for kind, wav in (('noise', rng.standard_normal((4, 3 * 16000)) * 0.2),
+                          ('tones', tones(rng, 4, 3 * 16000, am=False))):
+            x = torch.from_numpy(wav.astype(np.float32)).to(dev)
+            cot = torch.cos(k4_mel(x, n_fft, hop))
+            before = lm.fused_hifigan_mel_trainable.bwd_launches
+            got = lm.hifigan_mel_backward(x, cot, **geom)
+            launched = lm.fused_hifigan_mel_trainable.bwd_launches - before
+            rerun = torch.equal(got, lm.hifigan_mel_backward(x, cot, **geom))
+            ref = lm.hifigan_mel_vjp(x, cot, **geom)
+            ref64 = lm.hifigan_mel_vjp(x.double(), cot.double(), **geom)
+            torch.cuda.synchronize()
+            err = max_err(got, ref) / float(ref.abs().max())
+            rel64 = max_err(got.double(), ref64) / float(ref64.abs().max())
+            bwd_rel[n_fft] = max(bwd_rel.get(n_fft, 0.0), rel64)
+            if kind == 'noise':
+                bwd_err[n_fft] = err
+            log('k4_bwd', geometry='16k_%d_%d' % (n_fft, hop),
+                path='fft' if lm.fft_path(n_fft) else 'direct', signal=kind,
+                launches=launched, vs_plain_rel='%.3g' % err, vs_fp64_rel='%.3g' % rel64,
+                grad_max='%.3g' % float(ref.abs().max()), rerun_bit_identical=rerun)
+            assert launched == 1 and rerun and rel64 <= GRAD_TOL, (kind, launched, rerun, rel64)
+            assert kind == 'tones' or err <= GRAD_TOL, (kind, err)
 
-    #     the main path: LogMelSpectrogram at the settings' geometry (the FFT
-    #     path) on (N, T) and (N, 1, T), MFCC on (N, 1, T), and
-    #     LogMelSpectrogram at 16 kHz, 400 / 100 (the direct path) on
-    #     (N, 1, T); counters from zero
+    #     the main path: LogMelSpectrogram at the settings' geometry on (N, T)
+    #     and (N, 1, T), MFCC on (N, 1, T), LogMelSpectrogram at 16 kHz, 400 /
+    #     100 on (N, 1, T) (the mixed-radix FFT); counters from zero, and no
+    #     launch on the direct DFT
     settings_args = (SR, 80, 1024, 1024, 256, -50, 30, 0, 8000)
     wav8 = torch.from_numpy(tones(rng, ENH_BATCH, ENH_SEG)).to(dev)
     wav16 = torch.from_numpy(tones(rng, 16, 4 * 16000)).to(dev)
@@ -1869,10 +1895,11 @@ def dsp_path(dev, card, rng):
         rank3_bit_identical=torch.equal(mel3[:, 0], mel2), mfcc_vs_dct='%.3g' % mfcc_err,
         shapes='%s/%s/%s/%s' % (tuple(mel2.shape), tuple(mel3.shape), tuple(mfcc.shape),
                                 tuple(mel16.shape)))
-    assert main_launches == (4, 1), main_launches
+    assert main_launches == (4, 0), main_launches
     assert mel3.shape == (ENH_BATCH, 1, 80, ENH_SEG // 256 + 1) and torch.equal(mel3[:, 0], mel2)
     assert mfcc.shape == (ENH_BATCH, 1, 40, ENH_SEG // 256 + 1) and mfcc_err <= 1e-5
-    assert mel16.shape == (16, 1, 80, 641) and max(err2, err16) <= MEL_TOL, (err2, err16)
+    assert mel16.shape == (16, 1, 80, 641)
+    assert max(err2, err16) <= MEL_TOL, (err2, err16)
     worst = max(worst, err2, err16)
     #     the kernel has no gradient and takes float32: the transform raises
     #     on the card where the CPU's plain version would differentiate or
@@ -1887,8 +1914,9 @@ def dsp_path(dev, card, rng):
                              % (arg.dtype, arg.requires_grad))
 
     #     timings at 16 kHz, 400 / 100, 16 x 4 s: K2 (LogMelSpectrogram's
-    #     geometry) and K4's backward (the HiFi-GAN convention) against their
-    #     plain versions
+    #     geometry) and K4's backward (the HiFi-GAN convention) on the
+    #     mixed-radix FFT against their plain versions and, in turns with
+    #     them, on the direct DFT (_direct_log_mel, _direct_backward)
     c = lm._constants(16000, 400, 400, 80, 0.0, 8000.0, str(dev))
     f_used, nnz = c.mel_w.shape[1], int((c.mel_w != 0).sum())
     x16 = wav16
@@ -1896,6 +1924,9 @@ def dsp_path(dev, card, rng):
         k_ms, p_ms, k_runs, p_runs = paired_ms(
             lambda: mel_ops.log_mel_spectrogram(x16, *speech16),
             lambda: lm.fused_log_mel(x16, 16000, 80, 400, 400, 100, -50, 30, 0, 8000), 20)
+        d_ms, k2_ms, d_runs, k2_runs = paired_ms(
+            lambda: lm.fused_log_mel(x16, 16000, 80, 400, 400, 100, -50, 30, 0, 8000),
+            lambda: lm._direct_log_mel(x16, 16000, 80, 400, 400, 100, -50, 30, 0, 8000), 20)
     frames = 1 + x16.shape[1] // 100
     k_bound, k_bound_by = bound(2.0 * nnz * 16 * frames, fft_flops(400, f_used) * 16 * frames,
                                 4.0 * (x16.numel() + 16 * 80 * frames),
@@ -1903,31 +1934,48 @@ def dsp_path(dev, card, rng):
     dft_bound, _ = bound(*direct_work(16, x16.shape[1], frames, 400, f_used, nnz, 80),
                          fp64_peak=PEAK_FP64_CUDA_CORES)
     cot16 = torch.cos(k4_mel(x16))
+    geom = k4_geom(400, 100)
     b_ms, bp_ms, b_runs, bp_runs = paired_ms(
-        lambda: lm.hifigan_mel_vjp(x16, cot16, **k4_geom),
-        lambda: lm.hifigan_mel_backward(x16, cot16, **k4_geom), 10)
+        lambda: lm.hifigan_mel_vjp(x16, cot16, **geom),
+        lambda: lm.hifigan_mel_backward(x16, cot16, **geom), 10)
+    bd_ms, b2_ms, bd_runs, b2_runs = paired_ms(
+        lambda: lm.hifigan_mel_backward(x16, cot16, **geom),
+        lambda: lm._direct_backward(x16, cot16, **geom), 10)
     bframes = cot16.shape[-1]
     assert bframes == logmel_frames(x16.shape[1], 400, 100), bframes
     b_bound, b_bound_by = bound(*logmel_bwd_work(16, x16.shape[1], f_used, nnz, 80, 400, 100),
                                 fp64_peak=PEAK_FP64_CUDA_CORES)
     b_dft_bound, _ = bound(*direct_bwd_work(16, x16.shape[1], bframes, 400, 100, f_used,
                                             nnz, 80), fp64_peak=PEAK_FP64_CUDA_CORES)
-    log('time', card=repr(card), what='k2_direct_16x4s_16k_400_100', kernel_ms='%.4f' % k_ms,
-        plain_ms='%.4f' % p_ms, kernel_runs='%.4f,%.4f' % k_runs,
-        plain_runs='%.4f,%.4f' % p_runs, bound_ms='%.5f' % k_bound, bound_by=k_bound_by,
-        dft_bound_ms='%.5f' % dft_bound, bwd_kernels_ms='%.4f' % b_ms,
-        plain_vjp_ms='%.4f' % bp_ms, bwd_runs='%.4f,%.4f' % b_runs,
-        plain_vjp_runs='%.4f,%.4f' % bp_runs, bwd_bound_ms='%.5f' % b_bound,
-        bwd_bound_by=b_bound_by, bwd_dft_bound_ms='%.5f' % b_dft_bound)
+    log('time', card=repr(card), what='k2_16x4s_16k_400_100', fft_kernel_ms='%.4f' % k_ms,
+        plain_ms='%.4f' % p_ms, fft_kernel_runs='%.4f,%.4f' % k_runs,
+        plain_runs='%.4f,%.4f' % p_runs, direct_kernel_ms='%.4f' % d_ms,
+        direct_kernel_runs='%.4f,%.4f' % d_runs, fft_kernel_beside_direct_ms='%.4f' % k2_ms,
+        fft_over_direct='%.2f' % (d_ms / k2_ms), bound_ms='%.5f' % k_bound,
+        bound_by=k_bound_by, fft_share_of_bound='%.4f' % (k_bound / k_ms),
+        dft_bound_ms='%.5f' % dft_bound)
+    log('time', card=repr(card), what='k4_bwd_16x4s_16k_400_100', fft_kernels_ms='%.4f' % b_ms,
+        plain_vjp_ms='%.4f' % bp_ms, fft_runs='%.4f,%.4f' % b_runs,
+        plain_vjp_runs='%.4f,%.4f' % bp_runs, direct_kernels_ms='%.4f' % bd_ms,
+        direct_runs='%.4f,%.4f' % bd_runs, fft_beside_direct_ms='%.4f' % b2_ms,
+        bound_ms='%.5f' % b_bound, bound_by=b_bound_by,
+        fft_share_of_bound='%.4f' % (b_bound / b_ms), dft_bound_ms='%.5f' % b_dft_bound)
+    k2_speech = {'speech16k_ms': k_ms, 'speech16k_plain_ms': p_ms,
+                 'speech16k_bound_ms': k_bound, 'speech16k_bound_by': k_bound_by,
+                 'speech16k_max_abs_err': worst}
     entry = {'name': 'logmel_direct', 'route': 'cuda', 'source': lm.SOURCE,
              'replaces': 'pytorch_sound_tpu/ops/pallas/logmel.py:157',
-             'launches': main_launches[1], 'max_abs_err': worst, 'ms': k_ms, 'plain_ms': p_ms,
-             'bound_ms': k_bound, 'bound_by': k_bound_by, 'dft_bound_ms': dft_bound,
-             'shape': '16x64000_16k_400_100', 'library_ms': None}
-    k4_direct = {'direct_bwd_ms': b_ms, 'direct_plain_vjp_ms': bp_ms,
-                 'direct_bwd_bound_ms': b_bound, 'direct_bwd_bound_by': b_bound_by,
-                 'direct_bwd_dft_bound_ms': b_dft_bound,
-                 'direct_bwd_rel_err': bwd_err, 'direct_bwd_fp64_rel_err': bwd_rel}
+             'launches': main_launches[1], 'max_abs_err': worst_direct, 'ms': d_ms,
+             'plain_ms': p_ms, 'bound_ms': k_bound, 'bound_by': k_bound_by,
+             'dft_bound_ms': dft_bound, 'shape': '16x64000_16k_400_100_forced_direct',
+             'library_ms': None}
+    k4_speech = {'speech16k_bwd_ms': b_ms, 'speech16k_plain_vjp_ms': bp_ms,
+                 'speech16k_bwd_bound_ms': b_bound, 'speech16k_bwd_bound_by': b_bound_by,
+                 'speech16k_bwd_rel_err': bwd_err[400],
+                 'speech16k_bwd_fp64_rel_err': bwd_rel[400],
+                 'direct_bwd_ms': bd_ms, 'direct_bwd_dft_bound_ms': b_dft_bound,
+                 'direct_bwd_802_rel_err': bwd_err[802],
+                 'direct_bwd_802_fp64_rel_err': bwd_rel[802]}
 
     # 12b. the recipe from disk: a VoiceBank tree (tones plus white noise, as
     #      tests/test_e2e_voicebank.py:27-48), its metas, the loader alone,
@@ -2139,7 +2187,7 @@ def dsp_path(dev, card, rng):
         in_memory_step_ms_range='%.3f-%.3f' % (min(step_ms), max(step_ms)),
         peak_memory_gb='%.3f' % peak_gb, enhance_ms='%.4f' % enh_ms,
         pqmf_round_trip_ms='%.4f' % pqmf_ms)
-    return main_launches[0] - main_launches[1], entry, k4_direct
+    return main_launches[0] - main_launches[1], k2_speech, entry, k4_speech
 
 
 FEATURE_SRS = {48000: 192, 44100: 16, 22050: 16}   # phase 13: files per source rate
@@ -2805,8 +2853,8 @@ def main():
         entry['launches'] += int(n)
 
     # 12. the DSP layer and the VoiceBank enhancement recipe
-    dsp_logmel, direct_entry, k4_direct = dsp_path(dev, card, rng)
-    k4_entry.update(k4_direct)
+    dsp_logmel, k2_speech, direct_entry, k4_speech = dsp_path(dev, card, rng)
+    k4_entry.update(k4_speech)
 
     # 13. feature extraction: the native runtime, the resampler and
     #     extract_features on K2
@@ -2825,7 +2873,8 @@ def main():
                       + feature_logmel),
          'max_abs_err': errs['logmel'],
          'ms': enc_k, 'plain_ms': enc_p, 'bound_ms': enc_bound, 'bound_by': enc_bound_by,
-         'dft_bound_ms': enc_dft_bound, 'stft_ms': stft_ms, **k2_extract, 'library_ms': None},
+         'dft_bound_ms': enc_dft_bound, 'stft_ms': stft_ms, **k2_extract, **k2_speech,
+         'library_ms': None},
         direct_entry,
         k4_entry,
         *k6_entries,

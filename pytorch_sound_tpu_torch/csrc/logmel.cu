@@ -23,40 +23,76 @@
 // shows in the log of quiet bands (~1e-4 on tones).
 //
 // Two paths take every geometry the TPU kernel takes (n_fft == win, hop |
-// n_fft): the FFT below for a power-of-two n_fft from 256 to 4096, and a
-// direct DFT for every other n_fft (400 / 100 at 16 kHz, 1000 / 250, 128,
-// 8192; see "The direct path" further down).
+// n_fft). Which n_fft goes where (fft_geometry below; ops/cuda/logmel.py's
+// fft_path mirrors it):
+//   - the FFT: P = n_fft / 2 for an even n_fft, P = n_fft for an odd one,
+//     with 2 <= P <= 4096 and no prime factor of P above 7. That is every
+//     even n_fft from 4 to 8192 whose half is 7-smooth (400 and 100 at
+//     16 kHz, 128 ... 8192, 1000, 300, 6000) and every odd 7-smooth n_fft
+//     from 3 to 4095 (375, 3969);
+//   - a direct DFT (see "The direct path" further down) for every other
+//     n_fft: P with a prime factor above 7 (802, 22, 1102, 2 * 4099), an odd
+//     n_fft above 4096, or n_fft 1, 2 and above 8192.
 //
-// The FFT plan, per frame of N = n_fft samples (a power of two, 256 to 4096):
-//   - Packing: z[m] = x[2m] w[2m] + i x[2m+1] w[2m+1], m < M = N / 2, read
-//     straight from the block's span of the waveform in shared memory (the
-//     reflect pad is done by index when the span is staged; no padded copy).
-//     The index follows numpy's reflect rule, which jnp.pad follows: where
-//     pad >= t the signal reflects again and again, a period of 2 (t - 1),
-//     and t == 1 repeats its one sample (reflect_index).
-//   - An M-point complex FFT in shared memory: Stockham autosort passes,
-//     radix 8 (LOG_M / 3 of them) then one radix-4 or radix-2 pass for the
-//     rest, M / 8 threads a frame, each holding one radix-8 butterfly (or two
-//     radix-4, four radix-2) in registers. Pass p (radix R, Ns the product of
-//     the earlier radices): butterfly j reads z[j + r M / R], multiplies it by
-//     W_M^(r (j mod Ns) M / (Ns R)), transforms, and writes
-//     (j / Ns) Ns R + j mod Ns + r Ns. Rows of 8 complex doubles are padded
-//     by one (index i + i / 8), so the stride-8 writes of the first pass and
-//     every other access hit distinct banks.
-//   - Split, for the used bins k < f_used only:
-//     X[k] = (Z[k] + conj Z[M-k]) / 2 - i e^(-2 pi i k / N) (Z[k] - conj Z[M-k]) / 2,
-//     Z indices mod M (k = 0 and k = M read Z[0] twice). This is the
-//     convention of ops/filters.stft_basis: cos rows, -sin rows.
-//   - The window, W_M^e (e < M) and e^(-2 pi i k / N) (k < f_used) are fp64
+// The FFT plan, per frame of N = n_fft samples:
+//   - Even N, packing: z[m] = x[2m] w[2m] + i x[2m+1] w[2m+1], m < P = N / 2,
+//     read straight from the block's span of the waveform in shared memory
+//     (the reflect pad is done by index when the span is staged; no padded
+//     copy). The index follows numpy's reflect rule, which jnp.pad follows:
+//     where pad >= t the signal reflects again and again, a period of
+//     2 (t - 1), and t == 1 repeats its one sample (reflect_index).
+//     Odd N: z[n] = x[n] w[n] (no packing), P = N.
+//   - A P-point complex FFT in shared memory: Stockham autosort passes,
+//     radix 8 while 8 divides what is left, then one radix 4 or 2 for the
+//     rest of the power of two, then radix 3, 5 and 7 (make_plan). A pass
+//     (radix R, Ns the product of the earlier radices): butterfly j < P / R
+//     reads z[j + r P / R], multiplies it by W_P^(r (j mod Ns) P / (Ns R)),
+//     transforms, and writes (j / Ns) Ns R + j mod Ns + r Ns. A frame has
+//     two buffers of P points in shared memory and each pass reads one and
+//     writes the other, so one barrier a pass suffices and a thread holds
+//     one butterfly (R complex doubles) in registers at a time. A frame has
+//     TF = ceil(P / kPointsPerThread) threads (from 8 on, rounded up to a
+//     multiple of 8); lane l takes butterflies l, l + TF, ... of each pass.
+//     The powers of two compiled for their own plan (256 ... 4096,
+//     one_buffer) keep one buffer a frame instead: TF = P / 8 gives every
+//     lane exactly 8 / R butterflies of each pass, which it holds in
+//     registers across a barrier between its reads and its writes (two
+//     barriers a pass), so their blocks need about half the shared memory
+//     (n_fft 1024, 4 frames: 51 KB against 88 KB; 4 blocks an SM, not 2).
+//     Radix 3, 5 and 7 are in-register fp64 DFTs (dft_odd) whose constants
+//     cos / sin (2 pi m / R) are the table's W_P^(m P / R).
+//   - Shared-memory banks: a 16-byte access is served 8 lanes at a time, and
+//     8 lanes conflict where two of their addresses share a slot mod 8. The
+//     reads of every pass are runs of consecutive j, and so are the writes
+//     of a pass whose Ns (R - 1) is a multiple of 8 (the run crosses from one
+//     group of Ns to the next by a jump of Ns (R - 1) + 1): those never
+//     conflict in unpadded rows. The first pass (Ns = 1) writes with stride
+//     R: 8 lanes of a radix-8 pass hit one slot (8-way), radix 4 two slots
+//     (4-way), radix 2 four (2-way). Where 8 | P the rows of 8 complex
+//     doubles are padded by one slot (index i + i / 8, sidx), so the
+//     stride-8 writes fall on 8 slots; every later run starts at a multiple
+//     of 8 there (from P = 64 on, TF and the P / R of every later pass are
+//     multiples of 8), so no access conflicts. Where 8 does not divide P
+//     the rows stay unpadded (padding would break the runs that do not start
+//     at a multiple of 8): the first pass's writes conflict 4-way (P = 4 mod
+//     8, first radix 4) or 2-way (first radix 2), and a pass with an odd
+//     Ns >= 3 (odd P) conflicts where 8 lanes cross a group of Ns.
+//   - Split (even N), for the used bins k < f_used only:
+//     X[k] = (Z[k] + conj Z[P-k]) / 2 - i e^(-2 pi i k / N) (Z[k] - conj Z[P-k]) / 2,
+//     Z indices mod P (k = 0 and k = P read Z[0] twice). Odd N: X[k] = Z[k].
+//     This is the convention of ops/filters.stft_basis: cos rows, -sin rows.
+//   - The window, W_P^e (e < P) and e^(-2 pi i k / N) (k < f_used) are fp64
 //     tables made on the host by numpy; nothing here calls sincos.
 //   - Magnitude sqrt(re^2 + im^2 + eps) in fp64, stored as fp32.
 //   - Mel by band: mel m sums mel_w[m, k] mag[k] over its nonzero range
 //     [k0_m, k1_m) only, ascending, with fmaf in fp32. A zero weight adds an
 //     exact zero, so this equals the dense ascending sum bit for bit.
-// A block owns W (1, 2 or 4) consecutive frames of one item, at most 256
-// threads: the most that still gives every SM a block and fits in shared
-// memory. Each frame is computed alone, so an item's log-mel is
-// bit-identical whatever batch it is in and wherever it sits there.
+// A block owns W consecutive frames of one item (at most 4, more only where
+// frames are small, up to 64 threads; at most 512 threads, 256 for a
+// power-of-two n_fft): the most that still gives every SM a block and fits
+// in shared memory (plan). Each frame is computed alone, so an item's
+// log-mel is bit-identical whatever batch it is in and wherever it sits
+// there.
 //
 // The backward (HiFi-GAN convention), two launches, no atomics:
 //   1. Per frame, the block layout and FFT of the forward: recompute X, mag
@@ -65,13 +101,17 @@
 //      gradient at equality); dmag[k] = sum over the mels whose band holds k,
 //      ascending; G[k] = dmag (re + i im) / mag. The frame's gradient is the
 //      adjoint of the trimmed one-sided DFT (no doubling of interior bins):
-//      dframe[n] = w[n] Re sum_{k < f_used} G[k] e^(+2 pi i k n / N). With
-//      A[k] = G[k], B[k] = G[k] e^(2 pi i k / N) for k < M (the Nyquist bin
-//      folded into k = 0 with e^(i pi) = -1) and
-//      C[k] = (A[k] + conj A[M-k]) / 2 + i (B[k] + conj B[M-k]) / 2,
-//      c = IDFT_M(C) gives dframe[2m] = w[2m] Re c[m] and dframe[2m+1] =
-//      w[2m+1] Im c[m]: one M-point inverse FFT, run as the forward FFT of
-//      conj C. dframe goes to scratch (B, frames, N), fp32.
+//      dframe[n] = w[n] Re sum_{k < f_used} G[k] e^(+2 pi i k n / N).
+//      Even N: with A[k] = G[k], B[k] = G[k] e^(2 pi i k / N) for k < P (the
+//      Nyquist bin folded into k = 0 with e^(i pi) = -1) and
+//      C[k] = (A[k] + conj A[P-k]) / 2 + i (B[k] + conj B[P-k]) / 2,
+//      c = IDFT_P(C) gives dframe[2m] = w[2m] Re c[m] and dframe[2m+1] =
+//      w[2m+1] Im c[m]. Odd N: C[k] = G[k] (zero from f_used on), and
+//      dframe[n] = w[n] Re c[n]. Either way one P-point inverse FFT, run as
+//      the forward FFT of conj C, which is written into the frame's buffer
+//      that does not hold Z (one buffer: over Z, each lane's items held in
+//      registers across a barrier). dframe goes to scratch (B, frames, N),
+//      fp32.
 //   2. Per output sample s: overlap-add and the reflect pad's adjoint. In
 //      unpadded coordinates q = p - pad, the positions that map to s are
 //      q = s itself first, then those congruent to -s modulo 2 (t - 1)
@@ -82,35 +122,99 @@
 //      with f hop <= p < f hop + N in ascending f, in fp64. The order is
 //      fixed, so reruns are bit-identical.
 //
-// The direct path (any other n_fft), the design of the port's first K2:
-// a block owns W (8, 4, 2 or 1) consecutive frames of one item and stages
-// their span as above; each thread owns used bins k and keeps the W frames'
-// fp64 sums of x[n] w[n] e^(-2 pi i k n / N) in registers, one span sample
-// broadcast per frame and step. The twiddle runs as a recurrence
-// z <- z e^(-2 pi i k / N), re-read from the N-point fp64 table every
-// kSync steps (index k n mod N), so no sincos is called and the drift stays
-// at ~kSync ulps. Work is f_used N per frame instead of the FFT's
-// ~N log N: a simple kernel for the geometries that are not a power of two.
-// Magnitude, band mel and epilogue are the FFT path's. Its backward
-// recomputes X the same way (so the floor mask is the forward's), forms G
-// as above, and runs the adjoint per sample n: dframe[n] =
+// The direct path (the n_fft the FFT does not take), the design of the
+// port's first K2: a block owns W (8, 4, 2 or 1) consecutive frames of one
+// item and stages their span as above; each thread owns used bins k and
+// keeps the W frames' fp64 sums of x[n] w[n] e^(-2 pi i k n / N) in
+// registers, one span sample broadcast per frame and step. The twiddle runs
+// as a recurrence z <- z e^(-2 pi i k / N), re-read from the N-point fp64
+// table every kSync steps (index k n mod N), so no sincos is called and the
+// drift stays at ~kSync ulps. Work is f_used N per frame instead of the
+// FFT's ~N log N. Magnitude, band mel and epilogue are the FFT path's. Its
+// backward recomputes X the same way (so the floor mask is the forward's),
+// forms G as above, and runs the adjoint per sample n: dframe[n] =
 // w[n] Re sum_{k < f_used} G[k] e^(+2 pi i k n / N), with the same
-// recurrence over k; then the shared overlap-add kernel.
+// recurrence over k; then the shared overlap-add kernel. The entry points
+// also take it for any n_fft when asked (route 1: the wrapper's private
+// _direct_log_mel and _direct_backward, no entry point of the package), so
+// that the two paths are timed and checked against each other on one
+// geometry; no call reaches it after an FFT launch fails.
 
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <type_traits>
 
 namespace {
 
-constexpr int kMaxFrames = 4;             // frames per block, at most
-constexpr int kMaxThreads = 256;          // threads per block, at most (M / 8 a frame)
+constexpr int kMaxFrames = 4;             // frames per block, at most (but see kMinThreads)
+constexpr int kMinThreads = 64;           // threads per block, at least, where frames are small
+constexpr int kMaxThreads = 512;          // threads per block, at most
+constexpr int kPow2Threads = 256;         // threads per block, at most, for a power-of-two n_fft
+constexpr int kMaxFftSize = 4096;         // points of the in-block FFT, at most
+constexpr int kPointsPerThread = 8;       // a frame's points per thread (TF = P / this)
 constexpr int kMaxSmem = 232448;          // bytes of shared memory a block may use
 constexpr int kDirectThreads = 256;       // threads per block of the direct path
 constexpr int kDirectFrames = 8;          // frames per block of the direct path, at most
 constexpr int kSync = 64;                 // recurrence steps between twiddle table reads
 
-__host__ __device__ constexpr int pidx(int i) { return i + (i >> 3); }
+// The FFT of one frame: P points, the radices of its passes, TF threads.
+struct FftPlan {
+  int p, tf, n_pass;
+  bool odd;                 // odd n_fft: P = n_fft, no packing and no split
+  bool pad;                 // 8 | P: rows of 8 padded by one slot (sidx)
+  unsigned long long radices;   // pass i's radix in bits [4 i, 4 i + 4)
+};
+
+// Shared-memory index of point i of a frame's buffer.
+__host__ __device__ __forceinline__ int sidx(int i, bool pad) { return pad ? i + (i >> 3) : i; }
+
+// The FFT plan of one frame of n_fft samples: P points, radix 8 while 8
+// divides what is left, then one radix 4 or 2, then radix 3, 5 and 7; P = 0
+// where P is below 2, above kMaxFftSize or has a prime factor above 7 (those
+// n_fft take the direct DFT).
+__host__ __device__ constexpr FftPlan make_plan(int n_fft) {
+  const bool odd = n_fft % 2 != 0;
+  const int p = odd ? n_fft : n_fft / 2;
+  if (p < 2 || p > kMaxFftSize) return FftPlan{0, 0, 0, odd, false, 0};
+  int tf = (p + kPointsPerThread - 1) / kPointsPerThread;
+  if (tf >= 8) tf = (tf + 7) / 8 * 8;
+  int rest = p, n = 0;
+  unsigned long long radices = 0;
+  while (rest % 8 == 0) { radices |= 8ull << (4 * n++); rest /= 8; }
+  if (rest % 4 == 0) { radices |= 4ull << (4 * n++); rest /= 4; }
+  if (rest % 2 == 0) { radices |= 2ull << (4 * n++); rest /= 2; }
+  for (int r = 3; r <= 7; r += 2)
+    while (rest % r == 0) { radices |= static_cast<unsigned long long>(r) << (4 * n++); rest /= r; }
+  if (rest != 1) return FftPlan{0, 0, 0, odd, false, 0};
+  return FftPlan{p, tf, n, odd, p % 8 == 0, radices};
+}
+
+// The n_fft whose kernels are compiled for their own plan, so that every
+// index, radix and trip count is a constant: the power-of-two n_fft of the
+// HiFi-GAN paths, and 400, the window of torchaudio's MelSpectrogram and
+// Spectrogram by default (n_fft 400, hop 200: 25 ms and 12.5 ms at 16 kHz).
+// Every other n_fft runs the same passes from the plan in the kernel's
+// arguments (NFFT = 0).
+constexpr int kStaticNfft[] = {256, 512, 1024, 2048, 4096, 400};
+
+// Whether the kernels compiled for NFFT (0: the plan in the arguments) keep
+// one buffer a frame: a power of two (256 ... 4096 in kStaticNfft), whose
+// TF = P / 8 threads give every lane exactly 8 / R butterflies of each
+// pass (fft_pass_in_place). Every other plan keeps two (fft_pass).
+__host__ __device__ constexpr bool one_buffer(int nfft) {
+  return nfft > 0 && (nfft & (nfft - 1)) == 0;
+}
+
+// Threads per block, at most, of the kernels compiled for NFFT, their
+// __launch_bounds__ and plan()'s cap: kPow2Threads for the one-buffer
+// plans, whose frames fit 256 threads (2048 in blocks of 2, 4096 alone),
+// so that they get the registers a 256-thread bound allows; kMaxThreads
+// for every other n_fft (8192's frame alone has 512 threads).
+__host__ __device__ constexpr int max_block_threads(int nfft) {
+  return one_buffer(nfft) ? kPow2Threads : kMaxThreads;
+}
+static_assert(make_plan(4096).tf <= max_block_threads(4096), "one frame fits its block");
 
 __device__ __forceinline__ double2 cadd(double2 a, double2 b) {
   return make_double2(a.x + b.x, a.y + b.y);
@@ -162,73 +266,196 @@ __device__ __forceinline__ void dft8(double2* v, double c8) {
   }
 }
 
+// The R-point DFT (R = 3, 5, 7) in registers, forward sign. With
+// a_p = v[p] + v[R-p], b_p = v[p] - v[R-p] (p = 1 .. H = (R - 1) / 2):
+//   X[0] = v[0] + sum_p a_p,
+//   X[q] = A_q - i B_q, X[R-q] = A_q + i B_q (q = 1 .. H), where
+//   A_q = v[0] + sum_p cos(2 pi p q / R) a_p, B_q = sum_p sin(2 pi p q / R) b_p,
+// each sum ascending in p with fma. c[m] = cos(2 pi m / R) and
+// s[m] = sin(2 pi m / R), m = 1 .. H, come from the twiddle table.
 template <int R>
-__device__ __forceinline__ void dft(double2* v, double c8) {
-  if constexpr (R == 8) dft8(v, c8);
-  else if constexpr (R == 4) dft4(v[0], v[1], v[2], v[3]);
-  else dft2(v);
+__device__ __forceinline__ void dft_odd(double2* v, const double* c, const double* s) {
+  constexpr int H = (R - 1) / 2;
+  double2 a[H + 1], b[H + 1];
+  double2 y0 = v[0];
+#pragma unroll
+  for (int p = 1; p <= H; ++p) {
+    a[p] = cadd(v[p], v[R - p]);
+    b[p] = csub(v[p], v[R - p]);
+    y0 = cadd(y0, a[p]);
+  }
+#pragma unroll
+  for (int q = 1; q <= H; ++q) {
+    double2 A = v[0], B = make_double2(0.0, 0.0);
+#pragma unroll
+    for (int p = 1; p <= H; ++p) {
+      const int m = (p * q) % R;                 // cos / sin (2 pi m / R), folded to m <= H
+      const double cm = c[m <= H ? m : R - m];
+      const double sm = m <= H ? s[m] : -s[R - m];
+      A = make_double2(fma(cm, a[p].x, A.x), fma(cm, a[p].y, A.y));
+      B = make_double2(fma(sm, b[p].x, B.x), fma(sm, b[p].y, B.y));
+    }
+    v[q] = make_double2(A.x + B.y, A.y - B.x);
+    v[R - q] = make_double2(A.x - B.y, A.y + B.x);
+  }
+  v[0] = y0;
 }
 
-// One Stockham pass of radix R over one frame's M points in `buf` (padded
-// rows). The first pass of the forward reads the packed, windowed frame from
-// the span (`x`, fp32 samples, and `win`); every other pass reads `buf`.
-template <int M, int R, bool FROM_SPAN>
-__device__ __forceinline__ void fft_pass(double2* buf, int ns, int lane,
-                                         const float* x, const double* win,
-                                         const double2* __restrict__ tw, double c8) {
-  constexpr int TF = M / 8;          // threads a frame
-  constexpr int Q = 8 / R;           // butterflies a thread
-  double2 v[Q][R];
+// Where a pass reads its input: the frame's buffer, or (the first pass of
+// the forward) the span of fp32 samples times the window, packed in pairs
+// (even n_fft) or real (odd n_fft).
+enum Source { kBuffer = 0, kPacked = 1, kReal = 2 };
+
+// One Stockham pass of radix R over one frame's P points, from `in` (or
+// the span) into `out`. Lane l takes butterflies l, l + TF, ..., each in
+// registers from its reads to its writes; the two buffers make one barrier a
+// pass enough.
+template <int R>
+__device__ __forceinline__ void fft_pass(const double2* in, double2* out, const FftPlan& fp,
+                                         int ns, int lane, Source src, const float* x,
+                                         const double* win, const double2* __restrict__ tw) {
+  constexpr int H = (R - 1) / 2;
+  const int p = fp.p, nb = p / R;
+  double c[H + 1], s[H + 1];
+  if constexpr (R == 8) {
+    c[0] = __ldg(&tw[p / 8].x);
+  } else if constexpr (R % 2 == 1) {
 #pragma unroll
-  for (int q = 0; q < Q; ++q) {
-    const int j = lane + q * TF;
-    const int k = j & (ns - 1);
+    for (int m = 1; m <= H; ++m) {
+      const double2 w = __ldg(tw + m * nb);       // W_P^(m P / R) = e^(-2 pi i m / R)
+      c[m] = w.x;
+      s[m] = -w.y;
+    }
+  }
+  const int step = p / (ns * R);
+  for (int j = lane; j < nb; j += fp.tf) {
+    const int k = j % ns;
+    double2 v[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      const int src = j + r * (M / R);
-      if constexpr (FROM_SPAN) {
-        v[q][r] = make_double2(static_cast<double>(x[2 * src]) * __ldg(win + 2 * src),
-                               static_cast<double>(x[2 * src + 1]) * __ldg(win + 2 * src + 1));
+      const int i = j + r * nb;
+      if (src == kPacked) {
+        v[r] = make_double2(static_cast<double>(x[2 * i]) * __ldg(win + 2 * i),
+                            static_cast<double>(x[2 * i + 1]) * __ldg(win + 2 * i + 1));
+      } else if (src == kReal) {
+        v[r] = make_double2(static_cast<double>(x[i]) * __ldg(win + i), 0.0);
       } else {
-        v[q][r] = buf[pidx(src)];
+        v[r] = in[sidx(i, fp.pad)];
       }
     }
     if (ns > 1) {
-      const int step = M / (ns * R);
 #pragma unroll
-      for (int r = 1; r < R; ++r) v[q][r] = cmul(v[q][r], __ldg(tw + r * k * step));
+      for (int r = 1; r < R; ++r) v[r] = cmul(v[r], __ldg(tw + r * k * step));
     }
-    dft<R>(v[q], c8);
-  }
-  if constexpr (!FROM_SPAN) __syncthreads();     // every read before any write
-#pragma unroll
-  for (int q = 0; q < Q; ++q) {
-    const int j = lane + q * TF;
-    const int k = j & (ns - 1);
+    if constexpr (R == 8) dft8(v, c[0]);
+    else if constexpr (R == 4) dft4(v[0], v[1], v[2], v[3]);
+    else if constexpr (R == 2) dft2(v);
+    else dft_odd<R>(v, c, s);
     const int base = (j - k) * R + k;
 #pragma unroll
-    for (int r = 0; r < R; ++r) buf[pidx(base + r * ns)] = v[q][r];
+    for (int r = 0; r < R; ++r) out[sidx(base + r * ns, fp.pad)] = v[r];
   }
   __syncthreads();
 }
 
-// The M-point forward FFT of one frame into `buf`, natural order. With
-// FROM_SPAN the input is the packed windowed frame, else `buf` itself.
-template <int LOG_M, bool FROM_SPAN>
-__device__ __forceinline__ void fft(double2* buf, int lane, const float* x,
-                                    const double* win, const double2* __restrict__ tw) {
-  constexpr int M = 1 << LOG_M;
-  const double c8 = __ldg(&tw[M / 8].x);
-  fft_pass<M, 8, FROM_SPAN>(buf, 1, lane, x, win, tw, c8);
-  int ns = 8;
+// One Stockham pass of radix R (8, 4 or 2) over a one-buffer frame, in
+// place: lane l holds its 8 / R butterflies l, l + TF, ... in registers
+// from its reads to its writes, with a barrier between them.
+template <int NFFT, int R>
+__device__ __forceinline__ void fft_pass_in_place(double2* buf, int ns, int lane, Source src,
+                                                  const float* x, const double* win,
+                                                  const double2* __restrict__ tw) {
+  constexpr FftPlan fp = make_plan(NFFT);
+  constexpr int nb = fp.p / R, Q = 8 / R;
+  static_assert(one_buffer(NFFT) && R % 2 == 0 && fp.tf * Q == nb, "8 / R butterflies a lane");
+  const double c8 = R == 8 ? __ldg(&tw[fp.p / 8].x) : 0.0;
+  const int step = fp.p / (ns * R);
+  double2 v[Q][R];
 #pragma unroll
-  for (int p = 1; p < LOG_M / 3; ++p, ns *= 8)
-    fft_pass<M, 8, false>(buf, ns, lane, x, win, tw, c8);
-  if constexpr (LOG_M % 3 == 2) fft_pass<M, 4, false>(buf, ns, lane, x, win, tw, c8);
-  if constexpr (LOG_M % 3 == 1) fft_pass<M, 2, false>(buf, ns, lane, x, win, tw, c8);
+  for (int q = 0; q < Q; ++q) {
+    const int j = lane + q * fp.tf;
+    const int k = j % ns;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int i = j + r * nb;
+      v[q][r] = src == kPacked
+                    ? make_double2(static_cast<double>(x[2 * i]) * __ldg(win + 2 * i),
+                                   static_cast<double>(x[2 * i + 1]) * __ldg(win + 2 * i + 1))
+                    : buf[sidx(i, fp.pad)];
+    }
+    if (ns > 1) {
+#pragma unroll
+      for (int r = 1; r < R; ++r) v[q][r] = cmul(v[q][r], __ldg(tw + r * k * step));
+    }
+    if constexpr (R == 8) dft8(v[q], c8);
+    else if constexpr (R == 4) dft4(v[q][0], v[q][1], v[q][2], v[q][3]);
+    else dft2(v[q]);
+  }
+  if (src == kBuffer) __syncthreads();         // every read before any write
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    const int j = lane + q * fp.tf;
+    const int k = j % ns;
+    const int base = (j - k) * R + k;
+#pragma unroll
+    for (int r = 0; r < R; ++r) buf[sidx(base + r * ns, fp.pad)] = v[q][r];
+  }
+  __syncthreads();
 }
 
-// X[k] from Z[k mod M] (za) and Z[(M - k) mod M] (zb); st = e^(-2 pi i k / N).
+// Passes I, I + 1, ... of n_fft's plan, known at compile time (NFFT > 0).
+template <int NFFT, int I>
+__device__ __forceinline__ double2* fft_static(double2* x0, double2* x1, int ns, int lane,
+                                               Source src, const float* x, const double* win,
+                                               const double2* __restrict__ tw) {
+  constexpr FftPlan fp = make_plan(NFFT);
+  if constexpr (I == fp.n_pass) {
+    return x0;
+  } else {
+    constexpr int R = static_cast<int>((fp.radices >> (4 * I)) & 15);
+    if constexpr (one_buffer(NFFT)) {
+      fft_pass_in_place<NFFT, R>(x0, ns, lane, I == 0 ? src : kBuffer, x, win, tw);
+      return fft_static<NFFT, I + 1>(x0, x1, ns * R, lane, src, x, win, tw);
+    } else {
+      fft_pass<R>(x0, x1, fp, ns, lane, I == 0 ? src : kBuffer, x, win, tw);
+      return fft_static<NFFT, I + 1>(x1, x0, ns * R, lane, src, x, win, tw);
+    }
+  }
+}
+
+// The P-point forward FFT of one frame, natural order, from `src` (the
+// span for the forward, else x0); the passes write x1, x0, x1, ... in turn
+// (a one-buffer plan: x0 only). Returns the buffer that holds the result. NFFT > 0: that n_fft's plan,
+// unrolled at compile time; 0: the plan fp, pass by pass.
+template <int NFFT>
+__device__ __forceinline__ double2* fft(double2* x0, double2* x1, const FftPlan& fp, int lane,
+                                        Source src, const float* x, const double* win,
+                                        const double2* __restrict__ tw) {
+  if constexpr (NFFT > 0) {
+    return fft_static<NFFT, 0>(x0, x1, 1, lane, src, x, win, tw);
+  } else {
+    int ns = 1;
+    for (int i = 0; i < fp.n_pass; ++i) {
+      const Source from = i == 0 ? src : kBuffer;
+      const int radix = static_cast<int>((fp.radices >> (4 * i)) & 15);
+      switch (radix) {
+        case 8: fft_pass<8>(x0, x1, fp, ns, lane, from, x, win, tw); break;
+        case 4: fft_pass<4>(x0, x1, fp, ns, lane, from, x, win, tw); break;
+        case 2: fft_pass<2>(x0, x1, fp, ns, lane, from, x, win, tw); break;
+        case 3: fft_pass<3>(x0, x1, fp, ns, lane, from, x, win, tw); break;
+        case 5: fft_pass<5>(x0, x1, fp, ns, lane, from, x, win, tw); break;
+        default: fft_pass<7>(x0, x1, fp, ns, lane, from, x, win, tw); break;
+      }
+      ns *= radix;
+      double2* const written = x1;
+      x1 = x0;
+      x0 = written;
+    }
+    return x0;
+  }
+}
+
+// X[k] from Z[k mod P] (za) and Z[(P - k) mod P] (zb); st = e^(-2 pi i k / N).
 __device__ __forceinline__ double2 split(double2 za, double2 zb, double2 st) {
   const double2 e = make_double2(0.5 * (za.x + zb.x), 0.5 * (za.y - zb.y));
   const double2 o = make_double2(0.5 * (za.x - zb.x), 0.5 * (za.y + zb.y));
@@ -260,7 +487,7 @@ __device__ __forceinline__ void stage_span(float* xs, const float* __restrict__ 
 
 struct Consts {
   const double* win;        // (N,) window
-  const double2* tw;        // (M,) W_M^e; the direct path: (N,) e^(-2 pi i j / N)
+  const double2* tw;        // (P,) W_P^e; the direct path: (N,) e^(-2 pi i j / N)
   const double2* st;        // (f_used,) e^(-2 pi i k / N)
   const float* mel_w;       // (n_mels, f_used)
   const int2* bands;        // (n_mels,) nonzero bins [k0, k1) of each mel
@@ -269,9 +496,19 @@ struct Consts {
   float power_eps;
 };
 
-struct Layout {             // one block's shared memory, in bytes
-  int m, w, f_used, n_mels, span;
-  __host__ __device__ size_t buf() const { return static_cast<size_t>(w) * pidx(m) * 16; }
+// Points of one frame's buffer (its rows padded where fp.pad).
+__host__ __device__ __forceinline__ int frame_points(const FftPlan& fp) {
+  return sidx(fp.p, fp.pad);
+}
+
+struct Layout {             // one block of the FFT path; shared memory in bytes
+  FftPlan fp;
+  int w, f_used, n_mels, span;
+  int nbuf;                 // buffers a frame: 1 (one_buffer) or 2
+  __host__ __device__ int frame() const { return frame_points(fp); }
+  __host__ __device__ size_t buf() const {
+    return static_cast<size_t>(w) * nbuf * frame() * 16;
+  }
   __host__ __device__ size_t mag() const { return static_cast<size_t>(w) * f_used * 4; }
   __host__ __device__ size_t mel() const { return static_cast<size_t>(w) * n_mels * 4; }
   __host__ __device__ size_t bytes() const {
@@ -280,23 +517,46 @@ struct Layout {             // one block's shared memory, in bytes
 };
 
 // Forward of a block's frames up to the magnitudes: stage, FFT, split.
-template <int LOG_M>
-__device__ __forceinline__ void spectrum(const Layout& L, const Consts& c, char* smem,
-                                         const float* __restrict__ wb, int t, int pad,
-                                         int hop, int f0, int f, int lane) {
-  constexpr int M = 1 << LOG_M;
-  double2* buf = reinterpret_cast<double2*>(smem) + static_cast<size_t>(f) * pidx(M);
+// x0, x1 are frame f's two buffers; returns the one that holds Z.
+template <int NFFT>
+__device__ __forceinline__ double2* spectrum(const Layout& L, const FftPlan& fp, const Consts& c,
+                                             char* smem, double2* x0, double2* x1,
+                                             const float* __restrict__ wb,
+                                             int t, int pad, int hop, int f0, int f, int lane) {
   float* mag = reinterpret_cast<float*>(smem + L.buf()) + static_cast<size_t>(f) * c.f_used;
   float* xs = reinterpret_cast<float*>(smem + L.buf() + L.mag() + L.mel());
   stage_span(xs, wb, t, pad, f0, hop, L.span);
   __syncthreads();
-  fft<LOG_M, true>(buf, lane, xs + f * hop, c.win, c.tw);
-  for (int k = lane; k < c.f_used; k += M / 8) {
-    const double2 x = split(buf[pidx(k & (M - 1))], buf[pidx((M - k) & (M - 1))],
-                            __ldg(c.st + k));
+  const double2* z =
+      fft<NFFT>(x0, x1, fp, lane, fp.odd ? kReal : kPacked, xs + f * hop, c.win, c.tw);
+  for (int k = lane; k < c.f_used; k += fp.tf) {
+    const double2 x =
+        fp.odd ? z[sidx(k, fp.pad)]
+               : split(z[sidx(k == fp.p ? 0 : k, fp.pad)],
+                       z[sidx(k == 0 ? 0 : fp.p - k, fp.pad)], __ldg(c.st + k));
     mag[k] = static_cast<float>(sqrt(x.x * x.x + x.y * x.y + static_cast<double>(c.power_eps)));
   }
   __syncthreads();
+  return const_cast<double2*>(z);
+}
+
+// Frame f's first FFT buffer in the block's shared memory; the second, if
+// any, follows it.
+__device__ __forceinline__ double2* frame_buffer(const Layout& L, const FftPlan& fp, char* smem,
+                                                 int f) {
+  return reinterpret_cast<double2*>(smem) + static_cast<size_t>(L.nbuf * f) * frame_points(fp);
+}
+
+// The plan a kernel runs: n_fft's, at compile time (NFFT > 0), or the
+// layout's.
+template <int NFFT>
+__device__ __forceinline__ FftPlan kernel_plan(const Layout& L) {
+  if constexpr (NFFT > 0) {
+    constexpr FftPlan fp = make_plan(NFFT);
+    return fp;
+  } else {
+    return L.fp;
+  }
 }
 
 // mel m of one frame's magnitudes (f_used of them): the band's ascending
@@ -316,18 +576,18 @@ __device__ __forceinline__ float log_mel(float a, float log_floor, float log_off
   return fminf(fmaxf(v, lo), hi);
 }
 
-template <int LOG_M>
-__global__ void __launch_bounds__(kMaxThreads) logmel_fft_kernel(const float* __restrict__ wav, float* __restrict__ out,
-                                  int t, int pad, int hop, int n_frames, Layout L,
-                                  Consts c, float log_floor, float log_offset,
-                                  float lo, float hi) {
+template <int NFFT>
+__global__ void __launch_bounds__(max_block_threads(NFFT)) logmel_fft_kernel(
+    const float* __restrict__ wav, float* __restrict__ out, int t, int pad, int hop,
+    int n_frames, Layout L, Consts c, float log_floor, float log_offset, float lo, float hi) {
   extern __shared__ __align__(16) char smem[];
-  constexpr int TF = (1 << LOG_M) / 8;
   const int b = blockIdx.y;
   const int f0 = blockIdx.x * L.w;
-  const int f = threadIdx.x / TF;
-  spectrum<LOG_M>(L, c, smem, wav + static_cast<size_t>(b) * t, t, pad, hop, f0, f,
-                  threadIdx.x % TF);
+  const FftPlan fp = kernel_plan<NFFT>(L);
+  const int f = threadIdx.x / fp.tf;
+  double2* buf = frame_buffer(L, fp, smem, f);
+  spectrum<NFFT>(L, fp, c, smem, buf, buf + (L.nbuf - 1) * frame_points(fp),
+                 wav + static_cast<size_t>(b) * t, t, pad, hop, f0, f, threadIdx.x % fp.tf);
   for (int e = threadIdx.x; e < c.n_mels * L.w; e += blockDim.x) {
     const int m = e / L.w;
     const int fe = e % L.w;
@@ -353,29 +613,56 @@ __device__ __forceinline__ double2 spectrum_grad(const Consts& c, const float* d
   return make_double2(s * x.x, s * x.y);
 }
 
-// G[k] (zero past the used bins) from the frame's Z pair (za = Z[k mod M],
-// zb = Z[(M-k) mod M]).
+// G[k] (zero past the used bins) from the frame's Z pair (za = Z[k mod P],
+// zb = Z[(P-k) mod P]).
 __device__ __forceinline__ double2 bin_grad(const Consts& c, const float* dmel, int k,
                                             double2 za, double2 zb) {
   if (k >= c.f_used) return make_double2(0.0, 0.0);
   return spectrum_grad(c, dmel, k, split(za, zb, __ldg(c.st + k)));
 }
 
-template <int LOG_M>
-__global__ void __launch_bounds__(kMaxThreads) logmel_frame_grad_kernel(const float* __restrict__ wav,
-                                         const float* __restrict__ grad,
-                                         float* __restrict__ dframes, int t, int pad,
-                                         int hop, int n_frames, Layout L, Consts c,
-                                         float log_floor) {
+// conj C[k] and conj C[P - k] of an even-n_fft frame (0 <= k <= P / 2)
+// from its bins k and P - k (and the Nyquist bin P at k = 0), read from Z.
+__device__ __forceinline__ void c_pair(const Consts& c, const float* dm, const double2* z,
+                                       const FftPlan& fp, int k, double2& ck, double2& cm) {
+  const int P = fp.p;
+  const double2 za = z[sidx(k, fp.pad)], zb = z[sidx(k == 0 ? 0 : P - k, fp.pad)];
+  const double2 ga = bin_grad(c, dm, k, za, zb);
+  const double2 gb = bin_grad(c, dm, P - k, zb, za);     // bin P - k (P at k = 0)
+  double2 a_k, b_k, a_m, b_m;                            // A, B at k and at P - k
+  if (k == 0) {
+    a_k = cadd(ga, gb);
+    b_k = csub(ga, gb);
+    a_m = a_k;
+    b_m = b_k;
+  } else {
+    a_k = ga;
+    a_m = gb;
+    b_k = k < c.f_used ? cmul(ga, cconj(__ldg(c.st + k))) : ga;
+    b_m = P - k < c.f_used ? cmul(gb, cconj(__ldg(c.st + P - k))) : gb;
+  }
+  ck = make_double2(0.5 * (a_k.x + a_m.x) - 0.5 * (b_k.y - b_m.y),
+                    -(0.5 * (a_k.y - a_m.y) + 0.5 * (b_k.x + b_m.x)));
+  cm = make_double2(0.5 * (a_m.x + a_k.x) - 0.5 * (b_m.y - b_k.y),
+                    -(0.5 * (a_m.y - a_k.y) + 0.5 * (b_m.x + b_k.x)));
+}
+
+template <int NFFT>
+__global__ void __launch_bounds__(max_block_threads(NFFT)) logmel_frame_grad_kernel(
+    const float* __restrict__ wav, const float* __restrict__ grad,
+    float* __restrict__ dframes, int t, int pad, int hop, int n_frames, Layout L, Consts c,
+    float log_floor) {
   extern __shared__ __align__(16) char smem[];
-  constexpr int M = 1 << LOG_M;
-  constexpr int N = 2 * M;
-  constexpr int TF = M / 8;
+  const FftPlan fp = kernel_plan<NFFT>(L);
+  const int P = fp.p, tf = fp.tf;
+  const int N = fp.odd ? P : 2 * P;
   const int b = blockIdx.y;
   const int f0 = blockIdx.x * L.w;
-  const int f = threadIdx.x / TF;
-  const int lane = threadIdx.x % TF;
-  spectrum<LOG_M>(L, c, smem, wav + static_cast<size_t>(b) * t, t, pad, hop, f0, f, lane);
+  const int f = threadIdx.x / tf;
+  const int lane = threadIdx.x % tf;
+  double2* buf = frame_buffer(L, fp, smem, f);
+  const double2* z = spectrum<NFFT>(L, fp, c, smem, buf, buf + (L.nbuf - 1) * frame_points(fp),
+                                    wav + static_cast<size_t>(b) * t, t, pad, hop, f0, f, lane);
 
   float* dmel = reinterpret_cast<float*>(smem + L.buf() + L.mag());
   for (int e = threadIdx.x; e < c.n_mels * L.w; e += blockDim.x) {
@@ -392,55 +679,57 @@ __global__ void __launch_bounds__(kMaxThreads) logmel_frame_grad_kernel(const fl
   }
   __syncthreads();
 
-  // C[k] and C[M-k] from bins k, M-k (and the Nyquist bin M at k = 0), held
-  // in registers until every Z has been read.
-  double2* buf = reinterpret_cast<double2*>(smem) + static_cast<size_t>(f) * pidx(M);
   const float* dm = dmel + f * c.n_mels;
-  constexpr int Q = (M / 2) / TF + 1;          // items k in [0, M / 2]
-  double2 ck[Q], cmk[Q];
+  double2* cbuf = one_buffer(NFFT) || z != buf ? buf : buf + frame_points(fp);
+  if constexpr (one_buffer(NFFT)) {
+    // conj C over Z: each lane holds its items k <= P / 2 (at most Q) in
+    // registers from its reads of Z to its writes, with a barrier between
+    constexpr int Q = make_plan(NFFT).p / 2 / make_plan(NFFT).tf + 1;
+    double2 ck[Q], cm[Q];
 #pragma unroll
-  for (int q = 0; q < Q; ++q) {
-    const int k = lane + q * TF;
-    if (k > M / 2) continue;
-    const int mk = (M - k) & (M - 1);
-    const double2 za = buf[pidx(k)], zb = buf[pidx(mk)];
-    const double2 ga = bin_grad(c, dm, k, za, zb);
-    const double2 gb = bin_grad(c, dm, M - k, zb, za);   // bin M - k (M at k = 0)
-    double2 a_k, b_k, a_m, b_m;                          // A, B at k and at M - k
-    if (k == 0) {
-      a_k = cadd(ga, gb);
-      b_k = csub(ga, gb);
-      a_m = a_k;
-      b_m = b_k;
-    } else {
-      a_k = ga;
-      a_m = gb;
-      b_k = k < c.f_used ? cmul(ga, cconj(__ldg(c.st + k))) : ga;
-      b_m = M - k < c.f_used ? cmul(gb, cconj(__ldg(c.st + M - k))) : gb;
+    for (int q = 0; q < Q; ++q) {
+      const int k = lane + q * tf;
+      if (2 * k <= P) c_pair(c, dm, z, fp, k, ck[q], cm[q]);
     }
-    ck[q] = make_double2(0.5 * (a_k.x + a_m.x) - 0.5 * (b_k.y - b_m.y),
-                         0.5 * (a_k.y - a_m.y) + 0.5 * (b_k.x + b_m.x));
-    cmk[q] = make_double2(0.5 * (a_m.x + a_k.x) - 0.5 * (b_m.y - b_k.y),
-                          0.5 * (a_m.y - a_k.y) + 0.5 * (b_m.x + b_k.x));
-  }
-  __syncthreads();
+    __syncthreads();
 #pragma unroll
-  for (int q = 0; q < Q; ++q) {
-    const int k = lane + q * TF;
-    if (k > M / 2) continue;
-    buf[pidx(k)] = cconj(ck[q]);
-    if (k > 0 && k < M / 2) buf[pidx(M - k)] = cconj(cmk[q]);
+    for (int q = 0; q < Q; ++q) {
+      const int k = lane + q * tf;
+      if (2 * k > P) continue;
+      cbuf[sidx(k, fp.pad)] = ck[q];
+      if (k > 0 && 2 * k != P) cbuf[sidx(P - k, fp.pad)] = cm[q];
+    }
+  } else if (fp.odd) {
+    // conj C into the buffer that does not hold Z: no lane overwrites a Z
+    // another lane still reads
+    for (int k = lane; k < P; k += tf) {                 // C[k] = G[k], zero from f_used on
+      cbuf[sidx(k, fp.pad)] = cconj(k < c.f_used ? spectrum_grad(c, dm, k, z[sidx(k, fp.pad)])
+                                                 : make_double2(0.0, 0.0));
+    }
+  } else {
+    // C[k] and C[P-k] from bins k, P-k (and the Nyquist bin P at k = 0), k <= P / 2
+    for (int k = lane; 2 * k <= P; k += tf) {
+      double2 ck, cm;
+      c_pair(c, dm, z, fp, k, ck, cm);
+      cbuf[sidx(k, fp.pad)] = ck;
+      if (k > 0 && 2 * k != P) cbuf[sidx(P - k, fp.pad)] = cm;
+    }
   }
   __syncthreads();
-  fft<LOG_M, false>(buf, lane, nullptr, c.win, c.tw);    // DFT(conj C) = conj(c)
+  const double2* y = fft<NFFT>(cbuf, const_cast<double2*>(z), fp, lane, kBuffer, nullptr, c.win,
+                               c.tw);                    // DFT(conj C) = conj(c)
 
   const int frame = f0 + f;
   if (frame >= n_frames) return;
   float* dst = dframes + (static_cast<size_t>(b) * n_frames + frame) * N;
-  for (int m = lane; m < M; m += TF) {
-    const double2 y = buf[pidx(m)];
-    dst[2 * m] = static_cast<float>(__ldg(c.win + 2 * m) * y.x);
-    dst[2 * m + 1] = static_cast<float>(-__ldg(c.win + 2 * m + 1) * y.y);
+  for (int m = lane; m < P; m += tf) {
+    const double2 ym = y[sidx(m, fp.pad)];
+    if (fp.odd) {
+      dst[m] = static_cast<float>(__ldg(c.win + m) * ym.x);
+    } else {
+      dst[2 * m] = static_cast<float>(__ldg(c.win + 2 * m) * ym.x);
+      dst[2 * m + 1] = static_cast<float>(-__ldg(c.win + 2 * m + 1) * ym.y);
+    }
   }
 }
 
@@ -487,7 +776,8 @@ __global__ void logmel_overlap_add_kernel(const float* __restrict__ dframes,
   dwav[static_cast<size_t>(b) * t + s] = static_cast<float>(acc);
 }
 
-// ---- The direct path: any n_fft, an fp64 DFT per frame over the used bins.
+// ---- The direct path: the n_fft the FFT does not take (and any n_fft on
+// route 1), an fp64 DFT per frame over the used bins.
 
 struct DLayout {            // one direct-path block's shared memory, in bytes
   int w, n_fft, f_used, n_mels, span;
@@ -629,34 +919,60 @@ __global__ void __launch_bounds__(kDirectThreads) logmel_direct_grad_kernel(
   }
 }
 
-int log2_exact(int n) {
-  int l = 0;
-  while ((1 << l) < n) ++l;
-  return (1 << l) == n ? l : -1;
+// Whether n_fft takes the FFT (else the direct DFT).
+bool fft_geometry(int n_fft) { return make_plan(n_fft).p != 0; }
+
+// n_fft where kStaticNfft lists it, else 0: the NFFT its kernels are
+// compiled for.
+int static_nfft(int n_fft) {
+  for (const int n : kStaticNfft)
+    if (n == n_fft) return n;
+  return 0;
 }
 
-// A power-of-two n_fft from 256 to 4096 takes the FFT, any other the direct DFT.
-bool fft_geometry(int n_fft) {
-  const int lg = log2_exact(n_fft);
-  return lg >= 8 && lg <= 12;
+// f(std::integral_constant<int, NFFT>) with NFFT = n_fft where kStaticNfft
+// lists it, else 0.
+template <typename F>
+int with_static_plan(int n_fft, F&& f) {
+  switch (n_fft) {
+    case kStaticNfft[0]: return f(std::integral_constant<int, kStaticNfft[0]>{});
+    case kStaticNfft[1]: return f(std::integral_constant<int, kStaticNfft[1]>{});
+    case kStaticNfft[2]: return f(std::integral_constant<int, kStaticNfft[2]>{});
+    case kStaticNfft[3]: return f(std::integral_constant<int, kStaticNfft[3]>{});
+    case kStaticNfft[4]: return f(std::integral_constant<int, kStaticNfft[4]>{});
+    case kStaticNfft[5]: return f(std::integral_constant<int, kStaticNfft[5]>{});
+    default: return f(std::integral_constant<int, 0>{});
+  }
 }
 
 bool bad_geometry(int b, int t, int pad, int n_fft, int hop, int n_frames, int f_used,
                   int n_mels) {
-  return b < 1 || t < 1 || pad < 0 || hop < 1 || n_fft < 1 || n_fft % hop != 0 || n_frames < 1 || f_used < 1 || f_used > n_fft / 2 + 1 ||
-         n_mels < 1 || (n_frames - 1) * hop + n_fft > t + 2 * pad;
+  return b < 1 || t < 1 || pad < 0 || hop < 1 || n_fft < 1 || n_fft % hop != 0 ||
+         n_frames < 1 || f_used < 1 || f_used > n_fft / 2 + 1 || n_mels < 1 ||
+         (n_frames - 1) * hop + n_fft > t + 2 * pad;
 }
 
-// The block layout: the most frames per block (at most kMaxFrames and
-// kMaxThreads / (M / 8)) that still gives every SM a block and fits in shared
-// memory.
-Layout plan(int b, int n_fft, int hop, int n_frames, int f_used, int n_mels,
-            bool with_mel) {
+int multiprocessors() {
   int sms = 132, dev = 0;
   if (cudaGetDevice(&dev) == cudaSuccess)
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  Layout L{n_fft / 2, kMaxFrames, f_used, with_mel ? n_mels : 0, 0};
-  while (L.w > 1 && L.w * (L.m / 8) > kMaxThreads) L.w /= 2;
+  return sms;
+}
+
+// The block layout: the most frames per block (a power of two, at most
+// kMaxFrames, or as many as give kMinThreads threads where a frame has fewer
+// than kMinThreads / kMaxFrames, and at most max_block_threads / TF) that still
+// gives every SM a block and fits in shared memory. Measured on the H100
+// (logmel_probe.py --set): blocks of 4 frames beat 8 and 16 at 400 / 100
+// and at 1024, and 64 threads beat 32 at n_fft 128.
+Layout plan(const FftPlan& fp, int b, int n_fft, int hop, int n_frames, int f_used,
+            int n_mels, bool with_mel) {
+  const int sms = multiprocessors();
+  Layout L{fp, kMaxFrames, f_used, with_mel ? n_mels : 0, 0,
+           one_buffer(static_nfft(n_fft)) ? 1 : 2};
+  while (L.w * fp.tf < kMinThreads) L.w *= 2;
+  const int max_threads = max_block_threads(static_nfft(n_fft));
+  while (L.w > 1 && L.w * fp.tf > max_threads) L.w /= 2;
   for (;; L.w /= 2) {
     L.span = (L.w - 1) * hop + n_fft;
     const long long blocks = static_cast<long long>(b) * ((n_frames + L.w - 1) / L.w);
@@ -669,9 +985,7 @@ Layout plan(int b, int n_fft, int hop, int n_frames, int f_used, int n_mels,
 // kDirectFrames) that still gives every SM a block and fits in shared memory.
 DLayout plan_direct(int b, int n_fft, int hop, int n_frames, int f_used, int n_mels,
                     bool grad) {
-  int sms = 132, dev = 0;
-  if (cudaGetDevice(&dev) == cudaSuccess)
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int sms = multiprocessors();
   DLayout L{kDirectFrames, n_fft, f_used, n_mels, 0, grad};
   for (;; L.w /= 2) {
     L.span = (L.w - 1) * hop + n_fft;
@@ -697,7 +1011,7 @@ int launch_grid(K kernel, size_t smem_bytes, dim3 grid, int threads, cudaStream_
 template <typename K>
 int launch(K kernel, const Layout& L, int b, int n_frames, cudaStream_t stream,
            void** args) {
-  return launch_grid(kernel, L.bytes(), dim3((n_frames + L.w - 1) / L.w, b), L.w * L.m / 8,
+  return launch_grid(kernel, L.bytes(), dim3((n_frames + L.w - 1) / L.w, b), L.w * L.fp.tf,
                      stream, args);
 }
 
@@ -711,32 +1025,15 @@ int launch_direct(K k8, K k4, K k2, K k1, const DLayout& L, int b, int n_frames,
                      stream, args);
 }
 
-template <int LOG_M>
-int forward_at(const float* wav, float* out, int b, int t, int pad, int hop, int n_frames,
-               const Layout& L, const Consts& c, float log_floor, float log_offset,
-               float lo, float hi, cudaStream_t stream) {
-  void* args[] = {&wav, &out, &t, &pad, &hop, &n_frames, const_cast<Layout*>(&L),
-                  const_cast<Consts*>(&c), &log_floor, &log_offset, &lo, &hi};
-  return launch(logmel_fft_kernel<LOG_M>, L, b, n_frames, stream, args);
-}
-
-template <int LOG_M>
-int frame_grad_at(const float* wav, const float* grad, float* dframes, int b, int t,
-                  int pad, int hop, int n_frames, const Layout& L, const Consts& c,
-                  float log_floor, cudaStream_t stream) {
-  void* args[] = {&wav, &grad, &dframes, &t, &pad, &hop, &n_frames,
-                  const_cast<Layout*>(&L), const_cast<Consts*>(&c), &log_floor};
-  return launch(logmel_frame_grad_kernel<LOG_M>, L, b, n_frames, stream, args);
-}
-
 }  // namespace
 
 // wav (b, t) -> out (b, n_mels, n_frames). window (n_fft,) fp64; twiddles
-// fp64 complex (interleaved re, im): W_M^e, e < M = n_fft / 2, on the FFT
-// path (a power-of-two n_fft from 256 to 4096), e^(-2 pi i j / n_fft),
-// j < n_fft, on the direct path (any other n_fft); split (f_used,) fp64
-// complex; mel_w (n_mels, f_used) fp32; bands (n_mels, 2) int32. hop | n_fft,
-// t >= 1, pad >= 0 (any pad: numpy's reflect rule), n_frames >= 1. Returns a
+// fp64 complex (interleaved re, im): W_P^e, e < P, on the FFT path (P =
+// n_fft / 2 for an even n_fft, n_fft for an odd one; fft_geometry),
+// e^(-2 pi i j / n_fft), j < n_fft, on the direct path (every other n_fft,
+// or any n_fft with route 1); split (f_used,) fp64 complex; mel_w
+// (n_mels, f_used) fp32; bands (n_mels, 2) int32. hop | n_fft, t >= 1,
+// pad >= 0 (any pad: numpy's reflect rule), n_frames >= 1. Returns a
 // cudaError_t; 0 when launched (cudaErrorInvalidValue also where one frame's
 // shared memory exceeds a block's).
 extern "C" int logmel_forward(const float* wav, float* out, int b, int t, int pad,
@@ -744,14 +1041,16 @@ extern "C" int logmel_forward(const float* wav, float* out, int b, int t, int pa
                               const double* twiddles, const double* split_tw,
                               int f_used, const float* mel_w, const int* bands,
                               int n_mels, float power_eps, float log_floor,
-                              float log_offset, float lo, float hi, void* stream) {
+                              float log_offset, float lo, float hi, int route,
+                              void* stream) {
   if (bad_geometry(b, t, pad, n_fft, hop, n_frames, f_used, n_mels))
     return static_cast<int>(cudaErrorInvalidValue);
   const Consts c{window, reinterpret_cast<const double2*>(twiddles),
                  reinterpret_cast<const double2*>(split_tw), mel_w,
                  reinterpret_cast<const int2*>(bands), nullptr, f_used, n_mels, power_eps};
   const auto s = static_cast<cudaStream_t>(stream);
-  if (!fft_geometry(n_fft)) {
+  const FftPlan fp = make_plan(n_fft);
+  if (route == 1 || fp.p == 0) {
     DLayout L = plan_direct(b, n_fft, hop, n_frames, f_used, n_mels, false);
     void* args[] = {&wav, &out, &t, &pad, &hop, &n_frames, &L, const_cast<Consts*>(&c),
                     &log_floor, &log_offset, &lo, &hi};
@@ -759,27 +1058,25 @@ extern "C" int logmel_forward(const float* wav, float* out, int b, int t, int pa
                          logmel_direct_kernel<2>, logmel_direct_kernel<1>, L, b, n_frames, s,
                          args);
   }
-  const Layout L = plan(b, n_fft, hop, n_frames, f_used, n_mels, false);
-  switch (log2_exact(n_fft)) {
-    case 8: return forward_at<7>(wav, out, b, t, pad, hop, n_frames, L, c, log_floor, log_offset, lo, hi, s);
-    case 9: return forward_at<8>(wav, out, b, t, pad, hop, n_frames, L, c, log_floor, log_offset, lo, hi, s);
-    case 10: return forward_at<9>(wav, out, b, t, pad, hop, n_frames, L, c, log_floor, log_offset, lo, hi, s);
-    case 11: return forward_at<10>(wav, out, b, t, pad, hop, n_frames, L, c, log_floor, log_offset, lo, hi, s);
-    default: return forward_at<11>(wav, out, b, t, pad, hop, n_frames, L, c, log_floor, log_offset, lo, hi, s);
-  }
+  Layout L = plan(fp, b, n_fft, hop, n_frames, f_used, n_mels, false);
+  void* args[] = {&wav, &out, &t, &pad, &hop, &n_frames, &L, const_cast<Consts*>(&c),
+                  &log_floor, &log_offset, &lo, &hi};
+  return with_static_plan(n_fft, [&](auto nfft) {
+    return launch(logmel_fft_kernel<decltype(nfft)::value>, L, b, n_frames, s, args);
+  });
 }
 
 // K4's backward, HiFi-GAN convention (log(max(mel, log_floor)), no clip):
 // grad (b, n_mels, n_frames) -> dwav (b, t), through dframes, scratch of
 // (b, n_frames, n_fft) fp32. bin_mels (f_used, 2) int32: the mels whose band
-// holds each bin; the other tables as for logmel_forward, on the same two
-// paths. Two launches; returns a cudaError_t, 0 when launched.
+// holds each bin; the other tables and route as for logmel_forward, on the
+// same two paths. Two launches; returns a cudaError_t, 0 when launched.
 extern "C" int logmel_backward(const float* wav, const float* grad, float* dframes,
                                float* dwav, int b, int t, int pad, int n_fft, int hop,
                                int n_frames, const double* window, const double* twiddles,
                                const double* split_tw, int f_used, const float* mel_w,
                                const int* bands, const int* bin_mels, int n_mels,
-                               float power_eps, float log_floor, void* stream) {
+                               float power_eps, float log_floor, int route, void* stream) {
   if (bad_geometry(b, t, pad, n_fft, hop, n_frames, f_used, n_mels) || !(log_floor > 0.f))
     return static_cast<int>(cudaErrorInvalidValue);
   const Consts c{window, reinterpret_cast<const double2*>(twiddles),
@@ -788,7 +1085,8 @@ extern "C" int logmel_backward(const float* wav, const float* grad, float* dfram
                  reinterpret_cast<const int2*>(bin_mels), f_used, n_mels, power_eps};
   const auto s = static_cast<cudaStream_t>(stream);
   int err;
-  if (!fft_geometry(n_fft)) {
+  const FftPlan fp = make_plan(n_fft);
+  if (route == 1 || fp.p == 0) {
     DLayout L = plan_direct(b, n_fft, hop, n_frames, f_used, n_mels, true);
     void* args[] = {&wav, &grad, &dframes, &t, &pad, &hop, &n_frames, &L,
                     const_cast<Consts*>(&c), &log_floor};
@@ -796,14 +1094,12 @@ extern "C" int logmel_backward(const float* wav, const float* grad, float* dfram
                         logmel_direct_grad_kernel<2>, logmel_direct_grad_kernel<1>, L, b,
                         n_frames, s, args);
   } else {
-    const Layout L = plan(b, n_fft, hop, n_frames, f_used, n_mels, true);
-    switch (log2_exact(n_fft)) {
-      case 8: err = frame_grad_at<7>(wav, grad, dframes, b, t, pad, hop, n_frames, L, c, log_floor, s); break;
-      case 9: err = frame_grad_at<8>(wav, grad, dframes, b, t, pad, hop, n_frames, L, c, log_floor, s); break;
-      case 10: err = frame_grad_at<9>(wav, grad, dframes, b, t, pad, hop, n_frames, L, c, log_floor, s); break;
-      case 11: err = frame_grad_at<10>(wav, grad, dframes, b, t, pad, hop, n_frames, L, c, log_floor, s); break;
-      default: err = frame_grad_at<11>(wav, grad, dframes, b, t, pad, hop, n_frames, L, c, log_floor, s); break;
-    }
+    Layout L = plan(fp, b, n_fft, hop, n_frames, f_used, n_mels, true);
+    void* args[] = {&wav, &grad, &dframes, &t, &pad, &hop, &n_frames, &L,
+                    const_cast<Consts*>(&c), &log_floor};
+    err = with_static_plan(n_fft, [&](auto nfft) {
+      return launch(logmel_frame_grad_kernel<decltype(nfft)::value>, L, b, n_frames, s, args);
+    });
   }
   if (err != 0) return err;
   const dim3 grid((t + 255) / 256, b);

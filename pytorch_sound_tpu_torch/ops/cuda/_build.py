@@ -47,13 +47,13 @@ SIGNATURES = {
         _P, _P, _P, _I,                     # window, twiddles, split, f_used
         _P, _P, _I,                         # mel, bands, n_mels
         _F, _F, _F, _F, _F,                 # power_eps, log_floor, log_offset, lo, hi
-        _P],                                # stream
+        _I, _P],                            # route (1: the direct DFT), stream
     'logmel_backward': [
         _P, _P, _P, _P,                     # wav, grad, dframes, dwav
         _I, _I, _I, _I, _I, _I,             # b, t, pad, n_fft, hop, frames
         _P, _P, _P, _I,                     # window, twiddles, split, f_used
         _P, _P, _P, _I,                     # mel, bands, bin_mels, n_mels
-        _F, _F, _P],                        # power_eps, log_floor, stream
+        _F, _F, _I, _P],                    # power_eps, log_floor, route, stream
     'grouped_conv_forward': [
         _P, _P, _P, _P,                     # x, w, bias, y
         _I, _I, _I, _I, _I,                 # n, cin, t_in, cout, t_out

@@ -4,10 +4,11 @@ Counterpart of ``pytorch_sound_tpu/ops/pallas/logmel.py`` (``fused_log_mel``,
 ``fused_hifigan_mel``): reflect pad -> frames -> windowed DFT over the bins the
 mel filterbank uses -> magnitude -> mel -> log -> clip, in one launch; the
 spectrum never reaches device memory. The card kernel takes the JAX kernel's
-geometry, ``win_length == n_fft`` and ``hop_length | n_fft``, on two paths:
-an in-block fp64 FFT for a power-of-two ``n_fft`` from 256 to 4096
-(:func:`fft_path`), a direct fp64 DFT over the used bins for every other
-``n_fft`` (400 / 100 at 16 kHz, 1000 / 250, 128 / 32, 8192 / 2048).
+geometry, ``win_length == n_fft`` and ``hop_length | n_fft``, on two paths
+(:func:`fft_path` says which): an in-block mixed-radix fp64 FFT for every
+n_fft whose FFT size (n_fft / 2 if even, n_fft if odd) is 7-smooth, from 2
+to 4096 points (400 / 100 at 16 kHz, 128 ... 8192, 1000, 300, 6000, 375),
+and a direct fp64 DFT over the used bins for the others (802, 22, 1102).
 
 The wrapper dispatches on the tensor's device: on the CPU it runs the plain
 version (:func:`pytorch_sound_tpu_torch.ops.mel.log_mel`), on a CUDA tensor it
@@ -17,6 +18,7 @@ backward kernel on the same FFT.
 """
 
 import functools
+import inspect
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -33,19 +35,40 @@ PRECISIONS = ('highest', 'bf16x3', 'default')     # the JAX kernel's modes
 class FFTConstants(NamedTuple):
     """The kernels' host-made tables, on one device."""
     window: torch.Tensor      # (n_fft,) float64, the centered periodic Hann window
-    twiddles: torch.Tensor    # FFT path: (n_fft // 2, 2) float64, W_M^e = exp(-2 pi i e / M),
-                              # M = n_fft / 2; direct path: (n_fft, 2), exp(-2 pi i j / n_fft)
+    twiddles: torch.Tensor    # FFT path: (P, 2) float64, W_P^e = exp(-2 pi i e / P), P the
+                              # FFT's size (fft_size); direct path: (n_fft, 2),
+                              # exp(-2 pi i j / n_fft)
     split: torch.Tensor       # (f_used, 2) float64, exp(-2 pi i k / n_fft)
     mel_w: torch.Tensor       # (n_mels, f_used) float32, the filterbank's used bins
     bands: torch.Tensor       # (n_mels, 2) int32, each mel's nonzero bins [k0, k1)
     bin_mels: torch.Tensor    # (f_used, 2) int32, the mels [m0, m1) weighting each bin
 
 
+FFT_MAX_SIZE = 4096      # points of the in-block FFT, at most (kMaxFftSize)
+
+
+def fft_size(n_fft: int) -> int:
+    """Points of the kernels' FFT of an n_fft frame: n_fft / 2 for an even
+    n_fft (two real samples packed into one complex point), n_fft for an
+    odd one."""
+    return n_fft // 2 if n_fft % 2 == 0 else n_fft
+
+
 def fft_path(n_fft: int) -> bool:
-    """Whether the kernels take ``n_fft`` on the FFT path (a power of two from
-    256 to 4096, ``fft_geometry`` in ``csrc/logmel.cu``); every other
-    ``n_fft`` takes the direct DFT."""
-    return 256 <= n_fft <= 4096 and not n_fft & (n_fft - 1)
+    """Whether the kernels take ``n_fft`` on the FFT path (``fft_geometry``
+    in ``csrc/logmel.cu``): its FFT size (:func:`fft_size`) is from 2 to
+    4096 points and has no prime factor above 7. That is every even n_fft
+    from 4 to 8192 whose half is 7-smooth and every odd 7-smooth n_fft from
+    3 to 4095. Every other n_fft (a prime factor above 7 in the FFT size, as
+    802, 22 and 1102 have; an odd n_fft above 4096; n_fft 1, 2 and above
+    8192) takes the direct DFT."""
+    p = fft_size(n_fft)
+    if not 2 <= p <= FFT_MAX_SIZE:
+        return False
+    for r in (2, 3, 5, 7):
+        while p % r == 0:
+            p //= r
+    return p == 1
 
 
 def _kernel_geometry(n_fft: int, hop_length: int, win_length: int):
@@ -74,19 +97,21 @@ def _complex_pairs(z: np.ndarray) -> np.ndarray:
 
 @functools.lru_cache(maxsize=8)
 def _constants(sample_rate: int, n_fft: int, win_length: int, n_mels: int,
-               fmin: float, fmax: Optional[float], device: str) -> FFTConstants:
+               fmin: float, fmax: Optional[float], device: str,
+               direct: bool = False) -> FFTConstants:
     """The kernels' tables for one geometry, on ``device``.
 
     f_used counts only the spectral bins the mel filterbank weights (372 of
     513 at fmax 8 kHz); higher bins have exactly-zero mel weight and are never
     formed. Window and twiddles are fp64 from numpy: the kernels call no
-    sincos. The twiddles are the FFT's n_fft / 2-point table on the FFT path,
-    the n_fft-point one on the direct path.
+    sincos. The twiddles are the FFT's P-point table on the FFT path
+    (:func:`fft_size`), the n_fft-point one on the direct path (``direct``,
+    or an n_fft off the FFT path).
     """
     mel = filters.mel_filterbank(sample_rate, n_fft, n_mels, fmin, fmax)
     nz = np.nonzero(np.any(mel != 0.0, axis=0))[0]
     f_used = int(nz[-1]) + 1 if nz.size else n_fft // 2 + 1
-    m = n_fft // 2 if fft_path(n_fft) else n_fft
+    m = n_fft if direct or not fft_path(n_fft) else fft_size(n_fft)
     mel_w = np.asarray(mel[:, :f_used], dtype=np.float32)
     arrays = (filters.pad_center(filters.hann_window(win_length), n_fft),
               _complex_pairs(np.exp(-2j * np.pi * np.arange(m) / m)),
@@ -115,9 +140,9 @@ def fused_log_mel(wav: torch.Tensor, sample_rate: int = 22050, mel_size: int = 8
     :func:`fused_hifigan_mel`. Requires hop | n_fft and n_fft == win_length
     (:func:`_kernel_geometry`), on a CPU tensor as on a CUDA one, where the
     kernel runs on its FFT or its direct path (:func:`fft_path`). Any T >= 1
-    takes any pad, by numpy's reflect
-    rule (:func:`~pytorch_sound_tpu_torch.ops.mel.reflect_index`); input
-    shorter than one frame gives (B, mel_size, 0) and launches nothing.
+    takes any pad, by numpy's reflect rule
+    (:func:`~pytorch_sound_tpu_torch.ops.mel.reflect_index`); input shorter
+    than one frame gives (B, mel_size, 0) and launches nothing.
 
     The kernel takes float32 and has no gradient of its own (as the JAX
     kernel has none): on a CUDA tensor that requires a gradient while
@@ -125,6 +150,30 @@ def fused_log_mel(wav: torch.Tensor, sample_rate: int = 22050, mel_size: int = 8
     result without ``grad_fn`` or a cast one. The differentiable form is
     :func:`fused_hifigan_mel_trainable`.
     """
+    return _log_mel(False, wav, sample_rate, mel_size, n_fft, win_length, hop_length,
+                    min_db, max_db, mel_min, mel_max, log_offset, pad, power_eps, log_floor,
+                    precision)
+
+
+def _direct_log_mel(*args, **kwargs) -> torch.Tensor:
+    """:func:`fused_log_mel` (same arguments) on the direct DFT whatever the
+    n_fft, so that the two paths are timed and checked against each other on
+    one geometry (``chip_smoke.py``, ``logmel_probe.py`` and the card tests
+    call it; no entry point of the package does). Counted in
+    ``fused_log_mel.launches`` and ``direct_launches``."""
+    return _log_mel(True, **_arguments(_LOG_MEL_SIGNATURE, args, kwargs))
+
+
+def _arguments(signature, args, kwargs) -> dict:
+    """The arguments of a call with ``signature`` by name, defaults filled in."""
+    bound = signature.bind(*args, **kwargs)
+    bound.apply_defaults()
+    return bound.arguments
+
+
+def _log_mel(direct, wav, sample_rate, mel_size, n_fft, win_length, hop_length, min_db,
+             max_db, mel_min, mel_max, log_offset, pad, power_eps, log_floor, precision):
+    """:func:`fused_log_mel`, on the direct DFT at any n_fft where ``direct``."""
     if wav.ndim != 2:
         raise ValueError('fused_log_mel expects (B, T), got %s' % (tuple(wav.shape),))
     if precision not in PRECISIONS:
@@ -156,24 +205,26 @@ def fused_log_mel(wav: torch.Tensor, sample_rate: int = 22050, mel_size: int = 8
     out = torch.empty((b, mel_size, n_frames), dtype=torch.float32, device=wav.device)
     if n_frames == 0 or b == 0:
         return out
+    direct = direct or not fft_path(n_fft)
     c = _constants(sample_rate, n_fft, win_length, mel_size, mel_min, mel_max,
-                   str(wav.device))
+                   str(wav.device), direct)
     with torch.cuda.device(wav.device):
         code = _build.library().logmel_forward(
             wav.data_ptr(), out.data_ptr(), b, t, pad, n_fft, hop_length, n_frames,
             c.window.data_ptr(), c.twiddles.data_ptr(), c.split.data_ptr(),
             c.mel_w.shape[1], c.mel_w.data_ptr(), c.bands.data_ptr(), mel_size,
-            power_eps, log_floor, log_offset, lo, hi,
+            power_eps, log_floor, log_offset, lo, hi, int(direct),
             torch.cuda.current_stream().cuda_stream)
     _build.check(code, 'logmel_forward')
     fused_log_mel.launches += 1
-    if not fft_path(n_fft):
+    if direct:
         fused_log_mel.direct_launches += 1
     return out
 
 
 fused_log_mel.launches = 0
 fused_log_mel.direct_launches = 0     # of launches, those on the direct path
+_LOG_MEL_SIGNATURE = inspect.signature(fused_log_mel)
 
 
 def fused_hifigan_mel(wav: torch.Tensor, sampling_rate: int = 22050,
@@ -220,6 +271,23 @@ def hifigan_mel_backward(wav: torch.Tensor, grad: torch.Tensor, sampling_rate: i
     ``fused_hifigan_mel_trainable.bwd_launches``, or an error. Input shorter
     than one frame has a zero gradient and launches nothing.
     """
+    return _mel_backward(False, wav, grad, sampling_rate, n_fft, window_size, hop_size,
+                         num_mels, fmin, fmax)
+
+
+_BACKWARD_SIGNATURE = inspect.signature(hifigan_mel_backward)
+
+
+def _direct_backward(*args, **kwargs) -> torch.Tensor:
+    """:func:`hifigan_mel_backward` (same arguments) on the direct adjoint
+    DFT whatever the n_fft, as :func:`_direct_log_mel`."""
+    return _mel_backward(True, **_arguments(_BACKWARD_SIGNATURE, args, kwargs))
+
+
+def _mel_backward(direct, wav, grad, sampling_rate, n_fft, window_size, hop_size, num_mels,
+                  fmin, fmax):
+    """:func:`hifigan_mel_backward`, on the direct path at any n_fft where
+    ``direct``."""
     settings = (sampling_rate, n_fft, window_size, hop_size, num_mels, fmin, fmax)
     if wav.device.type == 'cpu':
         return hifigan_mel_vjp(wav, grad, *settings)
@@ -238,7 +306,9 @@ def hifigan_mel_backward(wav: torch.Tensor, grad: torch.Tensor, sampling_rate: i
                          % (tuple(grad.shape), grad.device, tuple(wav.shape)))
     if n_frames == 0 or b == 0:
         return torch.zeros_like(wav)
-    c = _constants(sampling_rate, n_fft, window_size, n_mels, fmin, fmax, str(wav.device))
+    direct = direct or not fft_path(n_fft)
+    c = _constants(sampling_rate, n_fft, window_size, n_mels, fmin, fmax, str(wav.device),
+                   direct)
     dframes = torch.empty((b, n_frames, n_fft), dtype=torch.float32, device=wav.device)
     dwav = torch.empty_like(wav)
     with torch.cuda.device(wav.device):
@@ -247,7 +317,7 @@ def hifigan_mel_backward(wav: torch.Tensor, grad: torch.Tensor, sampling_rate: i
             b, t, pad, n_fft, hop, n_frames,
             c.window.data_ptr(), c.twiddles.data_ptr(), c.split.data_ptr(),
             c.mel_w.shape[1], c.mel_w.data_ptr(), c.bands.data_ptr(),
-            c.bin_mels.data_ptr(), n_mels, 1e-9, 1e-5,
+            c.bin_mels.data_ptr(), n_mels, 1e-9, 1e-5, int(direct),
             torch.cuda.current_stream().cuda_stream)
     _build.check(code, 'logmel_backward')
     fused_hifigan_mel_trainable.bwd_launches += 1

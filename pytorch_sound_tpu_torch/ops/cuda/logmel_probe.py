@@ -3,7 +3,7 @@ the repository on a card, so that two trees (a commit and its parent) are
 compared on one machine, in turns.
 
     python pytorch_sound_tpu_torch/ops/cuda/logmel_probe.py [ROOT] [--profile]
-        [--direct] [--direct-frames W]
+        [--direct] [--set NAME=VALUE]
 
 ROOT (default: the checkout holding this file) is the root of the tree whose
 ``pytorch_sound_tpu_torch`` is imported and built; the script only calls the
@@ -21,16 +21,23 @@ and the host time of the busiest operators per call; and times, as K4's
 backward is timed, an autograd function whose forward is K2 and whose
 backward only returns zeros: the part of that time autograd itself takes.
 
-``--direct`` also times K2's direct path (an n_fft that is not a power of
-two) at 16 x 4 s of tones for each of ``chip_smoke.py``'s direct geometries
-(400 / 100 at 16 kHz, 1000 / 250, 128 / 32 at 8 kHz, 8192 / 2048), and K4's
-backward there at 400 / 100, each the mean of 20 calls after 2 warm-ups.
-``--direct-frames W`` runs all of it on a copy of ROOT's package, kept in
-ROOT's ignored build directory, whose direct kernels take at most W frames
-per block (``kDirectFrames`` in ``csrc/logmel.cu``) instead of ROOT's
-planned number, so that the two are compared in one call, in turns:
+``--direct`` also times K2 at 16 x 4 s of tones for each geometry that ran
+on the direct DFT until the mixed-radix FFT took it (``chip_smoke.py``'s
+``FFT_GEOMETRIES``: 400 / 100 at 16 kHz, 1000 / 250, 128 / 32 at 8 kHz,
+8192 / 2048, 300 / 100, 375 / 125) and at 802 / 401, which stays direct,
+and K4's backward at 400 / 100, each the mean of 20 calls after 2 warm-ups,
+through the entry points; where the tree's wrapper has the private
+``_direct_log_mel`` / ``_direct_backward``, the same again on the direct DFT,
+in the same process, and a one-frame call (the host's floor under every event
+time: a call whose kernel is shorter than its host work measures the host).
+With ``--profile`` it also gives each one's device time (the profiler's sum
+of its kernels) and traces K2 and K4's backward at 400 / 100. ``--set NAME=VALUE`` runs all of it on a copy of ROOT's
+package, kept in ROOT's ignored build directory, whose ``csrc/logmel.cu``
+has ``constexpr int NAME = VALUE;`` (``kMaxFrames``, ``kDirectFrames``, ...)
+instead of ROOT's value, so that variants are compared in one call, in
+turns:
 
-    python logmel_probe.py --direct; python logmel_probe.py --direct --direct-frames 1
+    python logmel_probe.py --direct; python logmel_probe.py --direct --set kMaxFrames=4
 """
 
 import json
@@ -40,9 +47,12 @@ import shutil
 import subprocess
 import sys
 
-# (sample rate, n_fft, hop, mels, fmax) of the direct path, as in chip_smoke.py
-DIRECT_GEOMETRIES = ((16000, 400, 100, 80, 8000.0), (22050, 1000, 250, 80, 8000.0),
-                     (8000, 128, 32, 40, None), (22050, 8192, 2048, 80, None))
+# (sample rate, n_fft, hop, mels, fmax): chip_smoke.py's FFT_GEOMETRIES, then
+# a geometry that stays on the direct DFT
+GEOMETRIES = ((16000, 400, 100, 80, 8000.0), (22050, 1000, 250, 80, 8000.0),
+              (8000, 128, 32, 40, None), (22050, 8192, 2048, 80, None),
+              (16000, 300, 100, 80, 8000.0), (16000, 375, 125, 80, 8000.0),
+              (16000, 802, 401, 80, 8000.0))
 
 
 def tones(rng, n, samples, sr=22050):
@@ -94,12 +104,35 @@ def profile(name, fn, iters=20):
                       'host_ms_per_call': {k: v for v, k in host}}), flush=True)
 
 
-def direct_frames_copy(root, frames):
-    """ROOT's package copied under its build directory with the direct
-    kernels' frames per block capped at ``frames``; returns the copy's root
-    (reused by a later call with the same ``frames``)."""
+def device_ms(fn, per_call=1, iters=20, attempts=3):
+    """Device time per call of ``fn``, which launches ``per_call`` kernels a
+    call: their time over ``iters`` calls by ``torch.profiler``, summed,
+    over ``iters``, from a session that kept every kernel record (run again
+    up to ``attempts`` times, as ``chip_smoke.device_ms``); None where none
+    did."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    for _ in range(3):
+        fn()
+    for _ in range(attempts):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type.name == 'CUDA' and getattr(e, 'device_time_total', 0.0) > 0]
+        if sum(e.count for e in kernels) == per_call * iters:
+            return sum(e.device_time_total for e in kernels) / iters / 1e3
+    return None
+
+
+def constant_copy(root, name, value):
+    """ROOT's package copied under its build directory with
+    ``constexpr int NAME = VALUE;`` in ``csrc/logmel.cu``; returns the
+    copy's root (reused by a later call with the same setting)."""
     package = os.path.join(root, 'pytorch_sound_tpu_torch')
-    out = os.path.join(package, 'csrc', 'build', 'probe_direct_frames_%d' % frames)
+    out = os.path.join(package, 'csrc', 'build', 'probe_%s_%d' % (name, value))
     if not os.path.isdir(out):
         tmp = '%s.%d' % (out, os.getpid())
         shutil.copytree(package, os.path.join(tmp, 'pytorch_sound_tpu_torch'),
@@ -107,48 +140,72 @@ def direct_frames_copy(root, frames):
         path = os.path.join(tmp, 'pytorch_sound_tpu_torch', 'csrc', 'logmel.cu')
         with open(path) as f:
             src = f.read()
-        capped, n = re.subn(r'constexpr int kDirectFrames = \d+;',
-                            'constexpr int kDirectFrames = %d;' % frames, src)
+        changed, n = re.subn(r'constexpr int %s = \d+;' % name,
+                             'constexpr int %s = %d;' % (name, value), src)
         if n != 1:
-            raise SystemExit('logmel_probe: no kDirectFrames in %s' % path)
+            raise SystemExit('logmel_probe: no constant %s in %s' % (name, path))
         with open(path, 'w') as f:
-            f.write(capped)
+            f.write(changed)
         os.rename(tmp, out)
     return out
 
 
-def direct_times(lm, dev, rng):
-    """ms of K2 on its direct path per geometry and of K4's backward there at
-    400 / 100, each at 16 x 4 s of tones."""
+def direct_times(lm, dev, rng, trace):
+    """ms of K2 per geometry and of K4's backward at 400 / 100, each at
+    16 x 4 s of tones, through the entry points and, where the wrapper has
+    ``_direct_log_mel``, on the direct DFT; with ``trace`` also each one's device
+    time (:func:`device_ms`) and, at 400 / 100, a profile; and the time of
+    a one-frame call, the host's floor under every event time."""
     import torch
-    k2 = {}
-    for sr, n_fft, hop, n_mels, fmax in DIRECT_GEOMETRIES:
-        x = torch.from_numpy(tones(rng, 16, 4 * sr, sr)).to(dev)
+    routes = {'auto': (lm.fused_log_mel, lm.hifigan_mel_backward)}
+    if hasattr(lm, '_direct_log_mel'):
+        routes['direct'] = (lm._direct_log_mel, lm._direct_backward)
+    out = {}
+    for route, (forward, backward) in routes.items():
+        k2, k2_dev = {}, {}
+        for sr, n_fft, hop, n_mels, fmax in GEOMETRIES:
+            x = torch.from_numpy(tones(rng, 16, 4 * sr, sr)).to(dev)
+
+            def call():
+                return forward(x, sr, n_mels, n_fft, n_fft, hop, -50, 30, 0, fmax)
+
+            with torch.inference_mode():
+                k2['%d_%d' % (n_fft, hop)] = cuda_ms(call)
+                if trace:
+                    k2_dev['%d_%d' % (n_fft, hop)] = device_ms(call)
+        x = torch.from_numpy(tones(rng, 16, 4 * 16000, 16000)).to(dev)
+        geom = dict(sampling_rate=16000, n_fft=400, window_size=400, hop_size=100, num_mels=80,
+                    fmax=8000.0)
+        cot = torch.cos(lm.fused_log_mel(x, 16000, 80, 400, 400, 100, mel_max=8000.0, pad=150,
+                                         power_eps=1e-9, log_floor=1e-5))
+        one = x[:1, :400].contiguous()
         with torch.inference_mode():
-            k2['%d_%d' % (n_fft, hop)] = cuda_ms(
-                lambda: lm.fused_log_mel(x, sr, n_mels, n_fft, n_fft, hop, -50, 30, 0, fmax))
-    x = torch.from_numpy(tones(rng, 16, 4 * 16000, 16000)).to(dev)
-    kw = dict(sampling_rate=16000, n_fft=400, window_size=400, hop_size=100, num_mels=80,
-              fmax=8000.0)
-    cot = torch.cos(lm.fused_log_mel(x, 16000, 80, 400, 400, 100, mel_max=8000.0, pad=150,
-                                     power_eps=1e-9, log_floor=1e-5))
-    with torch.inference_mode():
-        k4 = cuda_ms(lambda: lm.hifigan_mel_backward(x, cot, **kw))
-    return {'k2_direct_16x4s_ms': k2, 'k4_direct_bwd_16x4s_400_100_ms': k4}
+            k4 = cuda_ms(lambda: backward(x, cot, **geom))
+            floor = cuda_ms(lambda: forward(one, 16000, 80, 400, 400, 100, -50, 30, 0,
+                                            8000.0, pad=0))
+            if trace:
+                k2_dev['k4_bwd_400_100'] = device_ms(lambda: backward(x, cot, **geom), 2)
+                profile('k2_16x4s_400_100_%s' % route,
+                        lambda: forward(x, 16000, 80, 400, 400, 100, -50, 30, 0, 8000.0))
+                profile('k4_bwd_16x4s_400_100_%s' % route, lambda: backward(x, cot, **geom))
+        out[route] = {'k2_16x4s_ms': k2, 'k4_bwd_16x4s_400_100_ms': k4,
+                      'one_frame_call_ms': floor, 'device_ms': k2_dev}
+    return out
 
 
 def main():
     argv = sys.argv[1:]
-    frames = None
-    if '--direct-frames' in argv:
-        i = argv.index('--direct-frames')
-        frames = int(argv[i + 1])
+    setting = None
+    if '--set' in argv:
+        i = argv.index('--set')
+        name, value = argv[i + 1].split('=')
+        setting = (name, int(value))
         del argv[i:i + 2]
     args = [a for a in argv if a not in ('--profile', '--direct')]
     root = os.path.abspath(args[0] if args else
                            os.path.join(os.path.dirname(os.path.abspath(__file__)), '..', '..', '..'))
-    if frames is not None:
-        root = direct_frames_copy(root, frames)
+    if setting is not None:
+        root = constant_copy(root, *setting)
     sys.path.insert(0, root)
     import numpy as np
     import torch
@@ -184,8 +241,9 @@ def main():
                       'plain_fwd_16x8192_ms': fwd_p, 'k4_bwd_16x8192_ms': fb_k - fwd_k,
                       'plain_bwd_16x8192_ms': fb_p - fwd_p}), flush=True)
     if '--direct' in argv:
-        print(json.dumps({'root': root, 'card': card, 'direct_frames_cap': frames,
-                          **direct_times(lm, dev, rng)}), flush=True)
+        print(json.dumps({'root': root, 'card': card,
+                          'setting': '%s=%d' % setting if setting else None,
+                          **direct_times(lm, dev, rng, '--profile' in argv)}), flush=True)
     if '--profile' in sys.argv:
         cot = torch.cos(lm.fused_hifigan_mel(train))
         with torch.inference_mode():

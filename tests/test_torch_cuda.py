@@ -245,26 +245,30 @@ def _tones(rng, b, t):
     (1024, 640, 'hifigan'), (1024, 385, 'hifigan'), (512, 30000, 'hifigan'),
     (2048, 30000, 'centered'), (256, 9000, 'centered'), (4096, 30000, 'hifigan'),
     (400, 30000, 'centered'), (1000, 30000, 'hifigan'), (128, 5000, 'centered_all_bins'),
-    (8192, 60000, 'hifigan'), (300, 301, 'centered')])
+    (8192, 60000, 'hifigan'), (300, 301, 'centered'), (375, 30000, 'hifigan'),
+    (6000, 30000, 'centered'), (750, 9000, 'centered_all_bins'), (802, 30000, 'hifigan'),
+    (22, 3000, 'centered_all_bins')])
 def test_log_mel_kernel_matches_plain(card, n_fft, t, conv):
     """K2 against the plain version run in fp64 on the same card tensor:
     noise and tones, both conventions, every bin to fmax None, short inputs
-    (t = 640 and t = pad + 1 at the HiFi-GAN pad 384), the power-of-two n_fft
-    of the in-block FFT and the other n_fft of the direct DFT."""
+    (t = 640 and t = pad + 1 at the HiFi-GAN pad 384), the n_fft of the
+    in-block mixed-radix FFT (power-of-two and 7-smooth halves, odd 375) and
+    those of the direct DFT (802, 22), each launch counted on its path."""
     from pytorch_sound_tpu_torch.ops import mel as mel_ops
     from pytorch_sound_tpu_torch.ops.cuda import logmel as lm
     rng = np.random.default_rng(n_fft + t)
-    hop = n_fft // 4
+    hop = next(n_fft // d for d in (4, 3, 2) if n_fft % d == 0)
     fmax = None if conv == 'centered_all_bins' else 8000.0
     pad = (n_fft - hop) // 2 if conv == 'hifigan' else n_fft // 2
     kw = dict(power_eps=1e-9, log_floor=1e-5) if conv == 'hifigan' else {}
     filt = mel_ops.cached_mel_filter(22050, n_fft, 80, 0.0, fmax)
     for wav in (rng.standard_normal((3, t)) * 0.2, _tones(rng, 3, t)):
         x = torch.from_numpy(wav.astype(np.float32)).to(card)
-        before = lm.fused_log_mel.launches
+        before = (lm.fused_log_mel.launches, lm.fused_log_mel.direct_launches)
         got = lm.fused_log_mel(x, n_fft=n_fft, win_length=n_fft, hop_length=hop,
                                mel_max=fmax, pad=pad, **kw)
-        assert lm.fused_log_mel.launches == before + 1
+        assert (lm.fused_log_mel.launches, lm.fused_log_mel.direct_launches) == (
+            before[0] + 1, before[1] + (not lm.fft_path(n_fft)))
         ref = mel_ops.log_mel(x.double(), filt, n_fft, hop, n_fft, pad, **kw)
         assert got.shape == ref.shape
         assert float((got.double() - ref).abs().max()) <= MEL_TOL
@@ -351,29 +355,38 @@ def test_trainable_mel_kernel_matches_plain(card):
     assert float((got.double() - ref).abs().max()) <= 1e-6 * float(ref.abs().max())
 
 
-@pytest.mark.parametrize('sr,n_fft,hop', [(16000, 400, 100), (22050, 1000, 250)])
-def test_direct_backward_matches_plain(card, sr, n_fft, hop):
-    """K4's backward on the direct path (n_fft not a power of two): one
-    launch, autograd of the fp32 plain version and fp64 autograd, each
-    relative to its largest entry (at 16 kHz the gradient reaches ~30, and
-    the fp32 plain version is ~2e-4 off fp64 there), a bit-identical
-    rerun."""
+@pytest.mark.parametrize('sr,n_fft,hop,route', [
+    (16000, 400, 100, 'auto'), (22050, 1000, 250, 'auto'), (16000, 375, 125, 'auto'),
+    (22050, 750, 250, 'auto'), (16000, 802, 401, 'auto'), (16000, 400, 100, 'direct')])
+def test_direct_backward_matches_plain(card, sr, n_fft, hop, route):
+    """K4's backward off the HiFi-GAN geometry, on the mixed-radix FFT (400,
+    1000, odd 375, and 750, whose odd P = 375 pairs every C[k] with C[P - k]
+    and has no middle bin) and on the direct DFT (802, and 400 through
+    ``_direct_backward``): one launch, autograd of the fp32 plain version
+    and fp64 autograd, each relative to its largest entry (at 16 kHz the
+    gradient reaches ~30, and the fp32 plain version is ~2e-4 off fp64
+    there), a bit-identical rerun; the forward on either path within 1e-5
+    of the other."""
     from pytorch_sound_tpu_torch.ops.cuda import logmel as lm
     rng = np.random.default_rng(n_fft)
     wav = torch.from_numpy((rng.standard_normal((4, 3 * sr)) * 0.2).astype(np.float32)).to(card)
     kw = dict(sampling_rate=sr, n_fft=n_fft, window_size=n_fft, hop_size=hop, num_mels=80,
               fmax=8000.0)
-    mel = lm.fused_log_mel(wav, sr, 80, n_fft, n_fft, hop, mel_max=8000.0,
-                           pad=(n_fft - hop) // 2, power_eps=1e-9, log_floor=1e-5)
+    forward, other, backward = (
+        (lm.fused_log_mel, lm._direct_log_mel, lm.hifigan_mel_backward) if route == 'auto'
+        else (lm._direct_log_mel, lm.fused_log_mel, lm._direct_backward))
+    mel_kw = dict(mel_max=8000.0, pad=(n_fft - hop) // 2, power_eps=1e-9, log_floor=1e-5)
+    mel = forward(wav, sr, 80, n_fft, n_fft, hop, **mel_kw)
+    assert float((mel - other(wav, sr, 80, n_fft, n_fft, hop, **mel_kw)).abs().max()) <= 1e-5
     cot = torch.cos(mel)
     before = lm.fused_hifigan_mel_trainable.bwd_launches
-    got = lm.hifigan_mel_backward(wav, cot, **kw)
+    got = backward(wav, cot, **kw)
     assert lm.fused_hifigan_mel_trainable.bwd_launches == before + 1
     plain = lm.hifigan_mel_vjp(wav, cot, **kw)
     assert float((got - plain).abs().max()) <= 1e-4 * float(plain.abs().max())
     ref = lm.hifigan_mel_vjp(wav.double(), cot.double(), **kw)
     assert float((got.double() - ref).abs().max()) <= 1e-6 * float(ref.abs().max())
-    assert torch.equal(got, lm.hifigan_mel_backward(wav, cot, **kw))
+    assert torch.equal(got, backward(wav, cot, **kw))
 
 
 GC_FWD_TOL = 1e-5     # max abs error over the plain version's max abs

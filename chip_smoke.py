@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's HiFi-GAN serving and training paths, and the
 training recipe from wav files on disk, the DSP layer with the VoiceBank
-enhancement recipe, and feature extraction from a wav tree, once on one GPU.
+enhancement recipe, feature extraction from a wav tree, and the
+text-to-speech recipe with synthesis and its decode, once on one GPU.
 
     python3 chip_smoke.py
 
@@ -119,7 +120,23 @@ Phases, one line each; any failure raises and the script exits non-zero:
    int8 at the JAX test's gates, each with K2 launched once per batch;
    every 48 kHz batch's K2 output against K2's plain version on that
    batch's card tensors; utterances per second and per-batch decode /
-   staging / H2D / program / D2H / save times, the card's busy share.
+   staging / H2D / program / D2H / save times, the card's busy share;
+14. the text-to-speech family: an LJSpeech-shaped tree under ``$TMPDIR``
+   (100 speech-like int16 utterances of 2.1-9 s, English sentences), the
+   port's ``Processor.ljspeech``, ``examples.ljspeech_tts.main`` with
+   ``transformer_tts_base`` at batch 16 for 4 steps and a validation batch
+   (K2 once per batch, counted); on a fixed 16 x 131072 batch from the tree,
+   K2's targets against the plain log-mel in fp64, one step card vs CPU
+   (losses and per-parameter gradients), three steps with ``remat=True``
+   against three without, the step time, and in a fresh process the
+   trainer's profiler window (its trace, the card's busy share);
+   ``synthesize`` at 4 x 400 with no stop (399 frames) against
+   ``decode_mel``'s teacher-forced columns on the card and on the CPU,
+   frames per second;
+   the v2 decode of that mel (K1's four launches, each stage against its
+   plain version, card vs CPU); Griffin-Lim (32 iterations, zero phase)
+   float64 card vs CPU, fp32 timed; the STFT on inputs shorter than one
+   frame through cuFFT (JAX's empty shapes).
 
 The line before the last is a JSON object with one entry per kernel, each
 with its time, its plain version's, the least time the card could take for
@@ -2503,6 +2520,385 @@ def feature_path(dev, card):
                       'extract_bound_ms': k2_bound, 'extract_shape': list(y64.shape)}
 
 
+TTS_BATCH = 16                    # the LJSpeech recipe's batch (examples/ljspeech_tts.py:82)
+TTS_PAD = 16384                   # its pad_multiple; the fixed batch pads to 8 x 16384
+TTS_SYNTH_BATCH = 4
+TTS_FRAMES = 400                  # synthesize's default max_frames: 399 frames decoded
+TTS_LOSSES = ('loss', 'mel_l1', 'stop_bce')
+TTS_STEP_TOL = 1e-4               # a synthesized frame vs decode_mel's column t on its
+                                  # prefix, on the card and on the CPU (1e-5 CPU-only: cuBLAS
+                                  # sums a 1-row and a T-row product apart). Free-running
+                                  # card and CPU runs part: random weights amplify round-off
+                                  # (fp32 vs fp64 on the CPU: 6e-7 at frame 10, 2e-3 at 100)
+GL_TOL = 1e-6                     # Griffin-Lim in float64, card vs CPU, ratio to peak: on a
+                                  # pseudo-inverse magnitude a 1e-14 change of the input moves
+                                  # the output by 4.4e-9 (CPU), fp32 round-off by 0.2-0.3;
+                                  # cuFFT vs MKL in float64 9.3e-8 (H100 80GB HBM3, 700 W)
+WORDS = ('the', 'printer', 'of', 'a', 'book', 'was', 'in', 'every', 'sense', 'only',
+         'which', 'we', 'are', 'at', 'present', 'concerned', 'differs', 'from', 'most',
+         'if', 'not', 'all', 'arts', 'and', 'crafts', 'represented', 'exhibition', 'long',
+         'time', 'ago', 'early', 'writers', 'made', 'their', 'letters', 'clear')
+PROFILE_SCRIPT = r'''
+import json, sys
+import numpy as np
+import torch
+from pytorch_sound_tpu_torch.examples.ljspeech_tts import TTSTrainer
+from pytorch_sound_tpu_torch.models import build_model
+from pytorch_sound_tpu_torch.trainer import adamw
+batch_path, save_dir, prof_dir = sys.argv[1:4]
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+data = np.load(batch_path)
+batch = [data['wav'], data['text'], data['mask']]
+torch.manual_seed(0)
+model = build_model('transformer_tts_base')
+t = TTSTrainer(model, adamw(model.parameters(), 1e-4, b1=0.9, b2=0.98), [batch], [batch],
+               max_step=5, valid_max_step=1, save_interval=10 ** 9, log_interval=10 ** 9,
+               save_dir=save_dir, grad_norm=1.0, seed=1, device='cuda',
+               profile_dir=prof_dir, profile_steps=(3, 5))
+t.run()
+torch.cuda.synchronize()
+events = json.load(open(t.profile_trace))['traceEvents']
+kernels = [e for e in events if e.get('cat') == 'kernel' and 'dur' in e]
+timed = [e for e in events if 'ts' in e and 'dur' in e]
+span = max(e['ts'] + e['dur'] for e in timed) - min(e['ts'] for e in timed)
+busy, end = 0.0, -1.0
+for e in sorted(kernels, key=lambda e: e['ts']):
+    start, stop = e['ts'], e['ts'] + e['dur']
+    busy += max(0.0, stop - max(start, end))
+    end = max(end, stop)
+print(json.dumps({'trace': t.profile_trace, 'kernels': len(kernels),
+                  'logmel_kernels': sum('logmel' in e['name'] for e in kernels),
+                  'window_us': span, 'busy_us': busy, 'steps': 2}))
+'''
+
+
+def tts_path(dev, card):
+    """Phase 14: the text-to-speech family. An LJSpeech-shaped tree under
+    $TMPDIR (100 speech-like int16 utterances of 2.1-9 s at 22.05 kHz, 16
+    of them 5.3-5.9 s, and a metadata.csv of English sentences), the port's
+    ``Processor.ljspeech``, then ``examples.ljspeech_tts.main`` with
+    ``transformer_tts_base`` at batch 16 for 4 steps on the card with K2's
+    launches counted (one per step, one per validation batch). On a fixed
+    batch of 16 x 131072 samples from the tree (its wave masks): K2's
+    targets against the plain log-mel in fp64, one step on the card against
+    the CPU, three steps with ``remat=True`` against three without, the step
+    time by CUDA events; a subprocess with the trainer's profiler window
+    writes a trace, from which the card's busy share of two steps comes.
+    Then ``synthesize`` at 4 x 400 with ``stop_threshold=1.0`` (399 frames),
+    its frames against ``decode_mel``'s teacher-forced columns on the card
+    and on the CPU, frames per second; ``InterfaceHifiGAN('hifi_gan_v2',
+    device='cuda').decode`` of that mel (K1, each stage against its plain
+    version on this input, card vs CPU; the mel head's bias at the
+    targets' mean log-mel); Griffin-Lim (32 iterations, the
+    zero phase) on one mel's pseudo-inverse magnitude, float64 card vs CPU,
+    fp32 timed; the STFT's inputs shorter than one frame on cuFFT. Returns (K2 launches, K1 launches) of the main path."""
+    import copy
+    import random
+    import torch
+    from pytorch_sound_tpu_torch.data.dataset import SpeechDataLoader, SpeechDataset
+    from pytorch_sound_tpu_torch.data.meta.ljspeech import LJSpeechMeta
+    from pytorch_sound_tpu_torch.examples import ljspeech_tts as recipe
+    from pytorch_sound_tpu_torch.interface.hifi_gan import InterfaceHifiGAN
+    from pytorch_sound_tpu_torch.models import build_model
+    from pytorch_sound_tpu_torch.models.tts import synthesize
+    from pytorch_sound_tpu_torch.ops import mel as mel_ops
+    from pytorch_sound_tpu_torch.ops import stft as stft_ops
+    from pytorch_sound_tpu_torch.ops.cuda import gen_stage as gs
+    from pytorch_sound_tpu_torch.ops.cuda import logmel as lm
+    from pytorch_sound_tpu_torch.ops.griffin_lim import griffin_lim
+    from pytorch_sound_tpu_torch.scripts.preprocess import Processor
+    from pytorch_sound_tpu_torch.trainer import adamw
+    from pytorch_sound_tpu_torch.utils.commons import LOGGER
+    from pytorch_sound_tpu_torch.utils.text import eng_t2i
+    from pytorch_sound_tpu_torch import settings
+    from pytorch_sound_tpu_torch.utils.wavio import write_wav
+
+    mel_args = (settings.SAMPLE_RATE, settings.MEL_SIZE, settings.N_FFT, settings.WIN_LENGTH,
+                settings.HOP_LENGTH, settings.MIN_DB, settings.MAX_DB, settings.MEL_MIN,
+                settings.MEL_MAX)
+    work = tempfile.mkdtemp(prefix='chip_smoke_tts_')
+    try:
+        # 14.1 the tree, its metas
+        trng = np.random.default_rng(14)
+        raw = os.path.join(work, 'raw')
+        os.makedirs(os.path.join(raw, 'wavs'))
+        seconds = np.concatenate([trng.uniform(2.1, 9.0, 84), trng.uniform(5.3, 5.9, 16)])
+        rows, n_bytes = [], 0
+        for u, sec in enumerate(seconds):
+            key = 'LJ%03d-%04d' % (1 + u // 50, u % 50 + 1)
+            path = os.path.join(raw, 'wavs', key + '.wav')
+            write_wav(path, speech_like(trng, int(SR * sec), SR), SR, dtype='int16')
+            n_bytes += os.path.getsize(path)
+            words = trng.choice(WORDS, int(trng.integers(6, 20)))
+            sentence = ' '.join(words).capitalize() + '.'
+            rows.append('%s|%s|%s' % (key, sentence, sentence))
+        with open(os.path.join(raw, 'metadata.csv'), 'w') as f:
+            f.write('\n'.join(rows) + '\n')
+        out = os.path.join(work, 'ljspeech')
+        random.seed(0)
+        t0 = time.perf_counter()
+        Processor.ljspeech(raw, out, os.path.join(raw, 'metadata.csv'))
+        prep_s = time.perf_counter() - t0
+        meta_dir = os.path.join(out, 'meta')
+        n_rows = [len(LJSpeechMeta(os.path.join(meta_dir, name))) for name in META_FILES]
+        log('meta', what='ljspeech', wav_mb='%.1f' % (n_bytes / 1e6),
+            rows='/'.join(map(str, n_rows)), preprocess_s='%.2f' % prep_s)
+        assert n_rows == [100, 90, 10], n_rows
+
+        # 14.2 main() at batch 16, 4 steps and a validation batch, K2 counted
+        lines = LogLines()
+        LOGGER.addHandler(lines)
+        np.random.seed(0)
+        torch.manual_seed(0)
+        lm.fused_log_mel.launches = 0
+        try:
+            t0 = time.perf_counter()
+            best = recipe.main(meta_dir, os.path.join(work, 'save'), batch_size=TTS_BATCH,
+                               num_workers=0, max_step=4, valid_max_step=1, save_interval=4,
+                               log_interval=1, device=str(dev))
+            torch.cuda.synchronize()
+            main_s = time.perf_counter() - t0
+        finally:
+            LOGGER.removeHandler(lines)
+        k2_main = lm.fused_log_mel.launches
+        steps, times = lines.train_steps()
+        for s_ in sorted(steps):
+            log('train', route='ljspeech_tts', step=s_,
+                **{k: '%.6f' % steps[s_][k] for k in TTS_LOSSES})
+        log('counts', route='ljspeech_tts', logmel=k2_main, steps=4, valid_batches=1,
+            best_valid_loss='%.6f' % best, seconds='%.1f' % main_s)
+        assert sorted(steps) == [1, 2, 3, 4] and np.isfinite(best), (sorted(steps), best)
+        assert all(np.isfinite(m[k]) for m in steps.values() for k in TTS_LOSSES), steps
+        assert k2_main == 4 + 1, k2_main
+        ckpt = os.path.join(work, 'save', 'models', 'ljspeech_tts', 'TransformerTTS')
+        assert os.listdir(ckpt) == ['step_000004.chkpt'], os.listdir(ckpt)
+
+        # 14.3 a fixed batch of 16 x 131072 from the tree, with its masks
+        meta = LJSpeechMeta(os.path.join(meta_dir, 'all_meta.json'))
+        picks = [i for i, d in enumerate(meta.meta['duration']) if 5.3 <= d < 5.9][:TTS_BATCH]
+        dataset = SpeechDataset(meta, audio_mask=True)
+        batch = SpeechDataLoader.pad_collate_fn([dataset[i] for i in picks], TTS_PAD)
+        assert batch[0].shape == (TTS_BATCH, 8 * TTS_PAD) and len(batch) == 3, \
+            [b.shape for b in batch]
+        np.savez(os.path.join(work, 'batch.npz'), wav=batch[0], text=batch[1], mask=batch[2])
+        wav_d = torch.from_numpy(batch[0]).to(dev)
+        targets = recipe.LOG_MEL(wav_d)
+        plain = mel_ops.log_mel_spectrogram(wav_d, *mel_args)
+        plain64 = mel_ops.log_mel_spectrogram(wav_d.double(), *mel_args)
+        torch.cuda.synchronize()
+        k2_err = max_err(targets.double(), plain64)
+        log('logmel', what='tts_targets_16x131072', shape=tuple(targets.shape),
+            vs_fp64='%.3g' % k2_err, plain_fp32_vs_fp64='%.3g' % max_err(plain.double(), plain64))
+        assert targets.shape == (TTS_BATCH, 80, 513) and k2_err <= MEL_TOL, \
+            (targets.shape, k2_err)
+
+        #      one step on the card against the same step on the CPU
+        torch.manual_seed(0)
+        model = build_model('transformer_tts_base')
+        cpu_model = copy.deepcopy(model)
+        results, trainers = [], []
+        for device, m in ((dev, model), ('cpu', cpu_model)):
+            t = recipe.TTSTrainer(m, adamw(m.parameters(), 1e-4, b1=0.9, b2=0.98), None, None,
+                                  max_step=1, valid_max_step=1, save_interval=10 ** 9,
+                                  log_interval=10 ** 9, save_dir=os.path.join(work, 'step'),
+                                  grad_norm=1.0, seed=1, device=device)
+            t.optimizer.zero_grad(set_to_none=True)
+            loss, meta_ = t.forward(*t.to_device(batch), is_logging=True)
+            loss.backward()
+            results.append(({k: float(meta_[k][0].detach()) for k in TTS_LOSSES},
+                            {k: p.grad.detach().cpu().double()
+                             for k, p in m.named_parameters()}))
+            trainers.append(t)
+        (card_l, card_g), (cpu_l, cpu_g) = results
+        loss_rel = max(abs(card_l[k] - cpu_l[k]) / abs(cpu_l[k]) for k in TTS_LOSSES)
+        grad_rel, worst = max((float((card_g[k] - g).norm()) / max(float(g.norm()), 1e-30), k)
+                              for k, g in cpu_g.items())
+        log('card_cpu', route='ljspeech_tts', losses=card_l, worst_loss_rel='%.3g' % loss_rel,
+            worst_grad_rel='%.3g' % grad_rel, worst_grad_param=worst,
+            params=sum(p.numel() for p in model.parameters()))
+        assert loss_rel <= CARD_CPU_RTOL and grad_rel <= CARD_CPU_GRAD_TOL, \
+            (loss_rel, grad_rel, worst)
+
+        #      three steps with remat against three without, from one state
+        def three_steps(remat):
+            torch.manual_seed(0)
+            m = build_model('transformer_tts_base')
+            t = recipe.TTSTrainer(m, adamw(m.parameters(), 1e-4, b1=0.9, b2=0.98), None, None,
+                                  max_step=3, valid_max_step=1, save_interval=10 ** 9,
+                                  log_interval=10 ** 9, save_dir=os.path.join(work, 'remat'),
+                                  grad_norm=1.0, seed=1, device=dev, remat=remat)
+            b = t.to_device(batch)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            losses = [float(t._train_step(b, is_logging=False)[0]) for _ in range(3)]
+            return losses, torch.cuda.max_memory_allocated(dev) / 1e9, t
+
+        plain_losses, plain_gb, step_trainer = three_steps(False)
+        remat_losses, remat_gb, _ = three_steps(True)
+        remat_rel = max(abs(a - b) / abs(b) for a, b in zip(remat_losses, plain_losses))
+        log('remat', losses='/'.join('%.6f' % x for x in remat_losses),
+            plain_losses='/'.join('%.6f' % x for x in plain_losses),
+            worst_rel='%.3g' % remat_rel, peak_gb='%.3f' % remat_gb,
+            plain_peak_gb='%.3f' % plain_gb)
+        assert remat_rel <= RESUME_RTOL, (remat_losses, plain_losses)
+
+        #      the step time by CUDA events, and the card's busy share from
+        #      the trainer's profiler window, in a fresh process
+        b = step_trainer.to_device(batch)
+        root = os.path.dirname(os.path.abspath(__file__))
+        step_ms = cuda_ms(lambda: step_trainer._train_step(b, is_logging=False), 10)
+        proc = subprocess.run(
+            [sys.executable, '-c', PROFILE_SCRIPT, os.path.join(work, 'batch.npz'),
+             os.path.join(work, 'prof_save'), os.path.join(work, 'prof')],
+            cwd=root, env=dict(os.environ, PYTHONPATH=os.pathsep.join(
+                [root] + [p for p in os.environ.get('PYTHONPATH', '').split(os.pathsep) if p])),
+            capture_output=True, text=True, timeout=600)
+        assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+        prof = json.loads(proc.stdout.strip().splitlines()[-1])
+        busy = prof['busy_us'] / prof['window_us']
+        log('profile', trace=os.path.basename(prof['trace']), kernels=prof['kernels'],
+            logmel_kernels=prof['logmel_kernels'], window_ms='%.3f' % (prof['window_us'] / 1e3),
+            busy_ms='%.3f' % (prof['busy_us'] / 1e3), device_busy_share='%.4f' % busy)
+        assert prof['kernels'] > 0 and prof['logmel_kernels'] == prof['steps'], prof
+
+        # 14.4 synthesis at 4 x 400 (stop_threshold 1.0: every frame runs)
+        texts = [' '.join(trng.choice(WORDS, int(n))).capitalize() + '.'
+                 for n in (18, 7, 12, 25)]
+        ids = [eng_t2i(t) for t in texts]
+        width = max(map(len, ids))
+        ids = np.stack([np.pad(i, (0, width - len(i))) for i in ids])
+        #      (the mel head's bias starts at the targets' mean, as a trained
+        #      model's output sits in the log-mel range: from random weights
+        #      alone the mel is ~N(0, 1), a loud white spectrum on which the
+        #      fp32 v2 decode is ill-conditioned, 2.3e-4 from float64 on the
+        #      CPU, the card 4.0e-4 on an H100 80GB HBM3 at 700 W)
+        torch.manual_seed(1)
+        tts = build_model('transformer_tts_base').eval()
+        with torch.no_grad():
+            tts.mel_head.bias.add_(float(targets.mean()))
+        tts_cpu = copy.deepcopy(tts)
+        tts.to(dev)
+        synthesize(tts, ids, max_frames=8, stop_threshold=1.0)          # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mel = synthesize(tts, ids, max_frames=TTS_FRAMES, stop_threshold=1.0)
+        torch.cuda.synchronize()
+        synth_s = time.perf_counter() - t0
+        frames = mel.shape[2]
+        assert mel.shape == (TTS_SYNTH_BATCH, 80, TTS_FRAMES - 1), mel.shape
+        with torch.no_grad():
+            memory, pad_mask = tts.encode_text(torch.from_numpy(ids).to(dev))
+            go = torch.full((TTS_SYNTH_BATCH, 80, 1), mel_ops.db_to_log(-50.0), device=dev)
+            forced, _ = tts.decode_mel(memory, pad_mask, torch.cat([go, mel[:, :, :-1]], 2))
+            #  the same columns from the CPU model on the card's frames
+            cpu_memory, cpu_mask = tts_cpu.encode_text(torch.from_numpy(ids))
+            cpu_forced, _ = tts_cpu.decode_mel(cpu_memory, cpu_mask,
+                                               torch.cat([go, mel[:, :, :-1]], 2).cpu())
+        cpu_mel = synthesize(tts_cpu, ids, max_frames=TTS_FRAMES, stop_threshold=1.0)
+        step_err = max_err(forced, mel)
+        forced_err = max_err(cpu_forced, mel.cpu())
+        drift = (mel.cpu() - cpu_mel).abs().amax(dim=(0, 1))
+        log('synth', shape=tuple(mel.shape), decode_step_vs_decode_mel='%.3g' % step_err,
+            card_vs_cpu_teacher_forced='%.3g' % forced_err,
+            free_running_card_vs_cpu='/'.join('%.2g' % float(drift[a:b].max())
+                                              for a, b in ((0, 32), (32, 100), (100, 399))),
+            mel_max='%.3f' % float(mel.abs().max()))
+        assert bool(torch.isfinite(mel).all()) and step_err <= TTS_STEP_TOL, step_err
+        assert forced_err <= TTS_STEP_TOL, forced_err
+
+        # 14.5 the v2 decode of the synthesized mel: K1, each stage against
+        #      its plain version on this input, card vs CPU; the kernel's,
+        #      the card's plain and the CPU's decode beside the plain decode
+        #      in float64
+        iface = InterfaceHifiGAN('hifi_gan_v2', device='cuda')
+        gen = iface.decoder
+        gen64 = copy.deepcopy(gen).double()
+        stage_err = []
+        with torch.inference_mode():
+            x, x64 = gen.conv_pre(mel), gen64.conv_pre(mel.double())
+            for i in range(4):
+                args = gen.stage_args(i)
+                ref, ker = gs.generator_stage_reference(x, **args), gs.generator_stage(x, **args)
+                stage_err.append(max_err(ker, ref))
+                x = ref
+                x64 = gs.generator_stage_reference(x64, **gen64.stage_args(i))
+        gs.generator_stage.launches = 0
+        audio = iface.decode(mel)
+        torch.cuda.synchronize()
+        k1_main = gs.generator_stage.launches
+        cpu_audio = InterfaceHifiGAN('hifi_gan_v2', device='cpu').decode(mel.cpu())
+        dec_err = max_err(audio.cpu(), cpu_audio)
+        decode_ms = cuda_ms(lambda: iface.decode(mel), 10)
+        log('tts_decode', wav=tuple(audio.shape), launches=k1_main,
+            stages_vs_plain='/'.join('%.3g' % e for e in stage_err),
+            card_vs_cpu='%.3g' % dec_err, kernel_vs_fp64='%.3g' % max_err(audio.double(), x64),
+            plain_vs_fp64='%.3g' % max_err(x.double(), x64),
+            cpu_vs_fp64='%.3g' % max_err(cpu_audio.double(), x64.cpu()),
+            mel_mean='%.3f' % float(mel.mean()), wav_max='%.4f' % float(audio.abs().max()))
+        assert audio.shape == (TTS_SYNTH_BATCH, 1, frames * UP) and k1_main == 4, \
+            (audio.shape, k1_main)
+        assert max(stage_err) <= STAGE_TOL and dec_err <= DECODE_TOL, (stage_err, dec_err)
+
+        # 14.6 Griffin-Lim (32 iterations, zero phase) on one mel's
+        #      pseudo-inverse magnitude: float64 on the card against the CPU
+        #      (in fp32 the near-zero bins of that magnitude leave the phase to
+        #      round-off, which the momentum grows: fp32 is only logged)
+        fb = mel_ops.cached_mel_filter(SR, settings.N_FFT, 80, 0.0, float(settings.MEL_MAX))
+        mag = np.maximum(np.linalg.pinv(fb) @ np.exp(mel[0].double().cpu().numpy()), 0.0)[None]
+        gl = {}
+        for key, device, dtype in (('card64', dev, torch.float64), ('cpu64', 'cpu', torch.float64),
+                                   ('card32', dev, torch.float32)):
+            gl[key] = griffin_lim(torch.from_numpy(mag).to(device, dtype), settings.N_FFT,
+                                  settings.HOP_LENGTH, settings.WIN_LENGTH, n_iter=32).cpu()
+        inner = slice(settings.N_FFT, -settings.N_FFT)
+        peak = float(gl['cpu64'][:, inner].abs().max())
+        gl64_rel = max_err(gl['card64'][:, inner], gl['cpu64'][:, inner]) / peak
+        gl32_rel = max_err(gl['card32'][:, inner].double(), gl['card64'][:, inner]) / peak
+        mag32 = torch.from_numpy(mag).to(dev, torch.float32)
+        gl_ms = cuda_ms(lambda: griffin_lim(mag32, settings.N_FFT, settings.HOP_LENGTH,
+                                            settings.WIN_LENGTH, n_iter=32), 3)
+        log('griffin_lim', wav=tuple(gl['card32'].shape), card64_vs_cpu64='%.3g' % gl64_rel,
+            fp32_vs_fp64='%.3g' % gl32_rel)
+        assert gl['card32'].shape == gl['card64'].shape == (1, (frames - 1) * settings.HOP_LENGTH)
+        assert bool(torch.isfinite(gl['card32']).all()) and gl64_rel <= GL_TOL, gl64_rel
+
+        # 14.7 inputs shorter than one frame on cuFFT: JAX's empty shapes
+        x = torch.from_numpy(trng.standard_normal((2, 300)).astype(np.float32)).to(dev)
+        shapes = {}
+        for method in ('fft', 'matmul'):
+            real, imag = stft_ops.stft(x, 512, 128, center=False, method=method)
+            shapes['stft_' + method] = (tuple(real.shape), tuple(imag.shape))
+            shapes['magnitude_' + method] = tuple(stft_ops.spectrogram_magnitude(
+                x, 512, 128, center=False, method=method).shape)
+            shapes['audio2mel_' + method] = tuple(mel_ops.audio2mel(x[:, :100],
+                                                                     method=method).shape)
+        full = stft_ops.stft(torch.cat([x, x], 1), 512, 128, center=False)[0]
+        torch.cuda.synchronize()
+        log('short_stft', **shapes, after=tuple(full.shape))
+        for method in ('fft', 'matmul'):
+            assert shapes['stft_' + method] == ((2, 257, 0), (2, 257, 0)), shapes
+            assert shapes['magnitude_' + method] == (2, 257, 0), shapes
+            assert shapes['audio2mel_' + method] == (2, 80, 0), shapes
+        assert full.shape == (2, 257, 1) and bool(torch.isfinite(full).all())
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    main_wall = [(times[i + 1] - times[i]) * 1e3 for i in (1, 2, 3)]
+    log('time', card=repr(card), what='tts_base_b16_ljspeech',
+        main_step_wall_ms='/'.join('%.2f' % x for x in main_wall),
+        step_ms_16x131072='%.3f' % step_ms, device_busy_share='%.4f' % busy,
+        peak_memory_gb='%.3f' % plain_gb, remat_peak_memory_gb='%.3f' % remat_gb,
+        preprocess_s='%.2f' % prep_s)
+    log('time', card=repr(card), what='tts_synth_b4_400',
+        synth_s='%.3f' % synth_s, frames_per_s='%.1f' % (TTS_SYNTH_BATCH * frames / synth_s),
+        ms_per_step='%.3f' % (synth_s / frames * 1e3), v2_decode_ms='%.3f' % decode_ms,
+        audio_s_per_s='%.1f' % (TTS_SYNTH_BATCH * frames * UP / SR
+                                / (synth_s + decode_ms / 1e3)),
+        griffin_lim_32_ms='%.3f' % gl_ms)
+    return k2_main, k1_main
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2860,17 +3256,21 @@ def main():
     #     extract_features on K2
     feature_logmel, k2_extract = feature_path(dev, card)
 
+    # 14. the text-to-speech family: the LJSpeech recipe on K2, synthesis,
+    #     the v2 decode on K1, Griffin-Lim, short STFTs on cuFFT
+    tts_logmel, tts_gen_stage = tts_path(dev, card)
+
     print(json.dumps({'kernels': [
         {'name': 'gen_stage', 'route': 'cuda', 'source': gs.SOURCE,
          'replaces': 'pytorch_sound_tpu/ops/pallas/gen_stage.py:282',
-         'launches': launches['gen_stage'] + v1_narrow,
+         'launches': launches['gen_stage'] + v1_narrow + tts_gen_stage,
          'max_abs_err': max(errs['gen_stage'], v1_narrow_err),
          'ms': st_k, 'plain_ms': st_p, 'bound_ms': st_bound, 'bound_by': st_bound_by,
          'tc_bound_ms': st_tc, 'library_ms': None},
         {'name': 'logmel', 'route': 'cuda', 'source': lm.SOURCE,
          'replaces': 'pytorch_sound_tpu/ops/pallas/logmel.py:157',
          'launches': (launches['logmel'] + train_logmel + int(recipe_launches[0]) + dsp_logmel
-                      + feature_logmel),
+                      + feature_logmel + tts_logmel),
          'max_abs_err': errs['logmel'],
          'ms': enc_k, 'plain_ms': enc_p, 'bound_ms': enc_bound, 'bound_by': enc_bound_by,
          'dft_bound_ms': enc_dft_bound, 'stft_ms': stft_ms, **k2_extract, **k2_speech,

@@ -17,7 +17,11 @@ blockwise route runs the flash-attention kernels; and the DSP layer
 (``examples.voice_bank``, ``models.enhancement``); and feature extraction
 (``scripts.preprocess``: the native audio runtime ``native`` built with g++
 from ``csrc/tpusound.cc``, the resampler ``ops.resample``, the pinned-memory
-prefetch ``parallel``, and the log-mel kernel).
+prefetch ``parallel``, and the log-mel kernel); and the text-to-speech
+family (``models.tts``: Transformer-TTS and its KV-cached ``synthesize``;
+``examples.ljspeech_tts``, whose targets run the log-mel kernel;
+``ops.griffin_lim``; the Korean G2P ``data.korean.g2p``; the TTS-corpus
+commands of ``scripts.preprocess``).
 """
 
 __version__ = '0.1.0'

@@ -1,7 +1,7 @@
 """Korean symbol inventories (phonemes and graphemes).
 
-The port's copy of the inventories of ``pytorch_sound_tpu/data/korean/__init__.py``
-(its G2P, ``g2p.py``, is not ported yet).
+The port's copy of the inventories of ``pytorch_sound_tpu/data/korean/__init__.py``;
+the G2P is :mod:`pytorch_sound_tpu_torch.data.korean.g2p`.
 PHONEMES is the romanized phone set of the Korean Spontaneous Speech corpus
 (성인자유발화코퍼스) used by KoG2P; GRAPHEMES is the decomposed Hangul jamo set
 (U+1100 block) with pad and CTC-blank symbols.

@@ -127,8 +127,9 @@ def load_jax_params(module: nn.Module, tree: Dict[str, Any]) -> nn.Module:
     top-level 'params' key) into ``module``, whose submodules carry the flax
     names: a Dense ``kernel`` (in, out) becomes a Linear ``weight`` (out, in)
     and a Conv ``kernel`` (k, in, out) a Conv1d ``weight`` (out, in, k), its
-    axes reversed; a LayerNorm ``scale`` its ``weight``, every ``bias``
-    itself. Strict: a parameter missing on either side raises."""
+    axes reversed; a LayerNorm ``scale`` and an Embed ``embedding`` (vocab,
+    features) their ``weight`` as they are, every ``bias`` itself. Strict: a
+    parameter missing on either side raises."""
     state = {}
 
     def walk(node, prefix):
@@ -140,7 +141,7 @@ def load_jax_params(module: nn.Module, tree: Dict[str, Any]) -> nn.Module:
             if key == 'kernel':
                 state[prefix + 'weight'] = arr.permute(*range(arr.ndim - 1, -1, -1)).contiguous()
             else:
-                state[prefix + ('weight' if key == 'scale' else key)] = arr
+                state[prefix + ('weight' if key in ('scale', 'embedding') else key)] = arr
 
     walk(tree.get('params', tree), '')
     module.load_state_dict(state)

@@ -117,7 +117,13 @@ def stft(x: torch.Tensor, n_fft: int, hop_length: int, win_length: Optional[int]
     if center:
         x = pad_last(x, n_fft // 2, pad_mode)
     frames = frame(x, n_fft, hop_length)                       # (..., T, n_fft)
-    if _method(method) == 'matmul':
+    method = _method(method)
+    if frames.shape[-2] == 0:
+        # shorter than one frame: JAX's empty (..., F, 0) pair, without an
+        # FFT (oneMKL and cuFFT refuse a zero batch)
+        empty = frames.new_zeros((*frames.shape[:-2], n_fft // 2 + 1, 0))
+        return empty, empty.clone()
+    if method == 'matmul':
         basis = device_constant(_cached_stft_basis(n_fft, win_length, window), x)
         proj = torch.matmul(basis, frames.transpose(-1, -2))    # (..., 2F, T)
         real, imag = torch.chunk(proj, 2, dim=-2)

@@ -7,12 +7,12 @@ metas) is the JAX package's, with joblib replaced by a thread pool
 read in-process, other codecs through ffmpeg where it is installed. The
 outputs that exist are skipped, so a run can restart. Commands ported:
 ``copy_txt``, ``preprocess_audio``, ``resample_audio``, ``voice_bank``,
-``vctk``, ``ljspeech``, ``dsd100`` and ``extract_features``. ``dsd100`` keys
-its outputs by subset and song (``<out>/<subset>/<song>/``), where the JAX
-package keys them by song alone and lets Dev and Test songs of one name
-overwrite each other. The commands whose metas are not ported yet
-(valenti, musdb18, medleydb, partialize, zeroth_korean, libri_light,
-libri_light2, libri_tts, libri_tts_fetch_speaker) are not defined.
+``vctk``, ``ljspeech``, ``dsd100``, ``libri_tts``, ``libri_tts_fetch_speaker``,
+``zeroth_korean``, ``libri_light``, ``libri_light2`` and ``extract_features``.
+``dsd100`` keys its outputs by subset and song (``<out>/<subset>/<song>/``),
+where the JAX package keys them by song alone and lets Dev and Test songs of
+one name overwrite each other. The commands whose metas are not ported yet
+(valenti, musdb18, medleydb, partialize) are not defined.
 
 ``extract_features`` is the feature pipeline on the card: a tree of WAVs at
 their source rates -> the native runtime's decode into one int16 (or target
@@ -28,6 +28,7 @@ of shape (80, n // 256 + 1) per utterance.
 import contextlib
 import csv
 import glob
+import json
 import os
 import queue
 import shutil
@@ -42,16 +43,22 @@ import numpy as np
 import torch
 
 from pytorch_sound_tpu_torch import native, settings
+from pytorch_sound_tpu_torch.data.meta import MetaTable, read_table_json, write_table_json
+from pytorch_sound_tpu_torch.data.meta.commons import split_train_val_frame
 from pytorch_sound_tpu_torch.data.meta.dsd100 import DSD100Meta
+from pytorch_sound_tpu_torch.data.meta.libri_light import LibriLightMeta
+from pytorch_sound_tpu_torch.data.meta.libri_tts import LibriTTSMeta
 from pytorch_sound_tpu_torch.data.meta.ljspeech import LJSpeechMeta
 from pytorch_sound_tpu_torch.data.meta.vctk import VCTKMeta
 from pytorch_sound_tpu_torch.data.meta.voice_bank import VoiceBankMeta
+from pytorch_sound_tpu_torch.data.meta.zeroth_korean import ZerothKoreanMeta
 from pytorch_sound_tpu_torch.ops.cuda.logmel import fused_log_mel
 from pytorch_sound_tpu_torch.ops.resample import resample_out_len, resample_poly
 from pytorch_sound_tpu_torch.ops.resample import rms_normalize as rms_normalize_rows
 from pytorch_sound_tpu_torch.parallel.prefetch import PinnedCopier, PinnedPool, pinned_view
 from pytorch_sound_tpu_torch.utils import wavio
 from pytorch_sound_tpu_torch.utils.commons import go_multiprocess
+from pytorch_sound_tpu_torch.utils.silence import split_on_silence
 
 RMS_TARGET_DB = -23.0   # ffmpeg-normalize rms default target level
 WIRES = ('bf16', 'f32', 'int8')
@@ -130,6 +137,33 @@ def load_and_numpy_audio(in_file: str, out_file: str):
         np.save(out_file, wav[0] if wav.ndim > 1 else wav)
     except (OSError, ValueError, RuntimeError, NotImplementedError, struct.error):
         print('Failed to convert on {}'.format(str((in_file, out_file))))
+
+
+def split_and_save(in_file: str, out_file: str, speaker: int, min_len: float, max_len: float):
+    """VAD-style silence chunking of one long file into length-bounded wavs:
+    (chunk paths, their seconds at the settings' rate, their speakers)."""
+    if not os.path.exists(in_file):
+        return [], [], []
+    wav, sr = _decode_any(in_file)
+    chunks = split_on_silence(wav, min_silence_len=5000, silence_thresh=-50,
+                              seek_step=int(sr * 0.5))
+    chunk_paths, chunk_lens = [], []
+    for idx, chunk in enumerate(chunks):
+        if min_len < len(chunk) < max_len:
+            chunk_path = out_file.replace('.wav', '_{}.wav'.format(idx))
+            wavio.write_wav(chunk_path, chunk, sr)
+            chunk_paths.append(chunk_path)
+            chunk_lens.append(len(chunk) / settings.SAMPLE_RATE)
+    return chunk_paths, chunk_lens, [speaker] * len(chunk_lens)
+
+
+def _concat(first: MetaTable, second: MetaTable) -> MetaTable:
+    """``pd.concat([first, second])``: the rows of both with their keys,
+    the columns in first-seen order, a missing cell None."""
+    names = list(dict.fromkeys(first.columns + second.columns))
+    return MetaTable({name: [t[name][i] if name in t else None
+                             for t in (first, second) for i in range(len(t))]
+                      for name in names}, index=first.index + second.index)
 
 
 def read_and_write(in_file: str, out_file: str):
@@ -397,6 +431,140 @@ class Processor:
 
         meta_dir = os.path.join(out_dir, 'meta')
         LJSpeechMeta(meta_dir).make_meta(out_wav_list, txt_info)
+
+    @staticmethod
+    def libri_tts(in_dir: str, out_dir: str, target_txt: str = 'normalized',
+                  is_clean: bool = False):
+        """LibriTTS: restructure in place (``fetch_structure``), normalize
+        the train audio, copy texts, emit meta."""
+        from pytorch_sound_tpu_torch.scripts.libri_tts.fetch import fetch_structure
+        fetch_structure(in_dir, in_dir, target_txt=target_txt, is_clean=is_clean)
+        in_dir = os.path.join(in_dir, 'train')
+        Processor.preprocess_audio(in_dir, out_dir)
+        Processor.copy_txt(in_dir, out_dir)
+        meta_dir = os.path.join(out_dir, 'meta')
+        LibriTTSMeta(meta_dir).make_meta(out_dir, settings.MIN_WAV_RATE, settings.MAX_WAV_RATE,
+                                         settings.MIN_TXT_RATE)
+
+    @staticmethod
+    def libri_tts_fetch_speaker(meta_dir: str, speaker_file: str):
+        """Join the openslr SPEAKERS.txt table (tab-separated, its first line
+        a header) onto the meta files, as ``<name>_add.json`` beside each:
+        the reader's GENDER, SUBSET and NAME per row."""
+        print('Load files ...')
+        new_columns = ['GENDER', 'SUBSET', 'NAME']
+        with open(speaker_file, newline='') as f:
+            rows = list(csv.reader(f, delimiter='\t'))[1:]
+        readers = {int(row[0]): (row[1:] + [None] * 3)[:3] for row in rows if row}
+
+        for name in LibriTTSMeta.frame_file_names:
+            file_path = os.path.join(meta_dir, name)
+            out_path = file_path.replace('.json', '_add.json')
+            print('{} is processing ...'.format(out_path))
+            table = read_table_json(file_path)
+            info = [readers[int(os.path.basename(p).split('_')[0])]
+                    for p in table['audio_filename']]
+            for idx, col in enumerate(new_columns):
+                table[col] = [item[idx] for item in info]
+            write_table_json(table, out_path)
+        print('Finish !')
+
+    @staticmethod
+    def zeroth_korean(in_dir: str, out_dir: str, sample_rate: int = 22050):
+        """Zeroth Korean: flac (through ffmpeg) or wav -> normalized wav, and
+        a meta with KoG2P phonemes."""
+        pattern = os.path.join(in_dir, 'train_data_01', '*', '*', '*')
+        text_list = glob.glob(pattern + '.txt')
+        audio_list = glob.glob(pattern + '.flac') + glob.glob(pattern + '.wav')
+
+        os.makedirs(os.path.join(out_dir, 'wavs'), exist_ok=True)
+        out_dir = os.path.abspath(out_dir)
+        out_wav_list = [os.path.join(out_dir, 'wavs', os.path.basename(p).replace('.flac', '.wav'))
+                        for p in audio_list]
+
+        print('Start Audio Processing ...')
+        go_multiprocess(process_all, [(i, o, sample_rate) for i, o
+                                      in zip(audio_list, out_wav_list)], Processor.num_workers)
+        meta_dir = os.path.join(out_dir, 'meta')
+        ZerothKoreanMeta(meta_dir).make_meta(out_wav_list, text_list)
+
+    @staticmethod
+    def libri_light(in_dir: str, out_dir: str, sample_rate: int = 22050):
+        """Libri-Light: normalize each file, then cut its voice-activity
+        spans (from its JSON sidecar) into chunk wavs, and a meta."""
+        os.makedirs(out_dir, exist_ok=True)
+        file_info = defaultdict(dict)
+        for file_path in glob.glob(os.path.join(in_dir, '*', '*', '*')):
+            file_name = os.path.basename(file_path)
+            type_ = file_name.split('.')[-1]
+            key = '.'.join(file_name.split('.')[:-1])
+            if type_ == 'json':
+                with open(file_path, 'r') as r:
+                    file_info[key].update(json.load(r))
+            else:
+                file_info[key]['audio'] = file_path
+
+        temp_dir = os.path.abspath(os.path.join(out_dir, 'temp'))
+        os.makedirs(temp_dir, exist_ok=True)
+        for key, item in file_info.items():
+            item['temp_file_path'] = os.path.join(temp_dir, '{}.wav'.format(key))
+
+        print('Start Audio Processing ...')
+        go_multiprocess(process_all, [(item['audio'], item['temp_file_path'], sample_rate)
+                                      for item in file_info.values()], Processor.num_workers)
+
+        wav_dir = os.path.join(out_dir, 'wav')
+        os.makedirs(wav_dir, exist_ok=True)
+        chunk_list, speaker_chunks = [], []
+        print('Making chunks ...')
+        for key, item in file_info.items():
+            wav, _ = wavio.load_wav(item['temp_file_path'], sr=None)
+            for idx, (begin, end) in enumerate(item['voice_activity']):
+                chunk = wav[int(begin * sample_rate):int(end * sample_rate)]
+                chunk_file_path = os.path.join(
+                    wav_dir, '{}_{}_chunk_{:05d}.wav'.format(key, item['speaker'], idx + 1))
+                wavio.write_wav(chunk_file_path, chunk, sample_rate)
+                chunk_list.append(chunk_file_path)
+                speaker_chunks.append(item['speaker'])
+
+        meta_dir = os.path.join(out_dir, 'meta')
+        LibriLightMeta(meta_dir).make_meta(chunk_list, speaker_chunks)
+
+    @staticmethod
+    def libri_light2(all_meta: str, out_dir: str, min_duration: float = 2,
+                     max_duration: float = 15.):
+        """Re-chunk the over-long utterances of an existing meta at silences
+        (``split_and_save``), keep what lasts at least ``min_duration``, and
+        write new metas under ``<out_dir>/meta``."""
+        chunk_dir = os.path.join(out_dir, 'chunks')
+        meta_dir = os.path.join(out_dir, 'meta')
+        os.makedirs(chunk_dir, exist_ok=True)
+        os.makedirs(meta_dir, exist_ok=True)
+
+        table = read_table_json(all_meta)
+        under = table[[d <= max_duration for d in table['duration']]]
+        upper = table[[d > max_duration for d in table['duration']]]
+
+        print('Start Audio Processing ...')
+        results = go_multiprocess(split_and_save, [
+            (path, os.path.join(chunk_dir, os.path.basename(path)), speaker,
+             min_duration * settings.SAMPLE_RATE, max_duration * settings.SAMPLE_RATE)
+            for path, speaker in zip(upper['audio_filename'], upper['speaker'])],
+            Processor.num_workers)
+        chunk_paths = [p for cp, _, _ in results for p in cp]
+        chunks = MetaTable({'audio_filename': chunk_paths,
+                            'duration': [x for _, cl, _ in results for x in cl],
+                            'speaker': [x for _, _, sp in results for x in sp],
+                            'pass': [True] * len(chunk_paths)},
+                           index=range(len(under), len(under) + len(chunk_paths)))
+        under.index = list(range(len(under)))
+        table = _concat(under, chunks)
+        table = table[[d >= min_duration for d in table['duration']]]
+
+        print('Make train / val meta')
+        train_meta, val_meta = split_train_val_frame(table, val_rate=0.1)
+        LibriLightMeta.save_meta(LibriLightMeta.frame_file_names, meta_dir, table,
+                                 train_meta, val_meta)
 
     @staticmethod
     def dsd100(data_dir: str, out_dir: str, wav_subset_len: int = 44100 * 10):

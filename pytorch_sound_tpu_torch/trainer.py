@@ -24,9 +24,12 @@ state before each draw still in flight; a resume puts the loader back there
 and draws those batches again, each from its own numpy state, before it
 restores the numpy state and the trainer's torch generator (``self.rng``)
 as they stood at the save. The file format is the port's own: ``torch.save``
-of state dicts. Not ported yet: multi-device meshes, rematerialisation, the
-profiler window (``trainer.py:313`` of the JAX package), and the tensorboard
-image and plot channels (``utils/plots.py``).
+of state dicts. Also as in the JAX trainer: ``remat`` (the forward's
+activations recomputed in the backward pass, by
+``torch.utils.checkpoint``), a ``torch.profiler`` window over
+``profile_steps`` written under ``profile_dir``, and the tensorboard image
+and plot channels (``utils/plots.py``, where matplotlib is installed). Not
+ported yet: multi-device meshes.
 
 Subclass contract::
 
@@ -50,9 +53,11 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from pytorch_sound_tpu_torch.parallel.prefetch import prefetch_to_device
 from pytorch_sound_tpu_torch.utils.commons import log
+from pytorch_sound_tpu_torch.utils.plots import imshow_to_buf, plot_to_buf
 from pytorch_sound_tpu_torch.utils.tensor import to_numpy
 
 SAMPLE_RATE = 22050
@@ -125,6 +130,18 @@ class Trainer:
             ``<save_dir>/logs/<prefix>`` when ``torch.utils.tensorboard``
             imports. Off by default: that import loads TensorFlow where it is
             installed, and TensorFlow's converter imports JAX.
+        profile_dir / profile_steps: when ``profile_dir`` is set, a
+            ``torch.profiler`` session (CPU, and CUDA activity on a CUDA
+            device) runs from the start of step ``profile_steps[0]`` to the
+            start of step ``profile_steps[1]`` (or the end of the run) and
+            writes its Chrome trace to
+            ``<profile_dir>/steps_<first>_<last>.pt.trace.json``
+        remat: run :meth:`forward` under ``torch.utils.checkpoint`` (not
+            reentrant), as the JAX trainer wraps its loss in
+            ``jax.checkpoint``: the same gradients, the activations
+            recomputed in the backward pass instead of kept. One checkpoint
+            around the whole forward recomputes them all at once, so the
+            peak memory need not fall
     """
 
     def __init__(self, model: torch.nn.Module, optimizer: torch.optim.Optimizer,
@@ -134,7 +151,9 @@ class Trainer:
                  grad_norm: float = 0.0, pretrained_path: str = None, sr: int = None,
                  scheduler: Optional[Callable[[int], float]] = None,
                  seed: int = None, device: Union[str, torch.device] = 'cuda',
-                 prefetch_size: int = 2, tensorboard: bool = False):
+                 prefetch_size: int = 2, tensorboard: bool = False,
+                 profile_dir: str = None, profile_steps: Tuple[int, int] = (10, 20),
+                 remat: bool = False):
         self.device = torch.device(device)
         if self.device.type == 'cuda' and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' requested but no CUDA device is "
@@ -159,6 +178,11 @@ class Trainer:
         self.grad_clip = grad_clip
         self.grad_norm = grad_norm
         self.valid_max_step = valid_max_step
+        self.remat = remat
+        self.profile_dir = profile_dir
+        self.profile_steps = tuple(profile_steps)
+        self._profiler = None
+        self.profile_trace = None
 
         self.log_dir = os.path.join(save_dir, 'logs', self.save_prefix)
         self.model_dir = os.path.join(save_dir, 'models')
@@ -175,6 +199,7 @@ class Trainer:
         self.best_valid_loss = float(np.finfo(np.float32).max)
         self.cur_best_valid_loss = self.best_valid_loss
         self._step_times = []
+        self._warned_channels = set()
 
     # ------------------------------------------------------------------ user API
 
@@ -212,6 +237,8 @@ class Trainer:
                     self.save(i)
         except KeyboardInterrupt:
             log('Train is canceled !!')
+        finally:
+            self._stop_profile(self.step + 1)
         return self.best_valid_loss
 
     def _bootstrap(self):
@@ -241,7 +268,11 @@ class Trainer:
 
     def _train_step(self, batch, is_logging: bool):
         self.optimizer.zero_grad(set_to_none=True)
-        loss, meta = self.forward(*batch, is_logging=is_logging)
+        if self.remat:
+            loss, meta = torch.utils.checkpoint.checkpoint(
+                self.forward, *batch, is_logging=is_logging, use_reentrant=False)
+        else:
+            loss, meta = self.forward(*batch, is_logging=is_logging)
         if bool(torch.isfinite(loss)):       # NaN/Inf loss -> skip the update
             loss.backward()
             clip_grads(self.model.parameters(), self.grad_clip, self.grad_norm)
@@ -266,7 +297,37 @@ class Trainer:
 
     # ------------------------------------------------------------------ phases
 
+    def _maybe_profile(self, step: int):
+        if not self.profile_dir:
+            return
+        start, end = self.profile_steps
+        if step == start and self._profiler is None:
+            from torch.profiler import ProfilerActivity, profile
+            activities = [ProfilerActivity.CPU]
+            if self.device.type == 'cuda':
+                activities.append(ProfilerActivity.CUDA)
+            self._sync()
+            self._profiler = profile(activities=activities)
+            self._profiler.start()
+            log('profiler trace started -> {}'.format(self.profile_dir))
+        elif step == end:
+            self._stop_profile(step)
+
+    def _stop_profile(self, step: int):
+        """End the profiler session, if one runs, before step ``step``."""
+        if self._profiler is None:
+            return
+        self._sync()
+        self._profiler.stop()
+        os.makedirs(self.profile_dir, exist_ok=True)
+        self.profile_trace = os.path.join(self.profile_dir, 'steps_{:06d}_{:06d}.pt.trace.json'
+                                          .format(self.profile_steps[0], step - 1))
+        self._profiler.export_chrome_trace(self.profile_trace)
+        self._profiler = None
+        log('profiler trace stopped -> {}'.format(self.profile_trace))
+
     def train(self, step: int):
+        self._maybe_profile(step)
         log_flag = step % self.log_interval == 0
         if self._pending_batch is not None:   # batch drawn during _bootstrap
             batch, self._pending_batch = self._pending_batch, None
@@ -435,19 +496,30 @@ class Trainer:
         log(msg)
 
     def tensorboard_log(self, tag: str, meta: Dict[str, Any], step: int):
-        """Scalars, audio and text; image and plot channels need plotting
-        helpers the port does not carry yet and are not written."""
+        """Every channel, as the JAX trainer writes it: IMAGE through
+        :func:`~pytorch_sound_tpu_torch.utils.plots.imshow_to_buf`, PLOT
+        through ``plot_to_buf``. A channel whose helper cannot import (no
+        matplotlib) is reported once and skipped."""
         if self.writer is None:
             return
         for key, (value, log_type) in meta.items():
             name = '{}/{}'.format(tag, key)
-            if log_type == LogType.SCALAR:
-                self.writer.add_scalar(name, float(np.asarray(value)), global_step=step)
-            elif log_type == LogType.AUDIO:
-                self.writer.add_audio(name, np.asarray(value), global_step=step,
-                                      sample_rate=self.sr)
-            elif log_type == LogType.TEXT:
-                self.writer.add_text(name, value, global_step=step)
+            try:
+                if log_type == LogType.SCALAR:
+                    self.writer.add_scalar(name, float(np.asarray(value)), global_step=step)
+                elif log_type == LogType.IMAGE:
+                    self.writer.add_image(name, imshow_to_buf(value), global_step=step)
+                elif log_type == LogType.PLOT:
+                    self.writer.add_image(name, plot_to_buf(value), global_step=step)
+                elif log_type == LogType.AUDIO:
+                    self.writer.add_audio(name, np.asarray(value), global_step=step,
+                                          sample_rate=self.sr)
+                elif log_type == LogType.TEXT:
+                    self.writer.add_text(name, value, global_step=step)
+            except ImportError as e:
+                if name not in self._warned_channels:
+                    self._warned_channels.add(name)
+                    log('tensorboard channel {} unavailable: {!r}'.format(name, e))
 
     # ------------------------------------------------------------------ data
 

@@ -1,9 +1,11 @@
 """The port's DSP layer against the JAX package's on the CPU: the cases of
-``tests/test_dsp.py`` (Griffin-Lim aside, which is not ported), each feeding
-the JAX function and the port's counterpart the same numpy input. Bases,
-windows and banks are held bit-equal; values at the JAX tests' tolerances or
-tighter: STFT / iSTFT 2e-4 absolute and 3e-6 of the spectrum's peak, PQMF
-1e-5, pre-emphasis 1e-6."""
+``tests/test_dsp.py``, each feeding the JAX function and the port's
+counterpart the same numpy input. Bases, windows and banks are held
+bit-equal; values at the JAX tests' tolerances or tighter: STFT / iSTFT 2e-4
+absolute and 3e-6 of the spectrum's peak, PQMF 1e-5, pre-emphasis 1e-6,
+Griffin-Lim from the zero phase 1e-4 of the output's peak away from its
+first and last frame. Inputs shorter than one frame give JAX's empty
+shapes."""
 
 import jax
 
@@ -95,6 +97,67 @@ def test_istft_matches_jax_and_torch(batch_wav, method, length):
     if length is not None and length <= 22050:
         y_t = torch.istft(spec, N_FFT, HOP, WIN, torch.hann_window(WIN), length=length)
         np.testing.assert_allclose(y, y_t.numpy(), atol=1e-4)
+
+
+@pytest.mark.parametrize('method', ['fft', 'matmul'])
+def test_stft_shorter_than_a_frame_matches_jax(method):
+    """No frame: JAX's empty (N, F, 0) pair (the FFT is never called),
+    through stft, spectrogram_magnitude and audio2mel."""
+    x = np.random.default_rng(3).standard_normal((2, 300)).astype(np.float32)
+    real, imag = stft_ops.stft(torch.from_numpy(x), 512, 128, center=False, method=method)
+    j_real, j_imag = jax_stft.stft(jnp.asarray(x), 512, 128, center=False, method=method)
+    assert real.shape == imag.shape == j_real.shape == j_imag.shape == (2, 257, 0)
+    mag = stft_ops.spectrogram_magnitude(torch.from_numpy(x), 512, 128, center=False,
+                                         method=method)
+    j_mag = jax_stft.spectrogram_magnitude(jnp.asarray(x), 512, 128, center=False,
+                                           method=method)
+    assert mag.shape == j_mag.shape == (2, 257, 0)
+    short = x[:, :100]
+    mel = mel_ops.audio2mel(torch.from_numpy(short), method=method)
+    j_mel = jax_mel.audio2mel(jnp.asarray(short), method=method)
+    assert mel.shape == j_mel.shape == (2, 80, 0)
+    assert T.Audio2Mel()(torch.from_numpy(short[:, None])).shape == \
+        JT.Audio2Mel()(jnp.asarray(short[:, None])).shape
+
+
+@pytest.mark.parametrize('n_iter,momentum', [(0, 0.99), (8, 0.99), (32, 0.0)])
+def test_griffin_lim_matches_jax(batch_wav, n_iter, momentum):
+    """From the zero phase (``rng=None``), within 1e-4 of the output's peak
+    away from the first and last frame, where the iSTFT divides by a
+    window envelope of ~0; at the signal's length and past it. The momentum
+    grows fp32 round-off in both packages alike: at 0.99 and 32 iterations
+    each lies 2-3e-4 of the peak from a float64 run (the port 3.2e-4, JAX
+    1.9e-4 on this input), so the long run with momentum is compared at
+    momentum 0."""
+    from pytorch_sound_tpu.ops.griffin_lim import griffin_lim as jax_griffin_lim
+    from pytorch_sound_tpu_torch.ops.griffin_lim import griffin_lim
+    mag = np.abs(torch_stft(batch_wav[:, :11025]).numpy())
+    for length in (None, 11025, 12000):
+        got = griffin_lim(torch.from_numpy(mag), N_FFT, HOP, WIN, n_iter=n_iter,
+                          momentum=momentum, length=length).numpy()
+        ref = np.asarray(jax_griffin_lim(jnp.asarray(mag), N_FFT, HOP, WIN, n_iter=n_iter,
+                                         momentum=momentum, length=length))
+        assert got.shape == ref.shape
+        inner = slice(N_FFT, min(got.shape[-1], 11025) - N_FFT)
+        err = float(np.abs(got[:, inner] - ref[:, inner]).max())
+        assert err <= 1e-4 * float(np.abs(ref[:, inner]).max()), (length, err)
+
+
+def test_griffin_lim_reconstruction():
+    """Fast-GLA from a random phase recovers a consistent spectrogram
+    (interior spectral convergence < 6 %), as tests/test_dsp.py holds JAX's."""
+    from pytorch_sound_tpu_torch.ops.griffin_lim import griffin_lim
+    sr = 22050
+    tt = np.arange(sr) / sr
+    sig = (0.5 * np.sin(2 * np.pi * 440 * tt)
+           + 0.25 * np.sin(2 * np.pi * 880 * tt)).astype(np.float32)[None]
+    mag = stft_ops.spectrogram_magnitude(torch.from_numpy(sig), N_FFT, HOP, WIN)
+    rec = griffin_lim(mag, N_FFT, HOP, WIN, n_iter=100, momentum=0.9, length=sr,
+                      rng=torch.Generator().manual_seed(0))
+    assert rec.shape == (1, sr)
+    a = stft_ops.spectrogram_magnitude(rec, N_FFT, HOP, WIN).numpy()[..., 4:-4]
+    b = mag.numpy()[..., 4:-4]
+    assert np.linalg.norm(a - b) / np.linalg.norm(b) < 0.06
 
 
 @pytest.mark.parametrize('hop', [256, 300])

@@ -137,3 +137,20 @@ def test_load_jax_params_is_strict():
     del tree['linear']
     with pytest.raises(RuntimeError, match='linear.weight'):
         mod.load_jax_params(m, tree)
+
+
+def test_load_jax_params_carries_flax_embed():
+    """A flax Embed's 'embedding' table (vocab, features) becomes an
+    nn.Embedding's weight as it is, and looks up the same rows."""
+    import flax.linen as fnn
+    ids = np.random.default_rng(6).integers(0, 11, (3, 7))
+    jm = fnn.Embed(11, 8)
+    params = jm.init(jax.random.PRNGKey(0), ids)
+    tm = torch.nn.Module()
+    tm.embed = torch.nn.Embedding(11, 8)
+    mod.load_jax_params(tm, {'params': {'embed': jax.tree_util.tree_map(
+        np.asarray, params)['params']}})
+    np.testing.assert_array_equal(tm.embed.weight.detach().numpy(),
+                                  np.asarray(params['params']['embedding']))
+    np.testing.assert_array_equal(tm.embed(torch.from_numpy(ids)).detach().numpy(),
+                                  np.asarray(jm.apply(params, ids)))

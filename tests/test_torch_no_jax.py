@@ -1,8 +1,9 @@
 """The port imports torch and never jax, flax or the JAX package; its CUDA
 modules import without nvcc (the kernels build at their first CUDA launch).
-The serving path, the training path, the data layer and the enhancement path
-each run in a fresh interpreter; the data layer and the preprocess path also
-load none of pandas, tqdm or joblib."""
+The serving path, the training path, the data layer, the enhancement path,
+the preprocess path and the TTS path each run in a fresh interpreter; the
+data layer, the preprocess path and the TTS path also load none of pandas,
+tqdm or joblib (nor, on the TTS path, matplotlib)."""
 
 import os
 import subprocess
@@ -237,6 +238,78 @@ assert not loaded, loaded
 '''
 
 
+TTS_SCRIPT = r'''
+import json, os, random, sys, tempfile
+
+
+class Absent:
+    """As where the port runs: pandas, tqdm, joblib and matplotlib do not import."""
+    def find_spec(self, name, path=None, target=None):
+        if name.split('.')[0] in ('pandas', 'tqdm', 'joblib', 'matplotlib'):
+            raise ModuleNotFoundError('No module named %r' % name)
+
+
+# torch's compiler probes for pandas with find_spec as it loads and imports
+# tqdm where it is installed: load it first and count only what comes after
+import torch._dynamo  # noqa: F401
+torch_loaded = set(sys.modules)
+sys.meta_path.insert(0, Absent())
+import numpy as np
+import torch
+from pytorch_sound_tpu_torch.data.korean.g2p import KoG2P
+from pytorch_sound_tpu_torch.examples.ljspeech_tts import TTSTrainer
+from pytorch_sound_tpu_torch.models import build_model
+from pytorch_sound_tpu_torch.models.tts import synthesize
+from pytorch_sound_tpu_torch.ops.cuda import _build, logmel
+from pytorch_sound_tpu_torch.ops.griffin_lim import griffin_lim
+from pytorch_sound_tpu_torch.scripts.preprocess import Processor
+from pytorch_sound_tpu_torch.trainer import adamw
+from pytorch_sound_tpu_torch.utils import text
+from pytorch_sound_tpu_torch.utils.wavio import write_wav
+rng = np.random.default_rng(0)
+wav = (rng.standard_normal((2, 8192)) * 0.1).astype(np.float32)
+mask = np.ones_like(wav)
+mask[1, 5000:] = 0
+batch = [wav, rng.integers(1, 60, (2, 9)), mask]
+torch.manual_seed(0)
+model = build_model('transformer_tts_small')
+with tempfile.TemporaryDirectory() as tmp:
+    t = TTSTrainer(model, adamw(model.parameters(), 1e-3), [batch], [batch], max_step=1,
+                   valid_max_step=1, save_interval=1, log_interval=1, save_dir=tmp, seed=1,
+                   device='cpu', remat=True, profile_dir=os.path.join(tmp, 'prof'),
+                   profile_steps=(1, 2))
+    assert np.isfinite(t.run()) and os.path.exists(t.profile_trace)
+mel = synthesize(model.eval(), text.eng_t2i('Hello there.')[None], max_frames=8)
+assert mel.shape[:2] == (1, 80) and 1 <= mel.shape[2] <= 7, mel.shape
+assert griffin_lim(torch.ones(1, 513, 6), 1024, 256, n_iter=2).shape == (1, 1280)
+assert KoG2P().g2p('학교에 갑니다') == 'h0 aa kf kk yo ee k0 aa mf nn ii t0 aa'
+assert text.kor_i2p(text.kor_p2i('k0 aa')) == ['k0', 'aa']
+root = tempfile.mkdtemp()
+d = os.path.join(root, 'zeroth', 'train_data_01', '103', '103_001')
+os.makedirs(d)
+for u in range(2):
+    write_wav(os.path.join(d, '103_001_%04d.wav' % u), 0.1 * np.ones(22050 * 3), 22050)
+with open(os.path.join(d, '103_001.trans.txt'), 'w', encoding='utf-8') as f:
+    f.write('103_001_0000 안녕하세요\n103_001_0001 물고기\n')
+random.seed(0)
+Processor.zeroth_korean(os.path.join(root, 'zeroth'), os.path.join(root, 'zeroth_out'))
+d = os.path.join(root, 'light', '10', 'book')
+os.makedirs(d)
+write_wav(os.path.join(d, 'f.wav'), 0.1 * np.ones(22050 * 2), 22050)
+with open(os.path.join(d, 'f.json'), 'w') as f:
+    json.dump({'speaker': '10', 'voice_activity': [[0.0, 1.0], [1.0, 2.0]]}, f)
+Processor.libri_light(os.path.join(root, 'light'), os.path.join(root, 'light_out'))
+Processor.libri_light2(os.path.join(root, 'light_out', 'meta', 'all_meta.json'),
+                       os.path.join(root, 'light_out2'), max_duration=0.5)
+assert _build._lib is None and logmel.fused_log_mel.launches == 0
+forbidden = ('jax', 'jaxlib', 'flax', 'optax', 'pytorch_sound_tpu', 'pandas', 'tqdm',
+             'joblib', 'matplotlib')
+loaded = sorted(m for m in set(sys.modules) - torch_loaded if m.split('.')[0] in forbidden)
+print('LOADED', loaded)
+assert not loaded, loaded
+'''
+
+
 def _run(script, *args):
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [ROOT] + [p for p in os.environ.get('PYTHONPATH', '').split(os.pathsep) if p]))
@@ -300,3 +373,13 @@ def test_preprocess_path_loads_neither_jax_nor_pandas():
     pandas, tqdm and joblib made unimportable: no kernel library, no launch,
     and none of those, jax, flax or the JAX package loaded."""
     _run(PREPROCESS_SCRIPT)
+
+
+def test_tts_path_loads_neither_jax_nor_pandas():
+    """The TTS recipe (one CPU step of transformer_tts_small with remat and
+    the profiler window, a validation, a checkpoint), synthesize,
+    griffin_lim, the Korean G2P and codecs, and the Processor's
+    zeroth_korean, libri_light and libri_light2 on tiny trees, with pandas,
+    tqdm, joblib and matplotlib made unimportable: no kernel library, no
+    launch, and none of those, jax, flax, optax or the JAX package loaded."""
+    _run(TTS_SCRIPT)

@@ -232,3 +232,48 @@ def test_tensorboard_writer_on_request(tmp_path):
     t.writer.close()
     log_dir = os.path.join(str(tmp_path / 'on'), 'logs', 'reg')
     assert any(f.startswith('events.out.tfevents') for f in os.listdir(log_dir))
+
+
+def test_trainer_remat(tmp_path):
+    """A forward under torch.utils.checkpoint trains as the plain one does
+    (same seed), as tests/test_trainer.py::test_trainer_remat holds
+    jax.checkpoint."""
+    t1 = make_trainer(tmp_path / 'a', max_step=5, seed=21)
+    t1.run()
+    t2 = make_trainer(tmp_path / 'b', max_step=5, seed=21, remat=True)
+    t2.run()
+    for a, b in zip(t1.model.parameters(), t2.model.parameters()):
+        np.testing.assert_allclose(a.detach().numpy(), b.detach().numpy(), atol=1e-5)
+
+
+def test_trainer_remat_recomputes_the_forward(tmp_path):
+    """With remat the forward runs again in the backward pass: twice per
+    training step."""
+    calls = []
+
+    class Counting(RegressionTrainer):
+        def forward(self, x, y, is_logging=False):
+            calls.append(torch.is_grad_enabled())
+            return super().forward(x, y, is_logging=is_logging)
+
+    t = make_trainer(tmp_path, max_step=2, seed=3, cls=Counting, remat=True,
+                     save_interval=100)
+    t.run()
+    assert len(calls) == 4
+
+
+@pytest.mark.parametrize('window,last', [((2, 4), 3), ((3, 100), 5)])
+def test_profiler_window_writes_a_trace(tmp_path, window, last):
+    """profile_dir / profile_steps: a torch.profiler session from the start
+    of the first step to the start of the second (or the end of the run)
+    writes its Chrome trace, steps_<first>_<last>.pt.trace.json."""
+    import json
+    t = make_trainer(tmp_path / 'run', max_step=5, profile_dir=str(tmp_path / 'prof'),
+                     profile_steps=window)
+    t.run()
+    name = 'steps_%06d_%06d.pt.trace.json' % (window[0], last)
+    assert os.listdir(str(tmp_path / 'prof')) == [name]
+    assert t.profile_trace == str(tmp_path / 'prof' / name)
+    events = json.load(open(t.profile_trace))['traceEvents']
+    assert any('aten::' in e.get('name', '') for e in events)
+    assert make_trainer(tmp_path / 'off', max_step=1).profile_dir is None

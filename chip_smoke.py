@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's HiFi-GAN serving and training paths, and the
 training recipe from wav files on disk, the DSP layer with the VoiceBank
-enhancement recipe, feature extraction from a wav tree, and the
-text-to-speech recipe with synthesis and its decode, once on one GPU.
+enhancement recipe, feature extraction from a wav tree, the text-to-speech
+recipe with synthesis and its decode, and the separation and transcription
+recipes, once on one GPU.
 
     python3 chip_smoke.py
 
@@ -136,7 +137,20 @@ Phases, one line each; any failure raises and the script exits non-zero:
    the v2 decode of that mel (K1's four launches, each stage against its
    plain version, card vs CPU); Griffin-Lim (32 iterations, zero phase)
    float64 card vs CPU, fp32 timed; the STFT on inputs shorter than one
-   frame through cuFFT (JAX's empty shapes).
+   frame through cuFFT (JAX's empty shapes);
+15. separation and transcription: K2 at the Maestro recipe's geometry (44.1
+   kHz, 1024 / 256, 80 mels to sr / 2) on 4 x 131072 samples against the
+   plain log-mel in fp64, timed; a DSD100 chunk tree under ``$TMPDIR``,
+   ``examples.dsd100.main`` with ``spec_unet_base`` at 4 x 65536 for 3
+   steps and a validation batch, one step card vs CPU, ``separate`` at 4 x
+   65536 card vs CPU (voice + background rebuild the mixture), the step
+   and ``separate`` times; a Maestro tree (12 performances of 4 s with MIDI
+   files, the released records .json), ``examples.maestro.main`` with
+   ``frame_pitch_base`` at 4 x 131072 for 3 steps and a validation batch
+   (K2 once a batch: 4 launches, counted), one step card vs CPU, the step
+   time; for both recipes two steps under the trainer's profiler window in
+   one process of their own (the card's busy share, device ms a step, the
+   kernels with the most device time).
 
 The line before the last is a JSON object with one entry per kernel, each
 with its time, its plain version's, the least time the card could take for
@@ -2538,39 +2552,6 @@ WORDS = ('the', 'printer', 'of', 'a', 'book', 'was', 'in', 'every', 'sense', 'on
          'which', 'we', 'are', 'at', 'present', 'concerned', 'differs', 'from', 'most',
          'if', 'not', 'all', 'arts', 'and', 'crafts', 'represented', 'exhibition', 'long',
          'time', 'ago', 'early', 'writers', 'made', 'their', 'letters', 'clear')
-PROFILE_SCRIPT = r'''
-import json, sys
-import numpy as np
-import torch
-from pytorch_sound_tpu_torch.examples.ljspeech_tts import TTSTrainer
-from pytorch_sound_tpu_torch.models import build_model
-from pytorch_sound_tpu_torch.trainer import adamw
-batch_path, save_dir, prof_dir = sys.argv[1:4]
-torch.backends.cuda.matmul.allow_tf32 = False
-torch.backends.cudnn.allow_tf32 = False
-data = np.load(batch_path)
-batch = [data['wav'], data['text'], data['mask']]
-torch.manual_seed(0)
-model = build_model('transformer_tts_base')
-t = TTSTrainer(model, adamw(model.parameters(), 1e-4, b1=0.9, b2=0.98), [batch], [batch],
-               max_step=5, valid_max_step=1, save_interval=10 ** 9, log_interval=10 ** 9,
-               save_dir=save_dir, grad_norm=1.0, seed=1, device='cuda',
-               profile_dir=prof_dir, profile_steps=(3, 5))
-t.run()
-torch.cuda.synchronize()
-events = json.load(open(t.profile_trace))['traceEvents']
-kernels = [e for e in events if e.get('cat') == 'kernel' and 'dur' in e]
-timed = [e for e in events if 'ts' in e and 'dur' in e]
-span = max(e['ts'] + e['dur'] for e in timed) - min(e['ts'] for e in timed)
-busy, end = 0.0, -1.0
-for e in sorted(kernels, key=lambda e: e['ts']):
-    start, stop = e['ts'], e['ts'] + e['dur']
-    busy += max(0.0, stop - max(start, end))
-    end = max(end, stop)
-print(json.dumps({'trace': t.profile_trace, 'kernels': len(kernels),
-                  'logmel_kernels': sum('logmel' in e['name'] for e in kernels),
-                  'window_us': span, 'busy_us': busy, 'steps': 2}))
-'''
 
 
 def tts_path(dev, card):
@@ -2681,7 +2662,6 @@ def tts_path(dev, card):
         batch = SpeechDataLoader.pad_collate_fn([dataset[i] for i in picks], TTS_PAD)
         assert batch[0].shape == (TTS_BATCH, 8 * TTS_PAD) and len(batch) == 3, \
             [b.shape for b in batch]
-        np.savez(os.path.join(work, 'batch.npz'), wav=batch[0], text=batch[1], mask=batch[2])
         wav_d = torch.from_numpy(batch[0]).to(dev)
         targets = recipe.LOG_MEL(wav_d)
         plain = mel_ops.log_mel_spectrogram(wav_d, *mel_args)
@@ -2746,20 +2726,13 @@ def tts_path(dev, card):
         #      the step time by CUDA events, and the card's busy share from
         #      the trainer's profiler window, in a fresh process
         b = step_trainer.to_device(batch)
-        root = os.path.dirname(os.path.abspath(__file__))
         step_ms = cuda_ms(lambda: step_trainer._train_step(b, is_logging=False), 10)
-        proc = subprocess.run(
-            [sys.executable, '-c', PROFILE_SCRIPT, os.path.join(work, 'batch.npz'),
-             os.path.join(work, 'prof_save'), os.path.join(work, 'prof')],
-            cwd=root, env=dict(os.environ, PYTHONPATH=os.pathsep.join(
-                [root] + [p for p in os.environ.get('PYTHONPATH', '').split(os.pathsep) if p])),
-            capture_output=True, text=True, timeout=600)
-        assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
-        prof = json.loads(proc.stdout.strip().splitlines()[-1])
-        busy = prof['busy_us'] / prof['window_us']
+        prof = profile_steps([('ljspeech_tts', batch)], work)['ljspeech_tts']
+        busy = prof['busy_share']
         log('profile', trace=os.path.basename(prof['trace']), kernels=prof['kernels'],
             logmel_kernels=prof['logmel_kernels'], window_ms='%.3f' % (prof['window_us'] / 1e3),
-            busy_ms='%.3f' % (prof['busy_us'] / 1e3), device_busy_share='%.4f' % busy)
+            busy_ms='%.3f' % (prof['busy_us'] / 1e3), device_busy_share='%.4f' % busy,
+            top_ms_per_step=prof['top_ms_per_step'])
         assert prof['kernels'] > 0 and prof['logmel_kernels'] == prof['steps'], prof
 
         # 14.4 synthesis at 4 x 400 (stop_threshold 1.0: every frame runs)
@@ -2897,6 +2870,390 @@ def tts_path(dev, card):
                                 / (synth_s + decode_ms / 1e3)),
         griffin_lim_32_ms='%.3f' % gl_ms)
     return k2_main, k1_main
+
+
+SEP_BATCH, SEP_SEG = 4, 65536     # the DSD100 recipe's defaults (examples/dsd100.py)
+MAE_BATCH, MAE_SEG = 4, 131072    # the Maestro recipe's (examples/maestro.py): 513 mel frames
+MAE_SR = 44100
+SEP_LOSSES = ('loss', 'voice_l1', 'background_l1')
+MAE_LOSSES = ('loss', 'precision', 'recall')
+PROFILE_KEYS = ('kernels', 'logmel_kernels', 'busy_share', 'device_ms_per_step',
+                'top_ms_per_step')
+SEP_REBUILD_TOL = 1e-3            # separate: voice + background vs the mixture, away from the edges
+
+
+PROFILE_SCRIPT = r'''
+import collections, functools, json, sys
+import numpy as np
+import torch
+from pytorch_sound_tpu_torch.examples import dsd100, ljspeech_tts, maestro
+from pytorch_sound_tpu_torch.models import build_model
+from pytorch_sound_tpu_torch.trainer import adam, adamw
+save_dir, prof_dir, runs = sys.argv[1], sys.argv[2], sys.argv[3:]
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+for recipe, batch_path in zip(runs[::2], runs[1::2]):
+    data = np.load(batch_path)
+    batch = [data['arr_%d' % i] for i in range(len(data.files))]
+    cls, arch, opt, grad_norm = {
+        'ljspeech_tts': (ljspeech_tts.TTSTrainer, 'transformer_tts_base',
+                         functools.partial(adamw, b1=0.9, b2=0.98), 1.0),
+        'dsd100': (dsd100.DSD100Trainer, 'spec_unet_base', adam, 5.0),
+        'maestro': (maestro.MaestroTrainer, 'frame_pitch_base', adamw, 3.0)}[recipe]
+    torch.manual_seed(0)
+    model = build_model(arch)
+    t = cls(model, opt(model.parameters(), 1e-4), [batch], [batch], max_step=5,
+            valid_max_step=1, save_interval=10 ** 9, log_interval=10 ** 9,
+            save_dir=save_dir, grad_norm=grad_norm, seed=1, device='cuda',
+            profile_dir=prof_dir + '_' + recipe, profile_steps=(3, 5))
+    t.run()
+    torch.cuda.synchronize()
+    events = json.load(open(t.profile_trace))['traceEvents']
+    kernels = [e for e in events if e.get('cat') == 'kernel' and 'dur' in e]
+    timed = [e for e in events if 'ts' in e and 'dur' in e]
+    span = max(e['ts'] + e['dur'] for e in timed) - min(e['ts'] for e in timed)
+    busy, end = 0.0, -1.0
+    for e in sorted(kernels, key=lambda e: e['ts']):
+        start, stop = e['ts'], e['ts'] + e['dur']
+        busy += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+    by_name = collections.Counter()
+    for e in kernels:
+        by_name[e['name'][:60]] += e['dur']
+    print(json.dumps({'recipe': recipe, 'trace': t.profile_trace, 'kernels': len(kernels),
+                      'window_us': span, 'busy_us': busy, 'steps': 2,
+                      'logmel_kernels': sum('logmel' in e['name'] for e in kernels),
+                      'top_us': by_name.most_common(6)}))
+'''
+
+
+def profile_steps(runs, work):
+    """Two steps of each ``(recipe, batch)`` of ``runs`` ('ljspeech_tts',
+    'dsd100' or 'maestro', at its base model) under the trainer's profiler
+    window, in one process of their own (a profiler session late in a long
+    process drops records). For each recipe: the trace's name and kernel
+    count, the window's and the card's busy us, the log-mel kernels in it,
+    and derived the busy share, device ms a step and the six kernels with
+    the most device time."""
+    args = []
+    for recipe, batch in runs:
+        args += [recipe, os.path.join(work, recipe + '_batch.npz')]
+        np.savez(args[-1], *batch)
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = subprocess.run(
+        [sys.executable, '-c', PROFILE_SCRIPT, os.path.join(work, 'profile_save'),
+         os.path.join(work, 'profile'), *args],
+        cwd=root, env=dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [root] + [p for p in os.environ.get('PYTHONPATH', '').split(os.pathsep) if p])),
+        capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-3000:]
+    profs = {}
+    for line in out.stdout.strip().splitlines()[-len(runs):]:
+        prof = json.loads(line)
+        prof['busy_share'] = prof['busy_us'] / prof['window_us']
+        prof['device_ms_per_step'] = prof['busy_us'] / 1e3 / prof['steps']
+        prof['top_ms_per_step'] = ['%s:%.3f' % (name.replace(' ', '_'), us / 1e3 / prof['steps'])
+                                   for name, us in prof.pop('top_us')]
+        profs[prof['recipe']] = prof
+    return profs
+
+
+def midi_file(path, pitches, beats):
+    """A format-0 MIDI file at 96 ticks a beat, 120 bpm: each pitch of
+    ``pitches`` held for ``beats`` beats, one after the other, velocity 90."""
+    import struct
+    ticks = beats * 96
+    track = b'\x00' + bytes([0xFF, 0x51, 0x03]) + (500000).to_bytes(3, 'big')
+    for p in pitches:
+        var = bytes([0x80 | (ticks >> 7), ticks & 0x7F])
+        track += b'\x00' + bytes([0x90, p, 90]) + var + bytes([0x80, p, 0])
+    track += b'\x00' + bytes([0xFF, 0x2F, 0x00])
+    with open(path, 'wb') as f:
+        f.write(b'MThd' + struct.pack('>IHHH', 6, 0, 1, 96)
+                + b'MTrk' + struct.pack('>I', len(track)) + track)
+
+
+def one_step(trainer_cls, arch, opt, batch, dev, work, grad_norm, losses):
+    """One step's logged ``losses`` and the gradients of ``arch`` from seed
+    0 on the card and on the CPU, from the same weights and batch: (worst
+    loss relative error, worst per-parameter gradient relative error and its
+    parameter, the card's losses, the card's trainer)."""
+    import copy
+    import torch
+    from pytorch_sound_tpu_torch.models import build_model
+    torch.manual_seed(0)
+    model = build_model(arch)
+    cpu_model = copy.deepcopy(model)
+    results, trainers = [], []
+    for device, m in ((dev, model), ('cpu', cpu_model)):
+        t = trainer_cls(m, opt(m.parameters(), 1e-4), None, None, max_step=1,
+                        valid_max_step=1, save_interval=10 ** 9, log_interval=10 ** 9,
+                        save_dir=os.path.join(work, 'step'), grad_norm=grad_norm, seed=1,
+                        device=device)
+        t.optimizer.zero_grad(set_to_none=True)
+        loss, meta_ = t.forward(*t.to_device(batch), is_logging=True)
+        loss.backward()
+        results.append(({k: float(meta_[k][0].detach()) for k in losses},
+                        {k: p.grad.detach().cpu().double() for k, p in m.named_parameters()}))
+        trainers.append(t)
+    (card_l, card_g), (cpu_l, cpu_g) = results
+    loss_rel = max(abs(card_l[k] - cpu_l[k]) / abs(cpu_l[k]) for k in losses)
+    grad_rel, worst = max((float((card_g[k] - g).norm()) / max(float(g.norm()), 1e-30), k)
+                          for k, g in cpu_g.items())
+    return loss_rel, grad_rel, worst, card_l, trainers[0]
+
+
+def timed_steps(trainer, batch, dev, n=10):
+    """Median ms of ``n`` training steps in memory (after 3 warm-ups), each
+    ending in a synchronize, and the peak memory in GB."""
+    import torch
+    b = trainer.to_device(batch)
+    for _ in range(3):
+        trainer._train_step(b, is_logging=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        trainer._train_step(b, is_logging=False)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times, torch.cuda.max_memory_allocated(dev) / 1e9
+
+
+def separation_path(dev, card):
+    """Phase 15: separation and transcription. K2 at the Maestro recipe's
+    geometry (44.1 kHz, 1024 / 1024 / 256, 80 mels to sr / 2, clipped to -50
+    / 30 dB) on 4 x 131072 samples against the plain log-mel in fp64, and
+    timed. A DSD100 chunk tree under $TMPDIR (3 songs x 4 chunks of 3 s of
+    mixture / voice / background .npy), ``examples.dsd100.main`` with
+    ``spec_unet_base`` at 4 x 65536 for 3 steps and a validation batch; one
+    step card vs CPU; ``separate`` at 4 x 65536 card vs CPU, its sources
+    rebuilding the mixture; the step and ``separate`` times. A Maestro tree
+    (12 performances of 4 s at 44.1 kHz with their MIDI files, the released
+    records .json), ``make_meta``, ``examples.maestro.main`` with
+    ``frame_pitch_base`` at 4 x 131072 for 3 steps and a validation batch,
+    K2 counted (one launch a batch); one step card vs CPU; the step time;
+    for both recipes two steps profiled in one subprocess (busy share,
+    device time a step, the heaviest kernels). Returns (K2's main-path launches,
+    the ``logmel`` entry's keys for the Maestro geometry)."""
+    import copy
+    import random
+    import torch
+    from pytorch_sound_tpu_torch import settings
+    from pytorch_sound_tpu_torch.data.meta.dsd100 import DSD100Meta
+    from pytorch_sound_tpu_torch.data.meta.dsd100 import get_datasets as dsd_datasets
+    from pytorch_sound_tpu_torch.data.meta.maestro import MaestroMeta
+    from pytorch_sound_tpu_torch.data.meta.maestro import get_datasets as mae_datasets
+    from pytorch_sound_tpu_torch.examples import dsd100, maestro
+    from pytorch_sound_tpu_torch.ops import mel as mel_ops
+    from pytorch_sound_tpu_torch.ops.cuda import logmel as lm
+    from pytorch_sound_tpu_torch.trainer import adam, adamw
+    from pytorch_sound_tpu_torch.utils.commons import LOGGER
+    from pytorch_sound_tpu_torch.utils.wavio import write_wav
+
+    rng = np.random.default_rng(15)
+    mel_args = (MAE_SR, settings.MEL_SIZE, settings.N_FFT, settings.WIN_LENGTH,
+                settings.HOP_LENGTH, settings.MIN_DB, settings.MAX_DB, settings.MEL_MIN, None)
+
+    def run_main(module, *args, **kw):
+        """The recipe's main on the card with K2 counted from 0 and the
+        trainer's log lines kept: (best, steps, K2 launches, seconds)."""
+        lines = LogLines()
+        LOGGER.addHandler(lines)
+        np.random.seed(0)
+        torch.manual_seed(0)
+        lm.fused_log_mel.launches = 0
+        try:
+            t0 = time.perf_counter()
+            best = module.main(*args, num_workers=0, max_step=3, valid_max_step=1,
+                               save_interval=3, log_interval=1, device=str(dev), **kw)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        finally:
+            LOGGER.removeHandler(lines)
+        return best, lines.train_steps()[0], lm.fused_log_mel.launches, seconds
+
+    # 15.1 K2 at Maestro's geometry, 4 x 131072 (tones and noise), against
+    #      the plain log-mel in fp64 on the same card tensor; one launch each
+    wav = torch.from_numpy(np.concatenate([
+        tones(rng, 2, MAE_SEG), (0.2 * rng.standard_normal((2, MAE_SEG))).astype(np.float32)])
+    ).to(dev)
+    before = lm.fused_log_mel.launches
+    mel = maestro.LOG_MEL(wav)
+    launched = lm.fused_log_mel.launches - before
+    plain = mel_ops.log_mel_spectrogram(wav, *mel_args)
+    plain64 = mel_ops.log_mel_spectrogram(wav.double(), *mel_args)
+    torch.cuda.synchronize()
+    k2_err = max_err(mel.double(), plain64)
+    log('logmel', what='maestro_4x131072', shape=tuple(mel.shape), launches=launched,
+        vs_fp64='%.3g' % k2_err, plain_fp32_vs_fp64='%.3g' % max_err(plain.double(), plain64))
+    assert mel.shape == (MAE_BATCH, 80, MAE_SEG // 256 + 1) and launched == 1, \
+        (mel.shape, launched)
+    assert k2_err <= MEL_TOL, k2_err
+    with torch.inference_mode():
+        k2_ms, k2_plain_ms, k2_runs, plain_runs = paired_ms(
+            lambda: mel_ops.log_mel_spectrogram(wav, *mel_args), lambda: maestro.LOG_MEL(wav), 20)
+    consts = lm._constants(MAE_SR, 1024, 1024, 80, 0.0, None, str(dev))
+    f_used, nnz = consts.mel_w.shape[1], int((consts.mel_w != 0).sum())
+    frames = MAE_BATCH * (MAE_SEG // 256 + 1)
+    k2_bound, k2_bound_by = bound(
+        2.0 * nnz * frames, fft_flops(1024, f_used) * frames,
+        4.0 * (MAE_BATCH * MAE_SEG + 80 * frames), fp64_peak=PEAK_FP64_CUDA_CORES)
+
+    work = tempfile.mkdtemp(prefix='chip_smoke_sep_')
+    try:
+        # 15.2 the DSD100 chunk tree and its meta
+        mixtures, vocals, backgrounds = [], [], []
+        n_bytes = 0
+        for song in range(3):
+            d = os.path.join(work, 'dsd', 'song%d' % song)
+            os.makedirs(d)
+            for i in range(4):
+                voice = tones(rng, 1, 3 * MAE_SR)[0] * 0.5
+                back = (0.1 * rng.standard_normal(3 * MAE_SR)).astype(np.float32)
+                for name, x in (('mixture', voice + back), ('voice', voice),
+                                ('background', back)):
+                    np.save(os.path.join(d, '%s.%d.npy' % (name, i)), x.astype(np.float32))
+                    n_bytes += x.size * 4
+            mixtures.append(os.path.join(d, 'mixture.npy'))
+            vocals.append(os.path.join(d, 'voice.npy'))
+            backgrounds.append(os.path.join(d, 'background.npy'))
+        dsd_meta = os.path.join(work, 'dsd_meta')
+        random.seed(0)
+        DSD100Meta(dsd_meta).make_meta(mixtures, vocals, backgrounds)
+        rows = [len(DSD100Meta(os.path.join(dsd_meta, name))) for name in META_FILES]
+        log('meta', what='dsd100', npy_mb='%.1f' % (n_bytes / 1e6), rows='/'.join(map(str, rows)))
+        assert rows == [12, 11, 1], rows
+
+        # 15.3 main() with spec_unet_base at 4 x 65536: 3 steps, a validation
+        #      batch, a checkpoint; no log-mel on this path
+        best, steps, k2_sep, sep_s = run_main(dsd100, dsd_meta, os.path.join(work, 'dsd_save'),
+                                              batch_size=SEP_BATCH, fix_len=SEP_SEG)
+        for s_ in sorted(steps):
+            log('train', route='dsd100', step=s_,
+                **{k: '%.6f' % steps[s_][k] for k in SEP_LOSSES})
+        log('counts', route='dsd100', logmel=k2_sep, steps=3, valid_batches=1,
+            best_valid_loss='%.6f' % best, seconds='%.1f' % sep_s)
+        assert sorted(steps) == [1, 2, 3] and np.isfinite(best), (sorted(steps), best)
+        assert all(np.isfinite(m[k]) for m in steps.values() for k in SEP_LOSSES), steps
+        assert k2_sep == 0, k2_sep
+        ckpt = os.path.join(work, 'dsd_save', 'models', 'dsd100', 'SpectrogramUNet')
+        assert os.listdir(ckpt) == ['step_000003.chkpt'], os.listdir(ckpt)
+
+        #      one step card vs CPU from the same weights and a loader batch
+        sep_batch = next(iter(dsd_datasets(dsd_meta, SEP_BATCH, 0, fix_len=SEP_SEG,
+                                           pad_multiple=SEP_SEG)[0]))
+        assert [b.shape for b in sep_batch] == [(SEP_BATCH, SEP_SEG)] * 3
+        loss_rel, grad_rel, worst, card_l, sep_trainer = one_step(
+            dsd100.DSD100Trainer, 'spec_unet_base', adam, sep_batch, dev, work, 5.0, SEP_LOSSES)
+        log('card_cpu', route='dsd100', losses=card_l, worst_loss_rel='%.3g' % loss_rel,
+            worst_grad_rel='%.3g' % grad_rel, worst_grad_param=worst,
+            params=sum(p.numel() for p in sep_trainer.model.parameters()))
+        assert loss_rel <= CARD_CPU_RTOL and grad_rel <= CARD_CPU_GRAD_TOL, \
+            (loss_rel, grad_rel, worst)
+        sep_ms, sep_gb = timed_steps(sep_trainer, sep_batch, dev)
+
+        # 15.4 separate at 4 x 65536 on the trained weights, card vs CPU; the
+        #      two sources rebuild the mixture
+        model = sep_trainer.model.eval()
+        cpu_model = copy.deepcopy(model).cpu()
+        mix = torch.from_numpy(sep_batch[0]).to(dev)
+        voice, background = dsd100.separate(model, mix)
+        cpu_voice, cpu_background = dsd100.separate(cpu_model, mix.cpu())
+        torch.cuda.synchronize()
+        sep_rel = max(max_err(a.cpu(), b) / float(b.abs().max())
+                      for a, b in ((voice, cpu_voice), (background, cpu_background)))
+        rebuild = max_err((voice + background)[:, 1024:-1024], mix[:, 1024:-1024])
+        separate_ms = cuda_ms(lambda: dsd100.separate(model, mix), 10)
+        log('separate', shape=tuple(voice.shape), card_vs_cpu_rel='%.3g' % sep_rel,
+            rebuild_max_abs='%.3g' % rebuild, voice_max='%.3g' % float(voice.abs().max()))
+        assert voice.shape == background.shape == mix.shape
+        assert bool(torch.isfinite(voice).all()) and bool(torch.isfinite(background).all())
+        assert sep_rel <= CARD_CPU_RTOL and rebuild <= SEP_REBUILD_TOL, (sep_rel, rebuild)
+
+        # 15.5 the Maestro tree: 12 performances of 4 s (tones over noise, a
+        #      MIDI file each whose notes cover them), the records .json
+        root = os.path.join(work, 'maestro')
+        os.makedirs(os.path.join(root, '2004'))
+        records = []
+        for i in range(12):
+            wav_rel, mid_rel = '2004/perf%02d.wav' % i, '2004/perf%02d.midi' % i
+            x = 0.5 * tones(rng, 1, 4 * MAE_SR)[0] + 0.05 * rng.standard_normal(4 * MAE_SR)
+            write_wav(os.path.join(root, wav_rel), np.clip(x, -1, 1).astype(np.float32),
+                      MAE_SR, dtype='int16')
+            midi_file(os.path.join(root, mid_rel), [48 + (i + k) % 36 for k in range(4)], 2)
+            records.append({'canonical_composer': 'Composer %d' % (i % 4),
+                            'canonical_title': 'Piece %d' % i, 'split': 'train',
+                            'year': 2004, 'midi_filename': mid_rel,
+                            'audio_filename': wav_rel, 'duration': 4.0})
+        official = os.path.join(root, 'maestro-v1.0.0.json')
+        with open(official, 'w') as f:
+            json.dump(records, f)
+        random.seed(0)
+        MaestroMeta(official).make_meta()
+        rows = [len(MaestroMeta(os.path.join(root, name)))
+                for name in MaestroMeta.frame_file_names]
+        log('meta', what='maestro', rows='/'.join(map(str, rows)))
+        assert rows == [12, 11, 1], rows
+
+        # 15.6 main() with frame_pitch_base at 4 x 131072: 3 steps and a
+        #      validation batch, K2 once a batch
+        best, steps, k2_mae, mae_s = run_main(maestro, root, os.path.join(work, 'mae_save'),
+                                              batch_size=MAE_BATCH, fix_len=MAE_SEG)
+        for s_ in sorted(steps):
+            log('train', route='maestro', step=s_,
+                **{k: '%.6f' % steps[s_][k] for k in MAE_LOSSES})
+        log('counts', route='maestro', logmel=k2_mae, steps=3, valid_batches=1,
+            best_valid_loss='%.6f' % best, seconds='%.1f' % mae_s)
+        assert sorted(steps) == [1, 2, 3] and np.isfinite(best), (sorted(steps), best)
+        assert all(np.isfinite(m[k]) for m in steps.values() for k in MAE_LOSSES), steps
+        assert k2_mae == 3 + 1, k2_mae
+        ckpt = os.path.join(work, 'mae_save', 'models', 'maestro', 'FramePitchNet')
+        assert os.listdir(ckpt) == ['step_000003.chkpt'], os.listdir(ckpt)
+
+        #      one step card vs CPU; the step time
+        mae_batch = next(iter(mae_datasets(root, MAE_BATCH, 0, fix_len=MAE_SEG,
+                                           pad_multiple=MAE_SEG)[0]))
+        assert mae_batch[0].shape == (MAE_BATCH, MAE_SEG) and mae_batch[1].shape[:2] == \
+            (MAE_BATCH, 128), [b.shape for b in mae_batch]
+        assert float(mae_batch[1].max()) == 90.0
+        loss_rel, grad_rel, worst, card_l, mae_trainer = one_step(
+            maestro.MaestroTrainer, 'frame_pitch_base', adamw, mae_batch, dev, work, 3.0,
+            ('loss',))
+        log('card_cpu', route='maestro', losses=card_l, worst_loss_rel='%.3g' % loss_rel,
+            worst_grad_rel='%.3g' % grad_rel, worst_grad_param=worst,
+            params=sum(p.numel() for p in mae_trainer.model.parameters()))
+        assert loss_rel <= CARD_CPU_RTOL and grad_rel <= CARD_CPU_GRAD_TOL, \
+            (loss_rel, grad_rel, worst)
+        mae_ms, mae_gb = timed_steps(mae_trainer, mae_batch, dev)
+
+        # 15.7 both steps under the profiler, in one process of their own
+        profs = profile_steps([('dsd100', sep_batch), ('maestro', mae_batch)], work)
+        sep_prof, mae_prof = profs['dsd100'], profs['maestro']
+        for route, prof in profs.items():
+            log('profile', route=route, **{k: prof[k] for k in PROFILE_KEYS})
+        assert sep_prof['logmel_kernels'] == 0 and mae_prof['logmel_kernels'] == 2, profs
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    log('time', card=repr(card), what='maestro_logmel_4x131072',
+        kernel_ms='%.4f,%.4f' % k2_runs, plain_ms='%.4f,%.4f' % plain_runs,
+        bound_ms='%.5f' % k2_bound, bound_by=k2_bound_by)
+    log('time', card=repr(card), what='dsd100_spec_unet_b4_65536',
+        step_ms='%.3f' % float(np.median(sep_ms)),
+        step_ms_range='%.3f-%.3f' % (min(sep_ms), max(sep_ms)), peak_memory_gb='%.3f' % sep_gb,
+        separate_ms='%.3f' % separate_ms, main_s='%.1f' % sep_s,
+        device_busy_share='%.4f' % sep_prof['busy_share'],
+        device_ms_per_step='%.3f' % sep_prof['device_ms_per_step'])
+    log('time', card=repr(card), what='maestro_frame_pitch_b4_131072',
+        step_ms='%.3f' % float(np.median(mae_ms)),
+        step_ms_range='%.3f-%.3f' % (min(mae_ms), max(mae_ms)), peak_memory_gb='%.3f' % mae_gb,
+        main_s='%.1f' % mae_s, device_busy_share='%.4f' % mae_prof['busy_share'],
+        device_ms_per_step='%.3f' % mae_prof['device_ms_per_step'])
+    return k2_mae, {'maestro_ms': k2_ms, 'maestro_plain_ms': k2_plain_ms,
+                    'maestro_bound_ms': k2_bound, 'maestro_bound_by': k2_bound_by,
+                    'maestro_vs_fp64': k2_err}
 
 
 def main():
@@ -3260,6 +3617,10 @@ def main():
     #     the v2 decode on K1, Griffin-Lim, short STFTs on cuFFT
     tts_logmel, tts_gen_stage = tts_path(dev, card)
 
+    # 15. separation and transcription: K2 at the Maestro geometry, the
+    #     DSD100 and Maestro recipes' main, separate
+    sep_logmel, k2_maestro = separation_path(dev, card)
+
     print(json.dumps({'kernels': [
         {'name': 'gen_stage', 'route': 'cuda', 'source': gs.SOURCE,
          'replaces': 'pytorch_sound_tpu/ops/pallas/gen_stage.py:282',
@@ -3270,11 +3631,11 @@ def main():
         {'name': 'logmel', 'route': 'cuda', 'source': lm.SOURCE,
          'replaces': 'pytorch_sound_tpu/ops/pallas/logmel.py:157',
          'launches': (launches['logmel'] + train_logmel + int(recipe_launches[0]) + dsp_logmel
-                      + feature_logmel + tts_logmel),
+                      + feature_logmel + tts_logmel + sep_logmel),
          'max_abs_err': errs['logmel'],
          'ms': enc_k, 'plain_ms': enc_p, 'bound_ms': enc_bound, 'bound_by': enc_bound_by,
          'dft_bound_ms': enc_dft_bound, 'stft_ms': stft_ms, **k2_extract, **k2_speech,
-         'library_ms': None},
+         **k2_maestro, 'library_ms': None},
         direct_entry,
         k4_entry,
         *k6_entries,

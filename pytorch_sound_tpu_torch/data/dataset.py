@@ -33,6 +33,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 
 from pytorch_sound_tpu_torch.data.meta import MetaFrame, MetaType
+from pytorch_sound_tpu_torch.utils.sound import parse_midi
 from pytorch_sound_tpu_torch.utils.text import eng_t2i
 from pytorch_sound_tpu_torch.utils.wavio import load_wav
 
@@ -92,9 +93,9 @@ class SpeechDataset:
                 if self.audio_mask and mask is None:
                     mask = np.ones_like(item)
             elif type_ == MetaType.MIDI:
-                raise NotImplementedError(
-                    'MIDI column {!r}: the MIDI reader comes with the maestro '
-                    'recipe, which is not ported yet'.format(name))
+                # not cropped with the audio: the roll starts at the
+                # performance's t = 0, as in the JAX package
+                item = self.load_midi(meta_item[name])
             elif type_ == MetaType.SCALAR:
                 item = int(meta_item[name])
             elif type_ == MetaType.TEXT:
@@ -123,6 +124,11 @@ class SpeechDataset:
             raise NotImplementedError(
                 '{} : File Type is not implemented to load audio data !'.format(file_path))
         return wav
+
+    @staticmethod
+    def load_midi(file_path: str) -> np.ndarray:
+        """MIDI file -> (128, T) velocity piano roll at 100 frames a second."""
+        return parse_midi(file_path).get_piano_roll()
 
     @staticmethod
     def load_txt(txt: str) -> np.ndarray:

@@ -14,6 +14,7 @@ by either package reads back to the same rows in the same order in both.
 """
 
 import abc
+import csv
 import enum
 import json
 import math
@@ -208,16 +209,56 @@ def _convert_column(values: List[Any]) -> List[Any]:
 
 def read_table_json(path: str) -> MetaTable:
     """A table written by :func:`write_table_json` or by pandas' ``to_json``
-    (columns orientation), read as ``pd.read_json`` reads it: numbers by its
-    parser, its dtype inference, integer row keys where every key is one."""
+    (columns orientation), or a list of row objects (the columns in
+    first-seen order, a missing cell None), read as ``pd.read_json`` reads
+    it: numbers by its parser, its dtype inference, integer row keys where
+    every key is one."""
     with open(path, encoding='utf-8') as f:
         raw = json.load(f, parse_float=_pandas_float)
-    table = MetaTable(raw)
+    if isinstance(raw, list):                      # records: row keys 0 .. n - 1
+        names = list(dict.fromkeys(k for row in raw for k in row))
+        table = MetaTable({name: [row.get(name) for row in raw] for name in names},
+                          index=range(len(raw)))
+    else:
+        table = MetaTable(raw)
     if all(isinstance(k, str) and re.fullmatch(r'-?\d+', k) for k in table.index):
         table.index = [int(k) for k in table.index]
     for name in table.columns:
         table[name] = _convert_column(list(table[name]))
     return table
+
+
+def _csv_value(text: str, kind: type):
+    if text == '':
+        return None
+    return kind(text) if kind is not str else text
+
+
+def read_table_csv(path: str) -> MetaTable:
+    """A CSV file with a header line, as ``pd.read_csv`` reads it for the
+    kinds of columns a meta holds: a column of integers is int (float where
+    a cell is empty), one of numbers float, anything else text; an empty
+    cell None; row keys 0 .. n - 1."""
+    with open(path, newline='', encoding='utf-8') as f:
+        rows = list(csv.reader(f))
+    header, body = rows[0], [r for r in rows[1:] if r]
+    columns = {}
+    for i, name in enumerate(header):
+        cells = [r[i] if i < len(r) else '' for r in body]
+        present = [c for c in cells if c != '']
+        kind = str
+        for candidate in (int, float):
+            try:
+                for c in present:
+                    candidate(c)
+            except ValueError:
+                continue
+            kind = candidate
+            break
+        if kind is int and len(present) < len(cells):
+            kind = float
+        columns[name] = [_csv_value(c, kind) for c in cells]
+    return MetaTable(columns, index=range(len(body)))
 
 
 # ---------------------------------------------------------------- meta frames

@@ -122,25 +122,46 @@ class PositionalEncoding(nn.Module):
         return x * math.sqrt(self.dim) + self.pe[..., :x.shape[-1]]
 
 
+def jax_kernel_to_torch(kernel: np.ndarray, transposed: bool = False) -> torch.Tensor:
+    """A flax ``kernel`` as the torch ``weight`` of the same layer. Dense
+    ``(in, out)`` and Conv ``(*spatial, in, out)`` become ``(out, in,
+    *spatial)`` (a Linear's and a ConvNd's layout). A flax ``ConvTranspose``
+    correlates the stride-dilated input with its kernel as it stands, where
+    torch's ConvTransposeNd correlates it with the kernel flipped in space:
+    its kernel becomes ``(in, out, *spatial)`` flipped on every spatial
+    axis (``transposed=True``)."""
+    arr = torch.from_numpy(np.array(kernel, dtype=np.float32))
+    nd = arr.ndim
+    spatial = tuple(range(nd - 2))
+    if transposed:
+        return arr.flip(spatial).permute(nd - 2, nd - 1, *spatial).contiguous()
+    return arr.permute(nd - 1, nd - 2, *spatial).contiguous()
+
+
 def load_jax_params(module: nn.Module, tree: Dict[str, Any]) -> nn.Module:
     """Load a flax parameter tree of numpy arrays (with or without the
     top-level 'params' key) into ``module``, whose submodules carry the flax
-    names: a Dense ``kernel`` (in, out) becomes a Linear ``weight`` (out, in)
-    and a Conv ``kernel`` (k, in, out) a Conv1d ``weight`` (out, in, k), its
-    axes reversed; a LayerNorm ``scale`` and an Embed ``embedding`` (vocab,
-    features) their ``weight`` as they are, every ``bias`` itself. Strict: a
-    parameter missing on either side raises."""
+    names: every ``kernel`` by :func:`jax_kernel_to_torch` (Dense -> Linear,
+    Conv -> Conv1d / Conv2d, ConvTranspose -> ConvTranspose1d / 2d, told
+    apart by the submodule's type); a LayerNorm or GroupNorm ``scale`` and an
+    Embed ``embedding`` (vocab, features) their ``weight`` as they are,
+    every ``bias`` itself. Strict: a parameter missing on either side
+    raises."""
     state = {}
 
     def walk(node, prefix):
         for key, val in node.items():
             if isinstance(val, dict):
                 walk(val, prefix + key + '.')
-                continue
-            arr = torch.from_numpy(np.array(val, dtype=np.float32))
-            if key == 'kernel':
-                state[prefix + 'weight'] = arr.permute(*range(arr.ndim - 1, -1, -1)).contiguous()
+            elif key == 'kernel':
+                try:
+                    owner = module.get_submodule(prefix[:-1])
+                except AttributeError:          # load_state_dict names the stray key
+                    owner = None
+                state[prefix + 'weight'] = jax_kernel_to_torch(
+                    val, isinstance(owner, nn.modules.conv._ConvTransposeNd))
             else:
+                arr = torch.from_numpy(np.array(val, dtype=np.float32))
                 state[prefix + ('weight' if key in ('scale', 'embedding') else key)] = arr
 
     walk(tree.get('params', tree), '')

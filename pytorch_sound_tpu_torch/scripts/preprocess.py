@@ -5,14 +5,14 @@ The host half (decode, RMS normalisation, resampling, chunking into .npy,
 metas) is the JAX package's, with joblib replaced by a thread pool
 (``utils.commons.go_multiprocess``) and tqdm by plain prints; WAV files are
 read in-process, other codecs through ffmpeg where it is installed. The
-outputs that exist are skipped, so a run can restart. Commands ported:
+outputs that exist are skipped, so a run can restart. The commands:
 ``copy_txt``, ``preprocess_audio``, ``resample_audio``, ``voice_bank``,
-``vctk``, ``ljspeech``, ``dsd100``, ``libri_tts``, ``libri_tts_fetch_speaker``,
+``valenti``, ``vctk``, ``ljspeech``, ``dsd100``, ``musdb18``, ``medleydb``,
+``partialize``, ``libri_tts``, ``libri_tts_fetch_speaker``,
 ``zeroth_korean``, ``libri_light``, ``libri_light2`` and ``extract_features``.
 ``dsd100`` keys its outputs by subset and song (``<out>/<subset>/<song>/``),
 where the JAX package keys them by song alone and lets Dev and Test songs of
-one name overwrite each other. The commands whose metas are not ported yet
-(valenti, musdb18, medleydb, partialize) are not defined.
+one name overwrite each other.
 
 ``extract_features`` is the feature pipeline on the card: a tree of WAVs at
 their source rates -> the native runtime's decode into one int16 (or target
@@ -49,6 +49,9 @@ from pytorch_sound_tpu_torch.data.meta.dsd100 import DSD100Meta
 from pytorch_sound_tpu_torch.data.meta.libri_light import LibriLightMeta
 from pytorch_sound_tpu_torch.data.meta.libri_tts import LibriTTSMeta
 from pytorch_sound_tpu_torch.data.meta.ljspeech import LJSpeechMeta
+from pytorch_sound_tpu_torch.data.meta.medleydb import MedleyDBMeta
+from pytorch_sound_tpu_torch.data.meta.musdb18 import MUSDB18Meta
+from pytorch_sound_tpu_torch.data.meta.valenti import ValentiMeta
 from pytorch_sound_tpu_torch.data.meta.vctk import VCTKMeta
 from pytorch_sound_tpu_torch.data.meta.voice_bank import VoiceBankMeta
 from pytorch_sound_tpu_torch.data.meta.zeroth_korean import ZerothKoreanMeta
@@ -384,6 +387,20 @@ class Processor:
         print('All processes are finished.')
 
     @staticmethod
+    def valenti(in_dir: str, out_dir: str, min_wav_rate: int = 0,
+                max_wav_rate: int = 9999, sample_rate: int = 22050):
+        """Valenti (the VoiceBank layout): normalize audio, copy texts, emit
+        meta."""
+        os.makedirs(out_dir, exist_ok=True)
+        print('Start to process audio files!')
+        Processor.preprocess_audio(in_dir, out_dir, sample_rate=sample_rate)
+        print('Copy text files...')
+        Processor.copy_txt(in_dir, out_dir)
+        meta_dir = os.path.join(out_dir, 'meta')
+        ValentiMeta(meta_dir).make_meta(out_dir, min_wav_rate, max_wav_rate, 0)
+        print('All processes are finished.')
+
+    @staticmethod
     def vctk(in_dir: str, out_dir: str, sample_rate: int = 22050):
         """VCTK: normalize audio into <spk>/wav, copy txt, emit meta."""
         print('lookup files...')
@@ -603,6 +620,82 @@ class Processor:
 
         meta_dir = os.path.join(out_dir, 'meta')
         DSD100Meta(meta_dir).make_meta(out_mixture_list, out_vocals_list, out_background_list)
+
+    @staticmethod
+    def musdb18(data_dir: str, wav_subset_len: int = 44100 * 10):
+        """MUSDB18-HQ: chunk each song's mixture and vocals wavs into npy
+        shards beside them, and a meta under ``<data_dir>/meta``."""
+        print('Lookup files ...')
+        mixture_list = glob.glob(os.path.join(data_dir, '*', '*', 'mixture.wav'))
+        vocals_list = glob.glob(os.path.join(data_dir, '*', '*', 'vocals.wav'))
+
+        print('Save as numpy files..')
+        for what, paths in (('Mixture', mixture_list), ('Vocals', vocals_list)):
+            print('- {} File'.format(what))
+            go_multiprocess(load_split_numpy, [(p, p.replace('.wav', '.npy'), wav_subset_len)
+                                               for p in paths], Processor.num_workers)
+
+        meta_dir = os.path.join(data_dir, 'meta')
+        MUSDB18Meta(meta_dir).make_meta(data_dir)
+
+    @staticmethod
+    def medleydb(in_dir: str, wav_subset_seconds: int = 10):
+        """MedleyDB: every wav under ``in_dir`` to a mono npy beside it, the
+        mix / vocal meta from the bundled metafiles, then the partials
+        (:meth:`partialize`)."""
+        print('Lookup wave files ...')
+        wav_list = glob.glob(os.path.join(in_dir, '**', '*.wav'), recursive=True)
+
+        print('Save wave files as numpy ...')
+        go_multiprocess(load_and_numpy_audio, [(p, p.replace('.wav', '.npy')) for p in wav_list],
+                        Processor.num_workers)
+
+        meta_dir = os.path.join(in_dir, 'meta')
+        MedleyDBMeta(meta_dir).make_meta(in_dir)
+
+        print('Start to make partitions!')
+        Processor.partialize(meta_dir, wav_subset_seconds)
+
+    @staticmethod
+    def partialize(meta_dir: str, seconds: int):
+        """Split every MedleyDB npy of the train and valid metas into
+        ``seconds``-long partials (a shorter tail dropped), keep the old metas
+        as ``*_backup.json`` and rewrite them over the partials; a song
+        whose mixture and voice split into different counts is reported and
+        left out."""
+        print('Load meta information ...')
+        train_file, valid_file = [os.path.join(meta_dir, f)
+                                  for f in MedleyDBMeta.frame_file_names[1:]]
+        train_meta, valid_meta = MedleyDBMeta(train_file), MedleyDBMeta(valid_file)
+        sample_length = seconds * train_meta.sr
+        target_columns = ['mixture_filename', 'voice_filename']
+
+        read_and_write(train_file, train_file.replace('.json', '_backup.json'))
+        read_and_write(valid_file, valid_file.replace('.json', '_backup.json'))
+
+        target_files = []
+        for column in target_columns:
+            target_files.extend(train_meta.meta[column].values)
+            target_files.extend(valid_meta.meta[column].values)
+
+        print('Partializing process is started.')
+        partial_keymap = dict(go_multiprocess(
+            partialize_npy_wave, [(f, sample_length, sample_length) for f in target_files],
+            Processor.num_workers))
+
+        print('Make new meta, and write it on {}\t{}'.format(train_file, valid_file))
+        for meta, out_file in ((train_meta, train_file), (valid_meta, valid_file)):
+            info = defaultdict(list)
+            for i in range(len(meta.meta)):
+                row = meta.meta.iloc[i]
+                mix_parts = partial_keymap[row['mixture_filename']]
+                voice_parts = partial_keymap[row['voice_filename']]
+                if len(mix_parts) != len(voice_parts):
+                    print(str(row))
+                    continue
+                info['mixture_filename'].extend(mix_parts)
+                info['voice_filename'].extend(voice_parts)
+            write_table_json(MetaTable(dict(info)), out_file)
 
     @staticmethod
     def extract_features(in_dir: str, out_dir: str, batch_size: int = 16,

@@ -1,9 +1,11 @@
 """The port imports torch and never jax, flax or the JAX package; its CUDA
 modules import without nvcc (the kernels build at their first CUDA launch).
 The serving path, the training path, the data layer, the enhancement path,
-the preprocess path and the TTS path each run in a fresh interpreter; the
-data layer, the preprocess path and the TTS path also load none of pandas,
-tqdm or joblib (nor, on the TTS path, matplotlib)."""
+the preprocess path, the TTS path and the separation and transcription
+recipes each run in a fresh interpreter; the data layer, the preprocess
+path, the TTS path and the separation and transcription recipes also load
+none of pandas, tqdm or joblib (nor, on the TTS path, matplotlib, nor, on
+the last, PyYAML)."""
 
 import os
 import subprocess
@@ -310,6 +312,48 @@ assert not loaded, loaded
 '''
 
 
+SEPARATION_SCRIPT = r'''
+import sys
+
+
+class Absent:
+    """As where the port runs: pandas, tqdm, joblib and PyYAML do not import."""
+    def find_spec(self, name, path=None, target=None):
+        if name.split('.')[0] in ('pandas', 'tqdm', 'joblib', 'yaml'):
+            raise ModuleNotFoundError('No module named %r' % name)
+
+
+sys.meta_path.insert(0, Absent())
+import numpy as np
+import torch
+from pytorch_sound_tpu_torch.data.meta.medleydb import MEDLEYDB_META_DIR, load_meta
+from pytorch_sound_tpu_torch.examples import dsd100, maestro
+from pytorch_sound_tpu_torch.models import build_model
+from pytorch_sound_tpu_torch.ops.cuda import _build, logmel
+from pytorch_sound_tpu_torch.utils import calculate, iterer, midi, sound  # noqa: F401
+assert len(load_meta(MEDLEYDB_META_DIR)) == 330
+rng = np.random.default_rng(0)
+wav = torch.from_numpy((rng.standard_normal((2, 8192)) * 0.1).astype(np.float32))
+sep = dsd100.DSD100Trainer.__new__(dsd100.DSD100Trainer)
+sep.model = build_model('spec_unet_small')
+loss, _ = sep.forward(wav, wav * 0.5, wav * 0.5, is_logging=True)
+loss.backward()
+voice, background = dsd100.separate(sep.model, wav)
+assert voice.shape == background.shape == (2, 8192)
+tr = maestro.MaestroTrainer.__new__(maestro.MaestroTrainer)
+tr.model = build_model('frame_pitch_small')
+loss, _ = tr.forward(wav, torch.zeros(2, 128, 20), is_logging=True)
+loss.backward()
+assert np.isfinite(float(loss.detach()))
+assert _build._lib is None and logmel.fused_log_mel.launches == 0
+forbidden = ('jax', 'jaxlib', 'flax', 'optax', 'pytorch_sound_tpu', 'pandas', 'tqdm',
+             'joblib', 'yaml')
+loaded = sorted(m for m in sys.modules if m.split('.')[0] in forbidden)
+print('LOADED', loaded)
+assert not loaded, loaded
+'''
+
+
 def _run(script, *args):
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [ROOT] + [p for p in os.environ.get('PYTHONPATH', '').split(os.pathsep) if p]))
@@ -383,3 +427,11 @@ def test_tts_path_loads_neither_jax_nor_pandas():
     tqdm, joblib and matplotlib made unimportable: no kernel library, no
     launch, and none of those, jax, flax, optax or the JAX package loaded."""
     _run(TTS_SCRIPT)
+
+
+def test_separation_and_transcription_load_neither_jax_nor_pandas_nor_yaml():
+    """The DSD100 and Maestro recipes (a loss and its gradient each,
+    ``separate``) and the MedleyDB meta's reader of the bundled metafiles,
+    with pandas, tqdm, joblib and PyYAML made unimportable, as on the card
+    machine, which lacks them."""
+    _run(SEPARATION_SCRIPT)

@@ -2,8 +2,8 @@
 """Drive the PyTorch/CUDA port's HiFi-GAN serving and training paths, and the
 training recipe from wav files on disk, the DSP layer with the VoiceBank
 enhancement recipe, feature extraction from a wav tree, the text-to-speech
-recipe with synthesis and its decode, and the separation and transcription
-recipes, once on one GPU.
+recipe with synthesis and its decode, the separation and transcription
+recipes, and the multi-GPU layer's data-parallel step, once on one GPU.
 
     python3 chip_smoke.py
 
@@ -150,7 +150,23 @@ Phases, one line each; any failure raises and the script exits non-zero:
    (K2 once a batch: 4 launches, counted), one step card vs CPU, the step
    time; for both recipes two steps under the trainer's profiler window in
    one process of their own (the card's busy share, device ms a step, the
-   kernels with the most device time).
+   kernels with the most device time);
+16. the multi-GPU layer on the one card (``parallel``, ``Trainer(mesh=...)``):
+   (a) one NCCL rank in this process over a file store under ``$TMPDIR``,
+   three full-width split steps of ``HiFiGANTrainer(..., mesh=make_mesh())``
+   on the K6 route against the same three steps with no mesh, from the same
+   weights and batches: every parameter and both optimizers' states
+   bit-identical, the K2 / K4 / K6 launches of the mesh run as
+   ``expected_gc_launches`` derives them, the step time with and without
+   the gradient reduction; ring attention at world 1 against dense
+   attention; ``examples.voice_bank.main(use_mesh=True)`` under torchrun's
+   environment of one process on phase 12's tree, 2 steps; (b) two gloo
+   ranks sharing the card (``spawn_ranks``), 8 rows each of the same
+   16 x 8192 global batches for 2 steps: the losses, the second step's
+   reduced gradients and the parameters' change over the two steps against
+   (a)'s single-process steps, both ranks' parameters bit-identical; (c)
+   ``dryrun_multigpu(1, 'cuda')`` in a process of its own. NCCL across two
+   cards is not checked here: the machine has one.
 
 The line before the last is a JSON object with one entry per kernel, each
 with its time, its plain version's, the least time the card could take for
@@ -1802,6 +1818,42 @@ def direct_bwd_work(b, t, frames, n_fft, hop, f_used, nnz, n_mels):
     return 2.0 * nnz * n, fp64, 4.0 * (2 * b * t + n_mels * n)
 
 
+def voice_bank_tree(work):
+    """Phase 12's VoiceBank tree under ``work`` (tones plus white noise, as
+    tests/test_e2e_voicebank.py:27-48: 2 x 24 training and 8 validation
+    int16 pairs of 2.5-3.5 s) and its metas: (meta dir, wav bytes, seconds
+    of make_meta)."""
+    import random
+    from pytorch_sound_tpu_torch.data.meta.voice_bank import VoiceBankMeta
+    from pytorch_sound_tpu_torch.utils.wavio import write_wav
+    vrng = np.random.default_rng(12)
+    raw = os.path.join(work, 'raw')
+    os.makedirs(os.path.join(raw, 'txt'))
+    n_bytes = 0
+    for phase, speakers in (('trainset', ('p280', 'p282')), ('validset', ('p281',))):
+        for kind in ('clean', 'noisy'):
+            os.makedirs(os.path.join(raw, '%s_%s_wav' % (phase, kind)))
+        for spk in speakers:
+            for u in range(24 if phase == 'trainset' else 8):
+                key = '%s_%03d' % (spk, u)
+                n = int(SR * vrng.uniform(2.5, 3.5))
+                tt = np.arange(n) / SR
+                clean = 0.3 * np.sin(2 * np.pi * vrng.uniform(100, 400) * tt)
+                noisy = clean + 0.1 * vrng.standard_normal(n)
+                for kind, sig in (('clean', clean), ('noisy', noisy)):
+                    path = os.path.join(raw, '%s_%s_wav' % (phase, kind), key + '.wav')
+                    write_wav(path, np.clip(sig, -1, 1).astype(np.float32), SR,
+                              dtype='int16')
+                    n_bytes += os.path.getsize(path)
+                with open(os.path.join(raw, 'txt', key + '.txt'), 'w') as f:
+                    f.write('synthetic utterance %d.' % u)
+    meta = os.path.join(work, 'meta')
+    random.seed(0)
+    t0 = time.perf_counter()
+    VoiceBankMeta(meta).make_meta(raw, 2, 15, 0)
+    return meta, n_bytes, time.perf_counter() - t0
+
+
 def dsp_path(dev, card, rng):
     """Phase 12: K2 at the n_fft off the powers of two, on its mixed-radix
     FFT and on its direct DFT (and K4's backward on both), the transforms'
@@ -1811,7 +1863,6 @@ def dsp_path(dev, card, rng):
     the JSON entry of K2's direct DFT and the keys of K4's entry for 400 /
     100."""
     import copy
-    import random
     import torch
     from pytorch_sound_tpu_torch.data.meta.voice_bank import VoiceBankMeta, get_datasets
     from pytorch_sound_tpu_torch.examples import voice_bank as vb
@@ -1821,7 +1872,6 @@ def dsp_path(dev, card, rng):
     from pytorch_sound_tpu_torch.ops.cuda import logmel as lm
     from pytorch_sound_tpu_torch.trainer import adam
     from pytorch_sound_tpu_torch.utils.commons import LOGGER
-    from pytorch_sound_tpu_torch.utils.wavio import write_wav
 
     # 12a. K2 at n_fft that are not powers of two, on the mixed-radix FFT,
     #      and at n_fft it takes on the direct DFT: both conventions, noise
@@ -2015,32 +2065,7 @@ def dsp_path(dev, card, rng):
     deterministic = torch.backends.cudnn.deterministic
     work = tempfile.mkdtemp(prefix='chip_smoke_vb_')
     try:
-        vrng = np.random.default_rng(12)
-        raw = os.path.join(work, 'raw')
-        os.makedirs(os.path.join(raw, 'txt'))
-        n_bytes = 0
-        for phase, speakers in (('trainset', ('p280', 'p282')), ('validset', ('p281',))):
-            for kind in ('clean', 'noisy'):
-                os.makedirs(os.path.join(raw, '%s_%s_wav' % (phase, kind)))
-            for spk in speakers:
-                for u in range(24 if phase == 'trainset' else 8):
-                    key = '%s_%03d' % (spk, u)
-                    n = int(SR * vrng.uniform(2.5, 3.5))
-                    tt = np.arange(n) / SR
-                    clean = 0.3 * np.sin(2 * np.pi * vrng.uniform(100, 400) * tt)
-                    noisy = clean + 0.1 * vrng.standard_normal(n)
-                    for kind, sig in (('clean', clean), ('noisy', noisy)):
-                        path = os.path.join(raw, '%s_%s_wav' % (phase, kind), key + '.wav')
-                        write_wav(path, np.clip(sig, -1, 1).astype(np.float32), SR,
-                                  dtype='int16')
-                        n_bytes += os.path.getsize(path)
-                    with open(os.path.join(raw, 'txt', key + '.txt'), 'w') as f:
-                        f.write('synthetic utterance %d.' % u)
-        meta = os.path.join(work, 'meta')
-        random.seed(0)
-        t0 = time.perf_counter()
-        VoiceBankMeta(meta).make_meta(raw, 2, 15, 0)
-        meta_s = time.perf_counter() - t0
+        meta, n_bytes, meta_s = voice_bank_tree(work)
         rows = [len(VoiceBankMeta(os.path.join(meta, name))) for name in META_FILES]
         log('meta', what='voice_bank', wav_mb='%.1f' % (n_bytes / 1e6),
             rows='/'.join(map(str, rows)), seconds='%.3f' % meta_s)
@@ -3256,6 +3281,276 @@ def separation_path(dev, card):
                     'maestro_vs_fp64': k2_err}
 
 
+RING_TOL = 1e-5                   # ring attention vs dense (tests/test_attention.py:157)
+MGPU_STEPS = 3                    # phase 16a's steps on each path
+
+
+def gan_state(trainer):
+    """A HiFiGANTrainer's parameters and both optimizers' states, on the CPU."""
+    import torch
+
+    def cpu(x):
+        if isinstance(x, dict):
+            return {k: cpu(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(cpu(v) for v in x)
+        return x.detach().cpu().clone() if isinstance(x, torch.Tensor) else x
+
+    return cpu({'model': trainer.model_state(), 'gen_opt': trainer.gen_optimizer.state_dict(),
+                'disc_opt': trainer.disc_optimizer.state_dict()})
+
+
+def gan_grads(trainer):
+    """A HiFiGANTrainer's gradients of its last step, on the CPU, keyed as
+    its ``model_state``: the critics' of the critic phase and the
+    generator's of the generator phase, each reduced over the ranks under a
+    mesh."""
+    return {f: {k: p.grad.detach().cpu().clone() for k, p in m.named_parameters()}
+            for f, m in (('gen', trainer.generator), ('mpd', trainer.mpd), ('msd', trainer.msd))}
+
+
+def worst_rel(got, want):
+    """(the largest ||got - want|| / ||want|| over the tensors of two
+    {family: {name: tensor}} trees, 'family.name' of that tensor)."""
+    rel, worst = 0.0, None
+    for family, sd in want.items():
+        for key, ref in sd.items():
+            r = float((got[family][key].double() - ref.double()).norm()
+                      / max(float(ref.double().norm()), 1e-30))
+            if r >= rel:
+                rel, worst = r, '%s.%s' % (family, key)
+    return rel, worst
+
+
+def gloo_rank(work, steps, t_start):
+    """Phase 16b, one of two gloo ranks sharing the card (``spawn_ranks``):
+    ``steps`` split steps at full width on the K6 route, 8 rows a rank of
+    the 16 x 8192 global batches phase 16a trains on (the same ToneStream
+    after the same seed). Saves the parameters and the last step's reduced
+    gradients to ``work/rank<r>.pt`` and returns (that path, the logged
+    scalars by step, the seconds since ``t_start`` (the parent's
+    ``time.time()``) at which the rank entered, had built its models, had
+    run its steps and had saved)."""
+    times = [time.time() - t_start]
+    import torch
+    import torch.distributed as dist
+    from pytorch_sound_tpu_torch.ops.cuda import _build
+    from pytorch_sound_tpu_torch.parallel import local_batches, make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    _build.library()
+    dev = torch.device('cuda', torch.cuda.current_device())
+    mesh = make_mesh(device_type='cuda')
+    models = build_gan(dev, 0, kernel=True)
+    times.append(time.time() - t_start)
+    t = make_trainer(models, dev, work, train=local_batches(ToneStream(steps), mesh),
+                     max_step=steps, valid_max_step=1, save_interval=10 ** 9, log_interval=1,
+                     mesh=mesh)
+    t.run()
+    torch.cuda.synchronize()
+    times.append(time.time() - t_start)
+    path = os.path.join(work, 'rank%d.pt' % dist.get_rank())
+    torch.save({'model': gan_state(t)['model'], 'grads': gan_grads(t)}, path)
+    times.append(time.time() - t_start)
+    return path, {step: m for tag, step, m in t.logged if tag == 'train'}, times
+
+
+def multigpu_path(dev, card):
+    """Phase 16: the multi-GPU layer on the one card. (a) one NCCL rank in
+    this process: the full-width K6-route HiFi-GAN step with a mesh against
+    the same steps without one, bit for bit, with the launch counts; (b) two
+    gloo ranks sharing the card against (a)'s single-process step; (c) ring
+    attention at world 1, a recipe's ``use_mesh`` path and the dry run.
+    Returns the mesh run's launches: (K2, K4, K4's backward, K6 forward,
+    dx, dw)."""
+    import copy
+    import datetime
+    from concurrent.futures import ThreadPoolExecutor
+    import torch
+    import torch.distributed as dist
+    from pytorch_sound_tpu_torch.examples import voice_bank as vb
+    from pytorch_sound_tpu_torch.ops.cuda import grouped_conv as gc
+    from pytorch_sound_tpu_torch.ops.cuda import logmel as lm
+    from pytorch_sound_tpu_torch.parallel import make_mesh, spawn_ranks
+    from pytorch_sound_tpu_torch.parallel.dryrun import dryrun_multigpu
+    from pytorch_sound_tpu_torch.parallel.ring_attention import ring_attention
+
+    counters = (lm.fused_log_mel, lm.fused_hifigan_mel_trainable, None,
+                gc.conv1d_forward, gc.conv1d_input_grad, gc.conv1d_weight_grad)
+
+    def counts():
+        return tuple(lm.fused_hifigan_mel_trainable.bwd_launches if c is None else c.launches
+                     for c in counters)
+
+    def zero():
+        for c in counters:
+            if c is None:
+                lm.fused_hifigan_mel_trainable.bwd_launches = 0
+            else:
+                c.launches = 0
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.cuda.empty_cache()
+    phase_t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix='chip_smoke_mgpu_')
+    try:
+        # 16a. one NCCL rank, in this process, over a file store; the mesh
+        #      path's 3 steps against the same 3 steps with no mesh, from the
+        #      same weights and batches: every parameter and both optimizers'
+        #      states bit-identical; the launches of the mesh run alone
+        dist.init_process_group('nccl', init_method='file://' + os.path.join(work, 'store'),
+                                rank=0, world_size=1, timeout=datetime.timedelta(seconds=60))
+        try:
+            mesh = make_mesh()
+            runs = {}
+            first = build_gan(dev, 0, kernel=True)
+            for name, m in (('nccl_mesh', mesh), ('no_mesh', None)):
+                models = [copy.deepcopy(x) for x in first]
+                zero()
+                t = make_trainer(models, dev, os.path.join(work, name),
+                                 train=ToneStream(MGPU_STEPS), max_step=2, valid_max_step=1,
+                                 save_interval=10 ** 9, log_interval=1, mesh=m)
+                before = gan_state(t)['model']
+                t.run()
+                after_2, grads_2 = gan_state(t)['model'], gan_grads(t)
+                t.max_step = MGPU_STEPS
+                t.run()
+                torch.cuda.synchronize()
+                runs[name] = {'state': gan_state(t), 'before': before, 'after_2': after_2,
+                              'grads_2': grads_2, 'counts': counts(),
+                              'want': expected_gc_launches(*models, steps=MGPU_STEPS,
+                                                           valid_batches=0),
+                              'logged': {s: v for tag, s, v in t.logged if tag == 'train'},
+                              'step_ms': 1e3 * float(np.mean(t._step_times[1:]))}
+                if m is not None:
+                    # the reduction alone on each phase's gradients (one flat
+                    # buffer, weight 1, the NCCL all-reduce of one rank)
+                    one = torch.ones((), dtype=torch.float64, device=dev)
+                    params = {'critics': list(itertools.chain(t.mpd.parameters(),
+                                                              t.msd.parameters())),
+                              'generator': list(t.generator.parameters())}
+                    reduce_ms = {phase: cuda_ms(lambda ps=ps: t.reduce_grads(ps, one), 5)
+                                 for phase, ps in params.items()}
+                    grad_mb = {phase: sum(p.numel() for p in ps) * 4 / 1e6
+                               for phase, ps in params.items()}
+                    del params
+                del t, models
+            del first
+            mesh_run, plain = runs['nccl_mesh'], runs['no_mesh']
+            identical = same_state(mesh_run['state'], plain['state'])
+            for s in range(1, MGPU_STEPS + 1):
+                log('mgpu', run='nccl_world1', step=s,
+                    **{k: '%.6f' % mesh_run['logged'][s][k] for k in LOSSES})
+            log('mgpu', what='nccl_world1_vs_no_mesh', steps=MGPU_STEPS,
+                bit_identical=identical, counts='%d/%d/%d/%d/%d/%d' % mesh_run['counts'],
+                expected_k6='%d/%d/%d' % mesh_run['want'])
+            log('time', card=repr(card), what='train_step_16x8192_k6_mesh',
+                nccl_world1_step_ms='%.2f' % mesh_run['step_ms'],
+                no_mesh_step_ms='%.2f' % plain['step_ms'],
+                reduction_ms='%.2f' % (mesh_run['step_ms'] - plain['step_ms']),
+                reduce_critics_ms='%.3f' % reduce_ms['critics'],
+                reduce_generator_ms='%.3f' % reduce_ms['generator'],
+                critics_grad_mb='%.1f' % grad_mb['critics'],
+                generator_grad_mb='%.1f' % grad_mb['generator'])
+            assert identical, 'the NCCL world-1 mesh step differs from the step with no mesh'
+            for run in (mesh_run, plain):
+                assert run['counts'] == (2 * MGPU_STEPS, MGPU_STEPS, MGPU_STEPS,
+                                         *run['want']), (run['counts'], run['want'])
+
+            # 16c. ring attention at world 1 (the local attention, no P2P)
+            #      against dense on the card, every local strategy
+            seq_mesh = make_mesh(axis_names=('seq',))
+            g = torch.Generator(device=dev).manual_seed(16)
+            q, k, v = (torch.randn((2, 4, 4096, 64), generator=g, device=dev)
+                       for _ in range(3))
+            dense = torch.softmax(q @ k.transpose(-1, -2) / 8.0, dim=-1) @ v
+            ring_err = {local: float((ring_attention(q, k, v, seq_mesh, axis='seq',
+                                                     local=local) - dense).abs().max())
+                        for local in ('auto', 'dense', 'blockwise')}
+            torch.cuda.synchronize()
+            log('mgpu', what='ring_attention_world1', shape=tuple(q.shape),
+                **{'%s_max_abs_err' % k_: '%.3g' % e for k_, e in ring_err.items()})
+            assert max(ring_err.values()) <= RING_TOL, ring_err
+            del q, k, v, dense
+
+            #      the VoiceBank recipe's use_mesh path as torchrun starts it
+            #      with one process (its environment, the group running),
+            #      on phase 12's tree, 2 steps
+            meta, _, _ = voice_bank_tree(os.path.join(work, 'vb'))
+            env = {key: os.environ.get(key) for key in ('RANK', 'WORLD_SIZE', 'LOCAL_RANK')}
+            os.environ.update(RANK='0', WORLD_SIZE='1', LOCAL_RANK='0')
+            try:
+                t0 = time.perf_counter()
+                best = vb.main(meta, os.path.join(work, 'vb_save'), batch_size=ENH_BATCH,
+                               num_workers=0, fix_len=ENH_SEG, max_step=2, valid_max_step=1,
+                               save_interval=2, log_interval=1, use_mesh=True, device='cuda')
+                torch.cuda.synchronize()
+            finally:
+                for key, value in env.items():
+                    if value is None:
+                        os.environ.pop(key, None)
+                    else:
+                        os.environ[key] = value
+            ckpt = os.path.join(work, 'vb_save', 'models', 'voice_bank', 'SpectrogramMaskNet',
+                                'step_000002.chkpt')
+            log('mgpu', what='voice_bank_main_use_mesh_nccl_world1', steps=2,
+                best_valid_loss='%.6f' % best, checkpoint=os.path.exists(ckpt),
+                seconds='%.1f' % (time.perf_counter() - t0))
+            assert np.isfinite(best) and os.path.exists(ckpt), (best, ckpt)
+        finally:
+            dist.destroy_process_group()
+        torch.cuda.empty_cache()
+
+        # 16b. two gloo ranks sharing the card, 8 rows each of the same
+        #      global batches, 2 steps, against 16a's single-process steps;
+        #      meanwhile (16c) the dry run on one NCCL rank, a process of its own
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(1) as pool:
+            dry = pool.submit(dryrun_multigpu, 1, 'cuda')
+            ranks = spawn_ranks(gloo_rank, 2, 'gloo', 'cuda', work, 2, time.time(),
+                                deadline_s=240)
+            gloo_s = time.perf_counter() - t0
+            dry = dry.result()
+        dry_s = time.perf_counter() - t0
+        log('mgpu', what='dryrun_multigpu_1_cuda', seconds='%.1f' % dry_s,
+            **{k: '%.6g' % v for k, v in dry.items()})
+        saved = [torch.load(path, weights_only=True) for path, _, _ in ranks]
+        params = [r['model'] for r in saved]
+        before, ref, ref_logged = plain['before'], plain['after_2'], plain['logged']
+        loss_rel = max(abs(logged[s][k] - ref_logged[s][k]) / abs(ref_logged[s][k])
+                       for _, logged, _ in ranks for s in (1, 2) for k in LOSSES)
+        # the step's size shows in the gradients (Adam's steps hardly change
+        # when every gradient is scaled alike) and in the parameters' change,
+        # not in the parameters themselves, which 2 steps barely move
+        grad_rel, grad_worst = worst_rel(saved[0]['grads'], plain['grads_2'])
+        change_rel, change_worst = worst_rel(
+            {f: {k: params[0][f][k] - before[f][k] for k in sd} for f, sd in ref.items()},
+            {f: {k: sd[k] - before[f][k] for k in sd} for f, sd in ref.items()})
+        ranks_equal = same_state(params[0], params[1])
+        for s in (1, 2):
+            log('mgpu', run='gloo_2_ranks', step=s,
+                **{k: '%.6f/%.6f' % (ranks[0][1][s][k], ref_logged[s][k]) for k in LOSSES})
+        log('mgpu', what='gloo_2_ranks_vs_one_process', steps=2,
+            worst_loss_rel='%.3g' % loss_rel, worst_grad_rel='%.3g' % grad_rel,
+            worst_grad=grad_worst, worst_change_rel='%.3g' % change_rel,
+            worst_change=change_worst, ranks_bit_identical=ranks_equal,
+            seconds='%.1f' % gloo_s,
+            rank_times_s=' '.join('/'.join('%.1f' % x for x in r[2]) for r in ranks))
+        assert loss_rel <= CARD_CPU_RTOL, loss_rel
+        assert grad_rel <= CARD_CPU_GRAD_TOL, (grad_worst, grad_rel)
+        assert change_rel <= CARD_CPU_GRAD_TOL, (change_worst, change_rel)
+        assert ranks_equal, 'the gloo ranks hold different parameters'
+
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        torch.backends.cudnn.deterministic = False
+    log('mgpu', what='phase_16', seconds='%.1f' % (time.perf_counter() - phase_t0))
+    return mesh_run['counts']
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3621,6 +3916,15 @@ def main():
     #     DSD100 and Maestro recipes' main, separate
     sep_logmel, k2_maestro = separation_path(dev, card)
 
+    # 16. the multi-GPU layer on the one card: one NCCL rank bit-identical
+    #     to no mesh on the K6 route, two gloo ranks against one process,
+    #     ring attention, a recipe's use_mesh path, the dry run
+    mgpu = multigpu_path(dev, card)
+    k4_entry['launches'] += mgpu[1]
+    k4_entry['bwd_launches'] += mgpu[2]
+    for entry, n in zip(k6_entries, mgpu[3:]):
+        entry['launches'] += n
+
     print(json.dumps({'kernels': [
         {'name': 'gen_stage', 'route': 'cuda', 'source': gs.SOURCE,
          'replaces': 'pytorch_sound_tpu/ops/pallas/gen_stage.py:282',
@@ -3631,7 +3935,7 @@ def main():
         {'name': 'logmel', 'route': 'cuda', 'source': lm.SOURCE,
          'replaces': 'pytorch_sound_tpu/ops/pallas/logmel.py:157',
          'launches': (launches['logmel'] + train_logmel + int(recipe_launches[0]) + dsp_logmel
-                      + feature_logmel + tts_logmel + sep_logmel),
+                      + feature_logmel + tts_logmel + sep_logmel + mgpu[0]),
          'max_abs_err': errs['logmel'],
          'ms': enc_k, 'plain_ms': enc_p, 'bound_ms': enc_bound, 'bound_by': enc_bound_by,
          'dft_bound_ms': enc_dft_bound, 'stft_ms': stft_ms, **k2_extract, **k2_speech,

@@ -6,6 +6,7 @@ from typing import List, Optional, Tuple, Type
 
 from pytorch_sound_tpu_torch.data.dataset import SpeechDataLoader, SpeechDataset
 from pytorch_sound_tpu_torch.data.meta import MetaFrame, MetaTable, read_table_json
+from pytorch_sound_tpu_torch.parallel.data import shard_meta_frame
 
 
 class SpeechMetaFrame(MetaFrame):
@@ -60,9 +61,13 @@ def make_loaders(meta_cls: Type[SpeechMetaFrame], meta_dir: str, batch_size: int
                  num_workers: int, dataset_kwargs: dict = None,
                  train_loader_kwargs: dict = None,
                  valid_loader_kwargs: dict = None,
-                 pad_multiple: int = 1) -> Tuple[SpeechDataLoader, SpeechDataLoader]:
+                 pad_multiple: int = 1, shard: Tuple[int, int] = (0, 1)
+                 ) -> Tuple[SpeechDataLoader, SpeechDataLoader]:
     """Build (train_loader, valid_loader) from a meta directory — the shared
-    body of every dataset's ``get_datasets``."""
+    body of every dataset's ``get_datasets``. ``shard`` (rank, world) keeps
+    rank's strided shard of each meta's rows (``parallel.shard_meta_frame``),
+    as a data-parallel rank loads them; a meta with fewer rows than ranks
+    raises, since a rank would have none."""
     if not os.path.isdir(meta_dir):
         raise NotADirectoryError('{} is not valid directory path!'.format(meta_dir))
     train_file, valid_file = meta_cls.frame_file_names[1:]
@@ -72,6 +77,12 @@ def make_loaders(meta_cls: Type[SpeechMetaFrame], meta_dir: str, batch_size: int
 
     train_meta = meta_cls(os.path.join(meta_dir, train_file))
     valid_meta = meta_cls(os.path.join(meta_dir, valid_file))
+    if shard[1] > 1:
+        for name, meta in ((train_file, train_meta), (valid_file, valid_meta)):
+            if len(meta) < shard[1]:
+                raise ValueError('{} has {} rows for {} ranks'.format(
+                    os.path.join(meta_dir, name), len(meta), shard[1]))
+            shard_meta_frame(meta, *shard)
     train_dataset = SpeechDataset(train_meta, **dataset_kwargs)
     valid_dataset = SpeechDataset(valid_meta, **dataset_kwargs)
 

@@ -36,10 +36,11 @@ class DSD100Meta(SpeechMetaFrame):
 
 def get_datasets(meta_dir: str, batch_size: int, num_workers: int,
                  fix_len: int = 0, audio_mask: bool = False,
-                 pad_multiple: int = 1) -> Tuple[SpeechDataLoader, SpeechDataLoader]:
+                 pad_multiple: int = 1,
+                 shard: Tuple[int, int] = (0, 1)) -> Tuple[SpeechDataLoader, SpeechDataLoader]:
     return make_loaders(
         DSD100Meta, meta_dir, batch_size, num_workers,
         dataset_kwargs=dict(fix_len=fix_len, audio_mask=audio_mask),
         train_loader_kwargs=dict(is_bucket=False),
         valid_loader_kwargs=dict(is_bucket=False),
-        pad_multiple=pad_multiple)
+        pad_multiple=pad_multiple, shard=shard)

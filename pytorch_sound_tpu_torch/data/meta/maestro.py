@@ -74,11 +74,12 @@ class MaestroMeta(MetaFrame):
 
 def get_datasets(meta_dir: str, batch_size: int, num_workers: int,
                  fix_len: int = 0, skip_audio: bool = False,
-                 pad_multiple: int = 1) -> Tuple[SpeechDataLoader, SpeechDataLoader]:
+                 pad_multiple: int = 1,
+                 shard: Tuple[int, int] = (0, 1)) -> Tuple[SpeechDataLoader, SpeechDataLoader]:
     return make_loaders(
         MaestroMeta, meta_dir, batch_size, num_workers,
         dataset_kwargs=dict(fix_len=fix_len, skip_audio=skip_audio),
-        pad_multiple=pad_multiple)
+        pad_multiple=pad_multiple, shard=shard)
 
 
 if __name__ == '__main__':

@@ -60,9 +60,10 @@ class VoiceBankMeta(SpeechMetaFrame):
 
 def get_datasets(meta_dir: str, batch_size: int, num_workers: int,
                  fix_len: int = 0, skip_audio: bool = False, audio_mask: bool = False,
-                 pad_multiple: int = 1) -> Tuple[SpeechDataLoader, SpeechDataLoader]:
+                 pad_multiple: int = 1,
+                 shard: Tuple[int, int] = (0, 1)) -> Tuple[SpeechDataLoader, SpeechDataLoader]:
     return make_loaders(
         VoiceBankMeta, meta_dir, batch_size, num_workers,
         dataset_kwargs=dict(fix_len=fix_len, skip_audio=skip_audio,
                             audio_mask=audio_mask),
-        pad_multiple=pad_multiple)
+        pad_multiple=pad_multiple, shard=shard)

@@ -1,4 +1,5 @@
-"""DSD100 / MUSDB18 vocal separation: the U-Net masking recipe on one card.
+"""DSD100 / MUSDB18 vocal separation: the U-Net masking recipe on one card or,
+under ``torchrun``, data parallel over several (``main(use_mesh=True)``).
 
 Counterpart of ``pytorch_sound_tpu/examples/dsd100.py``. Per step the STFT
 magnitudes of the mixture and its sources are computed on the device
@@ -24,6 +25,7 @@ from pytorch_sound_tpu_torch.data.meta import dsd100
 from pytorch_sound_tpu_torch.models import build_model
 import pytorch_sound_tpu_torch.models.separation  # noqa: F401 (registration)
 from pytorch_sound_tpu_torch.ops import stft as stft_ops
+from pytorch_sound_tpu_torch.parallel.mesh import recipe_data_parallel
 from pytorch_sound_tpu_torch.trainer import LogType, Trainer, adam
 
 SR = 44100
@@ -91,19 +93,23 @@ def main(meta_dir: str, save_dir: str, batch_size: int = 4, num_workers: int = 2
     formula) at ``lr``, gradients clipped to a global norm of 5, checkpoints
     under ``save_dir/models/dsd100/``; returns the best validation loss.
     ``device``: 'cuda' (the default; raises without a card) or 'cpu'.
-    ``use_mesh`` (data parallel over devices) is not ported and raises."""
-    if use_mesh:
-        raise NotImplementedError(
-            'use_mesh: the multi-GPU path is not ported yet (ROADMAP.md section 1, item 7)')
+    ``use_mesh``: data parallel over the ranks of a ``torchrun`` job (one
+    process a card: ``torchrun --nproc_per_node=N -m
+    pytorch_sound_tpu_torch.examples.dsd100 ... --use_mesh True``), as
+    the JAX recipe runs over its devices: ``batch_size`` stays the global
+    batch and must divide over the ranks, each rank loads its shard of the
+    metas, ``batch_size // world`` rows a step, on ``cuda:LOCAL_RANK``. In
+    one process it is the one-card path."""
+    mesh, shard, device, rows = recipe_data_parallel(use_mesh, device, batch_size)
     train_loader, valid_loader = dsd100.get_datasets(
-        meta_dir, batch_size=batch_size, num_workers=num_workers, fix_len=fix_len,
-        pad_multiple=fix_len)
+        meta_dir, batch_size=rows, num_workers=num_workers, fix_len=fix_len,
+        pad_multiple=fix_len, shard=shard)
     model = build_model(arch)
     trainer = DSD100Trainer(
         model, adam(model.parameters(), lr), train_loader, valid_loader,
         max_step=max_step, valid_max_step=valid_max_step, save_interval=save_interval,
         log_interval=log_interval, save_dir=save_dir, save_prefix='dsd100', sr=SR,
-        grad_norm=5.0, device=device)
+        grad_norm=5.0, device=device, mesh=mesh)
     return trainer.run()
 
 

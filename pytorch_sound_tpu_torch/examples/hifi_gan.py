@@ -1,4 +1,5 @@
-"""HiFi-GAN vocoder training: the full adversarial recipe on one card.
+"""HiFi-GAN vocoder training: the full adversarial recipe on one card, or
+data parallel over several (``HiFiGANTrainer(..., mesh=make_mesh())``).
 
 Counterpart of ``pytorch_sound_tpu/examples/hifi_gan.py`` with the semantics
 of its split step: a discriminator phase, then a generator phase against the
@@ -56,6 +57,11 @@ def build_critics(msd_kernel: int = -1, mpd_kernel: bool = False
             build_model('hifi_gan_msd_base', extra_kwargs={'backends': msd_backends}))
 
 
+def _params(optimizer: torch.optim.Optimizer) -> List[torch.nn.Parameter]:
+    """The parameters an optimizer updates."""
+    return [p for group in optimizer.param_groups for p in group['params']]
+
+
 class HiFiGANTrainer(Trainer):
     """Adversarial trainer over a generator and the MPD / MSD critics.
 
@@ -68,6 +74,14 @@ class HiFiGANTrainer(Trainer):
     ``generator_warm_start``: path to a folded generator msgpack (such as the
     bundled checkpoint) to fine-tune from; the generator must be built with
     ``use_weight_norm=False``.
+
+    ``mesh`` (the base trainer's, as JAX's constructor takes it; ``main``
+    takes none, as JAX's does not): each phase takes its loss and its
+    gradient as means over the ranks, weighted by rows, before its optimizer
+    step, and its NaN guard decides on the mean loss. Every loss of the
+    recipe is a plain mean over rows, so this is the global batch's step.
+    In the generator phase the critics are frozen and only the generator's
+    gradient is reduced.
     """
 
     def __init__(self, generator: torch.nn.Module, mpd: torch.nn.Module,
@@ -81,6 +95,9 @@ class HiFiGANTrainer(Trainer):
         self.gen_optimizer = gen_optimizer
         self.disc_optimizer = disc_optimizer
         self.generator_warm_start = generator_warm_start
+
+    def replicated_modules(self):
+        return [self.generator, self.mpd, self.msd]
 
     def init_params(self, batch):
         n = sum(p.numel() for m in (self.generator, self.mpd, self.msd)
@@ -156,10 +173,12 @@ class HiFiGANTrainer(Trainer):
             fake = self.generator(mel_real)
         self.disc_optimizer.zero_grad(set_to_none=True)
         d_loss = self.disc_loss(real, fake)
-        if bool(torch.isfinite(d_loss)):
+        d_all, weight = self.reduce_loss(d_loss, real.shape[0])
+        if bool(torch.isfinite(d_all)):
             d_loss.backward()
+            self.reduce_grads(_params(self.disc_optimizer), weight)
             self.disc_optimizer.step()
-        return d_loss.detach(), mel_real
+        return d_all.detach(), mel_real
 
     def gen_phase(self, real: torch.Tensor, mel_real: torch.Tensor):
         """Generator against the updated critics, which compute no weight
@@ -172,8 +191,10 @@ class HiFiGANTrainer(Trainer):
         try:
             self.gen_optimizer.zero_grad(set_to_none=True)
             g_loss, parts = self.gen_loss(real, mel_real)
-            if bool(torch.isfinite(g_loss)):
+            g_all, weight = self.reduce_loss(g_loss, real.shape[0])
+            if bool(torch.isfinite(g_all)):
                 g_loss.backward()
+                self.reduce_grads(_params(self.gen_optimizer), weight)
                 clip_grads(self.generator.parameters(), self.grad_clip, self.grad_norm)
                 self.gen_optimizer.step()
                 if self.scheduler is not None:
@@ -181,7 +202,7 @@ class HiFiGANTrainer(Trainer):
         finally:
             for m in critics:
                 m.requires_grad_(True)
-        return g_loss.detach(), [p.detach() for p in parts]
+        return g_all.detach(), [p.detach() for p in parts]
 
     def _train_step(self, batch, is_logging: bool):
         real = batch[0][:, None, :]

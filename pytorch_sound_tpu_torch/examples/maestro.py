@@ -1,4 +1,5 @@
-"""Maestro frame-level piano transcription on one card.
+"""Maestro frame-level piano transcription on one card or, under
+``torchrun``, data parallel over several (``main(use_mesh=True)``).
 
 Counterpart of ``pytorch_sound_tpu/examples/maestro.py``: the audio (44.1
 kHz) and the piano roll of each performance come from the meta
@@ -25,6 +26,7 @@ from pytorch_sound_tpu_torch.data.meta import maestro
 from pytorch_sound_tpu_torch.models import build_model
 import pytorch_sound_tpu_torch.models.transcription  # noqa: F401 (registration)
 from pytorch_sound_tpu_torch.models.transforms import LogMelSpectrogram
+from pytorch_sound_tpu_torch.parallel.mesh import recipe_data_parallel
 from pytorch_sound_tpu_torch.trainer import LogType, Trainer, adamw
 
 MAESTRO_SR = 44100
@@ -90,24 +92,24 @@ def main(meta_dir: str, save_dir: str, batch_size: int = 4, num_workers: int = 2
     clipped to a global norm of 3, checkpoints under
     ``save_dir/models/maestro/``; returns the best validation loss.
     ``device``: 'cuda' (the default; raises without a card) or 'cpu'.
-    ``use_mesh``: the JAX recipe runs data parallel where it sees more than
-    one device and on the one device otherwise; here one visible card (or
-    the CPU) runs, and more than one raises, since the multi-GPU path is not
-    ported."""
-    if use_mesh and torch.device(device).type == 'cuda' and torch.cuda.device_count() > 1:
-        raise NotImplementedError(
-            'use_mesh with %d visible cards: the multi-GPU path is not ported yet '
-            '(ROADMAP.md section 1, item 7); make one card visible or pass '
-            'use_mesh=False' % torch.cuda.device_count())
+    ``use_mesh``: data parallel over the ranks of a ``torchrun`` job (one
+    process a card: ``torchrun --nproc_per_node=N -m
+    pytorch_sound_tpu_torch.examples.maestro ... --use_mesh True``), as
+    the JAX recipe runs over its devices: ``batch_size`` stays the global
+    batch and must divide over the ranks, each rank loads its shard of the
+    metas, ``batch_size // world`` rows a step, on ``cuda:LOCAL_RANK``. In
+    one process it is the one-card path. It is on by default, as in JAX,
+    which runs data parallel wherever it sees more than one device."""
+    mesh, shard, device, rows = recipe_data_parallel(use_mesh, device, batch_size)
     train_loader, valid_loader = maestro.get_datasets(
-        meta_dir, batch_size=batch_size, num_workers=num_workers, fix_len=fix_len,
-        pad_multiple=fix_len)
+        meta_dir, batch_size=rows, num_workers=num_workers, fix_len=fix_len,
+        pad_multiple=fix_len, shard=shard)
     model = build_model(arch)
     trainer = MaestroTrainer(
         model, adamw(model.parameters(), lr), train_loader, valid_loader,
         max_step=max_step, valid_max_step=valid_max_step, save_interval=save_interval,
         log_interval=log_interval, save_dir=save_dir, save_prefix='maestro', sr=MAESTRO_SR,
-        grad_norm=3.0, device=device)
+        grad_norm=3.0, device=device, mesh=mesh)
     return trainer.run()
 
 

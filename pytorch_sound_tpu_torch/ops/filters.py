@@ -12,8 +12,13 @@ float64 numpy; cast at use site.
 from typing import Optional
 
 import numpy as np
-from scipy.signal import get_window
-from scipy.signal.windows import kaiser
+
+
+def get_window(*args, **kwargs) -> np.ndarray:
+    """``scipy.signal.get_window``, imported at the first call: scipy.signal
+    takes seconds to import, which every process of the port would pay."""
+    from scipy.signal import get_window as scipy_get_window
+    return scipy_get_window(*args, **kwargs)
 
 
 def hz_to_mel_slaney(f):
@@ -140,6 +145,7 @@ def pqmf_prototype(taps: int = 62, cutoff_ratio: float = 0.15,
         t = np.arange(taps + 1) - 0.5 * taps
         h_i = np.sin(omega_c * t) / (np.pi * t)
     h_i[taps // 2] = cutoff_ratio    # the limit at t = 0
+    from scipy.signal.windows import kaiser
     return h_i * kaiser(taps + 1, beta)
 
 

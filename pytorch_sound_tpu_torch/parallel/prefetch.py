@@ -14,8 +14,11 @@ not hand its memory to the side stream while the consumer still reads it),
 and a staging buffer is written again only after its copy's event has
 completed. On the CPU the batch is only turned into tensors.
 
-JAX's version also places batches on a mesh (``_compatible_sharding``);
-that waits for the multi-GPU port.
+JAX's version places a global batch on a mesh, sharded on its leading axis
+(``sharding=``). Here each rank runs its own prefetch onto its own device,
+of its own rows: its shard of the metas, or
+:class:`~pytorch_sound_tpu_torch.parallel.data.local_batches` of global
+batches, which keeps a straggler batch whole, as JAX replicates it.
 """
 
 import collections

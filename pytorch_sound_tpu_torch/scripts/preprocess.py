@@ -58,6 +58,8 @@ from pytorch_sound_tpu_torch.data.meta.zeroth_korean import ZerothKoreanMeta
 from pytorch_sound_tpu_torch.ops.cuda.logmel import fused_log_mel
 from pytorch_sound_tpu_torch.ops.resample import resample_out_len, resample_poly
 from pytorch_sound_tpu_torch.ops.resample import rms_normalize as rms_normalize_rows
+from pytorch_sound_tpu_torch.parallel.data import process_shard_indices
+from pytorch_sound_tpu_torch.parallel.mesh import process_rank
 from pytorch_sound_tpu_torch.parallel.prefetch import PinnedCopier, PinnedPool, pinned_view
 from pytorch_sound_tpu_torch.utils import wavio
 from pytorch_sound_tpu_torch.utils.commons import go_multiprocess
@@ -734,28 +736,27 @@ class Processor:
         that mirrored tail.
 
         ``device`` 'cuda' needs a card (a missing one raises); 'cpu' runs
-        the same program with the log-mel kernel's plain version. Sharding
-        a corpus over ranks waits for the multi-GPU port: with
-        ``torch.distributed`` initialised over more than one rank this
-        raises. Returns counts and timings: utterances and batches written,
-        seconds from the first decode to the last save, and per batch the
-        host decode, host staging, save ms and, on the card, the copies' and
-        the program's device ms (CUDA events).
+        the same program with the log-mel kernel's plain version. Over
+        several ranks (a running process group, else ``torchrun``'s
+        ``RANK`` / ``WORLD_SIZE``: ``parallel.mesh.process_rank``, which
+        starts no group) each rank takes its strided shard of the sorted
+        wav list (``process_shard_indices``, as JAX shards it per host) on
+        its own card, ``cuda:LOCAL_RANK`` under torchrun; the ranks' outputs
+        are disjoint, and the counts returned are the rank's. Returns
+        counts and timings: utterances and batches written, seconds from the
+        first decode to the last save, and per batch the host decode, host
+        staging, save ms and, on the card, the copies' and the program's
+        device ms (CUDA events).
         """
         if wire not in WIRES or h2d not in H2D_WIRES:
             raise ValueError('wire is one of %s and h2d one of %s, got %r, %r'
                              % (WIRES, H2D_WIRES, wire, h2d))
-        device = torch.device(device)
-        if device.type == 'cuda' and not torch.cuda.is_available():
-            raise RuntimeError("extract_features on 'cuda' needs a CUDA device; "
-                               "pass device='cpu' for the CPU path")
-        if (torch.distributed.is_available() and torch.distributed.is_initialized()
-                and torch.distributed.get_world_size() > 1):
-            raise NotImplementedError('extract_features over several ranks waits for the '
-                                      'multi-GPU port')
+        rank, world, device = process_rank(device)
         native.load_library()                 # builds it, or raises with the compiler's words
 
         wav_list = sorted(glob.glob(os.path.join(in_dir, '**', '*.wav'), recursive=True))
+        if world > 1:                          # this rank's disjoint shard
+            wav_list = [wav_list[i] for i in process_shard_indices(len(wav_list), rank, world)]
         os.makedirs(out_dir, exist_ok=True)
         groups = defaultdict(list)            # src_sr -> paths
         for path in wav_list:

@@ -28,8 +28,29 @@ of state dicts. Also as in the JAX trainer: ``remat`` (the forward's
 activations recomputed in the backward pass, by
 ``torch.utils.checkpoint``), a ``torch.profiler`` window over
 ``profile_steps`` written under ``profile_dir``, and the tensorboard image
-and plot channels (``utils/plots.py``, where matplotlib is installed). Not
-ported yet: multi-device meshes.
+and plot channels (``utils/plots.py``, where matplotlib is installed).
+
+Data parallelism: pass ``mesh``, a ``DeviceMesh`` with a 'data' axis
+(``parallel.make_mesh()``), in every rank's process (one per card, under
+``torchrun``). Each rank's datasets yield that rank's rows of the global
+batch: its own shard of the meta rows, as the recipes load them, or
+``parallel.local_batches`` of global batches. The parameters and buffers
+are broadcast from rank 0 once, after ``init_params`` and the resume, so
+ranks that built their modules from other seeds agree. After the backward
+pass each gradient becomes its mean over the 'data' ranks, weighted by the
+ranks' rows (one all-reduce of all gradients, flattened), before the clip:
+the gradient of the global batch's mean loss, which the JAX mesh step
+computes. That holds where the loss is a plain mean over rows; a loss
+divided by a count that depends on the data (a masked sum over its valid
+frames) weighs each rank by its rows instead. The NaN guard decides on the
+mean loss over ranks, one all-reduce before the backward pass, so every
+rank skips or steps together; logged scalars and validation losses are
+such means too, so every rank agrees on the best loss. Only rank 0 writes
+checkpoints, which hold every rank's loader position and in-flight numpy
+states: a resume gives each rank its own, and is the uninterrupted run bit
+for bit per rank. ``save_dir`` must be one directory that every rank sees.
+With one rank the mesh path computes what the path without one does, bit
+for bit.
 
 Subclass contract::
 
@@ -53,6 +74,7 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.utils.checkpoint
 
 from pytorch_sound_tpu_torch.parallel.prefetch import prefetch_to_device
@@ -142,6 +164,8 @@ class Trainer:
             recomputed in the backward pass instead of kept. One checkpoint
             around the whole forward recomputes them all at once, so the
             peak memory need not fall
+        mesh: a ``DeviceMesh`` with a 'data' axis for data-parallel training
+            (see the module docstring); its device type is ``device``'s
     """
 
     def __init__(self, model: torch.nn.Module, optimizer: torch.optim.Optimizer,
@@ -153,11 +177,15 @@ class Trainer:
                  seed: int = None, device: Union[str, torch.device] = 'cuda',
                  prefetch_size: int = 2, tensorboard: bool = False,
                  profile_dir: str = None, profile_steps: Tuple[int, int] = (10, 20),
-                 remat: bool = False):
+                 remat: bool = False, mesh=None):
         self.device = torch.device(device)
         if self.device.type == 'cuda' and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' requested but no CUDA device is "
                                "available; pass device='cpu' for the CPU path")
+        self.mesh = mesh
+        self._group, self.rank, self.world = None, 0, 1
+        if mesh is not None:
+            self._group, self.rank, self.world = _data_group(mesh, self.device)
         self.pretrained_path = pretrained_path
         self.model = model.to(self.device)
         self.optimizer = optimizer
@@ -188,7 +216,7 @@ class Trainer:
         self.model_dir = os.path.join(save_dir, 'models')
         os.makedirs(self.model_dir, exist_ok=True)
         os.makedirs(self.log_dir, exist_ok=True)
-        self.writer = _make_writer(self.log_dir) if tensorboard else None
+        self.writer = _make_writer(self.log_dir) if tensorboard and self.rank == 0 else None
 
         self.seed = seed if seed else int(np.random.randint(np.iinfo(np.int32).max))
         np.random.seed(self.seed)
@@ -262,7 +290,76 @@ class Trainer:
         loaded = self.load()
         if self.step == 0 and self.pretrained_path:
             self.load_pretrained_model()
+        if self._group is not None:
+            src = dist.get_global_rank(self._group, 0)
+            for module in self.replicated_modules():
+                for t in itertools.chain(module.parameters(), module.buffers()):
+                    dist.broadcast(t.data, src, group=self._group)
         return loaded
+
+    def replicated_modules(self) -> List[torch.nn.Module]:
+        """The modules whose parameters and buffers every rank holds whole
+        (broadcast from rank 0 at the start under a mesh)."""
+        return [self.model]
+
+    # ------------------------------------------------------------------ data parallelism
+
+    def _rows_mean(self, values: List[Any], rows: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(means, total rows): each scalar's mean over the 'data' ranks,
+        weighted by each rank's ``rows``, in fp64; one all-reduce."""
+        stats = torch.stack([torch.as_tensor(v.detach() if isinstance(v, torch.Tensor) else v,
+                                             dtype=torch.float64, device=self.device).reshape(())
+                             for v in values] + [torch.ones((), dtype=torch.float64,
+                                                            device=self.device)]) * rows
+        dist.all_reduce(stats, group=self._group)
+        return stats[:-1] / stats[-1], stats[-1]
+
+    def reduce_loss(self, loss: torch.Tensor, rows: int
+                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """(the loss of the global batch, this rank's weight ``rows / all
+        rows`` for :meth:`reduce_grads`): under a mesh the row-weighted mean
+        of the ranks' losses; without one ``(loss, None)``. The NaN guard
+        decides on the first, so that every rank decides alike."""
+        if self._group is None:
+            return loss, None
+        means, total = self._rows_mean([loss], rows)
+        return means[0].to(loss.dtype), rows / total
+
+    def reduce_grads(self, params: Iterable[torch.nn.Parameter],
+                     weight: Optional[torch.Tensor]):
+        """Under a mesh, every gradient of ``params`` becomes the sum over the
+        'data' ranks of ``weight`` times it (:meth:`reduce_loss`), in place:
+        the gradients flattened into one buffer per dtype, one all-reduce
+        each. Without a mesh, nothing."""
+        if self._group is None:
+            return
+        by_dtype = defaultdict(list)
+        for p in params:
+            if p.grad is not None:
+                by_dtype[p.grad.dtype].append(p.grad)
+        for grads in by_dtype.values():
+            flat = torch.cat([g.reshape(-1) for g in grads])
+            flat.mul_(weight.to(flat.dtype))
+            dist.all_reduce(flat, group=self._group)
+            offset = 0
+            for g in grads:
+                g.copy_(flat[offset:offset + g.numel()].view(g.shape))
+                offset += g.numel()
+
+    def _mean_scalars(self, meta: Dict[str, Tuple[Any, LogType]], rows: int,
+                      loss: Optional[torch.Tensor] = None):
+        """(loss, meta) with ``loss`` and every SCALAR of ``meta`` the
+        row-weighted mean over the 'data' ranks (one all-reduce); as they
+        are without a mesh."""
+        if self._group is None:
+            return loss, meta
+        keys = [k for k, (_, t) in meta.items() if t == LogType.SCALAR]
+        values = [meta[k][0] for k in keys] + ([] if loss is None else [loss])
+        if not values:
+            return loss, meta
+        means, _ = self._rows_mean(values, rows)
+        meta = dict(meta, **{k: (means[i], LogType.SCALAR) for i, k in enumerate(keys)})
+        return (None if loss is None else means[-1]), meta
 
     # ------------------------------------------------------------------ steps
 
@@ -273,13 +370,15 @@ class Trainer:
                 self.forward, *batch, is_logging=is_logging, use_reentrant=False)
         else:
             loss, meta = self.forward(*batch, is_logging=is_logging)
-        if bool(torch.isfinite(loss)):       # NaN/Inf loss -> skip the update
+        loss_all, weight = self.reduce_loss(loss, _rows(batch))
+        if bool(torch.isfinite(loss_all)):   # NaN/Inf loss -> skip the update
             loss.backward()
+            self.reduce_grads(self.model.parameters(), weight)
             clip_grads(self.model.parameters(), self.grad_clip, self.grad_norm)
             self.optimizer.step()
             if self.scheduler is not None:
                 self.scheduler.step()
-        return loss.detach(), meta
+        return loss_all.detach(), meta
 
     @torch.no_grad()
     def _eval_step(self, batch):
@@ -348,7 +447,7 @@ class Trainer:
             if loss_host != loss_host:
                 log('{} cur step NAN is occured'.format(step))
                 return
-            meta = _meta_to_host(meta)
+            meta = _meta_to_host(self._mean_scalars(meta, _rows(batch))[1])
             meta['steps_per_sec'] = (
                 1.0 / (sum(self._step_times) / len(self._step_times)), LogType.SCALAR)
             self.console_log('train', meta, step)
@@ -365,6 +464,7 @@ class Trainer:
             batch = next(self.valid_dataset)
             self._ensure_initialized(batch)
             batch_loss, meta = self._eval_step(batch)
+            batch_loss, meta = self._mean_scalars(meta, _rows(batch), batch_loss)
             loss += float(batch_loss)
             meta = _meta_to_host(meta)
             for key, (value, log_type) in meta.items():
@@ -432,23 +532,26 @@ class Trainer:
         self.load_model_state(state['model'])
         if load_optim:
             self.load_optim_state(state['optim'])
-        self._load_data_state(state.get('data', {}), state.get('data_in_flight', {}))
+        ranks = state.get('ranks', [state])   # the streams of each rank
+        if len(ranks) != self.world:
+            raise ValueError('checkpoint {} holds the data streams of {} ranks; this run '
+                             'has {}'.format(latest_file, len(ranks), self.world))
+        mine = ranks[self.rank]
+        self._load_data_state(mine.get('data', {}), mine.get('data_in_flight', {}))
         # exact RNG restore, after the in-flight draws are replayed: resumed
         # steps see the streams the uninterrupted run saw after the save
-        np.random.set_state(_np_state(state['np_random']))
-        self.rng.set_state(state['rng'].cpu())
+        np.random.set_state(_np_state(mine['np_random']))
+        self.rng.set_state(mine['rng'].cpu())
         self.step = int(state['step'])
         log("checkpoint '{}' is loaded. previous step={}".format(latest_file, self.step))
         return True
 
     def save(self, step: int):
+        """Write the step's checkpoint (and the best one, after a new best
+        validation loss). Under a mesh every rank's streams are gathered
+        into it (``'ranks'``), rank 0 writes, and the ranks meet after."""
         streams = {'train': self.train_dataset, 'valid': self.valid_dataset}
-        state = {
-            'step': step,
-            'model': self.model_state(),
-            'optim': self.optim_state(),
-            'pretrained_step': step,
-            'seed': self.seed,
+        mine = {
             'np_random': _np_state_dict(np.random.get_state()),
             'rng': self.rng.get_state(),
             'data': {key: s.position for key, s in streams.items()
@@ -456,14 +559,28 @@ class Trainer:
             'data_in_flight': {key: [_np_state_dict(st) for st in s.in_flight()]
                                for key, s in streams.items() if s is not None},
         }
-        save_path = self._checkpoint_dir()
-        os.makedirs(save_path, exist_ok=True)
-        torch.save(state, os.path.join(save_path, 'step_{:06d}.chkpt'.format(step)))
-
-        if self.best_valid_loss != self.cur_best_valid_loss:
-            torch.save(state, os.path.join(self.model_dir, self.save_name + '.best.chkpt'))
-            self.cur_best_valid_loss = self.best_valid_loss
-
+        state = {
+            'step': step,
+            'model': self.model_state(),
+            'optim': self.optim_state(),
+            'pretrained_step': step,
+            'seed': self.seed,
+            **mine,
+        }
+        if self._group is not None:
+            ranks = [None] * self.world if self.rank == 0 else None
+            dist.gather_object(mine, ranks, dst=dist.get_global_rank(self._group, 0),
+                               group=self._group)
+            state['ranks'] = ranks
+        if self.rank == 0:
+            save_path = self._checkpoint_dir()
+            os.makedirs(save_path, exist_ok=True)
+            torch.save(state, os.path.join(save_path, 'step_{:06d}.chkpt'.format(step)))
+            if self.best_valid_loss != self.cur_best_valid_loss:
+                torch.save(state, os.path.join(self.model_dir, self.save_name + '.best.chkpt'))
+        self.cur_best_valid_loss = self.best_valid_loss
+        if self._group is not None:
+            dist.barrier(group=self._group)
         log('step %d / saved model.' % step)
 
     def _load_data_state(self, positions: Dict[str, Any], in_flight: Dict[str, List]):
@@ -585,6 +702,27 @@ class _DeviceStream:
         """Stop the prefetch and the source's iteration (its worker threads)."""
         self._it.close()
         self._host.close()
+
+
+def _data_group(mesh, device: torch.device):
+    """(group, rank, world) of the 'data' axis of ``mesh``, whose other axes
+    must have one rank each and whose device type must be ``device``'s."""
+    names = tuple(mesh.mesh_dim_names or ())
+    if 'data' not in names:
+        raise ValueError('the trainer reduces over a mesh axis named "data"; this mesh '
+                         'has {}'.format(names))
+    if any(mesh.size(i) > 1 for i, n in enumerate(names) if n != 'data'):
+        raise NotImplementedError('mesh axes other than "data" (tensor parallelism) are not '
+                                  'ported yet (ROADMAP.md section 1): {}'.format(mesh))
+    if mesh.device_type != device.type:
+        raise ValueError('a {} mesh for a trainer on {}'.format(mesh.device_type, device))
+    group = mesh.get_group('data')
+    return group, dist.get_rank(group), dist.get_world_size(group)
+
+
+def _rows(batch) -> int:
+    """The rows of a batch: its first field's leading size."""
+    return int(batch[0].shape[0])
 
 
 def _np_state_dict(st) -> Dict[str, Any]:

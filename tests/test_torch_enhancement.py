@@ -1,6 +1,7 @@
 """The VoiceBank enhancement recipe of the port against the JAX package's on
-the CPU: the cases of ``tests/test_e2e_voicebank.py`` (the mesh case becomes
-the raise on ``use_mesh``), and ``spec_masker`` at carried-over weights
+the CPU: the cases of ``tests/test_e2e_voicebank.py`` (the mesh case runs over
+2 ranks in tests/test_torch_parallel.py; here a batch that does not divide
+over the ranks raises), and ``spec_masker`` at carried-over weights
 (``spec_masker_small`` at 4 x 8192): the mask net's forward, the trainer's
 loss, the parameters after one Adam step, and ``enhance``."""
 
@@ -77,9 +78,14 @@ def test_voicebank_end_to_end(vb_meta_dir, tmp_path):
                                        'SpectrogramMaskNet', 'step_%06d.chkpt' % t.step))
 
 
-def test_use_mesh_raises(vb_meta_dir, tmp_path):
-    with pytest.raises(NotImplementedError, match='multi-GPU'):
-        vb.main(vb_meta_dir, str(tmp_path), use_mesh=True, device='cpu')
+def test_use_mesh_raises(vb_meta_dir, tmp_path, monkeypatch):
+    """``use_mesh`` over ranks (here 2, as torchrun would give them) raises,
+    with both numbers, on a global batch that does not divide over them; the
+    mesh run itself is tests/test_torch_parallel.py's."""
+    from pytorch_sound_tpu_torch.parallel import mesh
+    monkeypatch.setattr(mesh, 'init_distributed', lambda device: (0, 2, torch.device(device)))
+    with pytest.raises(ValueError, match='batch_size 5 does not divide over 2 ranks'):
+        vb.main(vb_meta_dir, str(tmp_path), batch_size=5, use_mesh=True, device='cpu')
 
 
 def test_enhance_inference(vb_meta_dir, tmp_path):

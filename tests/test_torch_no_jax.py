@@ -2,10 +2,11 @@
 modules import without nvcc (the kernels build at their first CUDA launch).
 The serving path, the training path, the data layer, the enhancement path,
 the preprocess path, the TTS path and the separation and transcription
-recipes each run in a fresh interpreter; the data layer, the preprocess
-path, the TTS path and the separation and transcription recipes also load
-none of pandas, tqdm or joblib (nor, on the TTS path, matplotlib, nor, on
-the last, PyYAML)."""
+recipes, and the multi-rank layer with a recipe's ``use_mesh`` path, each
+run in a fresh interpreter; the data layer, the preprocess path, the TTS
+path, the separation and transcription recipes and the multi-rank layer
+also load none of pandas, tqdm or joblib (nor, on the TTS path, matplotlib,
+nor, on the separation and transcription recipes, PyYAML)."""
 
 import os
 import subprocess
@@ -354,6 +355,59 @@ assert not loaded, loaded
 '''
 
 
+PARALLEL_SCRIPT = r'''
+import functools, os, sys, tempfile
+
+
+class Absent:
+    """As where the port runs: pandas, tqdm and joblib do not import."""
+    def find_spec(self, name, path=None, target=None):
+        if name.split('.')[0] in ('pandas', 'tqdm', 'joblib'):
+            raise ModuleNotFoundError('No module named %r' % name)
+
+
+sys.meta_path.insert(0, Absent())
+import numpy as np
+import torch
+from pytorch_sound_tpu_torch.data.meta.voice_bank import VoiceBankMeta
+from pytorch_sound_tpu_torch.examples import voice_bank
+from pytorch_sound_tpu_torch.ops.cuda import _build
+from pytorch_sound_tpu_torch.parallel import init_distributed, spawn_ranks
+from pytorch_sound_tpu_torch.parallel import dryrun, ring_attention  # noqa: F401
+from pytorch_sound_tpu_torch.utils.wavio import write_wav
+assert init_distributed('cpu') == (0, 1, torch.device('cpu'))
+root, meta, save = tempfile.mkdtemp(), tempfile.mkdtemp(), tempfile.mkdtemp()
+rng = np.random.default_rng(0)
+os.makedirs(os.path.join(root, 'txt'))
+for phase, spk in (('trainset', 'p280'), ('validset', 'p281')):
+    for kind in ('clean', 'noisy'):
+        os.makedirs(os.path.join(root, '%s_%s_wav' % (phase, kind)))
+    for u in range(4):
+        key = '%s_%03d' % (spk, u)
+        clean = (0.3 * np.sin(np.arange(55000) * 0.05)).astype(np.float32)
+        write_wav(os.path.join(root, '%s_clean_wav' % phase, key + '.wav'), clean, 22050)
+        write_wav(os.path.join(root, '%s_noisy_wav' % phase, key + '.wav'),
+                  clean + 0.1 * rng.standard_normal(55000).astype(np.float32), 22050)
+        with open(os.path.join(root, 'txt', key + '.txt'), 'w') as w:
+            w.write('an utterance.')
+VoiceBankMeta(meta).make_meta(root, 2, 15, 0)
+main = functools.partial(voice_bank.main, meta, save, batch_size=2, num_workers=0,
+                         fix_len=8192, max_step=1, valid_max_step=1, save_interval=1,
+                         log_interval=1, arch='spec_masker_small', use_mesh=True,
+                         device='cpu')
+best = spawn_ranks(main, 2, 'gloo', 'cpu')
+assert len(best) == 2 and np.isfinite(best[0]) and best[0] == best[1], best
+assert os.path.exists(os.path.join(save, 'models', 'voice_bank', 'SpectrogramMaskNet',
+                                   'step_000001.chkpt'))
+assert _build._lib is None
+forbidden = ('jax', 'jaxlib', 'flax', 'optax', 'pytorch_sound_tpu', 'pandas', 'tqdm',
+             'joblib')
+loaded = sorted(m for m in sys.modules if m.split('.')[0] in forbidden)
+print('LOADED', loaded)
+assert not loaded, loaded
+'''
+
+
 def _run(script, *args):
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [ROOT] + [p for p in os.environ.get('PYTHONPATH', '').split(os.pathsep) if p]))
@@ -435,3 +489,12 @@ def test_separation_and_transcription_load_neither_jax_nor_pandas_nor_yaml():
     with pandas, tqdm, joblib and PyYAML made unimportable, as on the card
     machine, which lacks them."""
     _run(SEPARATION_SCRIPT)
+
+
+def test_parallel_path_loads_neither_jax_nor_pandas():
+    """The multi-rank layer (``parallel``: the mesh, per-rank data, ring
+    attention, the dry run) and the VoiceBank recipe's ``use_mesh`` path
+    over 2 gloo ranks (``spawn_ranks``, a step, a validation, rank 0's
+    checkpoint), with pandas, tqdm and joblib made unimportable: no kernel
+    library, and none of those, jax, flax, optax or the JAX package loaded."""
+    _run(PARALLEL_SCRIPT)

@@ -7,6 +7,7 @@ at int8, at stages 2 and 3 and on every host -> device wire; ``dsd100``
 keys its outputs by subset and song, and so stays right on the tree whose
 Dev and Test songs share names, where the JAX copy races."""
 
+import glob
 import os
 import struct
 
@@ -22,6 +23,7 @@ from pytorch_sound_tpu.scripts import preprocess as jax_pre  # noqa: E402
 from pytorch_sound_tpu.utils.cli import fire_like as jax_fire_like  # noqa: E402
 from pytorch_sound_tpu_torch import settings  # noqa: E402
 from pytorch_sound_tpu_torch.data.meta.dsd100 import DSD100Meta  # noqa: E402
+from pytorch_sound_tpu_torch.parallel import process_shard_indices  # noqa: E402
 from pytorch_sound_tpu_torch.scripts import preprocess as pre  # noqa: E402
 from pytorch_sound_tpu_torch.scripts.preprocess import Processor  # noqa: E402
 from pytorch_sound_tpu_torch.utils.cli import fire_like  # noqa: E402
@@ -303,10 +305,34 @@ def test_extract_features_h2d_wires(feature_tree):
 
 
 def test_extract_features_raises_over_several_ranks(feature_tree, monkeypatch):
-    """JAX shards the corpus per host; the port's sharding waits for the
-    multi-GPU port, so a run over more than one rank raises."""
-    monkeypatch.setattr(torch.distributed, 'is_initialized', lambda: True)
-    monkeypatch.setattr(torch.distributed, 'get_world_size', lambda: 2)
-    with pytest.raises(NotImplementedError, match='ranks'):
-        Processor.extract_features(str(feature_tree / 'in'), str(feature_tree / 'x'),
-                                   device='cpu')
+    """JAX shards the corpus per host, and so does the port per rank (over
+    2 gloo ranks in tests/test_torch_parallel.py). Over several ranks on
+    'cuda' with no card it raises, and starts no process group: no rank
+    falls back to the CPU."""
+    monkeypatch.setenv('WORLD_SIZE', '2')
+    monkeypatch.setenv('RANK', '1')
+    monkeypatch.setenv('LOCAL_RANK', '1')
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        Processor.extract_features(str(feature_tree / 'in'), str(feature_tree / 'x'))
+    assert not torch.distributed.is_initialized()
+
+
+def test_extract_features_takes_its_torchrun_shard_without_a_group(feature_tree, monkeypatch,
+                                                                    tmp_path):
+    """Under torchrun's ``RANK`` / ``WORLD_SIZE`` with no process group
+    running, a rank extracts its strided shard of the sorted wav list
+    (``process_shard_indices``), counts only those, and starts no group."""
+    monkeypatch.setenv('WORLD_SIZE', '2')
+    monkeypatch.setenv('RANK', '1')
+    monkeypatch.setenv('LOCAL_RANK', '1')
+    stats = Processor.extract_features(str(feature_tree / 'in'), str(tmp_path), batch_size=2,
+                                       pad_seconds=PAD, device='cpu')
+    paths = sorted(glob.glob(os.path.join(str(feature_tree / 'in'), '**', '*.wav'),
+                             recursive=True))
+    mine = sorted({os.path.basename(paths[i])[:-len('.wav')]
+                   for i in process_shard_indices(len(paths), 1, 2)} & set(NAMES))
+    assert 0 < len(mine) < len(NAMES)
+    assert sorted(os.listdir(tmp_path)) == [n + '.mel.npy' for n in mine]
+    assert stats['utterances'] == len(mine)
+    assert not torch.distributed.is_initialized()

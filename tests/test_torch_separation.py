@@ -239,15 +239,13 @@ def test_separate_matches_jax(unets):
     np.testing.assert_allclose(rec[:, 1024:-1024], mix[:, 1024:-1024], atol=1e-3)
 
 
-@pytest.fixture(scope='module')
-def dsd_meta_dir(tmp_path_factory):
-    """The synthetic DSD100 chunk tree of tests/test_separation_maestro.py
-    and its meta, written by the port."""
+def write_dsd_tree(root, meta, songs):
+    """``songs`` songs of 4 one-second chunks each (a 440 Hz voice and a
+    seeded noise background) under ``root``, and their meta in ``meta``,
+    written by the port."""
     rng = np.random.default_rng(3)
-    root = str(tmp_path_factory.mktemp('dsd_sep'))
-    meta = str(tmp_path_factory.mktemp('dsd_sep_meta'))
     mixtures, vocals, backgrounds = [], [], []
-    for song in range(3):
+    for song in range(songs):
         d = os.path.join(root, 'song%d' % song)
         os.makedirs(d)
         for i in range(4):
@@ -262,6 +260,14 @@ def dsd_meta_dir(tmp_path_factory):
         backgrounds.append(os.path.join(d, 'background.npy'))
     DSD100Meta(meta).make_meta(mixtures, vocals, backgrounds)
     return meta
+
+
+@pytest.fixture(scope='module')
+def dsd_meta_dir(tmp_path_factory):
+    """The synthetic DSD100 chunk tree of tests/test_separation_maestro.py
+    (3 songs: 11 training rows, 1 validation row) and its meta."""
+    return write_dsd_tree(str(tmp_path_factory.mktemp('dsd_sep')),
+                          str(tmp_path_factory.mktemp('dsd_sep_meta')), 3)
 
 
 def _trainer(meta_dir, save_dir, max_step, prefix, seed):
@@ -299,9 +305,21 @@ def test_dsd100_main_entrypoint(dsd_meta_dir, tmp_path):
                                        'step_000002.chkpt'))
 
 
-def test_dsd100_use_mesh_raises(dsd_meta_dir, tmp_path):
-    with pytest.raises(NotImplementedError, match='item 7'):
-        recipe.main(dsd_meta_dir, str(tmp_path), use_mesh=True, device='cpu')
+def test_dsd100_use_mesh_raises(dsd_meta_dir, tmp_path, monkeypatch):
+    """``use_mesh`` over 2 ranks raises on a global batch of 3, with both
+    numbers; the mesh run itself is tests/test_torch_parallel.py's."""
+    from pytorch_sound_tpu_torch.parallel import mesh
+    monkeypatch.setattr(mesh, 'init_distributed', lambda device: (0, 2, torch.device(device)))
+    with pytest.raises(ValueError, match='batch_size 3 does not divide over 2 ranks'):
+        recipe.main(dsd_meta_dir, str(tmp_path), batch_size=3, use_mesh=True, device='cpu')
+
+
+def test_dsd100_meta_with_fewer_rows_than_ranks_raises(dsd_meta_dir):
+    """A rank's shard of a meta with fewer rows than ranks would be empty:
+    the loaders refuse it, naming both numbers (the fixture's one
+    validation row over 2 ranks)."""
+    with pytest.raises(ValueError, match='val_meta.json has 1 rows for 2 ranks'):
+        dsd_datasets(dsd_meta_dir, batch_size=1, num_workers=0, fix_len=16384, shard=(1, 2))
 
 
 def test_medleydb_yaml_reader_matches_safe_load():

@@ -1,8 +1,9 @@
 """The port's transcription path against the JAX package's on the CPU.
 
 The Maestro cases of ``tests/test_separation_maestro.py`` (shapes, the meta
-and its loader, the recipe end to end, ``main``; the mesh case becomes the
-raise on more than one visible card) on the port, and parity with JAX:
+and its loader, the recipe end to end, ``main``; the mesh case runs over 2
+ranks in tests/test_torch_parallel.py, and here a batch that does not divide
+over the ranks raises) on the port, and parity with JAX:
 
 - ``FramePitchNet`` logits at carried-over flax weights within 1e-4 of
   their peak (small, and base at T = 64);
@@ -210,18 +211,23 @@ def _maestro_tree(root, n=12):
     return rows
 
 
-@pytest.fixture(scope='module')
-def maestro_meta_dir(tmp_path_factory):
-    """The Maestro tree with its metadata as the released .json (records),
-    and the frames the port's ``make_meta`` writes from it."""
-    root = str(tmp_path_factory.mktemp('maestro'))
-    rows = _maestro_tree(root)
+def write_maestro_meta(root, n=12):
+    """The Maestro tree of ``n`` performances under ``root`` with its
+    metadata as the released .json (records), and the frames the port's
+    ``make_meta`` writes from it."""
+    rows = _maestro_tree(root, n)
     records = [dict(zip(rows, vals)) for vals in zip(*rows.values())]
     with open(os.path.join(root, 'maestro-v1.0.0.json'), 'w') as f:
         json.dump(records, f)
     random.seed(0)
     MaestroMeta(os.path.join(root, 'maestro-v1.0.0.json')).make_meta()
     return root
+
+
+@pytest.fixture(scope='module')
+def maestro_meta_dir(tmp_path_factory):
+    """The 12-performance tree (11 training rows, 1 validation row)."""
+    return write_maestro_meta(str(tmp_path_factory.mktemp('maestro')))
 
 
 def _same_table(table, frame):
@@ -315,10 +321,12 @@ def test_maestro_main_entrypoint(maestro_meta_dir, tmp_path):
 
 
 def test_maestro_main_refuses_several_cards(maestro_meta_dir, tmp_path, monkeypatch):
-    """The JAX recipe goes data parallel where it sees several devices; the
-    port has no multi-GPU path yet, and raises rather than train on one
-    card of several."""
-    monkeypatch.setattr(torch.cuda, 'device_count', lambda: 8)
-    with pytest.raises(NotImplementedError, match='item 7'):
-        recipe.main(maestro_meta_dir, str(tmp_path), batch_size=8, num_workers=0,
-                    fix_len=32768, max_step=2, arch='frame_pitch_small', use_mesh=True)
+    """Over several cards (8 ranks, as torchrun would give them) the recipe
+    goes data parallel by default, as JAX does over several devices, and
+    refuses a global batch that does not divide over them, with both
+    numbers; the mesh run itself is tests/test_torch_parallel.py's."""
+    from pytorch_sound_tpu_torch.parallel import mesh
+    monkeypatch.setattr(mesh, 'init_distributed', lambda device: (0, 8, torch.device(device)))
+    with pytest.raises(ValueError, match='batch_size 4 does not divide over 8 ranks'):
+        recipe.main(maestro_meta_dir, str(tmp_path), batch_size=4, num_workers=0,
+                    fix_len=32768, max_step=2, arch='frame_pitch_small', device='cpu')

@@ -3,7 +3,8 @@
 training recipe from wav files on disk, the DSP layer with the VoiceBank
 enhancement recipe, feature extraction from a wav tree, the text-to-speech
 recipe with synthesis and its decode, the separation and transcription
-recipes, and the multi-GPU layer's data-parallel step, once on one GPU.
+recipes, the multi-GPU layer's data-parallel step, and the serving path's
+bf16 fast modes, once on one GPU.
 
     python3 chip_smoke.py
 
@@ -166,7 +167,24 @@ Phases, one line each; any failure raises and the script exits non-zero:
    reduced gradients and the parameters' change over the two steps against
    (a)'s single-process steps, both ranks' parameters bit-identical; (c)
    ``dryrun_multigpu(1, 'cuda')`` in a process of its own. NCCL across two
-   cards is not checked here: the machine has one.
+   cards is not checked here: the machine has one;
+17. the serving fast modes (``precision='bf16x3'`` / ``'default'``, the bf16
+   tensor cores): K1 in both modes and K3 in 'default' against the plain
+   version of the mode on the same card tensor, on v2's four stages (the
+   bundled weights, fed as phase 4 feeds them) and v1's four seeded stages
+   (the cluster layout, conv_pre folded), at 4 / 2 x 61 and the bench
+   shapes, within ``MODE_TOL``; the main paths with the counters from zero:
+   ``InterfaceHifiGAN('hifi_gan_v2', precision=...)`` on bench.py's 32 x 256
+   mel (``default_rng(7)``, randn * 2 - 4), a card slice, ``decode_streaming``
+   in 'bf16x3' and its whole decode, v1's interfaces on the 16 x 256 bench
+   mel, ``dtype='bfloat16'`` (cuDNN's bf16 convs, no K1 launch) and K3
+   'default' through ``resblock_stage``: exact launch counts per mode, none
+   at 'highest'; each fast decode's max / mean abs error and SNR against
+   'highest' (``vocoder_bf16x3_waveform_max_err`` ...), card vs CPU per
+   mode, the streaming interior against the whole decode; timings of each
+   mode's v2 32 x 256 and v1 16 x 256 decode and stages beside 'highest',
+   the plain versions and the bf16 dtype path, with each stage's share of
+   its bf16 tensor-core bound.
 
 The line before the last is a JSON object with one entry per kernel, each
 with its time, its plain version's, the least time the card could take for
@@ -1082,8 +1100,7 @@ def v1_serving(dev, card, rng):
                 x = ref
 
     # 9.3 the main path, counters from zero
-    gs.generator_stage.launches = gs.generator_stage.wide_launches = 0
-    gs.resblock_stage.launches = 0
+    gs.reset_launches()
     lm.fused_log_mel.launches = 0
     encodes = decoded = split = 0
     bench_mel = iface.encode(tones(rng, BATCH, 256 * UP))[..., :256].contiguous()
@@ -1126,9 +1143,9 @@ def v1_serving(dev, card, rng):
 
     # every decoded batch ran K1 four times, the two wide stages in the
     # cluster layout; the resblock route ran K3 once per stage
-    launches = {'gen_stage': gs.generator_stage.launches,
+    launches = {'gen_stage': gs.launch_count(gs.generator_stage),
                 'gen_stage_wide': gs.generator_stage.wide_launches,
-                'resblock_stage': gs.resblock_stage.launches,
+                'resblock_stage': gs.launch_count(gs.resblock_stage),
                 'logmel': lm.fused_log_mel.launches}
     log('counts', path='v1', decoded_batches=decoded, resblock_route_batches=split,
         encodes=encodes, **launches)
@@ -2821,10 +2838,10 @@ def tts_path(dev, card):
                 stage_err.append(max_err(ker, ref))
                 x = ref
                 x64 = gs.generator_stage_reference(x64, **gen64.stage_args(i))
-        gs.generator_stage.launches = 0
+        gs.reset_launches()
         audio = iface.decode(mel)
         torch.cuda.synchronize()
-        k1_main = gs.generator_stage.launches
+        k1_main = gs.launch_count(gs.generator_stage)
         cpu_audio = InterfaceHifiGAN('hifi_gan_v2', device='cpu').decode(mel.cpu())
         dec_err = max_err(audio.cpu(), cpu_audio)
         decode_ms = cuda_ms(lambda: iface.decode(mel), 10)
@@ -3551,6 +3568,338 @@ def multigpu_path(dev, card):
     return mesh_run['counts']
 
 
+FAST_MODES = ('bf16x3', 'default')   # phase 17: the stage kernels' bf16 modes
+# a stage kernel in a bf16 mode vs the plain version of that mode, of the plain
+# version's max abs, or for a last stage of the largest sum of its conv_post's
+# absolute products (the scale tanh's input is rounded at, ~3-10x the
+# waveform's max: ``post_scale``; tests/test_torch_gen_stage_tc.py emulates
+# the sums): bf16x3 keeps ~16 bits of each operand, so an fp32 ulp of
+# difference moves a product by up to 2^-17; 'default' turns such
+# differences into whole bf16 ulps (2^-8) of the next conv's operands, which
+# compound over a stage
+MODE_TOL = {'bf16x3': 2 ** -16, 'default': 2 ** -7}
+# the v2 decode in a mode, card vs CPU: each mode's decode moves by its own
+# rounding wherever a sum's order differs (bf16x3 by ~2^-17 of a product,
+# 'default' by whole bf16 ulps), so DECODE_TOL (2e-4) x 5 and 2^-4, ~16x and
+# ~3x what this phase measured on an H100 (6.4e-5, 0.0193); the bf16 dtype
+# path, whose cuDNN and CPU convs round at their own places (each up to
+# ~0.18 off the fp32 decode), by its SNR against the CPU (MODE_MIN_SNR) and
+# a mean abs difference within 2^-8
+MODE_DECODE_TOL = {'bf16x3': 1e-3, 'default': 2 ** -4}
+# the 'bf16x3' streaming interior vs its whole decode: the kernel sums alike
+# in any tile, but v2's conv_pre (cuDNN, outside the kernel) may round a
+# chunk's input an ulp off the whole one's, which bf16x3's split moves by up
+# to ~2^-17 of each product downstream (measured on an H100: exactly 0)
+MODE_STREAM_TOL = 1e-4
+# each fast decode against 'highest' on the bench mel (SNR in dB, at least):
+# on an H100 81.9 (bf16x3), 27.3 (default), 21.9 (the bf16 dtype), and
+# v1's seeded weights 97.5, 42.8, 39.3
+MODE_MIN_SNR = {'bf16x3': 60.0, 'default': 20.0, 'bfloat16': 15.0}
+# ... and at most: a mode run as 'highest' decodes bit for bit as 'highest'
+# does, and 'default' run as 'bf16x3' would read 82-98 dB
+MODE_MAX_SNR = {'bf16x3': 110.0, 'default': 60.0}
+# that a stage kernel ran its mode and rounded to nearest even, which
+# MODE_TOL alone cannot show (bf16x3 moves a stage only ~5e-6 of its max off
+# 'highest', below 2^-16): its RMS distance to the plain version of its mode
+# at most MODE_RMS_RATIO of its RMS distance to the plain 'highest'. The
+# kernel's sums differ from the plain version's only in order: on an H100
+# 0.04-0.38 (bf16x3) and 0.003-0.19 (default) on v2's and v1's stages; on
+# the CPU, the plain version summed in fp64 for a kernel that truncates its
+# splits or roundings reads 0.98 or more, and one that runs another mode
+# moves by that mode's whole effect
+MODE_RMS_RATIO = 0.5
+PEAK_BF16 = 989e12                # dense bf16 on the tensor cores
+
+
+def bf16_bound(flops, nbytes, passes):
+    """(ms, 'operations' or 'bytes') of a stage kernel call in a bf16 mode:
+    ``passes`` bf16 products (3 in 'bf16x3', 1 in 'default') per product of
+    every conv of the stage (conv_pre, the transposed conv, the resblock
+    convs, conv_post) at the bf16 tensor-core peak, or its bytes over the
+    memory rate, whichever is larger. The kernel takes conv_pre's and
+    conv_post's products on the CUDA cores (as fp32 FMAs of the split or
+    rounded operands), a cost it pays against this bound."""
+    ops_s = passes * flops / PEAK_BF16
+    bytes_s = nbytes / HBM_BYTES_PER_S
+    return max(ops_s, bytes_s) * 1e3, 'operations' if ops_s >= bytes_s else 'bytes'
+
+
+def rms(t):
+    return float(t.double().pow(2).mean().sqrt())
+
+
+def snr_db(ref, out):
+    return 10 * float(np.log10(float((ref.double() ** 2).sum())
+                               / max(float(((out - ref).double() ** 2).sum()), 1e-300)))
+
+
+def fast_modes_path(dev, card, rng):
+    """Phase 17: the serving fast modes. Returns the JSON entries of K1 (v2's
+    narrow stages, v1's wide ones) in 'bf16x3' and 'default' and of K3 in
+    'default'."""
+    import torch
+    import torch.nn.functional as F
+    from pytorch_sound_tpu_torch.interface.hifi_gan import InterfaceHifiGAN
+    from pytorch_sound_tpu_torch.models import build_model
+    from pytorch_sound_tpu_torch.models.vocoders.hifi_gan import (generator_apply_fused,
+                                                                  init_params)
+    from pytorch_sound_tpu_torch.ops.cuda import gen_stage as gs
+
+    t_start = time.perf_counter()
+    v2 = {m: InterfaceHifiGAN('hifi_gan_v2', device='cuda', precision=m)
+          for m in ('highest',) + FAST_MODES}
+    v2_bf16 = InterfaceHifiGAN('hifi_gan_v2', device='cuda', dtype='bfloat16')
+    tree = state_tree(init_params(build_model('hifi_gan_v1'), torch.Generator().manual_seed(0)))
+    v1 = {m: InterfaceHifiGAN('hifi_gan_v1', params=tree, device='cuda', precision=m)
+          for m in ('highest',) + FAST_MODES}
+    v1_bf16 = InterfaceHifiGAN('hifi_gan_v1', params=tree, device='cuda', dtype='bfloat16')
+    gen2, gen1 = v2['highest'].decoder, v1['highest'].decoder
+    errs = {(kind, m): 0.0 for kind in ('narrow', 'wide', 'resblock') for m in FAST_MODES}
+
+    def held(kind, mode, ker, ref, highest, scale=0.0, **fields):
+        """A kernel output against the plain version of its mode, within
+        MODE_TOL of the larger of the plain version's max abs and ``scale``,
+        and nearer it than the plain 'highest' (MODE_RMS_RATIO)."""
+        torch.cuda.synchronize()
+        err, ref_max = max_err(ker, ref), float(ref.abs().max())
+        errs[kind, mode] = max(errs[kind, mode], err)
+        scale = max(scale, ref_max)
+        ratio = rms(ker - ref) / max(rms(ker - highest), 1e-300)
+        log('fast_' + kind, mode=mode, shape=tuple(ker.shape), max_abs_err='%.3g' % err,
+            ref_max='%.3g' % ref_max, scale='%.3g' % scale, rel='%.3g' % (err / scale),
+            rms_vs_highest_ratio='%.3g' % ratio, **fields)
+        assert ker.shape == ref.shape and err <= MODE_TOL[mode] * scale, (kind, mode, fields)
+        assert ratio <= MODE_RMS_RATIO, (kind, mode, ratio, fields)
+
+    def post_scale(x, args, mode):
+        """For a stage with conv_post, the largest sum of its absolute
+        products in the plain version of ``mode``; else 0."""
+        if args['conv_post'] is None:
+            return 0.0
+        mean = gs.generator_stage_reference(x, **dict(args, conv_post=None), precision=mode)
+        w = args['conv_post'][0]
+        return float(F.conv1d(F.leaky_relu(mean, 0.01).abs(), w.abs(),
+                              padding=(w.shape[-1] - 1) // 2).max())
+
+    def upsampled(gen, x, i):
+        h = gen.conv_pre(x) if i == 0 else x
+        return getattr(gen, 'ups_%d' % i)(F.leaky_relu(h, 0.1))
+
+    bench2 = torch.from_numpy((np.random.default_rng(7).standard_normal((32, 80, 256))
+                               .astype(np.float32) * 2 - 4)).to(dev)   # bench.py:372
+    bench1 = v1['highest'].encode(tones(rng, BATCH, 256 * UP))[..., :256].contiguous()
+
+    # 17.1 each stage kernel in each mode against the plain version of that
+    #      mode, on the same card tensor: v2's four stages on the bundled
+    #      weights fed by the real conv_pre and the plain stages before (as
+    #      phase 4), v1's four seeded stages (the cluster layout, conv_pre
+    #      folded into stage 0), K3 'default' on v1's resblock inputs
+    with torch.inference_mode():
+        for mel in (v2['highest'].encode(tones(rng, 4, 61 * UP))[..., :61], bench2):
+            x = gen2.conv_pre(mel)
+            for i in range(4):
+                args = gen2.stage_args(i)
+                highest = gs.generator_stage_reference(x, **args)
+                for m in FAST_MODES:
+                    held('narrow', m, gs.generator_stage(x, **args, precision=m),
+                         gs.generator_stage_reference(x, **args, precision=m), highest,
+                         post_scale(x, args, m), model='v2', batch=mel.shape[0],
+                         frames=mel.shape[2], stage=i)
+                x = highest
+        for mel in (v1['highest'].encode(tones(rng, 2, 61 * UP))[..., :61].contiguous(), bench1):
+            x = mel
+            for i in range(4):
+                args = gen1.stage_args(i, fold_conv_pre=i == 0)
+                highest = gs.generator_stage_reference(x, **args)
+                for m in FAST_MODES:
+                    held('wide' if i < 2 else 'narrow', m,
+                         gs.generator_stage(x, **args, precision=m),
+                         gs.generator_stage_reference(x, **args, precision=m), highest,
+                         post_scale(x, args, m), model='v1', batch=mel.shape[0],
+                         frames=mel.shape[2], stage=i)
+                h = upsampled(gen1, x, i)
+                held('resblock', 'default', gs.resblock_stage(h, args['blocks'], 'default'),
+                     gs.resblock_stage_reference(h, args['blocks'], 'default'),
+                     gs.resblock_stage_reference(h, args['blocks']),
+                     model='v1', batch=mel.shape[0], frames=mel.shape[2], stage=i)
+                x = highest
+
+    # 17.2 the main paths, counters from zero: the interfaces in each mode
+    #      (v2: the bench decode, a card slice, streaming and its whole
+    #      decode in 'bf16x3'; v1: the bench decode), the bf16 dtype decode
+    #      (no K1), K3 'default' through resblock_stage on v1's stages
+    with torch.inference_mode():
+        highest = v2['highest'].decode(bench2)
+        long_mel = bench2[:1].repeat(1, 1, 16).contiguous()              # 1 x 4096 frames
+        long_highest = v2['highest'].decode(long_mel)
+        v1_highest = v1['highest'].decode(bench1)
+        x = bench1
+        res_in = []
+        for i in range(4):
+            res_in.append(upsampled(gen1, x, i))
+            x = gs.generator_stage_reference(x, **gen1.stage_args(i, fold_conv_pre=i == 0))
+    torch.cuda.synchronize()
+    gs.reset_launches()
+    decoded = dict.fromkeys(FAST_MODES, 0)
+    wide = dict.fromkeys(FAST_MODES, 0)
+    out, slices, quality = {}, {}, {}
+    for m in FAST_MODES + ('bfloat16',):
+        iface = v2_bf16 if m == 'bfloat16' else v2[m]
+        out[m] = iface.decode(bench2)
+        slices[m] = iface.decode(bench2[:2, :, :64])
+        if m in decoded:
+            decoded[m] += 2
+    streamed = v2['bf16x3'].decode_streaming(long_mel, chunk_frames=256, overlap_frames=32)
+    whole = v2['bf16x3'].decode(long_mel)
+    decoded['bf16x3'] += 2
+    for m in FAST_MODES:
+        before = gs.generator_stage.wide_launches
+        out['v1_' + m] = v1[m].decode(bench1)
+        wide[m] = gs.generator_stage.wide_launches - before
+        decoded[m] += 1
+    out['v1_bfloat16'] = v1_bf16.decode(bench1)
+    with torch.inference_mode():
+        k3_out = [gs.resblock_stage(h, gen1.stage_blocks(i), 'default')
+                  for i, h in enumerate(res_in)]
+    torch.cuda.synchronize()
+    launches = dict(gs.generator_stage.launches_by_mode)
+    k3_launches = dict(gs.resblock_stage.launches_by_mode)
+    log('counts', path='fast_modes', decoded_batches=decoded, k1=launches,
+        k1_wide=gs.generator_stage.wide_launches, k3=k3_launches)
+    assert launches == {'highest': 0, 'bf16x3': 4 * decoded['bf16x3'],
+                        'default': 4 * decoded['default']}, launches
+    assert wide == {'bf16x3': 2, 'default': 2}, wide
+    assert gs.generator_stage.wide_launches == 4, gs.generator_stage.wide_launches
+    assert k3_launches == {'highest': 0, 'default': 4}, k3_launches
+
+    for m in FAST_MODES + ('bfloat16',):
+        o = out[m]
+        assert o.shape == highest.shape and o.dtype == torch.float32
+        assert bool(torch.isfinite(o).all()) and float(o.abs().max()) <= 1.0
+        err = o - highest
+        quality[m] = (float(err.abs().max()), float(err.abs().mean()), snr_db(highest, o))
+        v1_err = out['v1_' + m] - v1_highest
+        v1_snr = snr_db(v1_highest, out['v1_' + m])
+        label = 'bf16_dtype' if m == 'bfloat16' else m
+        log('fast_decode', card=repr(card), mel=tuple(bench2.shape), **{
+            'vocoder_%s_waveform_max_err' % label: '%.6g' % quality[m][0],
+            'vocoder_%s_waveform_mean_err' % label: '%.6g' % quality[m][1],
+            'vocoder_%s_snr_db' % label: '%.2f' % quality[m][2],
+            'v1_%s_max_err' % label: '%.4g' % float(v1_err.abs().max()),
+            'v1_%s_snr_db' % label: '%.2f' % v1_snr})
+        assert min(quality[m][2], v1_snr) >= MODE_MIN_SNR[m], (m, quality[m], v1_snr)
+        assert max(quality[m][2], v1_snr) <= MODE_MAX_SNR.get(m, np.inf), (m, quality[m], v1_snr)
+    for i, (h, got) in enumerate(zip(res_in, k3_out)):
+        blocks = gen1.stage_blocks(i)
+        held('resblock', 'default', got, gs.resblock_stage_reference(h, blocks, 'default'),
+             gs.resblock_stage_reference(h, blocks), model='v1', main_path=True, stage=i)
+
+    #      card vs CPU per mode, the streaming interior vs the whole decode
+    for m in FAST_MODES + ('bfloat16',):
+        kw = dict(dtype='bfloat16') if m == 'bfloat16' else dict(precision=m)
+        cpu = InterfaceHifiGAN('hifi_gan_v2', device='cpu', **kw).decode(bench2[:2, :, :64].cpu())
+        err = max_err(slices[m].cpu(), cpu)
+        mean = float((slices[m].cpu() - cpu).abs().mean())
+        snr = snr_db(cpu, slices[m].cpu())
+        log('fast_decode', mode=m, card_vs_cpu_max_abs_err='%.3g' % err,
+            card_vs_cpu_mean_abs_err='%.3g' % mean, card_vs_cpu_snr_db='%.2f' % snr)
+        if m == 'bfloat16':
+            assert snr >= MODE_MIN_SNR[m] and mean <= 2 ** -8, (m, snr, mean)
+        else:
+            assert err <= MODE_DECODE_TOL[m], (m, err)
+    edge = 10 * UP
+    err = max_err(streamed[..., edge:-edge], whole[..., edge:-edge])
+    log('fast_stream', mode='bf16x3', mel=tuple(long_mel.shape), interior_max_abs_err='%.3g' % err,
+        whole_vs_highest_max_abs_err='%.3g' % max_err(whole, long_highest))
+    assert streamed.shape == whole.shape == (1, 1, 4096 * UP) and err <= MODE_STREAM_TOL, err
+
+    # 17.3 timings (CUDA events): each mode's decode beside 'highest', the
+    #      plain versions of the mode and the bf16 dtype path, per stage, with
+    #      the bf16 tensor-core bounds
+    results = {}
+    with torch.inference_mode():
+        for name, gen, mel, fold, iters, bf16_iface in (
+                ('v2_32x256', gen2, bench2, False, 10, v2_bf16),
+                ('v1_16x256', gen1, bench1, True, 3, v1_bf16)):
+            stage_in = [mel if fold else gen.conv_pre(mel)]
+            for i in range(3):
+                stage_in.append(gs.generator_stage_reference(
+                    stage_in[-1], **gen.stage_args(i, fold_conv_pre=fold and i == 0)))
+            work = [stage_work(x, gen.stage_args(i, fold and i == 0))
+                    for i, x in enumerate(stage_in)]
+            dec = {m: cuda_ms(lambda m=m: generator_apply_fused(gen, mel, precision=m), iters)
+                   for m in ('highest',) + FAST_MODES}
+            dec['bfloat16'] = cuda_ms(lambda: bf16_iface.decoder(mel.to(torch.bfloat16)).float(),
+                                      iters)
+            per = {}
+            for m in ('highest',) + FAST_MODES:
+                per[m] = [paired_ms(
+                    lambda x=x, i=i, m=m: gs.generator_stage_reference(
+                        x, **gen.stage_args(i, fold and i == 0), precision=m),
+                    lambda x=x, i=i, m=m: gs.generator_stage(
+                        x, **gen.stage_args(i, fold and i == 0), precision=m), iters)[:2]
+                    for i, x in enumerate(stage_in)]
+            bounds = {m: [bf16_bound(f, b, 3 if m == 'bf16x3' else 1) for f, b in work]
+                      for m in FAST_MODES}
+            results[name] = (per, bounds, work)
+            log('time', card=repr(card), what='fast_decode_' + name,
+                gflop='%.1f' % (sum(f for f, _ in work) / 1e9),
+                **{'%s_ms' % m: '%.4f' % dec[m] for m in dec},
+                **{'%s_speedup' % m: '%.3f' % (dec['highest'] / dec[m])
+                   for m in FAST_MODES + ('bfloat16',)})
+            for m in ('highest',) + FAST_MODES:
+                fields = dict(per_stage_kernel_ms='/'.join('%.4f' % k for k, _ in per[m]),
+                              per_stage_plain_ms='/'.join('%.4f' % p for _, p in per[m]))
+                if m in FAST_MODES:
+                    fields.update(
+                        per_stage_bf16_bound_ms='/'.join('%.4f' % b for b, _ in bounds[m]),
+                        per_stage_share_of_bound='/'.join(
+                            '%.4f' % (b / k) for (b, _), (k, _) in zip(bounds[m], per[m])),
+                        stages_share_of_bound='%.4f' % (sum(b for b, _ in bounds[m])
+                                                        / sum(k for k, _ in per[m])))
+                log('time', card=repr(card), what='fast_stages_' + name, mode=m, **fields)
+        res_per = [paired_ms(lambda h=h, i=i: gs.resblock_stage_reference(
+                                 h, gen1.stage_blocks(i), 'default'),
+                             lambda h=h, i=i: gs.resblock_stage(h, gen1.stage_blocks(i), 'default'),
+                             3)[:2] for i, h in enumerate(res_in)]
+        res_hi = [cuda_ms(lambda h=h, i=i: gs.resblock_stage(h, gen1.stage_blocks(i)), 3)
+                  for i, h in enumerate(res_in)]
+    res_work = [resblock_work(h, gen1.stage_blocks(i)) for i, h in enumerate(res_in)]
+    res_bound = bf16_bound(sum(f for f, _ in res_work), sum(b for _, b in res_work), 1)
+    log('time', card=repr(card), what='fast_k3_v1_16x256', mode='default',
+        per_stage_kernel_ms='/'.join('%.4f' % k for k, _ in res_per),
+        per_stage_plain_ms='/'.join('%.4f' % p for _, p in res_per),
+        per_stage_highest_ms='/'.join('%.4f' % k for k in res_hi),
+        bf16_bound_ms='%.4f' % res_bound[0],
+        share_of_bound='%.4f' % (res_bound[0] / sum(k for k, _ in res_per)))
+
+    def entry(name, mode, stages, model, kind, count, replaces):
+        per, _, work = results[model]
+        b = bf16_bound(sum(work[i][0] for i in stages), sum(work[i][1] for i in stages),
+                       3 if mode == 'bf16x3' else 1)
+        return {'name': name, 'route': 'cuda', 'source': gs.SOURCE, 'replaces': replaces,
+                'precision': mode, 'launches': count, 'max_abs_err': errs[kind, mode],
+                'ms': sum(per[mode][i][0] for i in stages),
+                'plain_ms': sum(per[mode][i][1] for i in stages),
+                'bound_ms': b[0], 'bound_by': b[1], 'tc_bound_ms': b[0], 'library_ms': None}
+
+    k1 = 'pytorch_sound_tpu/ops/pallas/gen_stage.py:282'
+    entries = []
+    for m in FAST_MODES:
+        entries.append(entry('gen_stage_' + m, m, range(4), 'v2_32x256', 'narrow',
+                             launches[m] - wide[m], k1))
+        entries.append(entry('gen_stage_wide_' + m, m, (0, 1), 'v1_16x256', 'wide', wide[m], k1))
+    entries.append({'name': 'resblock_stage_default', 'route': 'cuda', 'source': gs.SOURCE,
+                    'replaces': 'pytorch_sound_tpu/ops/pallas/resblock.py:155',
+                    'precision': 'default', 'launches': k3_launches['default'],
+                    'max_abs_err': errs['resblock', 'default'],
+                    'ms': sum(k for k, _ in res_per), 'plain_ms': sum(p for _, p in res_per),
+                    'bound_ms': res_bound[0], 'bound_by': res_bound[1],
+                    'tc_bound_ms': res_bound[0], 'library_ms': None})
+    log('fast_modes', seconds='%.1f' % (time.perf_counter() - t_start))
+    return entries
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3726,7 +4075,7 @@ def main():
                 x = ref
 
     # 5. the main path, counters from zero
-    gs.generator_stage.launches = 0
+    gs.reset_launches()
     lm.fused_log_mel.launches = 0
     encodes = decoded_batches = 0
 
@@ -3776,7 +4125,7 @@ def main():
     log('stream', mel=tuple(long_mel.shape), interior_max_abs_err='%.3g' % err)
     assert err <= STREAM_TOL, err
 
-    launches = {'gen_stage': gs.generator_stage.launches,
+    launches = {'gen_stage': gs.launch_count(gs.generator_stage),
                 'logmel': lm.fused_log_mel.launches}
     log('counts', gen_stage=launches['gen_stage'], logmel=launches['logmel'],
         decoded_batches=decoded_batches, encodes=encodes)
@@ -3925,6 +4274,11 @@ def main():
     for entry, n in zip(k6_entries, mgpu[3:]):
         entry['launches'] += n
 
+    # 17. the serving fast modes: K1 in 'bf16x3' / 'default' and K3 in
+    #     'default' on the bf16 tensor cores, the interfaces' precision= and
+    #     dtype='bfloat16'
+    fast_entries = fast_modes_path(dev, card, rng)
+
     print(json.dumps({'kernels': [
         {'name': 'gen_stage', 'route': 'cuda', 'source': gs.SOURCE,
          'replaces': 'pytorch_sound_tpu/ops/pallas/gen_stage.py:282',
@@ -3945,6 +4299,7 @@ def main():
         *k6_entries,
         *v1_entries,
         *k5_entries,
+        *fast_entries,
     ]}), flush=True)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': name,
                                              'count': torch.cuda.device_count()}}),

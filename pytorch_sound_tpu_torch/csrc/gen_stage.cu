@@ -1,5 +1,5 @@
-// Fused HiFi-GAN generator upsample stage (inference), fp32, and its
-// resblock-only mode.
+// Fused HiFi-GAN generator upsample stage (inference), fp32 or the bf16
+// fast modes, and its resblock-only mode.
 //
 // Replaces two TPU kernels:
 //
@@ -109,6 +109,29 @@
 // The conv_pre loop uses an 8-channel x 2-position tile on the CUDA cores,
 // the weight loads shared by the warp, each feeding two FMAs.
 //
+// Contraction modes (the JAX kernels' `precision`; the entry points' `mode`):
+// every product of the stage (conv_pre, the transposed conv, the resblock
+// convs, conv_post) is taken in the mode; leaky_relu, the biases, the
+// residual adds, the block mean and tanh stay fp32.
+// - kHighest ('highest'): 3xTF32 as above, fp32 accuracy.
+// - kBf16x3 ('bf16x3') and kDefault ('default'): bf16 mma.sync m16n8k16
+//   (bf16_mma.cuh), three products of bf16 hi / lo splits or one of
+//   bf16-rounded operands, rounded to nearest even as JAX's astype does.
+//   A k-step takes one kKC-channel chunk; lane (g, t) holds channels t, t + 4
+//   (k = 2t, 2t + 1) and t + 8, t + 12 (k = 2t + 8, 2t + 9), a permutation of
+//   the contraction that makes its A loads the two TF32 k-steps' loads (the
+//   swizzle and the input span's row stride keep them conflict-free) and
+//   that the weight fragments repeat (bf16_split_kernel; plain version
+//   ops/cuda/gen_stage.py: bf16_fragments). A half chunk (C = 8 mod 16)
+//   runs a whole k-step with the upper 8 channels zero. Activations stay
+//   fp32 in shared memory and are split or rounded in registers after
+//   leaky_relu; conv_pre and conv_post, on the CUDA cores, take the same
+//   products as fp32 FMAs of the split or rounded operands (each bf16
+//   product is exact in fp32). Sums as in kHighest: bf16x3 sums each
+//   k-step's three products in a fresh accumulator; kDefault chains its one
+//   product per k-step in the single-block layout (the accumulator's
+//   rounding toward zero, ~2^-23 per k-step, is far below bf16's 2^-9).
+//
 // Two layouts, by width:
 //
 // - C <= 64 (single block): one block of 512 threads per (item, tile) holds
@@ -139,6 +162,7 @@
 #include <algorithm>
 #include <cstddef>
 
+#include "bf16_mma.cuh"
 #include "tf32_mma.cuh"
 
 namespace cg = cooperative_groups;
@@ -163,14 +187,17 @@ constexpr int kCoTile = 8;         // conv_pre: output rows per thread
 constexpr int kUpStrip = 2;        // conv_pre: positions per thread
 constexpr int kKC = 16;            // input channels per chunk of a resblock conv
 constexpr int kTiles = 8;          // mma tiles (MI x NI) per warp
+constexpr int kHighest = 0;        // contraction modes (see the note above)
+constexpr int kBf16x3 = 1;
+constexpr int kDefault = 2;
 // float4 copies per thread of one peer chunk (kKC rows of the widest tile)
 constexpr int kStageVec = kKC * (kWideMaxTile + 2 * kHalo) / 4 / kWideThreads;
 static_assert(kStageVec * kWideThreads * 4 == kKC * (kWideMaxTile + 2 * kHalo),
               "a peer chunk splits evenly over the cluster layout's threads");
 
 struct Plan {
-  const float4* w[kMaxConvs]; // each (C, C, k) weight as TF32 fragments, in
-                              // execution order (see conv_layer)
+  const float4* w[kMaxConvs]; // each (C, C, k) weight as TF32 or bf16
+                              // fragments, in execution order (see conv_layer)
   const float* b[kMaxConvs];  // (C,)
   int k[kMaxConvs];
   int d[kMaxConvs];
@@ -193,8 +220,8 @@ struct Stage {
   int u, k_up, pad;           // k_up == 0: no upsample (the resblock mode)
   int q_stride, q_row;        // input rows a tile's transposed conv reads; the
                               // row stride of their span in shared memory
-  const float4* up_w;         // (2C, C, k_up) as TF32 fragments of its (C, 2C,
-                              // k_up) transpose (see conv_transpose)
+  const float4* up_w;         // (2C, C, k_up) as TF32 or bf16 fragments of its
+                              // (C, 2C, k_up) transpose (see conv_transpose)
   const float* up_b;          // (C,)
   const float* pre_w;         // (2C, c_mel, pre_k)
   const float* pre_b;         // (2C,)
@@ -238,15 +265,91 @@ __device__ __forceinline__ void stage_sync(int ranks) {
     __syncthreads();
 }
 
+// One bf16 k-step of conv_layer (kBf16x3, kDefault) over a kKC-channel chunk
+// whose rows start at cb: lane (g, t) loads channels t, t + 4, t + 8 and t +
+// 12 (the upper two only when `full`, else zero) at positions p0 + stride i
+// and 8 later for its cnt m-tiles, splits (kBf16x3) or rounds (kDefault)
+// them in pairs after leaky_relu (kLreluIn), and takes the products with the
+// weight fragments at frag + 32 n of its NI n-tiles: into part (the cluster
+// layout's run of a tap) or into acc (kBf16x3 through a fresh accumulator).
+template <int MI, int NI, bool kLreluIn, bool kWide, int kMode>
+__device__ __forceinline__ void bf16_step(const float* sm, const float4* __restrict__ wf,
+                                          size_t frag, int cb, int L, int p0, int stride,
+                                          int cnt, bool full, int t, int swa0, int swa1,
+                                          float (&acc)[MI * NI][4], float (&part)[MI * NI][4]) {
+  unsigned bh[NI][2], bl[NI][2];
+#pragma unroll
+  for (int n = 0; n < NI; ++n) {
+    if constexpr (kMode == kBf16x3) {
+      const uint4 v = __ldg(reinterpret_cast<const uint4*>(wf) + frag + 32 * n);
+      bh[n][0] = v.x;
+      bh[n][1] = v.y;
+      bl[n][0] = v.z;
+      bl[n][1] = v.w;
+    } else {
+      const uint2 v = __ldg(reinterpret_cast<const uint2*>(wf) + frag + 32 * n);
+      bh[n][0] = v.x;
+      bh[n][1] = v.y;
+    }
+  }
+  const int r0 = cb + t * L;   // channel rows t, t + 4, t + 8, t + 12
+  const int r1 = r0 + 4 * L;
+  const int r2 = r0 + 8 * L;
+  const int r3 = r0 + 12 * L;
+#pragma unroll
+  for (int i = 0; i < MI; ++i) {
+    if (i < cnt) {
+      const int p = p0 + stride * i;
+      const int pa = p ^ swa0, pb = (p + 8) ^ swa0, pc = p ^ swa1, pd = (p + 8) ^ swa1;
+      // registers 0-3: (row g, k 2t / 2t + 1), (row g + 8, ...), the same at
+      // k 2t + 8 / 2t + 9
+      float a[8] = {sm[r0 + pa], sm[r1 + pc], sm[r0 + pb], sm[r1 + pd], 0.f, 0.f, 0.f, 0.f};
+      if (full) {
+        a[4] = sm[r2 + pa];
+        a[5] = sm[r3 + pc];
+        a[6] = sm[r2 + pb];
+        a[7] = sm[r3 + pd];
+      }
+      unsigned ah[4], al[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x0 = kLreluIn ? lrelu(a[2 * e], 0.1f) : a[2 * e];
+        const float x1 = kLreluIn ? lrelu(a[2 * e + 1], 0.1f) : a[2 * e + 1];
+        if constexpr (kMode == kBf16x3)
+          split_bf16(x0, x1, ah[e], al[e]);
+        else
+          ah[e] = pack_bf16(x0, x1);
+      }
+#pragma unroll
+      for (int n = 0; n < NI; ++n) {
+        if constexpr (kMode == kBf16x3) {
+          if constexpr (kWide)
+            mma_bf16x3(part[i * NI + n], ah, al, bh[n], bl[n]);
+          else
+            mma_bf16x3_add(acc[i * NI + n], ah, al, bh[n], bl[n]);
+        } else if constexpr (kWide) {
+          mma_bf16(part[i * NI + n], ah, bh[n]);
+        } else {
+          mma_bf16(acc[i * NI + n], ah, bh[n]);
+        }
+      }
+    }
+  }
+}
+
 // dst[co][p] = act(mask(p) * (bias[co] + sum_ci sum_j w[co][ci][j]
 //                   * in(src[ci][p + (j - half) * d]))) (+ res[co][p])
 // for p in [lo, hi) and this block's output channels co, where in =
 // leaky_relu(0.1) if kLreluIn else identity and act = leaky_relu(0.1) if
-// kLreluOut else identity; 3xTF32 on the tensor cores.
+// kLreluOut else identity; on the tensor cores in mode kMode.
 //
-// wf holds the weight as TF32 fragments: float4 ((j S + s) S + n) 32 + lane
-// (S = C / 8; lane = 4 g + t) is {hi, hi, lo, lo} of w[8n + g][8s + t][j] and
-// w[8n + g][8s + t + 4][j], the B operand of k-step s, n-tile n, tap j.
+// kHighest: wf holds the weight as TF32 fragments: float4 ((j S + s) S + n)
+// 32 + lane (S = C / 8; lane = 4 g + t) is {hi, hi, lo, lo} of w[8n + g][8s +
+// t][j] and w[8n + g][8s + t + 4][j], the B operand of k-step s, n-tile n,
+// tap j. kBf16x3 / kDefault: bf16 fragments, ((j S16 + s) N + n) 32 + lane
+// (S16 = ceil(C / 16) k-steps, N = C / 8 n-tiles) holds the registers
+// {hi(16s + t, 16s + t + 4), hi(16s + t + 8, 16s + t + 12)} of w[8n + g]
+// at tap j, then the same of lo in bf16x3 (a uint4; a uint2 in kDefault).
 //
 // The warps split this block's channels into groups of NI n-tiles and the
 // m-tiles of [lo, hi) round robin within a group, MI = kTiles / NI per warp
@@ -256,7 +359,7 @@ __device__ __forceinline__ void stage_sync(int ranks) {
 // In the cluster layout a peer's chunk is read from the staging buffer: its
 // copy was loaded into registers before the previous chunk's products and
 // stored after them.
-template <int kK, bool kLreluIn, bool kLreluOut, int NI, bool kWide>
+template <int kK, bool kLreluIn, bool kLreluOut, int NI, bool kWide, int kMode>
 __device__ void conv_layer(const Tile& tl, int src, int dst, int res,
                            const float4* __restrict__ wf, const float* __restrict__ bias,
                            int d, int lo, int hi) {
@@ -273,6 +376,7 @@ __device__ void conv_layer(const Tile& tl, int src, int dst, int res,
   const int ng = warp / wm;                      // >= n_groups: idle warp
   const int wi = warp % wm;
   const int S = tl.c / 8;
+  const int S16 = (tl.c + 15) / 16;              // bf16 k-steps
   const int n0 = tl.rank * (tl.cs / 8) + ng * NI;  // this warp's first n-tile
   const int m_tiles = (hi - lo + 15) / 16;
   const int per_wave = wm * MI;
@@ -321,40 +425,46 @@ __device__ void conv_layer(const Tile& tl, int src, int dst, int res,
 #pragma unroll 1
         for (int j = 0; j < kK; ++j) {
           const int off = (j - half) * d;
-          const float4* wj =
-              wf + (static_cast<size_t>(j * S + c * (kKC / 8)) * S + n0) * 32 + lane;
+          if constexpr (kMode != kHighest) {
+            bf16_step<MI, NI, kLreluIn, kWide, kMode>(
+                sm, wf, (static_cast<size_t>(j * S16 + c) * S + n0) * 32 + lane, cb, L,
+                pos0 + off, 16 * wm, cnt, steps == 2, t, swa0, swa1, acc, part);
+          } else {
+            const float4* wj =
+                wf + (static_cast<size_t>(j * S + c * (kKC / 8)) * S + n0) * 32 + lane;
 #pragma unroll
-          for (int s = 0; s < kKC / 8; ++s) {
-            if (s >= steps) break;
-            unsigned bh[NI][2], bl[NI][2];
+            for (int s = 0; s < kKC / 8; ++s) {
+              if (s >= steps) break;
+              unsigned bh[NI][2], bl[NI][2];
 #pragma unroll
-            for (int n = 0; n < NI; ++n) {
-              const float4 v = __ldg(wj + (s * S + n) * 32);
-              bh[n][0] = __float_as_uint(v.x);
-              bh[n][1] = __float_as_uint(v.y);
-              bl[n][0] = __float_as_uint(v.z);
-              bl[n][1] = __float_as_uint(v.w);
-            }
-            const int r0 = cb + (8 * s + t) * L;   // channel rows t and t + 4
-            const int r1 = r0 + 4 * L;
+              for (int n = 0; n < NI; ++n) {
+                const float4 v = __ldg(wj + (s * S + n) * 32);
+                bh[n][0] = __float_as_uint(v.x);
+                bh[n][1] = __float_as_uint(v.y);
+                bl[n][0] = __float_as_uint(v.z);
+                bl[n][1] = __float_as_uint(v.w);
+              }
+              const int r0 = cb + (8 * s + t) * L;   // channel rows t and t + 4
+              const int r1 = r0 + 4 * L;
 #pragma unroll
-            for (int i = 0; i < MI; ++i) {
-              if (i < cnt) {
-                const int p = pos0 + 16 * wm * i + off;
-                const float a[4] = {sm[r0 + (p ^ swa0)], sm[r0 + ((p + 8) ^ swa0)],
-                                    sm[r1 + (p ^ swa1)], sm[r1 + ((p + 8) ^ swa1)]};
-                unsigned ah[4], al[4];
+              for (int i = 0; i < MI; ++i) {
+                if (i < cnt) {
+                  const int p = pos0 + 16 * wm * i + off;
+                  const float a[4] = {sm[r0 + (p ^ swa0)], sm[r0 + ((p + 8) ^ swa0)],
+                                      sm[r1 + (p ^ swa1)], sm[r1 + ((p + 8) ^ swa1)]};
+                  unsigned ah[4], al[4];
 #pragma unroll
-                for (int e = 0; e < 4; ++e)
-                  split_tf32(kLreluIn ? lrelu(a[e], 0.1f) : a[e], ah[e], al[e]);
-                if constexpr (kWide) {
+                  for (int e = 0; e < 4; ++e)
+                    split_tf32(kLreluIn ? lrelu(a[e], 0.1f) : a[e], ah[e], al[e]);
+                  if constexpr (kWide) {
 #pragma unroll
-                  for (int n = 0; n < NI; ++n)
-                    mma_3xtf32(part[i * NI + n], ah, al, bh[n], bl[n]);
-                } else {
+                    for (int n = 0; n < NI; ++n)
+                      mma_3xtf32(part[i * NI + n], ah, al, bh[n], bl[n]);
+                  } else {
 #pragma unroll
-                  for (int n = 0; n < NI; ++n)
-                    mma_3xtf32_add(acc[i * NI + n], ah, al, bh[n], bl[n]);
+                    for (int n = 0; n < NI; ++n)
+                      mma_3xtf32_add(acc[i * NI + n], ah, al, bh[n], bl[n]);
+                  }
                 }
               }
             }
@@ -413,20 +523,22 @@ __device__ void conv_layer(const Tile& tl, int src, int dst, int res,
 
 // One ResBlock1 conv with its kernel size dispatched to an unrolled instance:
 // HiFi-GAN's 3 / 7 / 11, the only sizes the entry points accept.
-template <bool kLreluIn, bool kLreluOut, int NI, bool kWide>
+template <bool kLreluIn, bool kLreluOut, int NI, bool kWide, int kMode>
 __device__ void conv_any(const Tile& tl, int k, int src, int dst, int res, const float4* w,
                          const float* b, int d, int lo, int hi) {
   if (k == 3)
-    conv_layer<3, kLreluIn, kLreluOut, NI, kWide>(tl, src, dst, res, w, b, d, lo, hi);
+    conv_layer<3, kLreluIn, kLreluOut, NI, kWide, kMode>(tl, src, dst, res, w, b, d, lo, hi);
   else if (k == 7)
-    conv_layer<7, kLreluIn, kLreluOut, NI, kWide>(tl, src, dst, res, w, b, d, lo, hi);
+    conv_layer<7, kLreluIn, kLreluOut, NI, kWide, kMode>(tl, src, dst, res, w, b, d, lo, hi);
   else
-    conv_layer<11, kLreluIn, kLreluOut, NI, kWide>(tl, src, dst, res, w, b, d, lo, hi);
+    conv_layer<11, kLreluIn, kLreluOut, NI, kWide, kMode>(tl, src, dst, res, w, b, d, lo, hi);
 }
 
 // The input rows the tile's transposed conv reads, q in [q_lo, q_lo +
 // q_stride), all 2C channels (rows q_row floats apart): leaky_relu(0.1) of x,
-// or of conv_pre(mel) computed here, zero outside [0, t_in).
+// or of conv_pre(mel) computed here (its products in mode kMode), zero
+// outside [0, t_in).
+template <int kMode>
 __device__ void load_input_span(const Stage& s, const Plan& plan, float* smem, int n,
                                 int q_lo) {
   float* xs = smem + plan.xs_off;
@@ -476,17 +588,35 @@ __device__ void load_input_span(const Stage& s, const Plan& plan, float* smem, i
       const float* mr = mel + cm * m_w;
       const float* wr = s.pre_w + ci0 * w_ci + cm * s.pre_k;
       for (int j = 0; j < s.pre_k; ++j) {
-        float v[kUpStrip];
+        float v[kUpStrip], vl[kUpStrip];
 #pragma unroll
         for (int t = 0; t < kUpStrip; ++t) {
           const int r = r0 + 32 * t;
           v[t] = r < s.q_stride ? mr[r + j] : 0.f;
+          if constexpr (kMode != kHighest) {   // v = bf16 hi, vl = lo
+            const float h = round_bf16(v[t]);
+            vl[t] = round_bf16(v[t] - h);
+            v[t] = h;
+          }
         }
 #pragma unroll
         for (int c = 0; c < kCoTile; ++c) {
           const float wv = __ldg(wr + c * w_ci + j);
+          if constexpr (kMode == kHighest) {
 #pragma unroll
-          for (int t = 0; t < kUpStrip; ++t) acc[c][t] = fmaf(wv, v[t], acc[c][t]);
+            for (int t = 0; t < kUpStrip; ++t) acc[c][t] = fmaf(wv, v[t], acc[c][t]);
+          } else {
+            const float wh = round_bf16(wv);
+            const float wl = round_bf16(wv - wh);
+#pragma unroll
+            for (int t = 0; t < kUpStrip; ++t) {
+              if constexpr (kMode == kBf16x3) {
+                acc[c][t] = fmaf(wl, v[t], acc[c][t]);
+                acc[c][t] = fmaf(wh, vl[t], acc[c][t]);
+              }
+              acc[c][t] = fmaf(wh, v[t], acc[c][t]);
+            }
+          }
         }
       }
     }
@@ -516,8 +646,10 @@ __device__ void load_input_span(const Stage& s, const Plan& plan, float* smem, i
 // k_up) transpose, laid out as conv_layer's. Warps split the channels as in
 // conv_layer and take the (phase, m-tile) units round robin, one at a time;
 // each output sums its taps in order and each tap's input channels by
-// k-step, each k-step's products in a fresh accumulator.
-template <int NI>
+// k-step, each k-step's products in a fresh accumulator. In the bf16 modes a
+// k-step covers 16 input channels, lane (g, t) taking rows t, t + 4, t + 8
+// and t + 12 as conv_layer does, and kDefault chains its products.
+template <int NI, int kMode>
 __device__ void conv_transpose(const Stage& s, const Plan& plan, int L, int base, int rank) {
   float* const sm = reinterpret_cast<float*>(smem4);
   const int u = s.u;
@@ -550,6 +682,47 @@ __device__ void conv_transpose(const Stage& s, const Plan& plan, int L, int base
     for (int m = 0; m < m_taps; ++m) {
       const int j = r + m * u;
       if (j >= s.k_up) break;
+      if constexpr (kMode != kHighest) {
+        const size_t fj = (static_cast<size_t>(j) * (S / 2) * N + n0) * 32 + lane;
+#pragma unroll 2
+        for (int ks = 0; ks < S / 2; ++ks) {
+          unsigned bh[NI][2], bl[NI][2];
+#pragma unroll
+          for (int n = 0; n < NI; ++n) {
+            if constexpr (kMode == kBf16x3) {
+              const uint4 v = __ldg(reinterpret_cast<const uint4*>(s.up_w) + fj + (ks * N + n) * 32);
+              bh[n][0] = v.x;
+              bh[n][1] = v.y;
+              bl[n][0] = v.z;
+              bl[n][1] = v.w;
+            } else {
+              const uint2 v = __ldg(reinterpret_cast<const uint2*>(s.up_w) + fj + (ks * N + n) * 32);
+              bh[n][0] = v.x;
+              bh[n][1] = v.y;
+            }
+          }
+          const int k0 = 16 * ks * qr - m;
+          const float a[8] = {sm[c0 + k0],          sm[c0 + k0 + 4 * qr],  sm[c1 + k0],
+                              sm[c1 + k0 + 4 * qr], sm[c0 + k0 + 8 * qr],  sm[c0 + k0 + 12 * qr],
+                              sm[c1 + k0 + 8 * qr], sm[c1 + k0 + 12 * qr]};
+          unsigned ah[4], al[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if constexpr (kMode == kBf16x3)
+              split_bf16(a[2 * e], a[2 * e + 1], ah[e], al[e]);
+            else
+              ah[e] = pack_bf16(a[2 * e], a[2 * e + 1]);
+          }
+#pragma unroll
+          for (int n = 0; n < NI; ++n) {
+            if constexpr (kMode == kBf16x3)
+              mma_bf16x3_add(acc[n], ah, al, bh[n], bl[n]);
+            else
+              mma_bf16(acc[n], ah, bh[n]);
+          }
+        }
+        continue;
+      }
       const float4* wj = s.up_w + (static_cast<size_t>(j) * S * N + n0) * 32 + lane;
 #pragma unroll 2
       for (int ks = 0; ks < S; ++ks) {
@@ -590,7 +763,7 @@ __device__ void conv_transpose(const Stage& s, const Plan& plan, int L, int base
   }
 }
 
-template <int kNT, int NI>
+template <int kNT, int NI, int kMode>
 __global__ void __launch_bounds__(kNT) gen_stage_kernel(const Stage s, const Plan plan) {
   constexpr bool kWide = kNT == kWideThreads;   // the cluster layout
   float* smem = reinterpret_cast<float*>(smem4);
@@ -628,11 +801,11 @@ __global__ void __launch_bounds__(kNT) gen_stage_kernel(const Stage s, const Pla
     // 1. the input rows the tile's transposed conv reads
     const int m_taps = (s.k_up + s.u - 1) / s.u;
     const int q_lo = floor_div(base + plan.h_lo + s.pad, s.u) - (m_taps - 1);
-    load_input_span(s, plan, smem, n, q_lo);
+    load_input_span<kMode>(s, plan, smem, n, q_lo);
     __syncthreads();
 
     // 2. transposed conv
-    conv_transpose<NI>(s, plan, L, base, rank);
+    conv_transpose<NI, kMode>(s, plan, L, base, rank);
   }
   stage_sync(ranks);
 
@@ -643,11 +816,11 @@ __global__ void __launch_bounds__(kNT) gen_stage_kernel(const Stage s, const Pla
   for (int b = 0; b < plan.n_blocks; ++b) {
     for (int r = 0; r < plan.rounds[b]; ++r) {
       const int src = r == 0 ? h_at : x_at;
-      conv_any<true, true, NI, kWide>(tl, plan.k[ci], src, t_at, -1, plan.w[ci], plan.b[ci],
+      conv_any<true, true, NI, kWide, kMode>(tl, plan.k[ci], src, t_at, -1, plan.w[ci], plan.b[ci],
                                       plan.d[ci], plan.lo[ci], plan.hi[ci]);
       ++ci;
       stage_sync(ranks);
-      conv_any<false, false, NI, kWide>(tl, plan.k[ci], t_at, x_at, src, plan.w[ci],
+      conv_any<false, false, NI, kWide, kMode>(tl, plan.k[ci], t_at, x_at, src, plan.w[ci],
                                         plan.b[ci], plan.d[ci], plan.lo[ci], plan.hi[ci]);
       ++ci;
       stage_sync(ranks);
@@ -685,8 +858,19 @@ __global__ void __launch_bounds__(kNT) gen_stage_kernel(const Stage s, const Pla
     float a = 0.f;
     for (int c = 0; c < s.c; ++c) {
       const float* row = acc + c * A + kHalo + p - ph - plan.a_lo;
-      for (int j = 0; j < s.post_k; ++j)
-        a = fmaf(row[j], __ldg(s.post_w + c * s.post_k + j), a);
+      for (int j = 0; j < s.post_k; ++j) {
+        if constexpr (kMode == kHighest) {
+          a = fmaf(row[j], __ldg(s.post_w + c * s.post_k + j), a);
+        } else {   // the split or rounded products, as conv_pre's
+          const float w = __ldg(s.post_w + c * s.post_k + j);
+          const float wh = round_bf16(w), h = round_bf16(row[j]);
+          if constexpr (kMode == kBf16x3) {
+            a = fmaf(round_bf16(w - wh), h, a);
+            a = fmaf(wh, round_bf16(row[j] - h), a);
+          }
+          a = fmaf(wh, h, a);
+        }
+      }
     }
     on[g] = tanhf(a + __ldg(s.post_b));
   }
@@ -791,67 +975,134 @@ __global__ void tf32_split_kernel(const __grid_constant__ SplitJobs jobs,
   }
 }
 
+// bf16_split_kernel: the bf16 modes' twin of tf32_split_kernel, whose jobs
+// count the entries of each weight with c_in padded to a multiple of 16
+// (stage_jobs with bf16 set). Weight j, read as (c_out, c_in, k), is written
+// to out[parts start[j], parts start[j + 1]) (bf16 elements) as (k, c_in16 /
+// 16, c_out / 8, 8, 4, parts, 2, 2) = (tap, k-step s, n-tile, g, t, hi / lo,
+// register r, half h): entry w[8 n + g][16 s + 8 r + 4 h + t][tap], zero past
+// c_in; hi = bf16(w) and lo = bf16(w - hi), rounded to nearest even (parts
+// 2, kBf16x3), or hi alone (parts 1, kDefault). One thread per entry.
+__global__ void bf16_split_kernel(const __grid_constant__ SplitJobs jobs,
+                                  __nv_bfloat16* __restrict__ out, int parts) {
+  const long long total = jobs.start[jobs.n];
+  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long e = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
+       e < total; e += step) {
+    int j = 0;
+    while (e >= jobs.start[j + 1]) ++j;
+    const long long l = e - jobs.start[j];
+    const int co = jobs.c_out[j], ci = jobs.c_in[j], k = jobs.k[j];
+    const int s16 = (ci + 15) / 16;
+    const int h = static_cast<int>(l & 1), r = static_cast<int>((l >> 1) & 1);
+    const int t = static_cast<int>((l >> 2) & 3), g = static_cast<int>((l >> 4) & 7);
+    long long q = l >> 7;
+    const int nt = static_cast<int>(q % (co / 8));
+    q /= co / 8;
+    const int ks = static_cast<int>(q % s16);
+    const int tap = static_cast<int>(q / s16);
+    const long long o = 8 * nt + g, i = 16 * ks + 8 * r + 4 * h + t;
+    const long long src = jobs.transposed[j] ? (i * co + o) * k + tap : (o * ci + i) * k + tap;
+    const float v = i < ci ? __ldg(jobs.w[j] + src) : 0.f;
+    const __nv_bfloat16 hi = __float2bfloat16_rn(v);
+    __nv_bfloat16* dst = out + parts * (jobs.start[j] + ((l >> 2) << 2)) + (l & 3);
+    dst[0] = hi;
+    if (parts == 2) dst[4] = __float2bfloat16_rn(v - __bfloat162float(hi));
+  }
+}
+
 // The split jobs of a stage: its transposed conv first (when s.k_up > 0),
-// then its resblock convs in plan order.
+// then its resblock convs in plan order; with bf16, each weight's c_in
+// counted padded to a multiple of 16 (bf16_split_kernel).
 SplitJobs stage_jobs(const Stage& s, int n_convs, const int* conv_k, const float* up_w,
-                     const void* const* conv_w) {
+                     const void* const* conv_w, bool bf16) {
   SplitJobs jobs = {};
-  auto add = [&jobs](const float* w, int c_out, int c_in, int k, int transposed) {
+  auto add = [&jobs, bf16](const float* w, int c_out, int c_in, int k, int transposed) {
     const int j = jobs.n++;
     jobs.w[j] = w;
     jobs.c_out[j] = c_out;
     jobs.c_in[j] = c_in;
     jobs.k[j] = k;
     jobs.transposed[j] = transposed;
-    jobs.start[j + 1] = jobs.start[j] + static_cast<long long>(c_out) * c_in * k;
+    const long long rows = bf16 ? (c_in + 15) / 16 * 16 : c_in;
+    jobs.start[j + 1] = jobs.start[j] + static_cast<long long>(c_out) * rows * k;
   };
   if (s.k_up > 0) add(up_w, s.c, 2 * s.c, s.k_up, 1);
   for (int i = 0; i < n_convs; ++i) add(static_cast<const float*>(conv_w[i]), s.c, s.c, conv_k[i], 0);
   return jobs;
 }
 
-int launch_stage(Stage s, Plan plan, int n, void* stream);
+int launch_stage(Stage s, Plan plan, int n, int mode, void* stream);
 
 // Checks the convs, splits the stage's weights (up_w, conv_w: the raw fp32
-// weights) into TF32 fragments in scratch on `stream`, fills the plan, and
-// launches the stage kernel there; the scratch is freed on the stream after
-// it.
-int launch(Stage s, Plan plan, int n, int n_convs, const int* conv_k, const int* conv_d,
-           const float* up_w, const void* const* conv_w, const void* const* conv_b,
-           void* stream) {
+// weights) into TF32 or (bf16 modes) bf16 fragments in scratch on `stream`,
+// fills the plan, and launches the stage kernel in `mode` there; the scratch
+// is freed on the stream after it.
+int launch(Stage s, Plan plan, int n, int mode, int n_convs, const int* conv_k,
+           const int* conv_d, const float* up_w, const void* const* conv_w,
+           const void* const* conv_b, void* stream) {
+  if (mode != kHighest && mode != kBf16x3 && mode != kDefault)
+    return static_cast<int>(cudaErrorInvalidValue);
   for (int i = 0; i < n_convs; ++i) {
     if ((conv_k[i] != 3 && conv_k[i] != 7 && conv_k[i] != 11) || conv_d[i] < 1)
       return static_cast<int>(cudaErrorInvalidValue);
   }
   const auto st = static_cast<cudaStream_t>(stream);
-  const SplitJobs jobs = stage_jobs(s, n_convs, conv_k, up_w, conv_w);
+  const bool bf16 = mode != kHighest;
+  const int parts = mode == kBf16x3 ? 2 : 1;    // bf16 elements per padded entry
+  const SplitJobs jobs = stage_jobs(s, n_convs, conv_k, up_w, conv_w, bf16);
   float* frags = nullptr;
-  cudaError_t err = cudaMallocAsync(reinterpret_cast<void**>(&frags),
-                                    2 * jobs.start[jobs.n] * sizeof(float), st);
+  cudaError_t err = cudaMallocAsync(
+      reinterpret_cast<void**>(&frags),
+      bf16 ? parts * jobs.start[jobs.n] * sizeof(__nv_bfloat16)
+           : 2 * jobs.start[jobs.n] * sizeof(float), st);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long blocks = (jobs.start[jobs.n] + 255) / 256;
-  tf32_split_kernel<<<static_cast<int>(blocks < 1056 ? blocks : 1056), 256, 0, st>>>(jobs,
-                                                                                   frags);
+  const int grid = static_cast<int>(blocks < 1056 ? blocks : 1056);
+  if (bf16)
+    bf16_split_kernel<<<grid, 256, 0, st>>>(jobs, reinterpret_cast<__nv_bfloat16*>(frags),
+                                            parts);
+  else
+    tf32_split_kernel<<<grid, 256, 0, st>>>(jobs, frags);
   int code = static_cast<int>(cudaGetLastError());
   if (code == 0) {
     const int first = s.k_up > 0 ? 1 : 0;
     if (s.k_up > 0) s.up_w = reinterpret_cast<const float4*>(frags);
     for (int i = 0; i < n_convs; ++i) {
-      plan.w[i] = reinterpret_cast<const float4*>(frags + 2 * jobs.start[first + i]);
+      // each weight's start is a multiple of 128 entries: 16-byte aligned
+      const long long at = jobs.start[first + i];
+      plan.w[i] = bf16 ? reinterpret_cast<const float4*>(
+                             reinterpret_cast<const __nv_bfloat16*>(frags) + parts * at)
+                       : reinterpret_cast<const float4*>(frags + 2 * at);
       plan.b[i] = static_cast<const float*>(conv_b[i]);
       plan.k[i] = conv_k[i];
       plan.d[i] = conv_d[i];
     }
-    code = launch_stage(s, plan, n, stream);
+    code = launch_stage(s, plan, n, mode, stream);
   }
   err = cudaFreeAsync(frags, st);
   return code != 0 ? code : static_cast<int>(err);
 }
 
+using StageKernel = void (*)(const Stage, const Plan);
+
+// The stage kernel of a width in mode kMode: n-tiles per warp 4 in the
+// cluster layout (its 32-channel slice), else the largest of 4, 2, 1 that
+// divides the width's n-tiles.
+template <int kMode>
+StageKernel stage_kernel(bool wide, int n_tiles) {
+  void (*kernel)(const Stage, const Plan) =
+      wide                ? gen_stage_kernel<kWideThreads, 4, kMode>
+      : n_tiles % 4 == 0  ? gen_stage_kernel<kThreads, 4, kMode>
+      : n_tiles % 2 == 0  ? gen_stage_kernel<kThreads, 2, kMode>
+                          : gen_stage_kernel<kThreads, 1, kMode>;
+  return kernel;
+}
+
 // Picks the widest tile of 1024 ... 64 output samples whose buffers fit the
 // card (and, in the cluster layout, of which at least one cluster can be
-// resident), and launches the stage kernel on `stream`.
-int launch_stage(Stage s, Plan plan, int n, void* stream) {
+// resident), and launches the stage kernel in `mode` on `stream`.
+int launch_stage(Stage s, Plan plan, int n, int mode, void* stream) {
   if (s.c <= 64) {
     plan.ranks = 1;
   } else if (s.c % kSlice == 0 && s.c / kSlice <= kMaxRanks) {
@@ -861,14 +1112,10 @@ int launch_stage(Stage s, Plan plan, int n, void* stream) {
   }
   plan.cs = s.c / plan.ranks;
   const bool wide = plan.ranks > 1;
-  // n-tiles per warp: 4 in the cluster layout (its 32-channel slice), else the
-  // largest of 4, 2, 1 that divides the width's n-tiles
   const int n_tiles = s.c / 8;
-  void (*kernel)(const Stage, const Plan) =
-      wide                ? gen_stage_kernel<kWideThreads, 4>
-      : n_tiles % 4 == 0  ? gen_stage_kernel<kThreads, 4>
-      : n_tiles % 2 == 0  ? gen_stage_kernel<kThreads, 2>
-                          : gen_stage_kernel<kThreads, 1>;
+  const StageKernel kernel = mode == kBf16x3   ? stage_kernel<kBf16x3>(wide, n_tiles)
+                             : mode == kDefault ? stage_kernel<kDefault>(wide, n_tiles)
+                                                : stage_kernel<kHighest>(wide, n_tiles);
   const int threads = wide ? kWideThreads : kThreads;
 
   int device = 0, limit = 0;
@@ -940,9 +1187,11 @@ bool width_ok(int c) {
 // pre_k > 0, x is the mel (n, c_mel, t_in) and conv_pre (pre_w (2c, c_mel,
 // pre_k), pre_b (2c,)) runs first. Block b runs rounds[b] conv pairs; conv i
 // has kernel conv_k[i] (3, 7 or 11), dilation conv_d[i], weight conv_w[i]
-// (c, c, k) and bias conv_b[i] (c,). The weights are fp32 as the module holds
-// them: two launches, the TF32 split of up_w and conv_w into scratch
-// (cudaMallocAsync / cudaFreeAsync on `stream`), then the stage. Widths:
+// (c, c, k) and bias conv_b[i] (c,). mode: the products' contraction, 0
+// 'highest' (3xTF32), 1 'bf16x3', 2 'default'. The weights are fp32 as the
+// module holds them: two launches, the TF32 or bf16 split of up_w and conv_w
+// into scratch (cudaMallocAsync / cudaFreeAsync on `stream`), then the stage
+// in that mode. Widths:
 // c <= 64 a multiple of 8 (one block per tile), or a multiple of 32 up to
 // 256 (a cluster of c / 32 blocks per tile). The host arrays are read before
 // return. Returns a cudaError_t; 0 when launched.
@@ -954,7 +1203,7 @@ extern "C" int gen_stage_forward(const float* x, float* out, int n, int c,
                                  const void* const* conv_b, const float* post_w,
                                  const float* post_b, int post_k,
                                  const float* pre_w, const float* pre_b, int c_mel,
-                                 int pre_k, void* stream) {
+                                 int pre_k, int mode, void* stream) {
   if (n < 1 || t_in < 1 || !width_ok(c) || u < 1 || kHalo % u != 0 ||
       (k_up - u) % 2 != 0 || k_up < u || (k_up - u) / 2 >= u || post_k < 0 ||
       (post_k > 0 && (post_k % 2 == 0 || c > 64)) || pre_k < 0 ||
@@ -980,16 +1229,17 @@ extern "C" int gen_stage_forward(const float* x, float* out, int n, int c,
   s.post_w = post_w;
   s.post_b = post_b;
   s.post_k = post_k;
-  return launch(s, plan, n, n_convs, conv_k, conv_d, up_w, conv_w, conv_b, stream);
+  return launch(s, plan, n, mode, n_convs, conv_k, conv_d, up_w, conv_w, conv_b, stream);
 }
 
 // x (n, c, t) -> out (n, c, t): the mean of the ResBlock1 stacks, every conv
-// masked to [0, t); the blocks and widths as gen_stage_forward takes them.
+// masked to [0, t); the blocks, widths and modes as gen_stage_forward takes
+// them (the JAX resblock kernel has no 'bf16x3'; the wrapper refuses it).
 extern "C" int resblock_stage_forward(const float* x, float* out, int n, int c, int t,
                                       int n_blocks, const int* rounds,
                                       const int* conv_k, const int* conv_d,
                                       const void* const* conv_w,
-                                      const void* const* conv_b, void* stream) {
+                                      const void* const* conv_b, int mode, void* stream) {
   if (n < 1 || t < 1 || !width_ok(c)) return static_cast<int>(cudaErrorInvalidValue);
   Plan plan = {};
   const int n_convs = fill_blocks(plan, n_blocks, rounds);
@@ -1001,6 +1251,6 @@ extern "C" int resblock_stage_forward(const float* x, float* out, int n, int c, 
   s.t_in = t;
   s.t_out = t;
   s.u = 1;
-  return launch(s, plan, n, n_convs, conv_k, conv_d, nullptr, conv_w, conv_b, stream);
+  return launch(s, plan, n, mode, n_convs, conv_k, conv_d, nullptr, conv_w, conv_b, stream);
 }
 

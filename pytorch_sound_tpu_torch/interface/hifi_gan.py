@@ -7,7 +7,9 @@ and decode runs one fused generator-stage kernel per upsample stage, with
 ``conv_pre`` before the first (v2) or folded into it (v1)
 (``generator_apply_fused`` on a decoder built with folded weights,
 ``use_weight_norm=False``, as the JAX interface builds it); on the CPU both
-run their plain PyTorch versions.
+run their plain PyTorch versions. ``precision`` picks the stage kernels'
+contraction ('highest', 'bf16x3', 'default') and ``dtype='bfloat16'`` runs
+the layer-by-layer generator in bf16, as the JAX interface offers both.
 """
 
 import os
@@ -21,6 +23,7 @@ from pytorch_sound_tpu_torch.interface import Interface
 from pytorch_sound_tpu_torch.models import build_model
 from pytorch_sound_tpu_torch.models.vocoders.hifi_gan import (  # registers
     generator_apply_fused, load_jax_params)
+from pytorch_sound_tpu_torch.ops.cuda.gen_stage import check_mode
 from pytorch_sound_tpu_torch.ops.cuda.logmel import fused_hifigan_mel
 from pytorch_sound_tpu_torch.utils.checkpoint import convert_state_dict, load_msgpack
 
@@ -76,9 +79,20 @@ class InterfaceHifiGAN(Interface):
     checkpoint is bundled; pass ``chk_path`` for a flax .msgpack checkpoint
     or a torch ``.pt`` one, or ``params``, a JAX parameter tree of numpy
     arrays). ``device`` defaults to 'cuda' and raises when no card is
-    present; pass ``device='cpu'`` for the plain PyTorch path. Only
-    ``precision='highest'`` (fp32) exists. v1 and v2 decode through one fused
-    stage kernel per upsample stage; v1's conv_pre is folded into its first.
+    present; pass ``device='cpu'`` for the plain PyTorch path. v1 and v2
+    decode through one fused stage kernel per upsample stage; v1's conv_pre
+    is folded into its first.
+
+    ``precision`` is the stage kernels' contraction mode: 'highest' (fp32,
+    the default), 'bf16x3' (three bf16 products of hi / lo splits, ~80 dB
+    SNR against 'highest' on the bundled v2, where the JAX package reports
+    ~35 dB on a TPU) or 'default' (one product of bf16-rounded operands,
+    ~27 dB), the latter two on the bf16 tensor cores. ``dtype='bfloat16'``
+    instead casts the decoder to bf16 and runs it layer by layer
+    (``Generator.forward``; cuDNN's bf16 convs on the card, fp32
+    accumulation), the output cast to fp32; ``precision`` is then unused, as
+    in JAX, whose interface fuses only fp32 decoders. Other values of either
+    raise ValueError.
 
     Example::
 
@@ -89,13 +103,16 @@ class InterfaceHifiGAN(Interface):
 
     def __init__(self, model_name: str = 'hifi_gan_v1', chk_path: str = '',
                  device: Union[str, torch.device] = 'cuda', params=None,
-                 precision: str = 'highest'):
+                 dtype: str = 'float32', precision: str = 'highest'):
         valid = ['hifi_gan_v1', 'hifi_gan_v2', 'hifi_gan_v3']
         if model_name not in valid:
             raise AssertionError(
                 'Model name {} is not valid! choose in {}'.format(model_name, valid))
-        if precision != 'highest':
-            raise ValueError("precision must be 'highest' (fp32), got %r" % (precision,))
+        check_mode(precision)
+        if dtype not in ('float32', 'bfloat16'):
+            raise ValueError("dtype must be 'float32' or 'bfloat16', got %r" % (dtype,))
+        self.precision = precision
+        self.dtype = torch.bfloat16 if dtype == 'bfloat16' else torch.float32
         self.device = torch.device(device)
         if self.device.type == 'cuda' and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' requested but no CUDA device is "
@@ -109,7 +126,7 @@ class InterfaceHifiGAN(Interface):
             params = self._load_params(chk_path or CHECKPOINTS[model_name])
         self.decoder = build_model(model_name, extra_kwargs={'use_weight_norm': False})
         self.decoder.load_state_dict(load_jax_params(params))
-        self.decoder.to(self.device).eval().requires_grad_(False)
+        self.decoder.to(self.device, self.dtype).eval().requires_grad_(False)
 
     @staticmethod
     def _load_params(path: str):
@@ -132,11 +149,17 @@ class InterfaceHifiGAN(Interface):
             raise AssertionError('2D tensor (N, T) is needed')
         return self.encoder(self._tensor(wav_tensor))
 
+    def _decode(self, mel: torch.Tensor) -> torch.Tensor:
+        """The fused stages in ``precision``, or the bf16 generator."""
+        if self.dtype == torch.bfloat16:
+            return self.decoder(mel.to(torch.bfloat16)).float()
+        return generator_apply_fused(self.decoder, mel, precision=self.precision)
+
     @torch.inference_mode()
     def decode(self, mel_tensor: Array) -> torch.Tensor:
         if mel_tensor.ndim != 3:
             raise AssertionError('3D tensor (N, C, T) is needed')
-        return generator_apply_fused(self.decoder, self._tensor(mel_tensor))
+        return self._decode(self._tensor(mel_tensor))
 
     @torch.inference_mode()
     def decode_streaming(self, mel_tensor: Array, chunk_frames: int = 256,
@@ -168,7 +191,7 @@ class InterfaceHifiGAN(Interface):
         windows = padded.unfold(2, width, chunk_frames)  # (n, c, k, width)
         windows = windows.permute(0, 2, 1, 3).reshape(n * k, c, width)
 
-        pieces = [generator_apply_fused(self.decoder, windows[i:i + max_batch].contiguous())
+        pieces = [self._decode(windows[i:i + max_batch].contiguous())
                   for i in range(0, n * k, max_batch)]
         wav = torch.cat(pieces, dim=0)                  # (n*k, 1, width*up)
         wav = wav[..., ctx * up: (ctx + chunk_frames) * up]

@@ -34,8 +34,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from pytorch_sound_tpu_torch.models import register_model, register_model_architecture
-from pytorch_sound_tpu_torch.ops.cuda.gen_stage import (generator_stage, get_padding,
-                                                        resblock_stage)
+from pytorch_sound_tpu_torch.ops.cuda.gen_stage import (check_mode, generator_stage,
+                                                        get_padding, resblock_stage)
 from pytorch_sound_tpu_torch.ops.cuda.grouped_conv import conv_transpose1d, grouped_conv1d
 from pytorch_sound_tpu_torch.utils.checkpoint import tree_to_state_dict
 
@@ -268,7 +268,7 @@ class Generator(nn.Module):
 
 
 def generator_apply_fused(gen: Generator, mel: torch.Tensor,
-                          full_stage: bool = True) -> torch.Tensor:
+                          full_stage: bool = True, precision: str = 'highest') -> torch.Tensor:
     """Inference forward equal to ``gen(mel)`` (JAX ``generator_apply_fused``).
 
     With ResBlock1 and ``full_stage=True`` each upsample stage is one fused
@@ -282,7 +282,13 @@ def generator_apply_fused(gen: Generator, mel: torch.Tensor,
     (the kernel with its upsample off), then leaky_relu(0.01), conv_post and
     tanh. ResBlock2 (v3) has no fused kernel in either package and runs
     ``gen(mel)``. Not differentiable on the card.
+
+    ``precision`` ('highest', 'bf16x3' or 'default'; ValueError otherwise) is
+    the stage kernels' contraction mode, and as in JAX it reaches the
+    full-stage route only: ``full_stage=False``, v3 and v2's unfolded
+    conv_pre stay fp32.
     """
+    check_mode(precision)
     if gen.resblock != '1':
         return gen(mel)
     if not full_stage:
@@ -294,7 +300,7 @@ def generator_apply_fused(gen: Generator, mel: torch.Tensor,
     fold = gen.folds_conv_pre(mel.shape[1])
     x = mel.contiguous() if fold else gen.conv_pre(mel)
     for i in range(len(gen.upsample_rates)):
-        x = generator_stage(x, **gen.stage_args(i, fold_conv_pre=fold))
+        x = generator_stage(x, **gen.stage_args(i, fold_conv_pre=fold), precision=precision)
     return x        # conv_post + tanh are part of the last stage
 
 

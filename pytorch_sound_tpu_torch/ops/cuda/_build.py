@@ -37,11 +37,11 @@ SIGNATURES = {
         _I, _PI, _PI, _PI, _PP, _PP,        # n_blocks, rounds, k, d, w, b
         _P, _P, _I,                         # post weight, post bias, post_k
         _P, _P, _I, _I,                     # pre weight, pre bias, c_mel, pre_k
-        _P],                                # stream
+        _I, _P],                            # mode, stream
     'resblock_stage_forward': [
         _P, _P, _I, _I, _I,                 # x, out, n, c, t
         _I, _PI, _PI, _PI, _PP, _PP,        # n_blocks, rounds, k, d, w, b
-        _P],                                # stream
+        _I, _P],                            # mode, stream
     'logmel_forward': [
         _P, _P, _I, _I, _I, _I, _I, _I,     # wav, out, b, t, pad, n_fft, hop, frames
         _P, _P, _P, _I,                     # window, twiddles, split, f_used

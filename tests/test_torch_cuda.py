@@ -14,12 +14,25 @@ machine needs no JAX.)
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from pytorch_sound_tpu_torch.ops.cuda import gen_stage as gs
 
 pytestmark = pytest.mark.cuda
 
 STAGE_TOL = 2e-5      # one stage vs plain (tests/test_pallas.py:187)
+# of the plain version's max abs, or of a last stage's largest sum of absolute
+# conv_post products (chip_smoke.py's MODE_TOL, post_scale)
+MODE_TOL = {'bf16x3': 2 ** -16, 'default': 2 ** -7}
+# that the kernel ran its mode, rounding to nearest even: nearer the plain
+# version of its mode than the plain 'highest' by RMS (chip_smoke.py's
+# MODE_RMS_RATIO)
+MODE_RMS_RATIO = 0.5
+
+
+def _ran_mode(out, ref, highest):
+    rms = [float(d.double().pow(2).mean().sqrt()) for d in (out - ref, out - highest)]
+    assert rms[0] <= MODE_RMS_RATIO * rms[1], rms
 
 
 @pytest.fixture
@@ -57,10 +70,10 @@ def test_stage_kernel_matches_plain(card, c, u, k_up, post):
                 conv_post=(w(1, c, 7, scale=0.3), w(1, scale=0.1)) if post else None)
     t_in = 4500 // u + 7
     x = w(3, 2 * c, t_in, scale=1.0)
-    before = gs.generator_stage.launches
+    before = gs.launch_count(gs.generator_stage)
     out = gs.generator_stage(x, **args)
     ref = gs.generator_stage_reference(x, **args)
-    assert gs.generator_stage.launches == before + 1
+    assert gs.launch_count(gs.generator_stage) == before + 1
     assert out.shape == ref.shape == (3, 1 if post else c, t_in * u)
     assert float((out - ref).abs().max()) <= STAGE_TOL
 
@@ -89,13 +102,51 @@ def test_wide_stage_kernel_matches_plain(card, c, pre):
                 blocks=blocks, upsample_rate=8,
                 conv_pre=(w(2 * c, 80, 7, scale=0.05), w(2 * c, scale=0.1)) if pre else None)
     x = w(2, 80 if pre else 2 * c, 75, scale=1.0)
-    before = (gs.generator_stage.launches, gs.generator_stage.wide_launches)
+    before = (gs.launch_count(gs.generator_stage), gs.generator_stage.wide_launches)
     out = gs.generator_stage(x, **args)
     ref = gs.generator_stage_reference(x, **args)
-    assert (gs.generator_stage.launches, gs.generator_stage.wide_launches) == (
+    assert (gs.launch_count(gs.generator_stage), gs.generator_stage.wide_launches) == (
         before[0] + 1, before[1] + 1)
     assert out.shape == ref.shape == (2, c, 600)
     assert float((out - ref).abs().max()) <= STAGE_TOL * float(ref.abs().max())
+
+
+@pytest.mark.parametrize('precision', ['bf16x3', 'default'])
+@pytest.mark.parametrize('c,pre,post', [(8, False, True), (16, False, False), (24, False, True),
+                                        (64, False, False), (128, False, False),
+                                        (256, True, False)])
+def test_stage_kernel_modes_match_plain(card, c, pre, post, precision):
+    """The bf16 modes at each layout (a half chunk at C = 8 and 24, conv_post
+    on the narrow last stages, conv_pre folded at C = 256) against the plain
+    version of the same mode, over several tiles and a ragged last one,
+    and nearer it than the plain 'highest'; one launch counted in that mode;
+    K3 in 'default' the same way."""
+    rng = np.random.default_rng(c + 7)
+    w, blocks = _stage_weights(card, rng, c)
+    args = dict(up_weight=w(2 * c, c, 16, scale=0.05), up_bias=w(c, scale=0.1),
+                blocks=blocks, upsample_rate=8,
+                conv_pre=(w(2 * c, 80, 7, scale=0.05), w(2 * c, scale=0.1)) if pre else None,
+                conv_post=(w(1, c, 7, scale=0.3), w(1, scale=0.1)) if post else None)
+    x = w(2, 80 if pre else 2 * c, 300 if c <= 64 else 75, scale=1.0)
+    before = dict(gs.generator_stage.launches_by_mode)
+    out = gs.generator_stage(x, **args, precision=precision)
+    ref = gs.generator_stage_reference(x, **args, precision=precision)
+    assert gs.generator_stage.launches_by_mode == dict(before, **{
+        precision: before[precision] + 1})
+    assert out.shape == ref.shape
+    scale = float(ref.abs().max())
+    if post:
+        mean = gs.generator_stage_reference(x, **dict(args, conv_post=None), precision=precision)
+        scale = max(scale, float(F.conv1d(F.leaky_relu(mean, 0.01).abs(),
+                                          args['conv_post'][0].abs(), padding=3).max()))
+    assert float((out - ref).abs().max()) <= MODE_TOL[precision] * scale
+    _ran_mode(out, ref, gs.generator_stage_reference(x, **args))
+    if precision == 'default':
+        h = w(2, c, 1000, scale=1.0)
+        res = gs.resblock_stage(h, blocks, precision='default')
+        ref = gs.resblock_stage_reference(h, blocks, precision='default')
+        assert float((res - ref).abs().max()) <= MODE_TOL[precision] * float(ref.abs().max())
+        _ran_mode(res, ref, gs.resblock_stage_reference(h, blocks))
 
 
 @pytest.mark.parametrize('c,n,t', [(32, 4, 3000), (64, 2, 1500), (128, 2, 700),
@@ -105,10 +156,10 @@ def test_resblock_kernel_matches_plain(card, c, n, t):
     rng = np.random.default_rng(c + t)
     w, blocks = _stage_weights(card, rng, c)
     x = w(n, c, t, scale=1.0)
-    before = gs.resblock_stage.launches
+    before = gs.launch_count(gs.resblock_stage)
     out = gs.resblock_stage(x, blocks)
     ref = gs.resblock_stage_reference(x, blocks)
-    assert gs.resblock_stage.launches == before + 1
+    assert gs.launch_count(gs.resblock_stage) == before + 1
     assert out.shape == ref.shape
     assert float((out - ref).abs().max()) <= STAGE_TOL * float(ref.abs().max())
 

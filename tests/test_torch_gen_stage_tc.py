@@ -14,7 +14,12 @@ the CPU:
   under the row swizzle and the input span's row stride, the n-tile route
   of each width, one wave per conv in the cluster layout, and every output
   of a conv computed by exactly one lane;
-- that ``tf32_fragments`` lays the weight out as the kernel reads it.
+- that ``tf32_fragments`` lays the weight out as the kernel reads it;
+- the same for the bf16 modes ('bf16x3', 'default': mma m16n8k16): an
+  emulation of their sums against the plain version at the tolerances
+  chip_smoke.py holds the kernel to, conflict-free loads of their A
+  fragments (rows t, t + 4, t + 8, t + 12), and ``bf16_fragments`` as the
+  B operand that, with those A rows, computes the conv.
 
 The kernel itself runs on a card (tests/test_torch_cuda.py, chip_smoke.py).
 """
@@ -30,6 +35,8 @@ import torch.nn.functional as F
 from pytorch_sound_tpu_torch.ops.cuda import gen_stage as gs
 
 STAGE_TOL = 2e-5     # chip_smoke.py / tests/test_torch_cuda.py: one stage vs plain
+BF16X3_TOL = 2 ** -16        # chip_smoke.py: 'bf16x3' stage vs plain, of its max abs
+DEFAULT_STAGE_TOL = 2 ** -7  # chip_smoke.py: 'default' stage vs plain, of its max abs
 SMEM_LIMIT = 232448  # the H100's shared memory per block (227 KB, opt-in)
 SRC = open(os.path.join(os.path.dirname(__file__), '..', gs.SOURCE)).read()
 CONST = {name: int(val) for name, val in re.findall(r'constexpr int (\w+) = (\d+);', SRC)}
@@ -258,10 +265,11 @@ def test_input_span_rows_are_conflict_free(q_stride):
 
 
 def _route(c):
-    """(threads, n-tiles per warp) launch() gives a width."""
+    """(threads, n-tiles per warp) launch() gives a width, in every mode."""
     src = SRC[SRC.index('void (*kernel)(const Stage, const Plan) ='):]
-    rules = re.findall(r'(wide|n_tiles % (\d) == 0) *\? gen_stage_kernel<(\w+), (\d)>', src)
-    last = re.search(r': gen_stage_kernel<(\w+), (\d)>;', src)
+    rules = re.findall(r'(wide|n_tiles % (\d) == 0) *\? gen_stage_kernel<(\w+), (\d), kMode>',
+                       src)
+    last = re.search(r': gen_stage_kernel<(\w+), (\d), kMode>;', src)
     n_tiles = c // 8
     for cond, mod, threads, ni in rules:
         if (cond == 'wide' and c > 64) or (mod and c <= 64 and n_tiles % int(mod) == 0):
@@ -437,7 +445,8 @@ def test_split_kernel_index_is_tf32_fragments():
                  'if (s.k_up > 0) add(up_w, s.c, 2 * s.c, s.k_up, 1);',
                  'add(static_cast<const float*>(conv_w[i]), s.c, s.c, conv_k[i], 0);',
                  'if (s.k_up > 0) s.up_w = reinterpret_cast<const float4*>(frags);',
-                 'plan.w[i] = reinterpret_cast<const float4*>(frags + 2 * jobs.start[first + i]);'):
+                 'const long long at = jobs.start[first + i];',
+                 ': reinterpret_cast<const float4*>(frags + 2 * at);'):
         assert text in SRC
     rng = np.random.default_rng(6)
     weights = [(rng.standard_normal((32, 16, 16)).astype(np.float32), True),
@@ -462,3 +471,246 @@ def test_split_kernel_index_is_tf32_fragments():
         ref = gs.tf32_fragments(torch.from_numpy(w).transpose(0, 1).contiguous() if tr
                                 else torch.from_numpy(w))
         np.testing.assert_array_equal(out[2 * a:2 * b], ref.reshape(-1).numpy())
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _conv_emulated_bf16(x, w, b, d, precision, mode, slice_=32):
+    """One resblock conv of x (C, P) in a bf16 mode as the kernel sums it:
+    per output slice its own 16-channel chunks first, each chunk and tap one
+    m16n8k16 k-step whose products ('bf16x3': lo hi, hi lo, hi hi of bf16
+    splits; 'default': of bf16-rounded operands) go into a fresh
+    accumulator, rounded toward zero, added to the fp32 total ('kernel'), or
+    into one accumulator for all ('chain'); 'plain' is the plain version.
+    The slices run as one batch."""
+    c, p = x.shape
+    k = w.shape[2]
+    pad = (k - 1) // 2 * d
+    if mode == 'plain':
+        return gs._mode_conv(F.conv1d, x[None], w, b, precision, padding=pad, dilation=d)[0]
+    xp = F.pad(x, (pad, pad))
+    taps = [xp[:, j * d:j * d + p] for j in range(k)]
+    if precision == 'bf16x3':
+        wh = _bf16(w)
+        pairs = [((_bf16(a - _bf16(a)), wh), (_bf16(a), _bf16(w - wh)), (_bf16(a), wh))
+                 for a in taps]
+    else:
+        pairs = [((_bf16(a), _bf16(w)),) for a in taps]
+    n_slices, n_chunks = c // slice_, c // 16
+    total = torch.zeros((n_slices, slice_, p))
+    acc = torch.zeros((n_slices, slice_, p))
+    for i in range(n_chunks):
+        chunk = [(i + s * slice_ // 16) % n_chunks for s in range(n_slices)]   # own first
+        for j in range(k):
+            part = acc if mode == 'chain' else torch.zeros_like(acc)
+            for a, bw in pairs[j]:
+                av = torch.stack([a[16 * q:16 * q + 16] for q in chunk]).double()
+                bv = torch.stack([bw[s * slice_:(s + 1) * slice_, 16 * q:16 * q + 16, j]
+                                  for s, q in enumerate(chunk)]).double()
+                part = _round_to_zero(part.double() + torch.bmm(bv, av))
+            if mode == 'chain':
+                acc = part
+            else:
+                total = total + part
+    return (acc if mode == 'chain' else total).reshape(c, p) + b[:, None]
+
+
+@pytest.fixture
+def one_thread():
+    """torch on one thread: the emulations' small float64 batched products
+    take 50x longer with every worker of a parallel test run on all cores
+    (85 s against 1.5 s, four runs side by side on 8 cores)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
+@pytest.mark.parametrize('precision,mode', [('bf16x3', 'kernel'), ('bf16x3', 'chain'),
+                                            ('default', 'kernel'), ('default', 'chain')])
+def test_bf16_modes_keep_the_stage_tolerance(precision, mode, one_thread):
+    """A ResBlock1 stack at C = 256, k = 11, dilations 1 / 3 / 5 over 64
+    positions, the kernel's bf16 sums against the plain version of the same
+    mode, relative to its max abs. 'bf16x3': the kernel's runs (a k-step's
+    three products in a fresh accumulator) measured 2.0e-6, within
+    BF16X3_TOL / 2 (2^-17; the split itself keeps ~16 bits, so a 1-ulp
+    fp32 difference moves a product by up to 2^-17), and one accumulator
+    chain 1.9e-5, outside BF16X3_TOL. 'default': 9.0e-4 with the runs and
+    9.7e-4 chained, both within DEFAULT_STAGE_TOL / 2: the differences are
+    fp32-level ones that bf16 rounding turns into whole bf16 ulps (2^-8) in
+    the next conv's operands, so the accumulator's rounding (~2^-23 a
+    k-step) does not show, and the single-block layout chains its one
+    product per k-step."""
+    rng = np.random.default_rng(0)
+    c, k = 256, 11
+    convs = [(torch.from_numpy((rng.standard_normal((c, c, k)) / np.sqrt(c * k))
+                               .astype(np.float32)),
+              torch.from_numpy((rng.standard_normal(c) * 0.05).astype(np.float32)), dil)
+             for d in (1, 3, 5) for dil in (d, 1)]
+    x = torch.from_numpy(rng.standard_normal((c, 64)).astype(np.float32))
+    plain = _resblock(x, convs, lambda v, w, b, d: _conv_emulated_bf16(v, w, b, d, precision,
+                                                                       'plain'))
+    got = _resblock(x, convs, lambda v, w, b, d: _conv_emulated_bf16(v, w, b, d, precision,
+                                                                     mode))
+    err = float((got - plain).abs().max() / plain.abs().max())
+    if precision == 'bf16x3':
+        assert (err <= BF16X3_TOL / 2) if mode == 'kernel' else (err > BF16X3_TOL), (mode, err)
+    else:
+        assert 2 ** -12 < err <= DEFAULT_STAGE_TOL / 2, (mode, err)
+
+
+@pytest.mark.parametrize('L', [192, 256, 384, 640, 1152])
+def test_swizzle_keeps_bf16_fragment_loads_conflict_free(L):
+    """bf16_step loads channel rows t, t + 4, t + 8 and t + 12 of a 16-row
+    chunk (a multiple of 16 rows in) at positions p + g and p + g + 8, one
+    row per load instruction; the swizzle puts each load on 32 banks, as
+    it does the TF32 k-steps' rows t and t + 4, and rows t + 8, t + 12
+    take the swizzles of t, t + 4 (swa0, swa1)."""
+    src = SRC[SRC.index('__device__ __forceinline__ void bf16_step('):]
+    src = src[:src.index('\n}\n')]
+    for line in ('const int r0 = cb + t * L;   // channel rows t, t + 4, t + 8, t + 12',
+                 'const int r1 = r0 + 4 * L;', 'const int r2 = r0 + 8 * L;',
+                 'const int r3 = r0 + 12 * L;',
+                 'const int pa = p ^ swa0, pb = (p + 8) ^ swa0, pc = p ^ swa1, '
+                 'pd = (p + 8) ^ swa1;',
+                 'float a[8] = {sm[r0 + pa], sm[r1 + pc], sm[r0 + pb], sm[r1 + pd], '
+                 '0.f, 0.f, 0.f, 0.f};',
+                 'a[4] = sm[r2 + pa];', 'a[5] = sm[r3 + pc];', 'a[6] = sm[r2 + pb];',
+                 'a[7] = sm[r3 + pd];'):
+        assert line in src, line
+
+    swz = [_swz(row) for row in range(64)]
+
+    def at(row, col):
+        return row * L + (col ^ swz[row])
+    assert all(_swz(16 * k + t + 8 * r) == t << 3 and _swz(16 * k + t + 4 + 8 * r) == (t ^ 1) << 3
+               for k in range(4) for t in range(4) for r in (0, 1))
+    lanes = [(g, t) for g in range(8) for t in range(4)]
+    for r0 in (0, 16, 32, 48):
+        for q in range(40):
+            for h in (0, 4, 8, 12):
+                for e in (0, 8):
+                    assert _banks([at(r0 + t + h, q + g + e) for g, t in lanes]) == 32, (r0, q, h)
+
+
+@pytest.mark.parametrize('q_stride', [32, 34, 48, 286, 571, 1000])
+def test_input_span_rows_are_conflict_free_for_bf16(q_stride):
+    """The bf16 transposed conv reads input rows t, t + 4, t + 8 and t + 12
+    of a k-step at 8 consecutive positions: at q_row = 8 (mod 16), 8 q_row
+    and 12 q_row are multiples of 32 floats, so rows t + 8 and t + 12 fall on
+    the banks of t and t + 4."""
+    src = SRC[SRC.index('__device__ void conv_transpose('):]
+    assert ('const float a[8] = {sm[c0 + k0],          sm[c0 + k0 + 4 * qr],  sm[c1 + k0],'
+            in src)
+    q_row = _q_row(q_stride)
+    for q in range(32):
+        for h in (0, 4, 8, 12):
+            assert _banks([(t + h) * q_row + q + g for g in range(8) for t in range(4)]) == 32
+
+
+def _mma_m16n8k16(a_regs, b_regs):
+    """PTX mma.m16n8k16 .bf16 on one warp's registers: a_regs[lane] four
+    pairs (lower k first), b_regs[lane] two; returns D (16, 8) = A B with A
+    and B as the fragment layout places the lanes' values."""
+    A = np.zeros((16, 16))
+    B = np.zeros((16, 8))
+    for lane in range(32):
+        g, t = divmod(lane, 4)
+        for reg, (row, col) in enumerate(((g, 2 * t), (g + 8, 2 * t), (g, 2 * t + 8),
+                                          (g + 8, 2 * t + 8))):
+            A[row, col:col + 2] = a_regs[lane][reg]
+        for reg in (0, 1):
+            B[2 * t + 8 * reg:2 * t + 8 * reg + 2, g] = b_regs[lane][reg]
+    return A @ B
+
+
+def test_bf16_fragments_are_the_kernel_b_operand():
+    """bf16_fragments(w) read at conv_layer's index ((j S16 + s) N + n) 32 +
+    lane, with the A registers bf16_step loads (channels t, t + 4 of the
+    chunk in register 0 / 1, t + 8, t + 12 in 2 / 3), computes the chunk's
+    part of the conv in an m16n8k16 product: lane (g, t)'s k slots 2t + h
+    and 2t + 8 + h both hold channel 16s + 8r + 4h + t of their operand.
+    hi + lo = w to bf16x3's accuracy, hi = w rounded to bf16, 'default'
+    holds hi alone, and channels past C_in (C_in = 40: a half chunk) are
+    zero. The transposed conv reads its weight's transpose the same way."""
+    src = SRC[SRC.index('__device__ void conv_layer('):]
+    assert 'sm, wf, (static_cast<size_t>(j * S16 + c) * S + n0) * 32 + lane, cb, L,' in src
+    rng = np.random.default_rng(5)
+    c_out, c_in, k = 24, 40, 3
+    w = torch.from_numpy(rng.standard_normal((c_out, c_in, k)).astype(np.float32))
+    # act (channel, position); frag (lane entry, hi / lo, register, half)
+    act = torch.from_numpy(rng.standard_normal((c_in, 16)).astype(np.float32))
+    frag = gs.bf16_fragments(w).float().reshape(-1, 2, 2, 2).numpy()
+    hi_only = gs.bf16_fragments(w, 'default').float().reshape(-1, 1, 2, 2).numpy()
+    np.testing.assert_array_equal(hi_only[:, 0], frag[:, 0])
+    s16, n_out = 3, 3
+    a_pad = F.pad(act, (0, 0, 0, 48 - c_in)).numpy()
+    for j in range(k):
+        for s in range(s16):
+            rows = a_pad[16 * s:16 * s + 16]
+            a_regs = [[(rows[t + 8 * r, g + 8 * m], rows[t + 4 + 8 * r, g + 8 * m])
+                       for r, m in ((0, 0), (0, 1), (1, 0), (1, 1))]
+                      for g in range(8) for t in range(4)]
+            for n in range(n_out):
+                lanes = frag[((j * s16 + s) * n_out + n) * 32:((j * s16 + s) * n_out + n + 1) * 32]
+                got = _mma_m16n8k16(a_regs, lanes[:, 0]) + _mma_m16n8k16(a_regs, lanes[:, 1])
+                want = (w[8 * n:8 * n + 8, 16 * s:16 * s + 16, j].double().numpy()
+                        @ act[16 * s:16 * s + 16].double().numpy()).T
+                np.testing.assert_allclose(got, want, rtol=0, atol=1e-4 * np.abs(want).max())
+                hi_part = _mma_m16n8k16(a_regs, lanes[:, 0])
+                want_hi = (_bf16(w[8 * n:8 * n + 8, 16 * s:16 * s + 16, j]).double().numpy()
+                           @ act[16 * s:16 * s + 16].double().numpy()).T
+                np.testing.assert_allclose(hi_part, want_hi, rtol=1e-12, atol=1e-12)
+    up = torch.from_numpy(rng.standard_normal((32, 16, 16)).astype(np.float32))
+    assert torch.equal(gs.bf16_fragments(up.transpose(0, 1)),
+                       gs.bf16_fragments(up.transpose(0, 1).contiguous()))
+
+
+def test_bf16_split_kernel_index_is_bf16_fragments():
+    """A numpy twin of bf16_split_kernel, read from the source: entry e of
+    the launch, decomposed as the kernel decomposes it, writes the
+    fragments of bf16_fragments bit for bit in both modes, for a stage's
+    ConvTranspose1d weight (through its transpose) and resblock convs (C =
+    24: a half chunk, zero-padded) in one launch, weight j at parts x its
+    padded entry offset."""
+    for text in ('const long long o = 8 * nt + g, i = 16 * ks + 8 * r + 4 * h + t;',
+                 'const float v = i < ci ? __ldg(jobs.w[j] + src) : 0.f;',
+                 '__nv_bfloat16* dst = out + parts * (jobs.start[j] + ((l >> 2) << 2)) + (l & 3);',
+                 'if (parts == 2) dst[4] = __float2bfloat16_rn(v - __bfloat162float(hi));',
+                 'const long long rows = bf16 ? (c_in + 15) / 16 * 16 : c_in;',
+                 'const long long at = jobs.start[first + i];',
+                 'reinterpret_cast<const __nv_bfloat16*>(frags) + parts * at)'):
+        assert text in SRC, text
+    rng = np.random.default_rng(6)
+    weights = [(rng.standard_normal((48, 24, 4)).astype(np.float32), True),
+               (rng.standard_normal((24, 24, 3)).astype(np.float32), False),
+               (rng.standard_normal((24, 24, 11)).astype(np.float32), False)]
+    dims = [((w.shape[1], w.shape[0]) if tr else w.shape[:2]) + (w.shape[2],)
+            for w, tr in weights]
+    start = np.concatenate([[0], np.cumsum([co * (-(-ci // 16) * 16) * k
+                                            for co, ci, k in dims])])
+    for precision, parts in (('bf16x3', 2), ('default', 1)):
+        out = np.full(parts * start[-1], np.nan, dtype=np.float32)
+        for e in range(start[-1]):
+            j = int(np.searchsorted(start, e, side='right')) - 1
+            (w, tr), (co, ci, k), l = weights[j], dims[j], e - start[j]
+            h, r, t, g, q = l & 1, (l >> 1) & 1, (l >> 2) & 3, (l >> 4) & 7, l >> 7
+            nt, q = q % (co // 8), q // (co // 8)
+            s16 = -(-ci // 16)
+            ks, tap = q % s16, q // s16
+            o, i = 8 * nt + g, 16 * ks + 8 * r + 4 * h + t
+            v = (w.reshape(-1)[(i * co + o) * k + tap if tr else (o * ci + i) * k + tap]
+                 if i < ci else np.float32(0))
+            hi = torch.tensor(v).to(torch.bfloat16).float().numpy()
+            dst = parts * (start[j] + ((l >> 2) << 2)) + (l & 3)
+            out[dst] = hi
+            if parts == 2:
+                out[dst + 4] = torch.tensor(v - hi).to(torch.bfloat16).float().numpy()
+        for (w, tr), a, b in zip(weights, start[:-1], start[1:]):
+            ref = gs.bf16_fragments(torch.from_numpy(w).transpose(0, 1).contiguous() if tr
+                                    else torch.from_numpy(w), precision)
+            np.testing.assert_array_equal(out[parts * a:parts * b], ref.float().reshape(-1).numpy())

@@ -17,10 +17,12 @@ from pytorch_sound_tpu.interface.hifi_gan import InterfaceHifiGAN as JaxInterfac
 from pytorch_sound_tpu.models import build_model as jax_build_model  # noqa: E402
 from pytorch_sound_tpu.models.vocoders.hifi_gan import (  # noqa: E402
     fold_weight_norm_params as jax_fold, generator_apply_fused)
+from pytorch_sound_tpu.ops.pallas import gen_stage as jax_gen_stage  # noqa: E402
 from pytorch_sound_tpu_torch.interface.hifi_gan import (  # noqa: E402
     AudioParameters, CHECKPOINTS, InterfaceHifiGAN)
 from pytorch_sound_tpu_torch.models import build_model  # noqa: E402
 from pytorch_sound_tpu_torch.models.vocoders import hifi_gan as port_hg  # noqa: E402
+from pytorch_sound_tpu_torch.ops.cuda import gen_stage as port_gs  # noqa: E402
 from pytorch_sound_tpu_torch.utils.checkpoint import load_msgpack  # noqa: E402
 
 
@@ -188,14 +190,130 @@ def test_decode_matches_jax(iface, jax_iface, frames):
     np.testing.assert_allclose(out, ref, atol=2e-4)
 
 
-def test_decode_matches_pallas_generator(iface):
+def _pallas_decode(mel, precision='highest'):
+    """JAX's fused generator on the bundled v2 weights (interpret mode)."""
+    gen = jax_build_model('hifi_gan_v2', extra_kwargs={'use_weight_norm': False})
+    return np.asarray(generator_apply_fused(gen, load_msgpack(CHECKPOINTS['hifi_gan_v2']),
+                                            jnp.asarray(mel), precision=precision))
+
+
+@pytest.fixture(scope='module')
+def pallas_decode():
+    """A 2 x 80 x 13 mel and JAX's fused 'highest' decode of it."""
+    mel = _mel(7, (2, 80, 13))
+    return mel, _pallas_decode(mel)
+
+
+def test_decode_matches_pallas_generator(iface, pallas_decode):
     """vs the JAX fused path the TPU decode runs (every stage one Pallas
     kernel call, interpret mode here)."""
-    mel = _mel(7, (2, 80, 13))
-    gen = jax_build_model('hifi_gan_v2', extra_kwargs={'use_weight_norm': False})
-    ref = np.asarray(generator_apply_fused(gen, load_msgpack(CHECKPOINTS['hifi_gan_v2']),
-                                           jnp.asarray(mel)))
+    mel, ref = pallas_decode
     np.testing.assert_allclose(iface.decode(mel).numpy(), ref, atol=2e-4)
+
+
+# 'default' decode (bf16-rounded operands in every stage) against the fp32
+# decode, in waveform units: measured 1.2e-2 here on the bundled v2 weights
+DEFAULT_DECODE_TOL = 2 ** -5
+
+
+# 'bf16x3', the port against JAX in that mode (tests/test_torch_gen_stage.py's
+# BF16X3_TOL, BF16X3_RMS_RATIO): each stage and the decode within 4e-5, and
+# each stage by RMS at most half as far from JAX as the port's 'highest' is
+BF16X3_TOL = 4e-5
+BF16X3_RMS_RATIO = 0.5
+
+
+def _rms(a):
+    return float(np.sqrt(np.mean(np.square(np.asarray(a, np.float64)))))
+
+
+@pytest.mark.parametrize('precision', ['bf16x3', 'default'])
+def test_decode_modes_match_pallas_generator(pallas_decode, precision, monkeypatch):
+    """The interface's fast modes on the bundled v2 weights against JAX's
+    fused generator in the same mode (interpret mode). 'bf16x3' takes the
+    JAX kernels' split products: on a 1 x 8-frame mel (the JAX kernel in
+    this mode costs ~8 s a stage whatever the length) each of v2's four
+    stages (C = 64, 32, 16, 8 with conv_post) is held on its own, fed the
+    input JAX's stage took, within BF16X3_TOL and nearer JAX's 'bf16x3'
+    than the port's 'highest' is (BF16X3_RMS_RATIO); the decode within
+    BF16X3_TOL (over four stages and conv_pre the two packages' sums drift
+    apart by RMS 1.3e-6, near the mode's own 1.6e-6 on this waveform).
+    'default' is held within DEFAULT_DECODE_TOL of JAX's 'default', which
+    XLA computes in fp32 on the CPU (so its 'highest' decode stands in, the
+    stage tests check the two equal), and moves the decode off 'highest' by
+    its own error (~1e-2)."""
+    port = InterfaceHifiGAN('hifi_gan_v2', device='cpu', precision=precision)
+    if precision == 'default':
+        mel, ref = pallas_decode
+        out = port.decode(mel).numpy()
+        assert out.shape == ref.shape == (mel.shape[0], 1, mel.shape[2] * 256)
+        np.testing.assert_allclose(out, ref, atol=DEFAULT_DECODE_TOL)
+        highest = InterfaceHifiGAN('hifi_gan_v2', device='cpu')
+        off = float(np.abs(out - highest.decode(mel).numpy()).max())
+        assert 1e-3 < off <= DEFAULT_DECODE_TOL, off
+        return
+    stages = []
+    run_stage = jax_gen_stage.fused_generator_stage
+
+    def recorded(x, *args, **kwargs):
+        y = run_stage(x, *args, **kwargs)
+        stages.append((np.asarray(x), np.asarray(y)))
+        return y
+    monkeypatch.setattr(jax_gen_stage, 'fused_generator_stage', recorded)
+    mel = _mel(11, (1, 80, 8))
+    ref = _pallas_decode(mel, precision)
+    assert len(stages) == 4
+    gen = port.decoder
+    with torch.no_grad():
+        for i, (x, y) in enumerate(stages):
+            x = torch.from_numpy(x.copy())
+            got = port_gs.generator_stage(x, **gen.stage_args(i), precision='bf16x3').numpy()
+            hi = port_gs.generator_stage(x, **gen.stage_args(i)).numpy()
+            np.testing.assert_allclose(got, y, atol=BF16X3_TOL)
+            gaps = _rms(got - y), _rms(hi - y)
+            assert gaps[0] <= BF16X3_RMS_RATIO * gaps[1], (i, gaps)
+    out = port.decode(mel).numpy()
+    assert out.shape == ref.shape == (1, 1, 8 * 256)
+    np.testing.assert_allclose(out, ref, atol=BF16X3_TOL)
+
+
+def test_resblock_route_ignores_precision():
+    """``full_stage=False`` runs every resblock stage at 'highest' whatever
+    the mode, as the JAX route never passes ``precision`` on (and v2's
+    conv_pre, outside the stages, is fp32 on both routes)."""
+    mel = torch.from_numpy(_mel(5, (1, 80, 6)))
+    gen = InterfaceHifiGAN('hifi_gan_v2', device='cpu').decoder
+    with torch.no_grad():
+        ref = port_hg.generator_apply_fused(gen, mel, full_stage=False)
+        for precision in ('bf16x3', 'default'):
+            out = port_hg.generator_apply_fused(gen, mel, full_stage=False, precision=precision)
+            torch.testing.assert_close(out, ref, rtol=0, atol=0)
+        assert not torch.equal(port_hg.generator_apply_fused(gen, mel, precision='default'),
+                               port_hg.generator_apply_fused(gen, mel))
+    with pytest.raises(ValueError, match='precision'):
+        port_hg.generator_apply_fused(gen, mel, full_stage=False, precision='high')
+
+
+def test_bf16_dtype_decode_matches_jax(iface, jax_iface):
+    """``dtype='bfloat16'``: the generator layer by layer in bf16 (as the JAX
+    interface runs it on every backend) against JAX's bf16 decode. Both
+    round at their own places (PyTorch's CPU bf16 convs, XLA's), so each is
+    held against its fp32 decode: the port's error at most 1.5x JAX's, and
+    the two bf16 decodes within 2^-3 of each other at most and 2^-8 on
+    average, the size of their own errors (measured on this mel: 0.100
+    (JAX) and 0.032 (the port) off the fp32 decode at most, 1.2e-3 and
+    1.3e-3 on average, and 0.068 / 1.3e-3 apart)."""
+    mel = _mel(13, (2, 80, 16))
+    port = InterfaceHifiGAN('hifi_gan_v2', device='cpu', dtype='bfloat16')
+    assert all(p.dtype == torch.bfloat16 for p in port.decoder.parameters())
+    out = port.decode(mel)
+    assert out.dtype == torch.float32 and out.shape == (2, 1, 16 * 256)
+    ref = np.asarray(JaxInterface('hifi_gan_v2', dtype='bfloat16').decode(mel))
+    port_err = float(np.abs(out.numpy() - iface.decode(mel).numpy()).max())
+    jax_err = float(np.abs(ref - np.asarray(jax_iface.decode(mel))).max())
+    assert 0 < port_err <= 1.5 * jax_err, (port_err, jax_err)
+    np.testing.assert_allclose(out.numpy(), ref, atol=2 ** -3)
+    assert float(np.abs(out.numpy() - ref).mean()) <= 2 ** -8
 
 
 def test_encode_matches_jax(iface, jax_iface):
@@ -333,8 +451,10 @@ def test_construction_guards():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match='cuda'):
             InterfaceHifiGAN('hifi_gan_v2')            # device defaults to 'cuda'
-    with pytest.raises(ValueError, match='highest'):
-        InterfaceHifiGAN('hifi_gan_v2', device='cpu', precision='bf16x3')
+    with pytest.raises(ValueError, match='precision'):
+        InterfaceHifiGAN('hifi_gan_v2', device='cpu', precision='high')
+    with pytest.raises(ValueError, match='dtype'):
+        InterfaceHifiGAN('hifi_gan_v2', device='cpu', dtype='float16')
     with pytest.raises(AssertionError, match='does not exist'):
         InterfaceHifiGAN('hifi_gan_v1', device='cpu')  # v1 blob is not bundled
     with pytest.raises(AssertionError, match='not valid'):

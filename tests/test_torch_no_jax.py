@@ -1,6 +1,6 @@
 """The port imports torch and never jax, flax or the JAX package; its CUDA
 modules import without nvcc (the kernels build at their first CUDA launch).
-The serving path, the training path, the data layer, the enhancement path,
+The serving path (with its fast modes), the training path, the data layer, the enhancement path,
 the preprocess path, the TTS path and the separation and transcription
 recipes, and the multi-rank layer with a recipe's ``use_mesh`` path, each
 run in a fresh interpreter; the data layer, the preprocess path, the TTS
@@ -25,6 +25,9 @@ iface = InterfaceHifiGAN('hifi_gan_v2', device='cpu')
 mel = iface.encode(np.zeros((1, 4096), np.float32) + 0.01)
 wav = iface.decode(mel)
 assert tuple(wav.shape) == (1, 1, 16 * 256), wav.shape
+for kw in (dict(precision='bf16x3'), dict(precision='default'), dict(dtype='bfloat16')):
+    fast = InterfaceHifiGAN('hifi_gan_v2', device='cpu', **kw).decode(mel)
+    assert fast.dtype == wav.dtype and fast.shape == wav.shape and bool(fast.isfinite().all())
 assert _build._lib is None, 'the kernel library must not load on the CPU path'
 loaded = sorted(m for m in sys.modules
                 if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'pytorch_sound_tpu'))
@@ -88,7 +91,8 @@ split = generator_apply_fused(iface.decoder, mel, full_stage=False)
 assert tuple(wav.shape) == tuple(split.shape) == (1, 1, 4 * 256), wav.shape
 assert float((wav - split).abs().max()) <= 1e-6
 assert _build._lib is None, 'the kernel library must not load on the CPU path'
-assert (gen_stage.generator_stage.launches, gen_stage.resblock_stage.launches) == (0, 0)
+assert (gen_stage.launch_count(gen_stage.generator_stage),
+        gen_stage.launch_count(gen_stage.resblock_stage)) == (0, 0)
 loaded = sorted(m for m in sys.modules
                 if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'pytorch_sound_tpu'))
 print('LOADED', loaded)

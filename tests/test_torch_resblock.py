@@ -6,8 +6,12 @@ The CUDA kernel runs only on a card (``chip_smoke.py`` and
 ``tests/test_torch_cuda.py`` hold it against the plain version there); here
 the plain version and the wrapper's CPU dispatch are held to the reference at
 the JAX suite's tolerance (1e-4, tests/test_pallas.py:127), and the wrapper's
-refusals are exercised.
+refusals are exercised. K3 takes 'highest' and 'default' (JAX's
+``fused_resblock_stage`` modes); 'default' is held as in
+tests/test_torch_gen_stage.py.
 """
+
+import functools
 
 import jax
 
@@ -16,6 +20,7 @@ jax.config.update('jax_platforms', 'cpu')
 import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
 from pytorch_sound_tpu.ops.pallas.resblock import fused_resblock_stage  # noqa: E402
 from pytorch_sound_tpu_torch.models.vocoders.hifi_gan import ResBlock1  # noqa: E402
@@ -40,21 +45,62 @@ def _blocks(rng, c):
     return tree, blocks
 
 
-@pytest.mark.parametrize('c,n,t,tile_t', [
-    (64, 2, 300, 256),      # v2 stage 0 width; two Pallas tiles
-    (32, 4, 150, 4096),     # v1 stage 3 width
-])
-def test_resblock_stage_matches_pallas(c, n, t, tile_t):
+CASES = [(64, 2, 300, 256),      # v2 stage 0 width; two Pallas tiles
+         (32, 4, 150, 4096)]     # v1 stage 3 width
+# 'default' against fp32, relative to the output's max abs: 2^-8 per product
+# layer (bf16 on both operands) over a block's 6 convs, rounded up to 2^-5;
+# measured up to 1.6e-3
+DEFAULT_TOL = 2 ** -5
+
+
+def _case(c, n, t):
     rng = np.random.default_rng(c + t)
     tree, blocks = _blocks(rng, c)
-    x = rng.standard_normal((n, c, t)).astype(np.float32)
-    ref = np.asarray(fused_resblock_stage(x, tree, c, KERNELS, DILATIONS, tile_t=tile_t))
+    return rng.standard_normal((n, c, t)).astype(np.float32), tree, blocks
+
+
+@functools.lru_cache(maxsize=None)
+def _pallas(c, n, t, tile_t, precision):
+    """The JAX kernel's output for a case, once per process."""
+    x, tree, _ = _case(c, n, t)
+    return np.asarray(fused_resblock_stage(x, tree, c, KERNELS, DILATIONS, tile_t=tile_t,
+                                           precision=precision))
+
+
+@pytest.mark.parametrize('c,n,t,tile_t', CASES)
+def test_resblock_stage_matches_pallas(c, n, t, tile_t):
+    x, _, blocks = _case(c, n, t)
+    ref = _pallas(c, n, t, tile_t, 'highest')
     out = gs.resblock_stage_reference(torch.from_numpy(x), blocks).numpy()
     assert out.shape == ref.shape == (n, c, t)
     np.testing.assert_allclose(out, ref, atol=1e-4)
     # the wrapper runs the plain version for a CPU tensor
     wrapped = gs.resblock_stage(torch.from_numpy(x), blocks).numpy()
     np.testing.assert_array_equal(wrapped, out)
+
+
+@pytest.mark.parametrize('c,n,t,tile_t', CASES)
+def test_resblock_stage_default_matches_pallas(c, n, t, tile_t, monkeypatch):
+    """'default': within DEFAULT_TOL of the JAX kernel's 'default' (fp32 on
+    the CPU, so equal to its 'highest', checked at the v1 width), and bit
+    for bit the plain 'highest' stage with every conv's input and weight
+    rounded to bf16; 'bf16x3', which the JAX resblock kernel does not take,
+    raises."""
+    x, _, blocks = _case(c, n, t)
+    ref = _pallas(c, n, t, tile_t, 'highest')
+    if c == 32:
+        np.testing.assert_allclose(_pallas(c, n, t, tile_t, 'default'), ref, atol=1e-4)
+    out = gs.resblock_stage(torch.from_numpy(x), blocks, precision='default')
+    err = float(np.abs(out.numpy() - ref).max())
+    assert 1e-4 * np.abs(ref).max() < err <= DEFAULT_TOL * np.abs(ref).max(), err
+    with pytest.raises(ValueError, match='precision'):
+        gs.resblock_stage(torch.from_numpy(x), blocks, precision='bf16x3')
+    with pytest.raises(ValueError, match='precision'):
+        gs.check_resblock_stage(torch.from_numpy(x), blocks, precision='bf16x3')
+    monkeypatch.setattr(F, 'conv1d', lambda v, w, *a, _conv=F.conv1d, **kw: _conv(
+        v.to(torch.bfloat16).float(), w.to(torch.bfloat16).float(), *a, **kw))
+    rounded = gs.resblock_stage_reference(torch.from_numpy(x), blocks)
+    torch.testing.assert_close(out, rounded, rtol=0, atol=0)
 
 
 def test_resblock_stage_is_the_model_resblock_mean():

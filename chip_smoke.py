@@ -3,8 +3,9 @@
 training recipe from wav files on disk, the DSP layer with the VoiceBank
 enhancement recipe, feature extraction from a wav tree, the text-to-speech
 recipe with synthesis and its decode, the separation and transcription
-recipes, the multi-GPU layer's data-parallel step, and the serving path's
-bf16 fast modes, once on one GPU.
+recipes, the multi-GPU layer's data-parallel step, the serving path's bf16
+fast modes, and the critics' fast modes (K6 in 'default' and on bf16
+tensors, the folded MSD), once on one GPU.
 
     python3 chip_smoke.py
 
@@ -184,7 +185,26 @@ Phases, one line each; any failure raises and the script exits non-zero:
    mode, the streaming interior against the whole decode; timings of each
    mode's v2 32 x 256 and v1 16 x 256 decode and stages beside 'highest',
    the plain versions and the bf16 dtype path, with each stage's share of
-   its bf16 tensor-core bound.
+   its bf16 tensor-core bound;
+18. the critics' fast modes: each grouped-conv entry point (forward, dx,
+   dw) in precision 'default' on float32 tensors and on bfloat16 tensors
+   against the plain version of the mode (the fp32 conv of the bf16-rounded
+   operands) on every conv of MPD base and MSD base at phase 8's 32 x 8192
+   inputs and on the folded MSD's 8 convs, within GC_FWD_TOL / GC_GRAD_TOL
+   (plus one bf16 ulp on bf16 tensors) and nearer it than the plain
+   'highest' by RMS (MODE_RMS_RATIO), one line per layer with the times of
+   the kernel, the plain version, the kernel on bf16 tensors and its plain
+   version, K6 'highest' and cuDNN's bf16 call, then the sums beside the
+   bf16 bound; ``msd_apply_folded`` against the unfolded MSD on the cuDNN
+   and the K6 route in fp32 (outputs within 2e-5, gradients within 5e-4 /
+   5e-5); ``HiFiGANTrainer(...).run()`` at full width for 3 steps and a
+   validation batch with the critics in 'default' on the K6 route, then
+   also with ``msd_folded=True``, then with bf16 activations
+   (``compute_dtype='bf16'``): exact launch counts per route
+   (``launches_by_mode``: the upsamples at 'highest', the critics in their
+   mode; the folded MSD 8 convs a pass instead of 24), one step card vs CPU
+   (MODE_STEP_RTOL, MODE_STEP_GRAD_TOL), and the step time and peak memory
+   of each in turns with the critics at 'highest'.
 
 The line before the last is a JSON object with one entry per kernel, each
 with its time, its plain version's, the least time the card could take for
@@ -193,6 +213,10 @@ for K2's direct path, ``logmel_direct``, timed at 400 / 100 through
 ``_direct_log_mel``, and K4's backward there an FFT's operations as for the
 FFT path, the direct DFT's beside them as ``dft_bound_ms`` and
 ``direct_bwd_dft_bound_ms``;
+for K6's 'default' and bf16 entries every product at the bf16 tensor-core
+peak and the bytes at the tensors' dtype, their ``ms`` the sums over the
+critics' convs, ``highest_ms`` K6 'highest' and ``folded_ms`` the folded
+MSD's convs in the same run, ``library_ms`` cuDNN's bf16 calls;
 for K5 from the valid keys only, the count of the keys each kernel processes
 beside it as ``implemented_bound_ms``, and for the kernels that run 3xTF32
 on the tensor cores, K5's three and K6's dw, the same FLOPs three times at
@@ -205,6 +229,7 @@ others). The last line is
 ``{"ok": true, "device": {...}}``.
 """
 
+import gc as garbage
 import itertools
 import json
 import logging
@@ -486,12 +511,13 @@ class ToneStream:
             yield [tones(np.random, self.batch, self.samples)]
 
 
-def build_gan(device, seed, kernel=False):
+def build_gan(device, seed, kernel=False, precision='highest', compute_dtype=None):
     """HiFi-GAN v2 with weight norm, MPD base and MSD base, initialised from
     ``seed`` with the JAX init, on ``device``. ``kernel=True`` builds the K6
     route: every critic conv (``build_critics(msd_kernel=8, mpd_kernel=True)``)
     and the generator's upsamples (``ups_backend='cuda'``) on the grouped-conv
-    kernels; the parameters are the same as the cuDNN route's."""
+    kernels; the parameters are the same as the cuDNN route's. The critics
+    run in ``precision`` and ``compute_dtype``, the generator in 'highest'."""
     import torch
     from pytorch_sound_tpu_torch.examples.hifi_gan import build_critics
     from pytorch_sound_tpu_torch.models import build_model
@@ -499,7 +525,8 @@ def build_gan(device, seed, kernel=False):
     gen = torch.Generator().manual_seed(seed)
     route = 'cuda' if kernel else 'cudnn'
     models = [build_model('hifi_gan_v2', extra_kwargs={'ups_backend': route}),
-              *build_critics(msd_kernel=8 if kernel else -1, mpd_kernel=kernel)]
+              *build_critics(msd_kernel=8 if kernel else -1, mpd_kernel=kernel,
+                             precision=precision, compute_dtype=compute_dtype)]
     return [init_params(m, gen).to(device) for m in models]
 
 
@@ -527,9 +554,11 @@ def make_trainer(models, device, save_dir, **kw):
     return trainer
 
 
-def split_step_pair(specs):
+def split_step_pair(specs, msd_folded=False, **mode):
     """One split step for each ``(device, kernel_route)`` of ``specs`` from the
-    same parameters and a 2 x 8192 batch, held against the first. Both
+    same parameters and a 2 x 8192 batch, held against the first, the critics
+    in ``mode`` (``build_gan``'s precision and compute_dtype) and the MSD
+    folded with ``msd_folded``. Both
     generator phases start from the first trainer's updated critics: Adam's
     first update moves every entry by about +-lr whatever its gradient's size,
     so entries with near-zero gradients may step apart between two correct
@@ -537,9 +566,10 @@ def split_step_pair(specs):
     losses, the parameter count)."""
     trainers = []
     for device, kernel in specs:
-        t = make_trainer(build_gan(device, 1, kernel), device,
+        t = make_trainer(build_gan(device, 1, kernel, **mode), device,
                          tempfile.mkdtemp(prefix='chip_smoke_step_'),
-                         max_step=1, valid_max_step=1, save_interval=1, log_interval=1)
+                         max_step=1, valid_max_step=1, save_interval=1, log_interval=1,
+                         msd_folded=msd_folded)
         shutil.rmtree(t.save_dir, ignore_errors=True)
         trainers.append(t)
     real = [t.to_device([tones(np.random.default_rng(5), 2, SEG)])[0][:, None, :]
@@ -566,11 +596,14 @@ def split_step_pair(specs):
 def time_train_steps(trainer, real, n_timed):
     """Two warm-up steps, then ``n_timed`` split steps: (steps/s by the host
     clock ending in a synchronize, per-step ms, disc / gen phase ms by CUDA
-    events, peak GB)."""
+    events, peak GB). Unreachable objects (an earlier phase's trainer held
+    by a reference cycle) are collected first, so the peak is this
+    trainer's."""
     import torch
     dev = real.device
     for _ in range(2):
         trainer._train_step([real[:, 0]], is_logging=False)
+    garbage.collect()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(3 * n_timed)]
@@ -772,27 +805,42 @@ def conv_macs(n, cout, cg, k, stride, padding, dilation, t_in, t_out):
     return float(n * cout * cg) * float(np.count_nonzero((pos >= 0) & (pos < t_in)))
 
 
-def expected_gc_launches(gen, mpd, msd, steps, valid_batches):
-    """Launches of the grouped-conv entry points (forward, dx, dw) in
-    ``steps`` split steps and ``valid_batches`` validation batches, from the
-    models' routes. Per critic stack with k layers on the kernels: the critic
-    phase runs the forward over real + fake, dw of every layer and dx of every
-    layer but the first (the waveform carries no gradient); the generator
-    phase runs the forward over real (no gradient) and over the fake, and dx
-    of every layer (the fake carries the generator's gradient) but no dw (the
-    critics are frozen). Each upsample on the kernels runs dx (its forward)
-    in both phases' generator passes and each validation batch, and in its
-    backward the forward kernel (dx) and dw."""
+def critic_gc_launches(mpd, msd, msd_folded=False):
+    """Launches of the grouped-conv entry points (forward, dx, dw) by the
+    critics in one split step, from their routes. Per critic stack with k
+    layers on the kernels: the critic phase runs the forward over real +
+    fake, dw of every layer and dx of every layer but the first (the
+    waveform carries no gradient); the generator phase runs the forward over
+    real (no gradient) and over the fake, and dx of every layer (the fake
+    carries the generator's gradient) but no dw (the critics are frozen).
+    The folded MSD is one stack of 8 layers on scale 0's routes, in place of
+    the scales' 3 x 8."""
     fwd = dx = dw = 0
-    for disc in (mpd, msd):
-        for sub in disc.children():
-            convs = [getattr(sub, 'conv_%d' % i) for i in range(sub.n_layers)] + [sub.conv_post]
-            on = [c.backend == 'cuda' for c in convs]
-            fwd, dw, dx = fwd + 3 * sum(on), dw + sum(on), dx + 2 * sum(on) - on[0]
+    stacks = list(mpd.children()) + ([msd.scale_0] if msd_folded else list(msd.children()))
+    for sub in stacks:
+        convs = [getattr(sub, 'conv_%d' % i) for i in range(sub.n_layers)] + [sub.conv_post]
+        on = [c.backend == 'cuda' for c in convs]
+        fwd, dw, dx = fwd + 3 * sum(on), dw + sum(on), dx + 2 * sum(on) - on[0]
+    return fwd, dx, dw
+
+
+def ups_gc_launches(gen, steps, valid_batches):
+    """Launches of the grouped-conv entry points (forward, dx, dw) by the
+    generator's upsamples: each one on the kernels runs dx (its forward) in
+    both phases' generator passes and each validation batch, and in its
+    backward the forward kernel (dx) and dw."""
     ups = sum(getattr(gen, 'ups_%d' % i).backend == 'cuda'
               for i in range(len(gen.upsample_rates)))
-    return (steps * (fwd + ups), steps * (dx + 2 * ups) + valid_batches * ups,
-            steps * (dw + ups))
+    return steps * ups, (2 * steps + valid_batches) * ups, steps * ups
+
+
+def expected_gc_launches(gen, mpd, msd, steps, valid_batches, msd_folded=False):
+    """Launches of the grouped-conv entry points (forward, dx, dw) in
+    ``steps`` split steps and ``valid_batches`` validation batches, from the
+    models' routes: the critics' and the upsamples'."""
+    critics = critic_gc_launches(mpd, msd, msd_folded)
+    return tuple(steps * c + u for c, u in zip(critics,
+                                               ups_gc_launches(gen, steps, valid_batches)))
 
 
 def capture_layers(gen, mpd, msd, real, mel):
@@ -1025,6 +1073,7 @@ def kernel_route(dev, card, cudnn_step):
                 'dx': 'pytorch_sound_tpu/ops/pallas/grouped_conv.py:414',
                 'dw': 'pytorch_sound_tpu/ops/pallas/grouped_conv.py:763'}
     kernel_route.step_ms = {'run_8_2': run_step_ms, 'in_memory_8_5': step_ms}
+    kernel_route.peak_gb = peak_gb
     return [{'name': 'grouped_conv_' + e, 'route': 'cuda', 'source': gc.SOURCE,
              'replaces': replaces[e], 'launches': launches[i], 'max_abs_err': errs[e],
              'ms': times[e][0], 'plain_ms': times[e][1], 'bound_ms': bounds[e][0],
@@ -3900,6 +3949,291 @@ def fast_modes_path(dev, card, rng):
     return entries
 
 
+CRITIC_MODES = ('default', 'bf16')   # phase 18: K6's routes besides 'highest'
+# phase 18, K6 in 'default' on float32 tensors against the plain version of
+# the mode: GC_FWD_TOL / GC_GRAD_TOL of its max abs (the same operands
+# rounded the same way and exact products: only the fp32 sums' order
+# differs); on bfloat16 tensors the same plus one bf16 ulp at the binade of
+# that max (both round once from fp32 sums, and may round apart). Each also
+# nearer the plain version of its mode than the plain 'highest' of the
+# float32 operands by RMS (MODE_RMS_RATIO).
+# The recipe's step in a critic mode, card vs CPU (the plain versions of the
+# mode): a sum whose order differs may round an operand of the next layer to
+# the neighbouring bf16 value (2^-8 of it), so the step moves by more than in
+# 'highest': each of the five losses, relative (on an H100 at most 1.2e-5),
+MODE_STEP_RTOL = 2e-4
+# ... and each parameter's gradient, ||g_card - g_cpu|| / ||g_cpu|| (at most
+# 0.018, the MSD's first layers, whose cotangents carry the most roundings)
+MODE_STEP_GRAD_TOL = 5e-2
+FOLD_TOL = 2e-5                   # folded vs unfolded MSD (tests/test_hifigan_training.py:310)
+FOLD_GRAD_RTOL, FOLD_GRAD_ATOL = 5e-4, 5e-5   # its gradients (:342-343)
+
+
+def bf16_ulp(scale):
+    """One bf16 ulp at the binade of ``scale`` (7 stored mantissa bits)."""
+    return 2.0 ** (np.floor(np.log2(scale)) - 7)
+
+
+def folded_layers(msd, x):
+    """The folded MSD's 8 convs on x: [(name, input, weight, bias, conv
+    keywords, slope)], each input as ``msd_apply_folded`` feeds it."""
+    import torch
+    from pytorch_sound_tpu_torch.models.vocoders import discriminators as disc
+    layers, route = [], disc.conv1d_route
+
+    def record(x_, w, b, **kw):
+        name = 'msd_folded.%s' % ('conv_%d' % len(layers) if len(layers) < 7 else 'conv_post')
+        conf = {k: kw[k] for k in ('stride', 'padding', 'groups', 'dilation')}
+        layers.append((name, x_.contiguous(), w.detach(), b.detach(), conf, kw['slope']))
+        return route(x_, w, b, **kw)
+
+    disc.conv1d_route = record
+    try:
+        with torch.no_grad():
+            disc.msd_apply_folded(msd, x)
+    finally:
+        disc.conv1d_route = route
+    return layers
+
+
+def critic_modes_path(dev, card, cudnn_step):
+    """Phase 18: the critics' fast modes on K6. Returns the JSON entries of
+    the three grouped-conv entry points in 'default' (float32 tensors) and
+    on bfloat16 tensors."""
+    import torch
+    import torch.nn.functional as F
+    from pytorch_sound_tpu_torch.models.vocoders import discriminators as disc
+    from pytorch_sound_tpu_torch.models.vocoders.hifi_gan import WNConv1d
+    from pytorch_sound_tpu_torch.ops.cuda import grouped_conv as gc
+    from pytorch_sound_tpu_torch.ops.cuda import logmel as lm
+
+    t_start = time.perf_counter()
+    bf = torch.bfloat16
+    # 18a each entry point in 'default' on float32 and on bfloat16 tensors
+    #     against the plain version of its mode, on every conv of MPD base
+    #     and MSD base at the critic phase's 32 x 8192 inputs (phase 8's) and
+    #     on the folded MSD's 8 convs, from seeded cotangents
+    gen, mpd, msd = build_gan(dev, 0)
+    real = torch.from_numpy(tones(np.random.default_rng(8), BATCH, SEG)).to(dev)[:, None, :]
+    with torch.no_grad():
+        mel = lm.fused_hifigan_mel(real[:, 0])
+        both = torch.cat([real, gen(mel)], dim=0)
+    layers = [(name, x, m.folded_weight().detach(), m.bias.detach(),
+               dict(stride=m.stride, padding=m.padding, groups=m.groups, dilation=m.dilation),
+               m.fused_slope)
+              for name, m, x in capture_layers(gen, mpd, msd, real, mel)
+              if isinstance(m, WNConv1d)]
+    layers += folded_layers(msd, both)
+    del gen, mpd, msd
+    rng = torch.Generator(device=dev).manual_seed(18)
+    entries = ('fwd', 'dx', 'dw')
+    errs = {(e, r): 0.0 for e in entries for r in CRITIC_MODES}
+    ratios = {(e, r): 0.0 for e in entries for r in CRITIC_MODES}
+    keys = ('default', 'plain', 'bf16', 'plain_bf16', 'highest', 'cudnn_bf16')
+    # every critic conv, the unfolded MSD's alone, the folded MSD's
+    sums = {part: {e: dict.fromkeys(keys, 0.0) for e in entries}
+            for part in ('critics', 'msd', 'folded')}
+    work = {part: {e: [0.0, 0.0] for e in entries} for part in sums}   # FLOPs, elements
+    for name, x, w, b, conf, slope in layers:
+        parts = (('folded',) if name.startswith('msd_folded') else
+                 ('critics', 'msd') if name.startswith('msd.') else ('critics',))
+        n, _, t = x.shape
+        y32 = gc.grouped_conv1d_reference(x, w, b, slope=slope, **conf)
+        gy = torch.randn(y32.shape, generator=rng, device=dev)
+        xb, wb, gyb, bb = x.to(bf), w.to(bf), gy.to(bf), b.to(bf)
+        k = w.shape[2]
+        conv_args = ([conf['stride']], [conf['padding']], [conf['dilation']], False, [0],
+                     conf['groups'])
+        d = dict(conf, precision='default')
+
+        def run(entry, x_, w_, gy_, **kw):
+            if entry == 'fwd':
+                return gc.conv1d_forward(x_, w_, b, slope=slope, **kw)
+            if entry == 'dx':
+                return gc.conv1d_input_grad(gy_, w_, t, **kw)
+            return gc.conv1d_weight_grad(x_, gy_, w.shape, **kw)
+
+        def plain(entry, x_, w_, gy_, **kw):
+            if entry == 'fwd':
+                return gc.grouped_conv1d_reference(x_, w_, b, slope=slope, **kw)
+            if entry == 'dx':
+                return gc.conv1d_input_grad_reference(gy_, w_, t, **kw)
+            return gc.conv1d_weight_grad_reference(x_, gy_, w.shape, **kw)
+
+        def cudnn_bf16(entry):
+            if entry == 'fwd':
+                return F.conv1d(xb, wb, bb, stride=conf['stride'], padding=conf['padding'],
+                                dilation=conf['dilation'], groups=conf['groups'])
+            mask = [entry == 'dx', entry == 'dw', False]
+            return torch.ops.aten.convolution_backward(gyb, xb, wb, None, *conv_args,
+                                                       mask)[0 if entry == 'dx' else 1]
+
+        macs = conv_macs(n, w.shape[0], w.shape[1], k, conf['stride'], conf['padding'],
+                         conf['dilation'], t, y32.shape[2])
+        moved = {'fwd': x.numel() + w.numel() + y32.numel(),
+                 'dx': gy.numel() + w.numel() + x.numel(),
+                 'dw': x.numel() + gy.numel() + w.numel()}
+        line = {}
+        for e in entries:
+            highest = plain(e, x, w, gy, **conf)
+            for r, (x_, w_, gy_) in (('default', (x, w, gy)), ('bf16', (xb, wb, gyb))):
+                got, ref = run(e, x_, w_, gy_, **d), plain(e, x_, w_, gy_, **d)
+                torch.cuda.synchronize()
+                assert got.shape == ref.shape and got.dtype == ref.dtype, (name, e, r)
+                scale = float(ref.float().abs().max())
+                err = max_err(got.float(), ref.float())
+                tol = (GC_FWD_TOL if e == 'fwd' else GC_GRAD_TOL) * scale + \
+                    (bf16_ulp(scale) if r == 'bf16' else 0.0)
+                ratio = rms(got.float() - ref.float()) / max(rms(got.float() - highest), 1e-300)
+                errs[e, r] = max(errs[e, r], err / scale)
+                ratios[e, r] = max(ratios[e, r], ratio)
+                line['%s_%s' % (e, r)] = '%.3g/%.3g' % (err / scale, ratio)
+                assert err <= tol, (name, e, r, err, tol)
+                assert ratio <= MODE_RMS_RATIO, (name, e, r, ratio)
+            ms = dict(zip(('default', 'plain'), paired_ms(
+                lambda: plain(e, x, w, gy, **d), lambda: run(e, x, w, gy, **d), 3)[:2]))
+            ms['bf16'] = cuda_ms(lambda: run(e, xb, wb, gyb, **d), 3)
+            ms['plain_bf16'] = cuda_ms(lambda: plain(e, xb, wb, gyb, **d), 3)
+            ms['highest'] = cuda_ms(lambda: run(e, x, w, gy, **conf), 3)
+            ms['cudnn_bf16'] = cuda_ms(lambda: cudnn_bf16(e), 3)
+            for part in parts:
+                for key_ in keys:
+                    sums[part][e][key_] += ms[key_]
+                work[part][e][0] += 2.0 * macs
+                work[part][e][1] += moved[e]
+            line[e + '_ms'] = '/'.join('%.3f' % ms[key_] for key_ in keys)
+        log('k6_modes', layer=name, geometry='%d->%d k%d s%d g%d T%d' % (
+            x.shape[1], w.shape[0], k, conf['stride'], conf['groups'], t), batch=n, **line)
+    del layers
+    # bounds: every product at the bf16 tensor-core peak, or the bytes at the
+    # tensors' dtype (float32: 4, bfloat16: 2) over the memory rate
+    bounds = {(part, e, r): bf16_bound(work[part][e][0], (4 if r == 'default' else 2)
+                                       * work[part][e][1], 1)
+              for part in sums for e in entries for r in CRITIC_MODES}
+    for part in sums:
+        log('time', card=repr(card), what='k6_modes_%s_one_call_each' % part,
+            order='/'.join(keys),
+            **{'%s_ms' % e: '/'.join('%.3f' % sums[part][e][key_] for key_ in keys)
+               for e in entries},
+            **{'%s_%s_bound_ms' % (e, r): '%.3f(%s)' % bounds[part, e, r]
+               for e in entries for r in CRITIC_MODES},
+            **{'%s_gflop' % e: '%.1f' % (work[part][e][0] / 1e9) for e in entries})
+    log('k6_modes', worst_rel_err=' '.join('%s_%s=%.3g' % (e, r, errs[e, r])
+                                           for e in entries for r in CRITIC_MODES),
+        worst_rms_ratio=' '.join('%s_%s=%.3g' % (e, r, ratios[e, r])
+                                 for e in entries for r in CRITIC_MODES))
+
+    # 18b the folded MSD against the unfolded one on both routes, fp32
+    #     'highest': every score and map, and every parameter's gradient of a
+    #     loss over all of them, at the critic phase's 32 x 8192 batch
+    for kernel in (False, True):
+        msd = build_gan(dev, 0, kernel)[2]
+        runs = []
+        for apply in (msd, lambda w: disc.msd_apply_folded(msd, w)):
+            msd.zero_grad()
+            outs = apply(both)
+            sum(torch.mean(s_ ** 2) + sum(torch.mean(f.abs()) for f in feats)
+                for s_, feats in outs).backward()
+            runs.append(([(s_.detach(), [f.detach() for f in feats]) for s_, feats in outs],
+                         {k_: p.grad.clone() for k_, p in msd.named_parameters()}))
+        (ref, g_ref), (got, g_got) = runs
+        out_err = max(float(((a - b).abs() - FOLD_TOL * b.abs()).max())
+                      for (s_g, f_g), (s_r, f_r) in zip(got, ref)
+                      for a, b in [(s_g, s_r)] + list(zip(f_g, f_r)))
+        grad_err = max(float(((g_got[k_] - g).abs() - FOLD_GRAD_RTOL * g.abs()).max())
+                       for k_, g in g_ref.items())
+        log('msd_folded', route='k6' if kernel else 'cudnn', outputs_excess=
+            '%.3g' % out_err, grads_excess='%.3g' % grad_err)
+        assert out_err <= FOLD_TOL and grad_err <= FOLD_GRAD_ATOL, (kernel, out_err, grad_err)
+        del msd, runs, ref, got, g_ref, g_got
+    del both
+
+    # 18c the recipe's step: HiFiGANTrainer(...).run() at full width on the K6
+    #     route for 3 steps and a validation batch, the critics in 'default',
+    #     then also folded, then on bf16 activations, launch counts from zero
+    #     per route; one step card vs CPU; then the step time and peak memory
+    #     of each, in turns with the critics at 'highest' (phase 8.5's route)
+    configs = {'default': ({'precision': 'default'}, False),
+               'default_folded': ({'precision': 'default'}, True),
+               'default_bf16': ({'precision': 'default', 'compute_dtype': 'bf16'}, False)}
+    launches = {r: [0, 0, 0] for r in CRITIC_MODES}
+    counters = (gc.conv1d_forward, gc.conv1d_input_grad, gc.conv1d_weight_grad)
+    for cname, (mode, folded) in configs.items():
+        route = 'bf16' if mode.get('compute_dtype') else 'default'
+        work_dir = tempfile.mkdtemp(prefix='chip_smoke_modes_')
+        try:
+            models = build_gan(dev, 0, kernel=True, **mode)
+            gc.reset_launches()
+            run = make_trainer(models, dev, work_dir, train=ToneStream(3), valid=ToneStream(1),
+                               max_step=3, valid_max_step=1, save_interval=3, log_interval=1,
+                               msd_folded=folded)
+            best = run.run()
+            torch.cuda.synchronize()
+            got = {r: tuple(c.launches_by_mode[r] for c in counters)
+                   for r in ('highest',) + CRITIC_MODES}
+            train = {s_: m for tag, s_, m in run.logged if tag == 'train'}
+            assert sorted(train) == [1, 2, 3], sorted(train)
+            assert all(np.isfinite(m[k_]) for m in train.values() for k_ in LOSSES), train
+            assert np.isfinite(best), best
+            gen_, mpd_, msd_ = models
+            want = {'highest': ups_gc_launches(gen_, 3, 1),
+                    route: tuple(3 * c for c in critic_gc_launches(mpd_, msd_, folded)),
+                    ({'default', 'bf16'} - {route}).pop(): (0, 0, 0)}
+        finally:
+            shutil.rmtree(work_dir, ignore_errors=True)
+        for s_ in sorted(train):
+            log('train', route='k6_' + cname, step=s_,
+                **{k_: '%.6f' % train[s_][k_] for k_ in LOSSES})
+        log('counts', route='k6_' + cname, **{r: '%d/%d/%d' % got[r] for r in got},
+            expected=' '.join('%s=%d/%d/%d' % ((r,) + want[r]) for r in got),
+            best_valid_mel_l1='%.6f' % best)
+        assert got == want and min(got[route]) > 0, (cname, got, want)
+        for i in range(3):
+            launches[route][i] += got[route][i]
+        del run, models
+
+        loss_rel, (grad_rel, worst), shown, n_params = split_step_pair(
+            [('cpu', True), (dev, True)], msd_folded=folded, **mode)
+        log('card_cpu', route='k6_' + cname, losses=shown, worst_loss_rel='%.3g' % loss_rel,
+            worst_grad_rel='%.3g' % grad_rel, worst_grad_param=worst, params=n_params)
+        assert loss_rel <= MODE_STEP_RTOL and grad_rel <= MODE_STEP_GRAD_TOL, \
+            (cname, loss_rel, worst, grad_rel)
+
+    real = torch.from_numpy(tones(np.random.default_rng(6), BATCH, SEG)).to(dev)[:, None, :]
+    for cname, (mode, folded) in dict(highest=({}, False), **configs).items():
+        trainer = make_trainer(build_gan(dev, 0, kernel=True, **mode), dev,
+                               tempfile.mkdtemp(prefix='chip_smoke_t_'), max_step=1,
+                               valid_max_step=1, save_interval=1, log_interval=1,
+                               msd_folded=folded)
+        shutil.rmtree(trainer.save_dir, ignore_errors=True)
+        steps_s, step_ms, disc_ms, gen_ms, peak_gb = time_train_steps(trainer, real, 6)
+        del trainer
+        log('time', card=repr(card), what='train_step_16x8192_k6_' + cname,
+            step_ms='%.2f' % step_ms, steps_per_s='%.3f' % steps_s,
+            disc_phase_ms='/'.join('%.2f' % v for v in disc_ms),
+            gen_phase_ms='/'.join('%.2f' % v for v in gen_ms),
+            peak_memory_gb='%.2f' % peak_gb,
+            phase8_k6_step_ms='%.2f' % kernel_route.step_ms['in_memory_8_5'],
+            phase8_k6_peak_memory_gb='%.2f' % kernel_route.peak_gb,
+            cudnn_step_ms='%.2f' % cudnn_step[1], cudnn_peak_memory_gb='%.2f' % cudnn_step[4])
+    log('critic_modes', seconds='%.1f' % (time.perf_counter() - t_start))
+    replaces = {'fwd': 'pytorch_sound_tpu/ops/pallas/grouped_conv.py:414',
+                'dx': 'pytorch_sound_tpu/ops/pallas/grouped_conv.py:414',
+                'dw': 'pytorch_sound_tpu/ops/pallas/grouped_conv.py:763'}
+    return [{'name': 'grouped_conv_%s_%s' % (e, r), 'route': 'cuda', 'source': gc.SOURCE,
+             'replaces': replaces[e], 'precision': 'default',
+             'dtype': 'bfloat16' if r == 'bf16' else 'float32',
+             'launches': launches[r][i], 'max_abs_err': errs[e, r],
+             'ms': sums['critics'][e][r], 'plain_ms': sums['critics'][e][
+                 'plain' if r == 'default' else 'plain_bf16'],
+             'bound_ms': bounds['critics', e, r][0], 'bound_by': bounds['critics', e, r][1],
+             'tc_bound_ms': bounds['critics', e, r][0],
+             'highest_ms': sums['critics'][e]['highest'],
+             'folded_ms': sums['folded'][e][r],
+             'library_ms': sums['critics'][e]['cudnn_bf16']}
+            for i, e in enumerate(entries) for r in CRITIC_MODES]
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4279,6 +4613,10 @@ def main():
     #     dtype='bfloat16'
     fast_entries = fast_modes_path(dev, card, rng)
 
+    # 18. the critics' fast modes: K6 in 'default' and on bf16 tensors, the
+    #     folded MSD, the recipe's steps with msd_folded and disc_bf16
+    critic_entries = critic_modes_path(dev, card, cudnn_step)
+
     print(json.dumps({'kernels': [
         {'name': 'gen_stage', 'route': 'cuda', 'source': gs.SOURCE,
          'replaces': 'pytorch_sound_tpu/ops/pallas/gen_stage.py:282',
@@ -4300,6 +4638,7 @@ def main():
         *v1_entries,
         *k5_entries,
         *fast_entries,
+        *critic_entries,
     ]}), flush=True)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': name,
                                              'count': torch.cuda.device_count()}}),

@@ -118,21 +118,87 @@
 // cut into `splits` fixed chunks; each block writes its partial tile to
 // scratch, and a second pass of the same entry point sums the chunks in a
 // fixed order. No float atomics, so a rerun is bit-identical.
+//
+// Two precisions, the TPU kernel's two (`precision` of the entry points):
+//   - highest (0): the above, fp32-accurate products.
+//   - default (1): each operand rounded to bf16 (round to nearest even, as
+//     astype(bfloat16)), the products summed in fp32 (the forward: x and w;
+//     dx: gy and w; dw: x and gy). On the tensor cores one bf16 mma.sync
+//     m16n8k16 per 16-deep k-step (bf16_mma.cuh); lane (g, t) takes the
+//     reduction indices t, t + 4, t + 8, t + 12 of the step (the m16n8k16
+//     pairs (2t, 2t + 1), (2t + 8, 2t + 9) mapped to them), so the fp32
+//     tiles and their swizzles are read as the 3xTF32 path reads them, two
+//     8-deep steps at a time. On the CUDA cores fp32 FMAs of the rounded
+//     operands: exact bf16 products, as on the tensor cores. The packed A
+//     (dx's phase gather, a forward's unaligned rows) is rounded once when
+//     packed; bias and leaky_relu apply to the fp32 accumulator.
+// Tensors are float32 or, all of x / w / gy and the output together,
+// bfloat16 (`bf16`; the bias stays float32). bf16 operands make every
+// product exact in either precision, so they run the default path. They are
+// read as bf16 (half the bytes) and widened into the same fp32 shared tiles
+// as float32 tensors (cp.async has no 2-byte copy: the gathered elements
+// are loaded and stored by the threads, gy's rows in 8-byte pieces of 4;
+// dw's gather takes kLoadBatch positions' loads before their stores, which
+// measured 22.0 against 27.4 ms over the critics' convs on an H100, where
+// the same batching of the tap kernel's window measured slower, 31.8
+// against 20.5 ms forward, and is not kept); the output is rounded to bf16
+// once, from the fp32 accumulator after bias and slope. dw returns the
+// weight's dtype: its fp32 sums always go through the splits' scratch, and
+// the pass that adds them rounds.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
 #include <cstddef>
 #include <cstdint>
 
+#include "bf16_mma.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kBK = 16;  // reduction chunk through shared memory
+constexpr int kLoadBatch = 8;  // bf16 positions dw's gather loads before it stores them
 
 enum Mode { kFwd = 0, kDx = 1, kDw = 2 };
+enum Prec { kHighest = 0, kDefault = 1 };
+
+// Element i of a float32 tensor, or of a bfloat16 one (bf16 != 0), as fp32.
+__device__ __forceinline__ float load_el(const void* p, size_t i, int bf16) {
+  return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
+              : __ldg(static_cast<const float*>(p) + i);
+}
+
+// Element i of a float32 or bfloat16 (rounded to nearest even) tensor = v.
+__device__ __forceinline__ void store_el(void* p, size_t i, float v, int bf16) {
+  if (bf16)
+    static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16_rn(v);
+  else
+    static_cast<float*>(p)[i] = v;
+}
+
+// The A operand (16 x 16) of an fp32 row-major shared tile as bf16 pairs,
+// rounded: lane (g, t) holds rows g and g + 8 at reduction indices c0 + t,
+// + 4 (registers 0, 1) and c0 + t + 8, + 12 (registers 2, 3).
+__device__ __forceinline__ void load_a_bf16(const float* s, int ld, int r0, int c0, int g,
+                                            int t, unsigned (&a)[4]) {
+  const float* p = s + (r0 + g) * ld + c0 + t;
+  a[0] = pack_bf16(p[0], p[4]);
+  a[1] = pack_bf16(p[8 * ld], p[8 * ld + 4]);
+  a[2] = pack_bf16(p[8], p[12]);
+  a[3] = pack_bf16(p[8 * ld + 8], p[8 * ld + 12]);
+}
+
+// The B operand (16 x 8) with B[k][n] = s[k0 + k][n0 + n] in the same
+// reduction order (lane (g, t): rows t, t + 4 and t + 8, t + 12 at column g).
+__device__ __forceinline__ void load_b_bf16(const float* s, int ld, int k0, int n0, int g,
+                                            int t, unsigned (&b)[2]) {
+  const float* p = s + (k0 + t) * ld + n0 + g;
+  b[0] = pack_bf16(p[0], p[4 * ld]);
+  b[1] = pack_bf16(p[8 * ld], p[12 * ld]);
+}
 
 struct Geom {
   int n, cin, t_in, cout, t_out, k, stride, pad, dil, groups;
@@ -207,13 +273,17 @@ __device__ __forceinline__ void load_rows(const float* src, float (&a)[TM]) {
 // bias (nullable) and the slope apply in the forward and dx epilogues. With
 // KS > 1 the block's NT threads form KS slices that take turns over the
 // reduction's chunks (one-row tiles, whose columns are few and reductions
-// long); slice 0 adds the slices' sums in slice order.
+// long); slice 0 adds the slices' sums in slice order. a and b are float32,
+// or bfloat16 with bf16 (then so is out in the forward and dx; dw's out is
+// always fp32 sums); with rnd each operand is rounded to bf16 as it is
+// loaded (precision default).
 template <int MODE, int BM, int BN, int TM, int TN, int NT, int KS>
 __global__ void __launch_bounds__(NT)
-    conv_gemm_kernel(Geom g, const float* __restrict__ a_src,
-                     const float* __restrict__ b_src,
-                     const float* __restrict__ bias, float* __restrict__ out,
-                     int has_slope, float slope, int splits, int chunk) {
+    conv_gemm_kernel(Geom g, const void* __restrict__ a_src,
+                     const void* __restrict__ b_src,
+                     const float* __restrict__ bias, void* __restrict__ out,
+                     int has_slope, float slope, int splits, int chunk, int bf16,
+                     int rnd) {
   constexpr int NS = NT / KS;          // threads per slice
   constexpr int kTX = BN / TN;        // threads along the columns
   constexpr int kRowStep = NS / BN;    // gathered-tile rows per pass
@@ -266,17 +336,16 @@ __global__ void __launch_bounds__(NT)
   const int b_row0 = tid / BN;
   const int c = c_base + b_col;
   const bool c_ok = c < ncols;
-  const float* col_ptr = b_src;  // kFwd: x row block; kDx: gy row block
   int col_pos = 0;               // kFwd: t s - p; kDx: j + base; kDw: d m - p
-  size_t col_off = 0;            // kDw: ci * t_in
+  size_t col_off = 0;            // kFwd: x row block; kDx: gy row block; kDw: ci * t_in
   if (c_ok) {
     if (MODE == kFwd) {
       const int n_ = c / g.t_out, t = c - n_ * g.t_out;
-      col_ptr = b_src + (static_cast<size_t>(n_) * g.cin + grp * cg) * g.t_in;
+      col_off = (static_cast<size_t>(n_) * g.cin + grp * cg) * g.t_in;
       col_pos = t * g.stride - g.pad;
     } else if (MODE == kDx) {
       const int n_ = c / ph.j_count, j = c - n_ * ph.j_count;
-      col_ptr = b_src + (static_cast<size_t>(n_) * g.cout + grp * cog) * g.t_out;
+      col_off = (static_cast<size_t>(n_) * g.cout + grp * cog) * g.t_out;
       col_pos = j + ph.base;
     } else {
       const int ci = c / g.k, m = c - ci * g.k;
@@ -301,31 +370,33 @@ __global__ void __launch_bounds__(NT)
   // FMAs run, then stored to the other shared buffer: one barrier per chunk.
   float a_reg[kAPasses];
   float b_reg[kBK / kRowStep];
+  auto operand = [&](const void* src, size_t i) {
+    const float v = load_el(src, i, bf16);
+    return rnd ? round_bf16(v) : v;
+  };
   auto fetch = [&](int r0) {
     {  // A tile entries (a_kk, a_row0 + (NS / kBK) j)
       const int r = r0 + a_kk;
       const bool r_ok = r < r_end;
-      const float* a_ptr = a_src;
-      size_t a_stride = 0;  // address step from one row to the next
+      size_t a_off = 0, a_stride = 0;  // element of row 0; step from one row to the next
       if (r_ok) {
         if (MODE == kFwd) {
-          a_ptr = a_src + static_cast<size_t>(grp * cog) * cg * g.k + r;
+          a_off = static_cast<size_t>(grp * cog) * cg * g.k + r;
           a_stride = static_cast<size_t>(cg) * g.k;
         } else if (MODE == kDx) {
           const int co = r / ph.n_taps, i = r - co * ph.n_taps;
-          a_ptr = a_src + static_cast<size_t>(grp * cog + co) * cg * g.k +
-                  ph.m0 + ph.ms * i;
+          a_off = static_cast<size_t>(grp * cog + co) * cg * g.k + ph.m0 + ph.ms * i;
           a_stride = g.k;
         } else {
           const int n_ = r / g.t_out, t = r - n_ * g.t_out;
-          a_ptr = a_src + (static_cast<size_t>(n_) * g.cout + grp * cog) * g.t_out + t;
+          a_off = (static_cast<size_t>(n_) * g.cout + grp * cog) * g.t_out + t;
           a_stride = g.t_out;
         }
       }
 #pragma unroll
       for (int j = 0; j < kAPasses; ++j) {
         const int gr = m_base + a_row0 + j * (NS / kBK);
-        a_reg[j] = (r_ok && gr < rows) ? __ldg(a_ptr + gr * a_stride) : 0.f;
+        a_reg[j] = (r_ok && gr < rows) ? operand(a_src, a_off + gr * a_stride) : 0.f;
       }
     }
     {  // B tile entries (b_row0 + kRowStep i, b_col), gathered with the
@@ -343,16 +414,15 @@ __global__ void __launch_bounds__(NT)
           if (MODE == kFwd) {  // hi = ci, lo = m
             const int pos = col_pos + g.dil * lo;
             if (pos >= 0 && pos < g.t_in)
-              v = __ldg(col_ptr + static_cast<size_t>(hi) * g.t_in + pos);
+              v = operand(b_src, col_off + static_cast<size_t>(hi) * g.t_in + pos);
           } else if (MODE == kDx) {  // hi = co, lo = i
             const int t = col_pos - lo * ph.dstep;
             if (t >= 0 && t < g.t_out)
-              v = __ldg(col_ptr + static_cast<size_t>(hi) * g.t_out + t);
+              v = operand(b_src, col_off + static_cast<size_t>(hi) * g.t_out + t);
           } else {  // hi = n, lo = t
             const int pos = lo * g.stride + col_pos;
             if (pos >= 0 && pos < g.t_in)
-              v = __ldg(b_src + static_cast<size_t>(hi) * g.cin * g.t_in +
-                        col_off + pos);
+              v = operand(b_src, static_cast<size_t>(hi) * g.cin * g.t_in + col_off + pos);
           }
         }
         b_reg[i] = v;
@@ -442,7 +512,7 @@ __global__ void __launch_bounds__(NT)
         if (bias != nullptr) v += __ldg(bias + grp * (MODE == kFwd ? cog : cg) + row);
         if (has_slope) v = v > 0.f ? v : slope * v;
       }
-      out[base + row * row_step] = v;
+      store_el(out, base + row * row_step, v, MODE == kDw ? 0 : bf16);
     }
   }
 }
@@ -469,11 +539,13 @@ struct DwTile {
 // One BM x BN tile of one group's dw over one split's positions [split *
 // chunk, min(n * t_out, (split + 1) * chunk)); out = dw (cout, cg, k), or the
 // partial sums (splits, cout, cg, k). blockIdx.z = group * splits + split.
-// gy's rows are whole 16-byte pieces: t_out % 4 == 0, gy 16-byte aligned.
-template <int BM, int BN, int WM, int WN>
+// gy's rows are whole 16-byte pieces (t_out % 4 == 0, gy 16-byte aligned),
+// or with bf16 whole 8-byte pieces of 4 (t_out % 4 == 0, 8-byte aligned).
+// P: kHighest (3xTF32 m16n8k8) or kDefault (bf16 m16n8k16).
+template <int BM, int BN, int WM, int WN, int P>
 __global__ void __launch_bounds__(32 * WM * WN)
-    conv_dw_kernel(Geom g, const float* __restrict__ gy, const float* __restrict__ x,
-                   float* __restrict__ out, int splits, int chunk) {
+    conv_dw_kernel(Geom g, const void* __restrict__ gy, const void* __restrict__ x,
+                   float* __restrict__ out, int splits, int chunk, int bf16) {
   using T = DwTile<BM, BN, WM, WN>;
   constexpr int BK = kDwBK, LDA = T::LDA, LDB = T::LDB, MI = T::MI, NJ = T::NJ;
   constexpr int NTH = T::NTH;
@@ -503,7 +575,9 @@ __global__ void __launch_bounds__(32 * WM * WN)
   }
   const size_t item_x = static_cast<size_t>(g.cin) * g.t_in;
   const size_t item_gy = static_cast<size_t>(g.cout) * g.t_out;
-  const float* gy_rows = gy + static_cast<size_t>(grp * cog + m_base) * g.t_out;
+  const size_t gy_rows = static_cast<size_t>(grp * cog + m_base) * g.t_out;
+  const float* gy32 = static_cast<const float*>(gy);
+  const float* x32 = static_cast<const float*>(x);
 
   auto stage = [&](int r, float* st) {
     float* As = st;
@@ -512,37 +586,82 @@ __global__ void __launch_bounds__(32 * WM * WN)
     // t_out % 4 == 0) -> As[row][pl ..]; each thread keeps one position
     // quad (pl) and walks rows
     {
-      constexpr int U = BK / 4;  // 16-byte copies per row
+      constexpr int U = BK / 4;  // quads per row
       const int pl = 4 * (tid % U);
       const int pos = r + pl;
       const bool pos_ok = pos < r_end;
       const int n_ = pos_ok ? pos / g.t_out : 0;
-      const float* src = gy_rows + n_ * item_gy + (pos_ok ? pos - n_ * g.t_out : 0);
-      for (int row = tid / U; row < BM; row += NTH / U) {
-        const bool ok = pos_ok && m_base + row < cog;
-        cp_async16(As + row * LDA + pl, ok ? src + static_cast<size_t>(row) * g.t_out : gy,
-                   ok ? 16 : 0);
+      const size_t src = gy_rows + n_ * item_gy + (pos_ok ? pos - n_ * g.t_out : 0);
+      constexpr int RS = NTH / U;  // rows apart; each thread takes BM / RS rows
+      if (bf16) {  // all of the thread's 8-byte loads in flight, then the stores
+        uint2 q[BM / RS];
+#pragma unroll
+        for (int i = 0; i < BM / RS; ++i) {
+          const int row = tid / U + i * RS;
+          q[i] = pos_ok && m_base + row < cog
+                     ? *reinterpret_cast<const uint2*>(static_cast<const __nv_bfloat16*>(gy) +
+                                                       src + static_cast<size_t>(row) * g.t_out)
+                     : make_uint2(0u, 0u);
+        }
+#pragma unroll
+        for (int i = 0; i < BM / RS; ++i)  // bf16 bits -> fp32: the high half of the word
+          *reinterpret_cast<float4*>(As + (tid / U + i * RS) * LDA + pl) =
+              make_float4(__uint_as_float(q[i].x << 16), __uint_as_float(q[i].x & 0xffff0000u),
+                          __uint_as_float(q[i].y << 16), __uint_as_float(q[i].y & 0xffff0000u));
+      } else {
+        for (int row = tid / U; row < BM; row += RS) {
+          const bool ok = pos_ok && m_base + row < cog;
+          cp_async16(As + row * LDA + pl, ok ? gy32 + src + static_cast<size_t>(row) * g.t_out
+                                             : gy32, ok ? 16 : 0);
+        }
       }
     }
     // B: x[n, ci, t s + d m - p] at position r + b_p0 + PR i -> Bs[pos][col]
     int pos = r + b_p0;
     int n_ = pos / g.t_out, t_ = pos - n_ * g.t_out;
-#pragma unroll 4
-    for (int i = 0; i < BK / PR; ++i) {
-      const bool pos_ok = pos < r_end;
-      const float* xb = x + n_ * item_x;
-#pragma unroll
-      for (int j = 0; j < CT; ++j) {
-        const int u = t_ * g.stride + tap[j];
-        const bool ok = pos_ok && col_ok[j] && u >= 0 && u < g.t_in;
-        cp_async4(Bs + (b_p0 + PR * i) * LDB + tid % BN + j * NTH,
-                  ok ? xb + ch_off[j] + u : x, ok ? 4 : 0);
-      }
+    auto next = [&]() {
       pos += PR;
       t_ += PR;
       while (t_ >= g.t_out) {
         t_ -= g.t_out;
         ++n_;
+      }
+    };
+    if (bf16) {  // kLoadBatch positions' loads in flight, then their stores
+      static_assert((BK / PR) % kLoadBatch == 0, "positions per thread");
+      for (int i0 = 0; i0 < BK / PR; i0 += kLoadBatch) {
+        float v[kLoadBatch][CT];
+#pragma unroll
+        for (int i = 0; i < kLoadBatch; ++i) {
+          const bool pos_ok = pos < r_end;
+          const size_t xb = n_ * item_x;
+#pragma unroll
+          for (int j = 0; j < CT; ++j) {
+            const int u = t_ * g.stride + tap[j];
+            v[i][j] = pos_ok && col_ok[j] && u >= 0 && u < g.t_in
+                          ? load_el(x, xb + ch_off[j] + u, 1) : 0.f;
+          }
+          next();
+        }
+#pragma unroll
+        for (int i = 0; i < kLoadBatch; ++i)
+#pragma unroll
+          for (int j = 0; j < CT; ++j)
+            Bs[(b_p0 + PR * (i0 + i)) * LDB + tid % BN + j * NTH] = v[i][j];
+      }
+    } else {
+#pragma unroll 4
+      for (int i = 0; i < BK / PR; ++i) {
+        const bool pos_ok = pos < r_end;
+        const size_t xb = n_ * item_x;
+#pragma unroll
+        for (int j = 0; j < CT; ++j) {
+          const int u = t_ * g.stride + tap[j];
+          const bool ok = pos_ok && col_ok[j] && u >= 0 && u < g.t_in;
+          cp_async4(Bs + (b_p0 + PR * i) * LDB + tid % BN + j * NTH,
+                    ok ? x32 + xb + ch_off[j] + u : x32, ok ? 4 : 0);
+        }
+        next();
       }
     }
   };
@@ -568,17 +687,33 @@ __global__ void __launch_bounds__(32 * WM * WN)
     cp_async_commit();
     const float* As = smem + (it & 1) * T::STAGE;
     const float* Bs = As + BM * LDA;
+    if constexpr (P == kHighest) {
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 8) {
-      unsigned ah[MI][4], al[MI][4];
+      for (int kk = 0; kk < BK; kk += 8) {
+        unsigned ah[MI][4], al[MI][4];
 #pragma unroll
-      for (int i = 0; i < MI; ++i) load_a(As, LDA, wr0 + 16 * i, kk, gl, tl, ah[i], al[i]);
+        for (int i = 0; i < MI; ++i) load_a(As, LDA, wr0 + 16 * i, kk, gl, tl, ah[i], al[i]);
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        unsigned bh[2], bl[2];
-        load_b(Bs, LDB, kk, wc0 + 8 * j, gl, tl, bh, bl);
+        for (int j = 0; j < NJ; ++j) {
+          unsigned bh[2], bl[2];
+          load_b(Bs, LDB, kk, wc0 + 8 * j, gl, tl, bh, bl);
 #pragma unroll
-        for (int i = 0; i < MI; ++i) mma_3xtf32(part[i * NJ + j], ah[i], al[i], bh, bl);
+          for (int i = 0; i < MI; ++i) mma_3xtf32(part[i * NJ + j], ah[i], al[i], bh, bl);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < BK; kk += 16) {
+        unsigned a[MI][4];
+#pragma unroll
+        for (int i = 0; i < MI; ++i) load_a_bf16(As, LDA, wr0 + 16 * i, kk, gl, tl, a[i]);
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          unsigned b[2];
+          load_b_bf16(Bs, LDB, kk, wc0 + 8 * j, gl, tl, b);
+#pragma unroll
+          for (int i = 0; i < MI; ++i) mma_bf16(part[i * NJ + j], a[i], b);
+        }
       }
     }
     add_part(acc, part);
@@ -649,10 +784,12 @@ struct TapTile {
 // The A operand of the tap GEMM of MODE as rows of kp floats, zero past
 // the reduction: per block z (kFwd: group; kDx: group * stride + phase) R
 // rows. forward A[co][(ci, m)] = w[co, ci, m] (rows not whole 16-byte
-// pieces); dx A[ci][(co, i)] = w[co, ci, m0 + ms i], the phase's taps.
+// pieces, or a bf16 w); dx A[ci][(co, i)] = w[co, ci, m0 + ms i], the
+// phase's taps. w is float32 or bfloat16 (bf16); rnd rounds each tap to
+// bf16 once, here (precision default).
 template <int MODE>
-__global__ void pack_tap_a_kernel(Geom g, int kp, const float* __restrict__ w,
-                                  float* __restrict__ pack, size_t count) {
+__global__ void pack_tap_a_kernel(Geom g, int kp, const void* __restrict__ w,
+                                  float* __restrict__ pack, size_t count, int bf16, int rnd) {
   const int cg = g.cin / g.groups, cog = g.cout / g.groups;
   const int rows = MODE == kFwd ? cog : cg;
   for (size_t e = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; e < count;
@@ -662,16 +799,16 @@ __global__ void pack_tap_a_kernel(Geom g, int kp, const float* __restrict__ w,
     const int z = static_cast<int>(zr / rows), row = static_cast<int>(zr - z * rows);
     float a = 0.f;
     if (MODE == kFwd) {
-      if (r < cg * g.k) a = w[zr * cg * g.k + r];
+      if (r < cg * g.k) a = load_el(w, zr * cg * g.k + r, bf16);
     } else {
       const DxPhase ph = dx_phase(g, z % g.stride);
       if (r < cog * ph.n_taps) {
         const int co = r / ph.n_taps, i = r - co * ph.n_taps;
-        a = w[(static_cast<size_t>(z / g.stride * cog + co) * cg + row) * g.k + ph.m0 +
-              ph.ms * i];
+        a = load_el(w, (static_cast<size_t>(z / g.stride * cog + co) * cg + row) * g.k +
+                           ph.m0 + ph.ms * i, bf16);
       }
     }
-    pack[e] = a;
+    pack[e] = rnd ? round_bf16(a) : a;
   }
 }
 
@@ -681,12 +818,14 @@ __global__ void pack_tap_a_kernel(Geom g, int kp, const float* __restrict__ w,
 // itself or its pack; block z's rows from a + z * a_z) and, per channel the
 // stage touches, the source window of the block's columns over all taps,
 // staged once and read by the B fragments of every tap. A kTapStages-deep
-// cp.async ring.
-template <int MODE, int BM, int BN, int WM, int WN>
+// cp.async ring. P: kHighest (3xTF32 m16n8k8) or kDefault (bf16 m16n8k16).
+// src and out are float32, or bfloat16 with bf16 (its window then loaded
+// and widened by the threads); A is fp32 (w itself, or its pack).
+template <int MODE, int BM, int BN, int WM, int WN, int P>
 __global__ void __launch_bounds__(32 * WM * WN)
     conv_tap_kernel(Geom g, TapPlan p, const float* __restrict__ a, int lda, size_t a_z,
-                    const float* __restrict__ src, const float* __restrict__ bias,
-                    float* __restrict__ out, int has_slope, float slope) {
+                    const void* __restrict__ src, const float* __restrict__ bias,
+                    void* __restrict__ out, int has_slope, float slope, int bf16) {
   using TT = TapTile<BM, BN, WM, WN>;
   constexpr int BK = kTapBK, LDA = TT::LDA, MI = TT::MI, NJ = TT::NJ, NTH = TT::NTH;
   constexpr int A_STAGE = BM * LDA;  // floats of A per stage
@@ -743,8 +882,9 @@ __global__ void __launch_bounds__(32 * WM * WN)
   }
   __syncthreads();
 
-  const float* src_grp = src + static_cast<size_t>(grp) * C * t_src;
+  const size_t src_grp = static_cast<size_t>(grp) * C * t_src;
   const size_t item_src = static_cast<size_t>(c_total) * t_src;
+  const float* src32 = static_cast<const float*>(src);
   auto channels = [&](int r0) {  // first channel of a stage and how many it touches
     return make_int2(r0 / T, (r0 + BK - 1) / T - r0 / T + 1);
   };
@@ -767,11 +907,14 @@ __global__ void __launch_bounds__(32 * WM * WN)
     const int2 ch = channels(r0);
     for (int e = tid; e < ent; e += NTH) {
       const int u = tab_u[e];
-      const float* row = src_grp + tab_n[e] * item_src + u;
+      const size_t row = src_grp + tab_n[e] * item_src + u;  // read only where u >= 0
       for (int cs = 0; cs < ch.y; ++cs) {
         const bool ok = u >= 0 && ch.x + cs < C;
-        cp_async4(win + cs * p.ldw + e, ok ? row + static_cast<size_t>(ch.x + cs) * t_src : src,
-                  ok ? 4 : 0);
+        const size_t el = row + static_cast<size_t>(ch.x + cs) * t_src;
+        if (bf16)
+          win[cs * p.ldw + e] = ok ? load_el(src, el, 1) : 0.f;
+        else
+          cp_async4(win + cs * p.ldw + e, ok ? src32 + el : src32, ok ? 4 : 0);
       }
     }
     if (tid < BK) {
@@ -815,19 +958,37 @@ __global__ void __launch_bounds__(32 * WM * WN)
     const float* As = st;
     const float* win = st + A_STAGE;
     const int* offtab = reinterpret_cast<const int*>(win + p.nch * p.ldw);
+    if constexpr (P == kHighest) {
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 8) {
-      const int o0 = offtab[kk + tl], o1 = offtab[kk + tl + 4];
-      unsigned ah[MI][4], al[MI][4];
+      for (int kk = 0; kk < BK; kk += 8) {
+        const int o0 = offtab[kk + tl], o1 = offtab[kk + tl + 4];
+        unsigned ah[MI][4], al[MI][4];
 #pragma unroll
-      for (int i = 0; i < MI; ++i) load_a(As, LDA, wr0 + 16 * i, kk, gl, tl, ah[i], al[i]);
+        for (int i = 0; i < MI; ++i) load_a(As, LDA, wr0 + 16 * i, kk, gl, tl, ah[i], al[i]);
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        unsigned bh[2], bl[2];
-        split_tf32(win[o0 + colbase[j]], bh[0], bl[0]);
-        split_tf32(win[o1 + colbase[j]], bh[1], bl[1]);
+        for (int j = 0; j < NJ; ++j) {
+          unsigned bh[2], bl[2];
+          split_tf32(win[o0 + colbase[j]], bh[0], bl[0]);
+          split_tf32(win[o1 + colbase[j]], bh[1], bl[1]);
 #pragma unroll
-        for (int i = 0; i < MI; ++i) mma_3xtf32(part[i * NJ + j], ah[i], al[i], bh, bl);
+          for (int i = 0; i < MI; ++i) mma_3xtf32(part[i * NJ + j], ah[i], al[i], bh, bl);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < BK; kk += 16) {  // lane t: indices t, t + 4, t + 8, t + 12
+        const int o0 = offtab[kk + tl], o1 = offtab[kk + tl + 4];
+        const int o2 = offtab[kk + tl + 8], o3 = offtab[kk + tl + 12];
+        unsigned a16[MI][4];
+#pragma unroll
+        for (int i = 0; i < MI; ++i) load_a_bf16(As, LDA, wr0 + 16 * i, kk, gl, tl, a16[i]);
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const unsigned b16[2] = {pack_bf16(win[o0 + colbase[j]], win[o1 + colbase[j]]),
+                                   pack_bf16(win[o2 + colbase[j]], win[o3 + colbase[j]])};
+#pragma unroll
+          for (int i = 0; i < MI; ++i) mma_bf16(part[i * NJ + j], a16[i], b16);
+        }
       }
     }
     add_part(acc, part);
@@ -858,44 +1019,59 @@ __global__ void __launch_bounds__(32 * WM * WN)
           float v = acc[i * NJ + j][2 * e2 + h];
           if (bias != nullptr) v += __ldg(bias + grp * R + row);
           if (has_slope) v = v > 0.f ? v : slope * v;
-          out[base + row * row_step] = v;
+          store_el(out, base + row * row_step, v, bf16);
         }
     }
 }
 
-// dst (rows, t_pad) = src (rows, t) with each row zero-padded to t_pad.
-__global__ void pad_rows_kernel(const float* __restrict__ src, float* __restrict__ dst,
-                                size_t rows, int t, int t_pad) {
+// dst (rows, t_pad) = src (rows, t) with each row zero-padded to t_pad, of
+// floats or (E = __nv_bfloat16) bf16 values.
+template <typename E>
+__global__ void pad_rows_kernel(const E* __restrict__ src, E* __restrict__ dst, size_t rows,
+                                int t, int t_pad) {
   const size_t count = rows * t_pad;
   for (size_t e = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; e < count;
        e += static_cast<size_t>(gridDim.x) * blockDim.x) {
     const size_t r = e / t_pad;
     const int c = static_cast<int>(e - r * t_pad);
-    dst[e] = c < t ? src[r * t + c] : 0.f;
+    dst[e] = c < t ? src[r * t + c] : E(0.f);
   }
 }
 
-// dw[e] = sum over the splits of part[split, e], in split order.
-__global__ void sum_splits_kernel(const float* __restrict__ part,
-                                  float* __restrict__ dw, size_t count,
-                                  int splits) {
+// dw[e] = sum over the splits of part[split, e], in split order; dw float32
+// or bfloat16 (bf16: the sum rounded once).
+__global__ void sum_splits_kernel(const float* __restrict__ part, void* __restrict__ dw,
+                                  size_t count, int splits, int bf16) {
   for (size_t e = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
        e < count; e += static_cast<size_t>(gridDim.x) * blockDim.x) {
     float s = 0.f;
     for (int sp = 0; sp < splits; ++sp) s += part[sp * count + e];
-    dw[e] = s;
+    store_el(dw, e, s, bf16);
   }
 }
 
+// The operands and options of one entry point's GEMM: a and b as the
+// kernels take them (float32, or bfloat16 with bf16), the bias, the output
+// (dw: fp32 sums), the epilogue's slope, dw's splits, and the precision.
+struct Args {
+  const void* a;
+  const void* b;
+  const float* bias;
+  void* out;
+  int has_slope;
+  float slope;
+  int splits, chunk;
+  int prec, bf16;
+};
+
 template <int MODE, int BM, int BN, int TM, int TN, int NT, int KS>
-int launch(const Geom& g, int rows, int ncols, int grid_z, const float* a,
-           const float* b, const float* bias, float* out, int has_slope,
-           float slope, int splits, int chunk, cudaStream_t stream) {
+int launch(const Geom& g, int rows, int ncols, int grid_z, const Args& q, cudaStream_t stream) {
   const dim3 grid((ncols + BN - 1) / BN, (rows + BM - 1) / BM, grid_z);
   if (grid.y > 65535u || grid.z > 65535u)
     return static_cast<int>(cudaErrorInvalidConfiguration);
   conv_gemm_kernel<MODE, BM, BN, TM, TN, NT, KS><<<grid, NT, 0, stream>>>(
-      g, a, b, bias, out, has_slope, slope, splits, chunk);
+      g, q.a, q.b, q.bias, q.out, q.has_slope, q.slope, q.splits, q.chunk, q.bf16,
+      q.prec == kDefault);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -912,9 +1088,8 @@ int launch(const Geom& g, int rows, int ncols, int grid_z, const float* a,
 // conv_post has few columns and a long reduction, which wide tiles would
 // leave to a few SMs. Keep in step with ops/cuda/grouped_conv.py::dw_tile.
 template <int MODE>
-int dispatch(const Geom& g, int rows, int ncols, int grid_z, const float* a,
-             const float* b, const float* bias, float* out, int has_slope,
-             float slope, int splits, int chunk, cudaStream_t stream) {
+int dispatch(const Geom& g, int rows, int ncols, int grid_z, const Args& q,
+             cudaStream_t stream) {
   int device = 0, sms = 132;
   if (cudaGetDevice(&device) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess)
@@ -924,10 +1099,8 @@ int dispatch(const Geom& g, int rows, int ncols, int grid_z, const float* a,
                              ((rows + bm - 1) / bm) * grid_z;
     return (blocks + sms - 1) / sms;
   };
-#define PSTT_LAUNCH(BM, BN, TM, TN, KS)                                       \
-  return launch<MODE, BM, BN, TM, TN, kThreads, KS>(                         \
-      g, rows, ncols, grid_z, a, b, bias, out, has_slope, slope, splits, chunk, \
-      stream)
+#define PSTT_LAUNCH(BM, BN, TM, TN, KS) \
+  return launch<MODE, BM, BN, TM, TN, kThreads, KS>(g, rows, ncols, grid_z, q, stream)
   if (rows >= 128 && 8 * waves(128, 128) <= 5 * waves(128, 64))
     PSTT_LAUNCH(128, 128, 8, 8, 1);
   if (rows >= 128) PSTT_LAUNCH(128, 64, 8, 4, 1);
@@ -939,32 +1112,38 @@ int dispatch(const Geom& g, int rows, int ncols, int grid_z, const float* a,
 #undef PSTT_LAUNCH
 }
 
-template <int BM, int BN, int WM, int WN>
-int launch_dw(const Geom& g, const float* gy, const float* x, float* out, int splits,
-              int chunk, cudaStream_t stream) {
+template <int BM, int BN, int WM, int WN, int P>
+int launch_dw_prec(const Geom& g, const Args& q, cudaStream_t stream) {
   using T = DwTile<BM, BN, WM, WN>;
   const int rows = g.cout / g.groups, ncols = (g.cin / g.groups) * g.k;
-  const dim3 grid((ncols + BN - 1) / BN, (rows + BM - 1) / BM, g.groups * splits);
+  const dim3 grid((ncols + BN - 1) / BN, (rows + BM - 1) / BM, g.groups * q.splits);
   if (grid.y > 65535u || grid.z > 65535u)
     return static_cast<int>(cudaErrorInvalidConfiguration);
   const size_t smem = sizeof(float) * 2 * T::STAGE;
   const cudaError_t err = cudaFuncSetAttribute(
-      conv_dw_kernel<BM, BN, WM, WN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      conv_dw_kernel<BM, BN, WM, WN, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  conv_dw_kernel<BM, BN, WM, WN><<<grid, T::NTH, smem, stream>>>(g, gy, x, out, splits, chunk);
+  conv_dw_kernel<BM, BN, WM, WN, P><<<grid, T::NTH, smem, stream>>>(
+      g, q.a, q.b, static_cast<float*>(q.out), q.splits, q.chunk, q.bf16);
   return static_cast<int>(cudaGetLastError());
+}
+
+// conv_dw_kernel in the precision of q (bf16 tensors: default).
+template <int BM, int BN, int WM, int WN>
+int launch_dw(const Geom& g, const Args& q, cudaStream_t stream) {
+  return q.prec == kDefault ? launch_dw_prec<BM, BN, WM, WN, kDefault>(g, q, stream)
+                            : launch_dw_prec<BM, BN, WM, WN, kHighest>(g, q, stream);
 }
 
 // conv_dw_kernel's tile by rows per group (>= kDwMinRows). Keep in step with
 // ops/cuda/grouped_conv.py::dw_tile.
-int dispatch_dw(const Geom& g, const float* gy, const float* x, float* out, int splits,
-                int chunk, cudaStream_t stream) {
+int dispatch_dw(const Geom& g, const Args& q, cudaStream_t stream) {
   const int rows = g.cout / g.groups;
-  if (rows >= 128) return launch_dw<128, 64, 2, 2>(g, gy, x, out, splits, chunk, stream);
-  if (rows >= 64) return launch_dw<64, 64, 2, 2>(g, gy, x, out, splits, chunk, stream);
-  if (rows >= 32) return launch_dw<32, 128, 1, 4>(g, gy, x, out, splits, chunk, stream);
-  return launch_dw<16, 256, 1, 4>(g, gy, x, out, splits, chunk, stream);
+  if (rows >= 128) return launch_dw<128, 64, 2, 2>(g, q, stream);
+  if (rows >= 64) return launch_dw<64, 64, 2, 2>(g, q, stream);
+  if (rows >= 32) return launch_dw<32, 128, 1, 4>(g, q, stream);
+  return launch_dw<16, 256, 1, 4>(g, q, stream);
 }
 
 // The tap kernel's plan for MODE at a BM x BN tile: the window of the
@@ -1021,24 +1200,24 @@ cudaError_t tap_scratch(void** ptr, size_t bytes, cudaStream_t stream) {
   return err == cudaSuccess ? cudaMallocAsync(ptr, bytes, stream) : err;
 }
 
-// Launches the tap kernel on A: w itself for a forward whose rows are whole
-// 16-byte pieces, else A packed into scratch first (dx always: its A is
-// gathered per phase).
-template <int MODE, int BM, int BN, int WM, int WN>
-int launch_tap(const Geom& g, const TapPlan& p, int grid_z, int rows, int ncols,
-               const float* w, const float* src, const float* bias, float* out,
-               int has_slope, float slope, cudaStream_t stream) {
+// Launches the tap kernel on A: w itself for a float32 forward whose rows
+// are whole 16-byte pieces, else A packed into scratch first (dx always: its
+// A is gathered per phase; a bf16 w: A is fp32), rounded there in default.
+template <int MODE, int BM, int BN, int WM, int WN, int P>
+int launch_tap(const Geom& g, const TapPlan& p, int grid_z, int rows, int ncols, const Args& q,
+               cudaStream_t stream) {
   const dim3 grid((ncols + BN - 1) / BN, (rows + BM - 1) / BM, grid_z);
   if (grid.y > 65535u || grid.z > 65535u)
     return static_cast<int>(cudaErrorInvalidConfiguration);
-  auto kernel = conv_tap_kernel<MODE, BM, BN, WM, WN>;
+  auto kernel = conv_tap_kernel<MODE, BM, BN, WM, WN, P>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(p.smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int depth = (g.cin / g.groups) * g.k;
-  if (MODE == kFwd && depth % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0) {
+  if (MODE == kFwd && !q.bf16 && depth % 4 == 0 && reinterpret_cast<uintptr_t>(q.a) % 16 == 0) {
     kernel<<<grid, TapTile<BM, BN, WM, WN>::NTH, p.smem, stream>>>(
-        g, p, w, depth, static_cast<size_t>(rows) * depth, src, bias, out, has_slope, slope);
+        g, p, static_cast<const float*>(q.a), depth, static_cast<size_t>(rows) * depth, q.b,
+        q.bias, q.out, q.has_slope, q.slope, q.bf16);
     return static_cast<int>(cudaGetLastError());
   }
   const size_t count = static_cast<size_t>(grid_z) * rows * p.kp;
@@ -1046,12 +1225,13 @@ int launch_tap(const Geom& g, const TapPlan& p, int grid_z, int rows, int ncols,
   err = tap_scratch(reinterpret_cast<void**>(&pack), count * sizeof(float), stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t blocks = std::min<size_t>(4096, (count + 255) / 256);
-  pack_tap_a_kernel<MODE><<<static_cast<unsigned>(blocks), 256, 0, stream>>>(g, p.kp, w, pack,
-                                                                            count);
+  pack_tap_a_kernel<MODE><<<static_cast<unsigned>(blocks), 256, 0, stream>>>(
+      g, p.kp, q.a, pack, count, q.bf16, P == kDefault);
   err = cudaGetLastError();
   if (err == cudaSuccess) {
     kernel<<<grid, TapTile<BM, BN, WM, WN>::NTH, p.smem, stream>>>(
-        g, p, pack, p.kp, static_cast<size_t>(rows) * p.kp, src, bias, out, has_slope, slope);
+        g, p, pack, p.kp, static_cast<size_t>(rows) * p.kp, q.b, q.bias, q.out, q.has_slope,
+        q.slope, q.bf16);
     err = cudaGetLastError();
   }
   const cudaError_t freed = cudaFreeAsync(pack, stream);
@@ -1060,21 +1240,21 @@ int launch_tap(const Geom& g, const TapPlan& p, int grid_z, int rows, int ncols,
 
 // The forward or dx of MODE on the tensor cores from kTapMinRows GEMM rows
 // per group and one stage of reduction, its tile by rows (as
-// conv_dw_kernel's); -1 where the rows or the reduction are fewer (the
-// critics' first layers: one input channel) or the window does not fit a
-// block: the caller then takes conv_gemm_kernel. Keep in step with
-// ops/cuda/grouped_conv.py::tap_tile and fwd_kernel.
+// conv_dw_kernel's) and its products by q's precision; -1 where the rows or
+// the reduction are fewer (the critics' first layers: one input channel) or
+// the window does not fit a block: the caller then takes conv_gemm_kernel.
+// Keep in step with ops/cuda/grouped_conv.py::tap_tile and fwd_kernel.
 template <int MODE>
-int dispatch_tap(const Geom& g, int rows, int ncols, int grid_z, const float* w,
-                 const float* src, const float* bias, float* out, int has_slope, float slope,
+int dispatch_tap(const Geom& g, int rows, int ncols, int grid_z, const Args& q,
                  cudaStream_t stream) {
   if (rows < kTapMinRows) return -1;
-#define PSTT_TAP(BM, BN, WM, WN)                                                         \
-  {                                                                                      \
-    const TapPlan p = tap_plan(MODE, g, BM, BN);                                         \
-    if (p.depth < kTapBK || p.smem > static_cast<size_t>(kTapMaxSmem)) return -1;        \
-    return launch_tap<MODE, BM, BN, WM, WN>(g, p, grid_z, rows, ncols, w, src, bias, out, \
-                                            has_slope, slope, stream);                   \
+#define PSTT_TAP(BM, BN, WM, WN)                                                               \
+  {                                                                                            \
+    const TapPlan p = tap_plan(MODE, g, BM, BN);                                               \
+    if (p.depth < kTapBK || p.smem > static_cast<size_t>(kTapMaxSmem)) return -1;              \
+    return q.prec == kDefault                                                                  \
+               ? launch_tap<MODE, BM, BN, WM, WN, kDefault>(g, p, grid_z, rows, ncols, q, stream) \
+               : launch_tap<MODE, BM, BN, WM, WN, kHighest>(g, p, grid_z, rows, ncols, q, stream); \
   }
   if (rows >= 128) PSTT_TAP(128, 64, 2, 2)
   if (rows >= 64) PSTT_TAP(64, 64, 2, 2)
@@ -1095,82 +1275,104 @@ bool valid_geom(const Geom& g) {
          static_cast<long long>(g.n) * g.t_out < (1LL << 31);
 }
 
+// The precision the kernels run: bf16 tensors make every product exact, so
+// they run default whatever was asked; -1 for an unknown precision.
+int effective_prec(int precision, int bf16) {
+  if (precision != kHighest && precision != kDefault) return -1;
+  return bf16 ? kDefault : precision;
+}
+
 }  // namespace
 
 // y (n, cout, t_out) = lrelu(conv1d(x (n, cin, t_in), w (cout, cin / groups,
-// k)) + b); b may be null, has_slope 0 skips the leaky_relu. Returns a
-// cudaError_t; 0 when launched.
-extern "C" int grouped_conv_forward(const float* x, const float* w,
-                                    const float* b, float* y, int n, int cin,
+// k)) + b); b may be null, has_slope 0 skips the leaky_relu. precision 0
+// (highest) or 1 (default); bf16: x, w and y are bfloat16 (b float32).
+// Returns a cudaError_t; 0 when launched.
+extern "C" int grouped_conv_forward(const void* x, const void* w,
+                                    const float* b, void* y, int n, int cin,
                                     int t_in, int cout, int t_out, int k,
                                     int stride, int pad, int dil, int groups,
-                                    int has_slope, float slope, void* stream) {
+                                    int has_slope, float slope, int precision, int bf16,
+                                    void* stream) {
   const Geom g{n, cin, t_in, cout, t_out, k, stride, pad, dil, groups};
-  if (!valid_geom(g)) return static_cast<int>(cudaErrorInvalidValue);
+  const int prec = effective_prec(precision, bf16);
+  if (!valid_geom(g) || prec < 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int tc = dispatch_tap<kFwd>(g, cout / groups, n * t_out, groups, w, x, b, y,
-                                    has_slope, slope, st);
+  const Args q{w, x, b, y, has_slope, slope, 1, 0, prec, bf16};
+  const int tc = dispatch_tap<kFwd>(g, cout / groups, n * t_out, groups, q, st);
   if (tc >= 0) return tc;
-  return dispatch<kFwd>(g, cout / groups, n * t_out, groups, w, x, b, y,
-                        has_slope, slope, 1, 0, st);
+  return dispatch<kFwd>(g, cout / groups, n * t_out, groups, q, st);
 }
 
 // dx (n, cin, t_in) of the conv above from its cotangent gy (n, cout, t_out),
 // then + b (cin,) and leaky_relu when given: a ConvTranspose1d of gy with
-// weight w (cout, cin, k) is this with groups 1 and dilation 1.
-extern "C" int grouped_conv_input_grad(const float* gy, const float* w,
-                                       const float* b, float* dx, int n,
+// weight w (cout, cin, k) is this with groups 1 and dilation 1. precision
+// and bf16 (gy, w and dx) as above.
+extern "C" int grouped_conv_input_grad(const void* gy, const void* w,
+                                       const float* b, void* dx, int n,
                                        int cin, int t_in, int cout, int t_out,
                                        int k, int stride, int pad, int dil,
                                        int groups, int has_slope, float slope,
-                                       void* stream) {
+                                       int precision, int bf16, void* stream) {
   const Geom g{n, cin, t_in, cout, t_out, k, stride, pad, dil, groups};
-  if (!valid_geom(g)) return static_cast<int>(cudaErrorInvalidValue);
+  const int prec = effective_prec(precision, bf16);
+  if (!valid_geom(g) || prec < 0) return static_cast<int>(cudaErrorInvalidValue);
   const int j_max = (t_in + stride - 1) / stride;  // phase 0 has the most
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int tc = dispatch_tap<kDx>(g, cin / groups, n * j_max, groups * stride, w, gy, b, dx,
-                                   has_slope, slope, st);
+  const Args q{w, gy, b, dx, has_slope, slope, 1, 0, prec, bf16};
+  const int tc = dispatch_tap<kDx>(g, cin / groups, n * j_max, groups * stride, q, st);
   if (tc >= 0) return tc;
-  return dispatch<kDx>(g, cin / groups, n * j_max, groups * stride, w, gy, b,
-                       dx, has_slope, slope, 1, 0, st);
+  return dispatch<kDx>(g, cin / groups, n * j_max, groups * stride, q, st);
 }
 
-// dw (cout, cin / groups, k) of the conv above from x and gy. With splits > 1,
-// scratch starts with splits * cout * (cin / groups) * k floats, rounded up
-// to a multiple of 4: the reduction over n * t_out is cut into splits chunks
-// whose partial sums a second pass adds in a fixed order (deterministic, no
-// atomics). With cout / groups >= 16 (the tensor-core kernel), when t_out % 4
-// != 0 or gy is not 16-byte aligned, n * cout * round_up(t_out, 4) floats
-// follow (at the start when splits == 1): gy with its rows zero-padded, which
-// the kernel copies in 16-byte pieces (padded positions add zero products).
-extern "C" int grouped_conv_weight_grad(const float* x, const float* gy,
-                                        float* dw, float* scratch, int n,
+// dw (cout, cin / groups, k) of the conv above from x and gy; precision as
+// above; bf16: x, gy and dw are bfloat16. The fp32 sums are staged in
+// scratch when splits > 1 or bf16: it starts with splits * cout * (cin /
+// groups) * k floats, rounded up to a multiple of 4: the reduction over n *
+// t_out is cut into splits chunks whose partial sums a second pass adds in a
+// fixed order (deterministic, no atomics) and writes in dw's dtype. With
+// cout / groups >= 16 (the tensor-core kernel), when t_out % 4 != 0 or gy is
+// not aligned to its rows' copies (16 bytes, bf16 8), n * cout *
+// round_up(t_out, 4) elements of gy's dtype follow (at the start when
+// nothing is staged): gy with its rows zero-padded, which the kernel reads in
+// whole pieces of 4 (padded positions add zero products).
+extern "C" int grouped_conv_weight_grad(const void* x, const void* gy,
+                                        void* dw, float* scratch, int n,
                                         int cin, int t_in, int cout, int t_out,
                                         int k, int stride, int pad, int dil,
-                                        int groups, int splits, void* stream) {
+                                        int groups, int splits, int precision, int bf16,
+                                        void* stream) {
   const Geom g{n, cin, t_in, cout, t_out, k, stride, pad, dil, groups};
-  if (!valid_geom(g) || splits < 1 || (splits > 1 && scratch == nullptr))
+  const int prec = effective_prec(precision, bf16);
+  const bool staged = splits > 1 || bf16;
+  if (!valid_geom(g) || prec < 0 || splits < 1 || (staged && scratch == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   // the tensor-core kernel from kDwMinRows rows per group, its chunks whole
-  // 32-position stages, on gy padded where its rows are not whole 16-byte
-  // pieces; below, the CUDA-core kernel in 16-position chunks
+  // 32-position stages, on gy padded where its rows are not whole pieces;
+  // below, the CUDA-core kernel in 16-position chunks
   const bool tc = cout / groups >= kDwMinRows;
-  const bool padded = tc && (t_out % 4 != 0 || reinterpret_cast<uintptr_t>(gy) % 16 != 0);
+  const int piece = bf16 ? 8 : 16;  // bytes of gy's row copies (4 elements)
+  const bool padded = tc && (t_out % 4 != 0 || reinterpret_cast<uintptr_t>(gy) % piece != 0);
   Geom ga = g;
   if (padded) ga.t_out = (t_out + 3) / 4 * 4;
   if ((padded && scratch == nullptr) || static_cast<long long>(n) * ga.t_out >= (1LL << 31))
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t count = static_cast<size_t>(cout) * (cin / groups) * k;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* a = gy;
+  const void* a = gy;
   if (padded) {
-    float* gyp = scratch + (splits > 1 ? (splits * count + 3) / 4 * 4 : 0);
+    float* gyp = scratch + (staged ? (splits * count + 3) / 4 * 4 : 0);
     if (reinterpret_cast<uintptr_t>(gyp) % 16 != 0)
       return static_cast<int>(cudaErrorInvalidValue);
     const size_t rows = static_cast<size_t>(n) * cout;
     const size_t blocks = std::min<size_t>(4096, (rows * ga.t_out + 255) / 256);
-    pad_rows_kernel<<<static_cast<unsigned>(blocks), 256, 0, st>>>(gy, gyp, rows, t_out,
-                                                                   ga.t_out);
+    if (bf16)
+      pad_rows_kernel<<<static_cast<unsigned>(blocks), 256, 0, st>>>(
+          static_cast<const __nv_bfloat16*>(gy), reinterpret_cast<__nv_bfloat16*>(gyp), rows,
+          t_out, ga.t_out);
+    else
+      pad_rows_kernel<<<static_cast<unsigned>(blocks), 256, 0, st>>>(
+          static_cast<const float*>(gy), gyp, rows, t_out, ga.t_out);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
     a = gyp;
@@ -1180,15 +1382,17 @@ extern "C" int grouped_conv_weight_grad(const float* x, const float* gy,
   int chunk = (q_total + splits - 1) / splits;
   chunk = (chunk + depth - 1) / depth * depth;
   const int used = (q_total + chunk - 1) / chunk;
-  float* target = used > 1 ? scratch : dw;
-  int err = tc ? dispatch_dw(ga, a, x, target, used, chunk, st)
+  void* target = used > 1 || bf16 ? static_cast<void*>(scratch) : dw;
+  const Args q{a, x, nullptr, target, 0, 0.f, used, chunk, prec, bf16};
+  int err = tc ? dispatch_dw(ga, q, st)
                : dispatch<kDw>(g, cout / groups, (cin / groups) * k, groups * used,
-                               gy, x, nullptr, target, 0, 0.f, used, chunk, st);
-  if (err != 0 || used == 1) return err;
+                               Args{gy, x, nullptr, target, 0, 0.f, used, chunk, prec, bf16},
+                               st);
+  if (err != 0 || target == dw) return err;
   const int threads = 256;
   size_t blocks = (count + threads - 1) / threads;
   if (blocks > 4096) blocks = 4096;
-  sum_splits_kernel<<<static_cast<unsigned>(blocks), threads, 0, st>>>(
-      scratch, dw, count, used);
+  sum_splits_kernel<<<static_cast<unsigned>(blocks), threads, 0, st>>>(scratch, dw, count,
+                                                                      used, bf16);
   return static_cast<int>(cudaGetLastError());
 }

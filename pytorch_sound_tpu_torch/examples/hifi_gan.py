@@ -18,18 +18,22 @@ SAVE_DIR [--batch_size 16 ...]`` reads the dataset's meta files
 also takes any iterables of ``(wav (N, T),)`` batches.
 :func:`build_critics` builds the recipe's critics on its conv routes
 (``main(msd_pallas=..., mpd_pallas=...)``): cuDNN by default, the
-grouped-conv kernels (K6) on request. The MSD's folded form and bf16 critics
-wait for later work (``ROADMAP.md`` section 2, queue item 2).
+grouped-conv kernels (K6) on request, in the critics' precision
+(``main(disc_precision=...)``: 'highest', the port's default, or 'default',
+the JAX recipe's) and, with ``main(disc_bf16=True)``, on bfloat16
+activations. ``main(msd_folded=True)`` applies the MSD as one block-diagonal
+grouped stack over its scales (``discriminators.msd_apply_folded``).
 """
 
 import importlib
 import itertools
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
 from pytorch_sound_tpu_torch.models import build_model
 from pytorch_sound_tpu_torch.models.vocoders import discriminators
+from pytorch_sound_tpu_torch.models.vocoders.discriminators import msd_apply_folded
 from pytorch_sound_tpu_torch.models.vocoders.hifi_gan import load_jax_params
 from pytorch_sound_tpu_torch.ops import gan as gan_ops
 from pytorch_sound_tpu_torch.ops.cuda.logmel import (fused_hifigan_mel,
@@ -42,19 +46,22 @@ LAMBDA_FM = 2.0
 LAMBDA_MEL = 45.0
 
 
-def build_critics(msd_kernel: int = -1, mpd_kernel: bool = False
+def build_critics(msd_kernel: int = -1, mpd_kernel: bool = False,
+                  precision: str = 'highest', compute_dtype: Optional[str] = None
                   ) -> Tuple[discriminators.MultiPeriodDiscriminator,
                              discriminators.MultiScaleDiscriminator]:
     """(MPD base, MSD base) as the JAX recipe's ``main`` builds them
     (``pytorch_sound_tpu/examples/hifi_gan.py:383-394``). ``msd_kernel=N >= 0``
     puts the first N of the MSD's 8 conv layers on the grouped-conv kernels
     (``'cuda'``), the rest on cuDNN; ``mpd_kernel=True`` puts all 6 MPD layers
-    there. -1 / False keep every conv on cuDNN."""
+    there. -1 / False keep every conv on cuDNN. Every critic conv runs in
+    ``precision`` and ``compute_dtype`` (None or 'bf16')."""
     n = max(msd_kernel, 0)
     mpd_backends = ('cuda' if mpd_kernel else 'cudnn',) * discriminators.PERIOD_LAYERS
     msd_backends = ('cuda',) * n + ('cudnn',) * (discriminators.SCALE_LAYERS - n)
-    return (build_model('hifi_gan_mpd_base', extra_kwargs={'backends': mpd_backends}),
-            build_model('hifi_gan_msd_base', extra_kwargs={'backends': msd_backends}))
+    mode = {'precision': precision, 'compute_dtype': compute_dtype}
+    return (build_model('hifi_gan_mpd_base', extra_kwargs=dict(mode, backends=mpd_backends)),
+            build_model('hifi_gan_msd_base', extra_kwargs=dict(mode, backends=msd_backends)))
 
 
 def _params(optimizer: torch.optim.Optimizer) -> List[torch.nn.Parameter]:
@@ -75,6 +82,11 @@ class HiFiGANTrainer(Trainer):
     bundled checkpoint) to fine-tune from; the generator must be built with
     ``use_weight_norm=False``.
 
+    ``msd_folded``: every critic pass applies the MSD through
+    :func:`~pytorch_sound_tpu_torch.models.vocoders.discriminators.msd_apply_folded`
+    (one block-diagonal grouped stack over the scales; the same function and
+    parameters), as JAX's ``_apply_disc`` does.
+
     ``mesh`` (the base trainer's, as JAX's constructor takes it; ``main``
     takes none, as JAX's does not): each phase takes its loss and its
     gradient as means over the ranks, weighted by rows, before its optimizer
@@ -87,7 +99,7 @@ class HiFiGANTrainer(Trainer):
     def __init__(self, generator: torch.nn.Module, mpd: torch.nn.Module,
                  msd: torch.nn.Module, gen_optimizer: torch.optim.Optimizer,
                  disc_optimizer: torch.optim.Optimizer, *args,
-                 generator_warm_start: str = None, **kwargs):
+                 generator_warm_start: str = None, msd_folded: bool = False, **kwargs):
         super().__init__(generator, gen_optimizer, *args, **kwargs)
         self.generator = self.model
         self.mpd = mpd.to(self.device)
@@ -95,6 +107,7 @@ class HiFiGANTrainer(Trainer):
         self.gen_optimizer = gen_optimizer
         self.disc_optimizer = disc_optimizer
         self.generator_warm_start = generator_warm_start
+        self.msd_folded = msd_folded
 
     def replicated_modules(self):
         return [self.generator, self.mpd, self.msd]
@@ -127,11 +140,19 @@ class HiFiGANTrainer(Trainer):
 
     # -- losses ---------------------------------------------------------------
 
+    def apply_disc(self, disc: torch.nn.Module, x: torch.Tensor) -> gan_ops.DiscOut:
+        """One critic family's outputs on x, the MSD folded with
+        ``msd_folded`` (JAX ``_apply_disc``)."""
+        if disc is self.msd and self.msd_folded:
+            return msd_apply_folded(disc, x)
+        return disc(x)
+
     @staticmethod
-    def _apply_both(disc: torch.nn.Module, real: torch.Tensor, fake: torch.Tensor
+    def _apply_both(disc, real: torch.Tensor, fake: torch.Tensor
                     ) -> Tuple[gan_ops.DiscOut, gan_ops.DiscOut]:
         """One critic pass over cat([real, fake]) instead of two (the critics
-        have no cross-batch ops); returns (real_outs, fake_outs)."""
+        have no cross-batch ops); ``disc`` a module or a function of the
+        batch. Returns (real_outs, fake_outs)."""
         n = real.shape[0]
         both = disc(torch.cat([real, fake], dim=0))
         real_outs = [(s[:n], [f[:n] for f in feats]) for s, feats in both]
@@ -140,7 +161,8 @@ class HiFiGANTrainer(Trainer):
 
     def disc_loss(self, real: torch.Tensor, fake: torch.Tensor) -> torch.Tensor:
         mpd_real, mpd_fake = self._apply_both(self.mpd, real, fake)
-        msd_real, msd_fake = self._apply_both(self.msd, real, fake)
+        msd_real, msd_fake = self._apply_both(lambda x: self.apply_disc(self.msd, x),
+                                              real, fake)
         return (gan_ops.discriminator_loss(mpd_real, mpd_fake)
                 + gan_ops.discriminator_loss(msd_real, msd_fake))
 
@@ -153,9 +175,9 @@ class HiFiGANTrainer(Trainer):
         mel_l1 = torch.mean(torch.abs(mel_fake - mel_real))
         with torch.no_grad():
             mpd_real = self.mpd(real)
-            msd_real = self.msd(real)
+            msd_real = self.apply_disc(self.msd, real)
         mpd_fake = self.mpd(fake)
-        msd_fake = self.msd(fake)
+        msd_fake = self.apply_disc(self.msd, fake)
         adv = (gan_ops.generator_adversarial_loss(mpd_fake)
                + gan_ops.generator_adversarial_loss(msd_fake))
         fm = (gan_ops.feature_matching_loss(mpd_real, mpd_fake)
@@ -235,7 +257,8 @@ def main(dataset: str, meta_dir: str, save_dir: str, batch_size: int = 16,
          valid_max_step: int = 20, save_interval: int = 5000,
          log_interval: int = 100, lr: float = 2e-4, arch: str = 'hifi_gan_v2',
          msd_pallas: int = -1, mpd_pallas: bool = False,
-         msd_folded: bool = False, disc_bf16: bool = False, device: str = 'cuda'):
+         msd_folded: bool = False, disc_bf16: bool = False,
+         disc_precision: str = 'highest', device: str = 'cuda'):
     """Train a HiFi-GAN on a wave-first dataset (vctk, ljspeech, libri_tts)
     from its meta directory, as the JAX recipe's ``main`` does: crops of
     ``fix_len`` samples (shorter clips zero-padded to it), AdamW 2e-4 with
@@ -246,20 +269,22 @@ def main(dataset: str, meta_dir: str, save_dir: str, batch_size: int = 16,
     ``arch``: the generator, on its registered conv route. ``msd_pallas``:
     -1 keeps every critic conv on cuDNN; N >= 0 puts the MSD's first N conv
     layers on the grouped-conv kernels (K6). ``mpd_pallas``: all of the
-    MPD's conv layers on K6. ``msd_folded`` and ``disc_bf16`` are not ported
-    yet and raise. ``device``: 'cuda' (the default; raises without a card)
-    or 'cpu'.
+    MPD's conv layers on K6. ``msd_folded``: the MSD as one block-diagonal
+    grouped stack (``HiFiGANTrainer(msd_folded=True)``). ``disc_bf16``: both
+    critics on bfloat16 activations and weights (``compute_dtype='bf16'``;
+    fp32 master parameters), as JAX's ``main``. ``disc_precision``: the
+    critics' precision, 'highest' (the port's default) or 'default' (the
+    JAX critics' default: bf16 products, fp32 sums). ``device``: 'cuda' (the
+    default; raises without a card) or 'cpu'.
     """
-    if msd_folded or disc_bf16:
-        raise NotImplementedError(
-            'msd_folded and disc_bf16 are not ported yet (ROADMAP.md section 2, '
-            'queue item 2)')
     data_mod = importlib.import_module('pytorch_sound_tpu_torch.data.meta.' + dataset)
     train_loader, valid_loader = data_mod.get_datasets(
         meta_dir, batch_size=batch_size, num_workers=num_workers,
         fix_len=fix_len, pad_multiple=fix_len)
 
-    mpd, msd = build_critics(msd_kernel=msd_pallas, mpd_kernel=mpd_pallas)
+    mpd, msd = build_critics(msd_kernel=msd_pallas, mpd_kernel=mpd_pallas,
+                             precision=disc_precision,
+                             compute_dtype='bf16' if disc_bf16 else None)
     generator = build_model(arch)
     gen_opt = adamw(generator.parameters(), lr, 0.8, 0.99)
     disc_opt = adamw(itertools.chain(mpd.parameters(), msd.parameters()), lr, 0.8, 0.99)
@@ -269,7 +294,8 @@ def main(dataset: str, meta_dir: str, save_dir: str, batch_size: int = 16,
         train_loader, valid_loader,
         max_step=max_step, valid_max_step=valid_max_step,
         save_interval=save_interval, log_interval=log_interval,
-        save_dir=save_dir, save_prefix='hifi_gan', grad_norm=0.0, device=device)
+        save_dir=save_dir, save_prefix='hifi_gan', grad_norm=0.0, device=device,
+        msd_folded=msd_folded)
     return trainer.run()
 
 

@@ -16,23 +16,66 @@ Each conv takes its backend from ``backends``, one entry per layer (the body
 layers, then conv_post), as in the JAX package: ``'cudnn'`` (the default,
 ``F.conv1d``, as the JAX defaults leave the convs to XLA) or ``'cuda'``, the
 grouped-conv kernels (K6) for forward, dx and dw with the leaky_relu fused
-into the forward (JAX ``'pallas'``). ``msd_apply_folded`` and bf16 critics
-are not ported yet.
+into the forward (JAX ``'pallas'``).
+
+Precision: every critic conv takes ``precision`` and ``compute_dtype``
+(:func:`~pytorch_sound_tpu_torch.models.vocoders.hifi_gan.conv1d_route`).
+The JAX critics default to ``precision='default'`` (each operand rounded to
+bf16, fp32 sums: K6's bf16 tensor-core products, cuDNN's bf16 convolution);
+the port defaults to ``'highest'`` (fp32-accurate) and runs 'default' on
+request. ``compute_dtype='bf16'`` runs the critics on bfloat16 activations
+and bf16 copies of the fp32 weights; the gradients reach the fp32 parameters.
+
+:func:`msd_apply_folded` runs a MultiScaleDiscriminator as one block-diagonal
+grouped stack over its scales (8 convs instead of 24), the JAX package's
+formulation, from the same parameters.
 """
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from pytorch_sound_tpu_torch.models import register_model, register_model_architecture
-from pytorch_sound_tpu_torch.models.vocoders.hifi_gan import WNConv1d
+from pytorch_sound_tpu_torch.models.vocoders.hifi_gan import (_WNConv, WNConv1d,
+                                                              check_compute_dtype,
+                                                              conv1d_route)
+from pytorch_sound_tpu_torch.ops.cuda.grouped_conv import check_precision
 
 SLOPE = 0.1
 PERIOD_LAYERS = 6         # 5 body layers + conv_post (JAX PeriodDiscriminator.backends)
 SCALE_LAYERS = 8          # 7 body layers + conv_post (JAX ScaleDiscriminator.backends)
 DiscOut = Tuple[torch.Tensor, List[torch.Tensor]]
+
+
+class WNConv2d(_WNConv):
+    """Conv2d with torch-style weight normalization (dim 0), NCHW; weight
+    (C_out, C_in, kh, kw) (JAX ``WNConv2d``: ``v`` in the same OIHW layout,
+    so ``load_jax_params`` takes it as it stands). ``F.conv2d`` in fp32 at
+    ``precision='highest'``; cuDNN's bf16 convolution in 'default' or with
+    ``compute_dtype='bf16'`` (which returns bfloat16), the bias added in
+    fp32 to its output, as :func:`conv1d_route`'s cuDNN route."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: Tuple[int, int],
+                 stride: Tuple[int, int] = (1, 1), padding: Tuple[int, int] = (0, 0),
+                 use_weight_norm: bool = True, precision: str = 'highest',
+                 compute_dtype: Optional[str] = None):
+        super().__init__((out_channels, in_channels) + tuple(kernel_size), out_channels,
+                         use_weight_norm)
+        self.stride, self.padding = tuple(stride), tuple(padding)
+        self.precision = check_precision(precision)
+        self.compute_dtype = check_compute_dtype(compute_dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.folded_weight()
+        bf16 = self.compute_dtype == 'bf16'
+        if not bf16 and self.precision == 'highest':
+            return F.conv2d(x, w, self.bias, stride=self.stride, padding=self.padding)
+        out = F.conv2d(x.to(torch.bfloat16), w.to(torch.bfloat16), None, stride=self.stride,
+                       padding=self.padding)
+        out = out.float() + self.bias[None, :, None, None]
+        return out.to(torch.bfloat16) if bf16 else out
 
 
 def _layer_backends(backends: Sequence[str], n: int) -> Tuple[str, ...]:
@@ -55,22 +98,24 @@ class PeriodDiscriminator(nn.Module):
 
     def __init__(self, period: int, kernel_size: int = 5, stride: int = 3,
                  channels: Sequence[int] = (32, 128, 512, 1024),
-                 backends: Sequence[str] = ('cudnn',) * PERIOD_LAYERS):
+                 backends: Sequence[str] = ('cudnn',) * PERIOD_LAYERS,
+                 precision: str = 'highest', compute_dtype: Optional[str] = None):
         super().__init__()
         self.period = period
         self.n_layers = len(channels) + 1
         backends = _layer_backends(backends, self.n_layers + 1)
+        mode = dict(precision=precision, compute_dtype=compute_dtype)
         kpad = (kernel_size - 1) // 2
         in_ch = 1
         for i, ch in enumerate(channels):
             self.add_module('conv_%d' % i, WNConv1d(
                 in_ch, ch, kernel_size, stride=stride, padding=kpad,
-                fused_slope=SLOPE, backend=backends[i]))
+                fused_slope=SLOPE, backend=backends[i], **mode))
             in_ch = ch
         self.add_module('conv_%d' % len(channels), WNConv1d(
             in_ch, channels[-1], kernel_size, padding=kpad, fused_slope=SLOPE,
-            backend=backends[len(channels)]))
-        self.conv_post = WNConv1d(channels[-1], 1, 3, padding=1, backend=backends[-1])
+            backend=backends[len(channels)], **mode))
+        self.conv_post = WNConv1d(channels[-1], 1, 3, padding=1, backend=backends[-1], **mode)
 
     def forward(self, x: torch.Tensor) -> DiscOut:
         n, c, t = x.shape
@@ -117,16 +162,19 @@ class ScaleDiscriminator(nn.Module):
     the channel counts (1.0 = the paper's 128..1024 stack)."""
 
     def __init__(self, width: float = 1.0,
-                 backends: Sequence[str] = ('cudnn',) * SCALE_LAYERS):
+                 backends: Sequence[str] = ('cudnn',) * SCALE_LAYERS,
+                 precision: str = 'highest', compute_dtype: Optional[str] = None):
         super().__init__()
         layout = scale_disc_layout(width)
         self.n_layers = len(layout)
         backends = _layer_backends(backends, self.n_layers + 1)
+        mode = dict(precision=precision, compute_dtype=compute_dtype)
         for i, (ic, oc, k, s, g, p) in enumerate(layout):
             self.add_module('conv_%d' % i, WNConv1d(
                 ic, oc, k, stride=s, padding=p, groups=g, fused_slope=SLOPE,
-                backend=backends[i]))
-        self.conv_post = WNConv1d(layout[-1][1], 1, 3, padding=1, backend=backends[-1])
+                backend=backends[i], **mode))
+        self.conv_post = WNConv1d(layout[-1][1], 1, 3, padding=1, backend=backends[-1],
+                                  **mode)
 
     def forward(self, x: torch.Tensor) -> DiscOut:
         features = []
@@ -144,12 +192,14 @@ class MultiPeriodDiscriminator(nn.Module):
 
     def __init__(self, periods: Sequence[int] = (2, 3, 5, 7, 11),
                  channels: Sequence[int] = (32, 128, 512, 1024),
-                 backends: Sequence[str] = ('cudnn',) * PERIOD_LAYERS):
+                 backends: Sequence[str] = ('cudnn',) * PERIOD_LAYERS,
+                 precision: str = 'highest', compute_dtype: Optional[str] = None):
         super().__init__()
         self.periods = tuple(periods)
         for p in self.periods:
             self.add_module('period_%d' % p, PeriodDiscriminator(
-                p, channels=channels, backends=backends))
+                p, channels=channels, backends=backends, precision=precision,
+                compute_dtype=compute_dtype))
 
     def forward(self, x: torch.Tensor) -> List[DiscOut]:
         return [getattr(self, 'period_%d' % p)(x) for p in self.periods]
@@ -160,38 +210,107 @@ class MultiScaleDiscriminator(nn.Module):
     """Scale discriminators on the wave and its average-pooled octaves."""
 
     def __init__(self, n_scales: int = 3, width: float = 1.0,
-                 backends: Sequence[str] = ('cudnn',) * SCALE_LAYERS):
+                 backends: Sequence[str] = ('cudnn',) * SCALE_LAYERS,
+                 precision: str = 'highest', compute_dtype: Optional[str] = None):
         super().__init__()
-        self.n_scales = n_scales
+        self.n_scales, self.width = n_scales, width
         for i in range(n_scales):
-            self.add_module('scale_%d' % i, ScaleDiscriminator(width, backends))
+            self.add_module('scale_%d' % i, ScaleDiscriminator(
+                width, backends, precision=precision, compute_dtype=compute_dtype))
 
     def forward(self, x: torch.Tensor) -> List[DiscOut]:
         outs = []
         for i in range(self.n_scales):
             if i > 0:
-                # flax's avg_pool counts the zero padding in the divisor
-                x = F.avg_pool1d(x, 4, stride=2, padding=2, count_include_pad=True)
+                x = _pool(x)
             outs.append(getattr(self, 'scale_%d' % i)(x))
         return outs
+
+
+def _pool(x: torch.Tensor) -> torch.Tensor:
+    """The MSD's octave pooling; flax's avg_pool counts the zero padding in
+    the divisor."""
+    return F.avg_pool1d(x, 4, stride=2, padding=2, count_include_pad=True)
+
+
+def _msd_valid_lengths(t: int, n_scales: int) -> List[int]:
+    """Valid sample count of each MSD scale (avg_pool k=4 s=2 pad (2,2))."""
+    lens = [t]
+    for _ in range(n_scales - 1):
+        lens.append((lens[-1] + 4 - 4) // 2 + 1)
+    return lens
+
+
+def msd_apply_folded(msd: MultiScaleDiscriminator, x: torch.Tensor) -> List[DiscOut]:
+    """Run ``msd`` as one block-diagonal grouped stack over all its scales:
+    the same function, parameters and ``[(score, features)]`` as ``msd(x)``,
+    in 8 convs instead of 3 x 8 (JAX ``msd_apply_folded``).
+
+    The pooled scales are zero-padded to the wave's length and stacked on
+    the channel axis; each layer is one grouped conv with n_scales x groups
+    groups over the scales' weight-normed weights concatenated (group u of
+    scale s reads only scale s's channels), on the backend, precision and
+    compute dtype of that layer in the MSD (``scale_0.conv_i``). The padded
+    tails are zeroed after every layer, so the bias does not leak into them
+    and they add nothing to dw or db: every valid position reads what the
+    unfolded conv reads, its samples or zeros. The JAX package also
+    dense-expands the narrow layers (cin / groups <= 32) to fill the TPU's
+    matrix unit; here those run as the plain block-diagonal grouped conv,
+    without the expansion's zero products.
+    """
+    n, _, t = x.shape
+    n_scales = msd.n_scales
+    layout = scale_disc_layout(msd.width)
+    scales = [getattr(msd, 'scale_%d' % s) for s in range(n_scales)]
+    lens = _msd_valid_lengths(t, n_scales)
+    xs, cur = [], x
+    for s in range(n_scales):
+        if s > 0:
+            cur = _pool(cur)
+        xs.append(F.pad(cur, (0, t - cur.shape[2])))
+    h = torch.cat(xs, dim=1)                             # (N, n_scales, T)
+    features: List[List[torch.Tensor]] = [[] for _ in range(n_scales)]
+    names = ['conv_%d' % i for i in range(len(layout))] + ['conv_post']
+    for name in names:
+        convs = [getattr(sc, name) for sc in scales]
+        w = torch.cat([c.folded_weight() for c in convs], dim=0)
+        b = torch.cat([c.bias for c in convs], dim=0)
+        h = conv1d_route(h, w, b, groups=n_scales * convs[0].groups, **convs[0].route())
+        oc = convs[0].out_channels
+        lens = [(l + 2 * convs[0].padding - convs[0].kernel_size) // convs[0].stride + 1
+                for l in lens]
+        keep = torch.zeros((n_scales, 1, h.shape[2]), dtype=h.dtype, device=h.device)
+        for s, l in enumerate(lens):
+            keep[s, :, :l] = 1
+        h = (h.reshape(n, n_scales, oc, h.shape[2]) * keep).reshape(h.shape)
+        for s, l in enumerate(lens):
+            features[s].append(h[:, s * oc:(s + 1) * oc, :l])
+    return [(feats[-1].reshape(n, -1), feats) for feats in features]
+
+
+# every architecture's critics at the port's default precision, fp32; a
+# caller asks for the JAX defaults with extra_kwargs={'precision': 'default'}
+# (and compute_dtype='bf16' for bf16 critics)
+MODE = {'precision': 'highest', 'compute_dtype': None}
 
 
 @register_model_architecture('hifi_gan_mpd', 'hifi_gan_mpd_base')
 def hifi_gan_mpd_base():
     return {'periods': (2, 3, 5, 7, 11), 'channels': (32, 128, 512, 1024),
-            'backends': ('cudnn',) * PERIOD_LAYERS}
+            'backends': ('cudnn',) * PERIOD_LAYERS, **MODE}
 
 
 @register_model_architecture('hifi_gan_mpd', 'hifi_gan_mpd_small')
 def hifi_gan_mpd_small():
-    return {'periods': (2, 3), 'channels': (8, 16), 'backends': ('cudnn',) * PERIOD_LAYERS}
+    return {'periods': (2, 3), 'channels': (8, 16), 'backends': ('cudnn',) * PERIOD_LAYERS,
+            **MODE}
 
 
 @register_model_architecture('hifi_gan_msd', 'hifi_gan_msd_base')
 def hifi_gan_msd_base():
-    return {'n_scales': 3, 'width': 1.0, 'backends': ('cudnn',) * SCALE_LAYERS}
+    return {'n_scales': 3, 'width': 1.0, 'backends': ('cudnn',) * SCALE_LAYERS, **MODE}
 
 
 @register_model_architecture('hifi_gan_msd', 'hifi_gan_msd_small')
 def hifi_gan_msd_small():
-    return {'n_scales': 2, 'width': 0.0625, 'backends': ('cudnn',) * SCALE_LAYERS}
+    return {'n_scales': 2, 'width': 0.0625, 'backends': ('cudnn',) * SCALE_LAYERS, **MODE}

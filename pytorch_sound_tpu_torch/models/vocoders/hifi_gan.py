@@ -36,11 +36,13 @@ from torch import nn
 from pytorch_sound_tpu_torch.models import register_model, register_model_architecture
 from pytorch_sound_tpu_torch.ops.cuda.gen_stage import (check_mode, generator_stage,
                                                         get_padding, resblock_stage)
-from pytorch_sound_tpu_torch.ops.cuda.grouped_conv import conv_transpose1d, grouped_conv1d
+from pytorch_sound_tpu_torch.ops.cuda.grouped_conv import (check_precision, conv_transpose1d,
+                                                            grouped_conv1d)
 from pytorch_sound_tpu_torch.utils.checkpoint import tree_to_state_dict
 
 INIT_STD = 0.01           # the JAX package's kernel init, N(0, 0.01)
 BACKENDS = ('cudnn', 'cuda')    # F.conv1d / the grouped-conv kernels (K6)
+COMPUTE_DTYPES = (None, 'bf16')
 
 
 def weight_norm(g: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -54,6 +56,48 @@ def _check_backend(backend: str) -> str:
     if backend not in BACKENDS:
         raise ValueError('conv backend must be one of %s, got %r' % (BACKENDS, backend))
     return backend
+
+
+def check_compute_dtype(compute_dtype: Optional[str]) -> Optional[str]:
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError('compute_dtype must be one of %s, got %r'
+                         % (COMPUTE_DTYPES, compute_dtype))
+    return compute_dtype
+
+
+def conv1d_route(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, *,
+                 backend: str, precision: str = 'highest',
+                 compute_dtype: Optional[str] = None, stride: int = 1, padding: int = 0,
+                 dilation: int = 1, groups: int = 1,
+                 slope: Optional[float] = None) -> torch.Tensor:
+    """``leaky_relu(conv1d(x, weight) + bias)`` (slope None: no leaky_relu)
+    on a conv ``backend`` in ``precision``, the body of :class:`WNConv1d`
+    (and of each folded layer of :func:`~pytorch_sound_tpu_torch.models.
+    vocoders.discriminators.msd_apply_folded`).
+
+    ``compute_dtype='bf16'`` casts x and the weight to bfloat16 and returns a
+    bfloat16 output (JAX ``compute_dtype``); the casts are on the autograd
+    tape, so an fp32 weight gets its gradient in fp32. ``'cuda'`` runs
+    :func:`~pytorch_sound_tpu_torch.ops.cuda.grouped_conv.grouped_conv1d` in
+    ``precision`` (K6; bf16 tensors round the output once, after bias and
+    slope). ``'cudnn'`` runs ``F.conv1d``: in fp32 at 'highest', and in
+    'default' or on bf16 tensors cuDNN's bf16 convolution, whose bf16 output
+    then takes the fp32 bias and slope (rounded again for a bf16 output), as
+    the JAX package's XLA route does."""
+    bf16 = check_compute_dtype(compute_dtype) == 'bf16'
+    check_precision(precision)
+    conf = dict(stride=stride, padding=padding, dilation=dilation, groups=groups)
+    if bf16:
+        x, weight = x.to(torch.bfloat16), weight.to(torch.bfloat16)
+    if backend == 'cuda':
+        return grouped_conv1d(x, weight, bias, slope=slope, precision=precision, **conf)
+    if bf16 or precision == 'default':
+        out = F.conv1d(x.to(torch.bfloat16), weight.to(torch.bfloat16), None, **conf)
+        out = out.float() + bias[None, :, None]
+    else:
+        out = F.conv1d(x, weight, bias, **conf)
+    out = out if slope is None else F.leaky_relu(out, slope)
+    return out.to(torch.bfloat16) if bf16 else out
 
 
 class _WNConv(nn.Module):
@@ -96,28 +140,35 @@ class WNConv1d(_WNConv):
     :func:`~pytorch_sound_tpu_torch.ops.cuda.grouped_conv.grouped_conv1d`,
     the grouped-conv kernels (K6) for the forward, dx and dw on the card and
     their plain versions on the CPU, with the slope fused into the forward
-    kernel (JAX ``backend='pallas'``).
+    kernel (JAX ``backend='pallas'``). ``precision`` ('highest', the port's
+    default, or 'default', the JAX critics') and ``compute_dtype`` (None or
+    'bf16') as :func:`conv1d_route` takes them; the generator's layers keep
+    'highest' and fp32.
     """
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, dilation: int = 1, padding: int = 0,
                  groups: int = 1, use_weight_norm: bool = True,
-                 fused_slope: Optional[float] = None, backend: str = 'cudnn'):
+                 fused_slope: Optional[float] = None, backend: str = 'cudnn',
+                 precision: str = 'highest', compute_dtype: Optional[str] = None):
         super().__init__((out_channels, in_channels // groups, kernel_size),
                          out_channels, use_weight_norm)
         self.in_channels, self.out_channels = in_channels, out_channels
         self.kernel_size, self.stride, self.dilation = kernel_size, stride, dilation
         self.padding, self.groups = padding, groups
         self.fused_slope, self.backend = fused_slope, _check_backend(backend)
+        self.precision = check_precision(precision)
+        self.compute_dtype = check_compute_dtype(compute_dtype)
+
+    def route(self) -> dict:
+        """The keywords of :func:`conv1d_route` this layer runs with."""
+        return dict(backend=self.backend, precision=self.precision,
+                    compute_dtype=self.compute_dtype, stride=self.stride,
+                    padding=self.padding, dilation=self.dilation, slope=self.fused_slope)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.backend == 'cuda':
-            return grouped_conv1d(x, self.folded_weight(), self.bias, stride=self.stride,
-                                  padding=self.padding, groups=self.groups,
-                                  dilation=self.dilation, slope=self.fused_slope)
-        out = F.conv1d(x, self.folded_weight(), self.bias, stride=self.stride,
-                       padding=self.padding, dilation=self.dilation, groups=self.groups)
-        return out if self.fused_slope is None else F.leaky_relu(out, self.fused_slope)
+        return conv1d_route(x, self.folded_weight(), self.bias, groups=self.groups,
+                            **self.route())
 
 
 class WNConvTranspose1d(_WNConv):

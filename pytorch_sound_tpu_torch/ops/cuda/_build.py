@@ -58,17 +58,17 @@ SIGNATURES = {
         _P, _P, _P, _P,                     # x, w, bias, y
         _I, _I, _I, _I, _I,                 # n, cin, t_in, cout, t_out
         _I, _I, _I, _I, _I,                 # k, stride, pad, dilation, groups
-        _I, _F, _P],                        # has_slope, slope, stream
+        _I, _F, _I, _I, _P],                # has_slope, slope, precision, bf16, stream
     'grouped_conv_input_grad': [
         _P, _P, _P, _P,                     # gy, w, bias, dx
         _I, _I, _I, _I, _I,                 # n, cin, t_in, cout, t_out
         _I, _I, _I, _I, _I,                 # k, stride, pad, dilation, groups
-        _I, _F, _P],                        # has_slope, slope, stream
+        _I, _F, _I, _I, _P],                # has_slope, slope, precision, bf16, stream
     'grouped_conv_weight_grad': [
         _P, _P, _P, _P,                     # x, gy, dw, scratch
         _I, _I, _I, _I, _I,                 # n, cin, t_in, cout, t_out
         _I, _I, _I, _I, _I,                 # k, stride, pad, dilation, groups
-        _I, _P],                            # splits, stream
+        _I, _I, _I, _P],                    # splits, precision, bf16, stream
     'flash_attention_forward': [
         _P, _P, _P, _P, _P, _P,             # q, k, v, key_valid, o, lse
         _I, _I, _I, _I, _I, _F, _P],        # bh, heads, tq, tk, d, scale, stream

@@ -29,6 +29,21 @@ answers TPU lane limits and has no counterpart here).
 over the three with the JAX package's VJP (``_pgc_bwd``, ``_pct_bwd``): the
 slope mask from the saved output (``out > 0``), ``db`` as a sum, and for
 ConvTranspose1d the roles of input and cotangent swapped.
+
+Each takes ``precision``, the TPU kernel's two modes: ``'highest'`` (the
+port's default: fp32-accurate products, 3xTF32 on the tensor cores) or
+``'default'`` (the JAX package's default: each operand rounded to bf16,
+round to nearest even, the products summed in fp32, as
+``_kernel`` / ``_dw_kernel`` do in ``precision='default'``; bf16
+``mma.sync`` m16n8k16 on the tensor cores, fp32 FMAs of the rounded operands
+on the CUDA cores). The tensors are float32, or bfloat16 together (x, w and
+gy; the bias stays float32): bf16 operands run the bf16 products in either
+precision (they are exact), the output is rounded to bf16 once from the fp32
+sum after bias and slope, and dw comes back in the weight's dtype. The plain
+version of a mode is the fp32 conv of the rounded operands
+(``F.conv1d(x.bfloat16().float(), w.bfloat16().float(), ...)``), cast to the
+tensors' dtype. ``launches_by_mode`` counts each entry point's launches by
+route: 'highest', 'default' (float32 tensors) and 'bf16' (bfloat16 tensors).
 """
 
 import math
@@ -47,6 +62,9 @@ TC_MIN_ROWS = 16            # GEMM rows per group from which fwd and dx run on t
 TAP_BK = 32                 # the tap kernel's reduction indices (channel, tap) per stage
 TAP_STAGES = 3              # the tap kernel's cp.async ring
 TAP_MAX_SMEM = 232448       # bytes of shared memory one block may take on the H100
+PRECISIONS = ('highest', 'default')     # csrc/grouped_conv.cu's Prec: 0, 1
+ROUTES = ('highest', 'default', 'bf16')  # launches_by_mode's keys
+DTYPES = (torch.float32, torch.bfloat16)
 
 
 def conv_out_len(t_in: int, kernel_size: int, stride: int = 1, padding: int = 0,
@@ -54,60 +72,107 @@ def conv_out_len(t_in: int, kernel_size: int, stride: int = 1, padding: int = 0,
     return (t_in + 2 * padding - dilation * (kernel_size - 1) - 1) // stride + 1
 
 
+def check_precision(precision: str) -> str:
+    if precision not in PRECISIONS:
+        raise ValueError('precision must be one of %s, got %r' % (PRECISIONS, precision))
+    return precision
+
+
+def _operands(precision: str, *tensors: torch.Tensor):
+    """The tensors as the plain version of ``precision`` multiplies them:
+    bfloat16 widened to float32, others in their dtype, each rounded to bf16
+    first in 'default'."""
+    wide = [t.float() if t.dtype == torch.bfloat16 else t for t in tensors]
+    if check_precision(precision) == 'default':
+        return [t.to(torch.bfloat16).to(t.dtype) for t in wide]
+    return wide
+
+
 def grouped_conv1d_reference(x: torch.Tensor, w: torch.Tensor,
                              b: Optional[torch.Tensor] = None, *, stride: int = 1,
                              padding: int = 0, groups: int = 1, dilation: int = 1,
-                             slope: Optional[float] = None) -> torch.Tensor:
-    """Plain forward: ``F.conv1d`` + bias, then ``F.leaky_relu`` if ``slope``."""
-    out = F.conv1d(x, w, b, stride=stride, padding=padding, dilation=dilation,
-                   groups=groups)
-    return out if slope is None else F.leaky_relu(out, slope)
+                             slope: Optional[float] = None,
+                             precision: str = 'highest') -> torch.Tensor:
+    """Plain forward: ``F.conv1d`` + bias, then ``F.leaky_relu`` if ``slope``,
+    on the operands of ``precision``, in x's dtype."""
+    xo, wo = _operands(precision, x, w)
+    out = F.conv1d(xo, wo, None if b is None else b.to(xo.dtype), stride=stride,
+                   padding=padding, dilation=dilation, groups=groups)
+    return (out if slope is None else F.leaky_relu(out, slope)).to(x.dtype)
 
 
 def conv1d_input_grad_reference(gy: torch.Tensor, w: torch.Tensor, t_in: int, *,
                                 stride: int = 1, padding: int = 0, groups: int = 1,
-                                dilation: int = 1) -> torch.Tensor:
-    """Plain input gradient (N, C_in, t_in) of the conv from its cotangent."""
+                                dilation: int = 1, precision: str = 'highest'
+                                ) -> torch.Tensor:
+    """Plain input gradient (N, C_in, t_in) of the conv from its cotangent,
+    on the operands of ``precision``, in gy's dtype."""
     size = (gy.shape[0], w.shape[1] * groups, t_in)
-    return torch.nn.grad.conv1d_input(size, w, gy, stride, padding, dilation, groups)
+    go, wo = _operands(precision, gy, w)
+    return torch.nn.grad.conv1d_input(size, wo, go, stride, padding, dilation,
+                                      groups).to(gy.dtype)
 
 
 def conv1d_weight_grad_reference(x: torch.Tensor, gy: torch.Tensor,
                                  w_shape: Sequence[int], *, stride: int = 1,
                                  padding: int = 0, groups: int = 1,
-                                 dilation: int = 1) -> torch.Tensor:
-    """Plain weight gradient (C_out, C_in / groups, K) of the conv."""
-    return torch.nn.grad.conv1d_weight(x, tuple(w_shape), gy, stride, padding,
-                                       dilation, groups)
+                                 dilation: int = 1, precision: str = 'highest'
+                                 ) -> torch.Tensor:
+    """Plain weight gradient (C_out, C_in / groups, K) of the conv, on the
+    operands of ``precision``, in x's dtype."""
+    xo, go = _operands(precision, x, gy)
+    return torch.nn.grad.conv1d_weight(xo, tuple(w_shape), go, stride, padding,
+                                       dilation, groups).to(x.dtype)
 
 
 def conv_transpose1d_reference(x: torch.Tensor, w: torch.Tensor,
                                b: Optional[torch.Tensor] = None, *, stride: int = 1,
-                               padding: int = 0, slope: Optional[float] = None
-                               ) -> torch.Tensor:
-    """Plain ConvTranspose1d, w (C_in, C_out, K), then leaky_relu if ``slope``."""
-    out = F.conv_transpose1d(x, w, b, stride=stride, padding=padding)
-    return out if slope is None else F.leaky_relu(out, slope)
+                               padding: int = 0, slope: Optional[float] = None,
+                               precision: str = 'highest') -> torch.Tensor:
+    """Plain ConvTranspose1d, w (C_in, C_out, K), then leaky_relu if
+    ``slope``, on the operands of ``precision``, in x's dtype."""
+    xo, wo = _operands(precision, x, w)
+    out = F.conv_transpose1d(xo, wo, None if b is None else b.to(xo.dtype), stride=stride,
+                             padding=padding)
+    return (out if slope is None else F.leaky_relu(out, slope)).to(x.dtype)
 
 
 def _epilogue(out: torch.Tensor, b: Optional[torch.Tensor],
-              slope: Optional[float]) -> torch.Tensor:
+              slope: Optional[float], dtype: torch.dtype) -> torch.Tensor:
     if b is not None:
-        out = out + b[None, :, None]
-    return out if slope is None else F.leaky_relu(out, slope)
+        out = out + b.to(out.dtype)[None, :, None]
+    return (out if slope is None else F.leaky_relu(out, slope)).to(dtype)
 
 
-def _check(name: str, *tensors):
-    """The kernels take contiguous float32 tensors on one CUDA device."""
-    dev = tensors[0].device
+def _check(name: str, operands, bias: Optional[torch.Tensor] = None) -> bool:
+    """The kernels take contiguous tensors on one CUDA device: the operands
+    all float32 or all bfloat16, the bias float32. Returns whether they are
+    bfloat16."""
+    dev = operands[0].device
     if dev.type != 'cuda':
         raise RuntimeError('%s runs on cpu or cuda, not %s' % (name, dev))
-    for t in tensors:
+    dtype = operands[0].dtype
+    if dtype not in DTYPES:
+        raise ValueError('%s kernel takes float32 or bfloat16 tensors, got %s' % (name, dtype))
+    for t, want in [(t, dtype) for t in operands] + [(bias, torch.float32)]:
         if t is None:
             continue
-        if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError('%s kernel takes contiguous float32 tensors on %s, got '
-                             '%s %s on %s' % (name, dev, t.dtype, tuple(t.shape), t.device))
+        if t.device != dev or t.dtype != want or not t.is_contiguous():
+            raise ValueError('%s kernel takes contiguous %s tensors on %s, got %s %s on %s'
+                             % (name, want, dev, t.dtype, tuple(t.shape), t.device))
+    return dtype == torch.bfloat16
+
+
+def _count(wrapper, precision: str, bf16: bool):
+    wrapper.launches += 1
+    wrapper.launches_by_mode['bf16' if bf16 else precision] += 1
+
+
+def reset_launches():
+    """Set the three entry points' counts, total and per route, to 0."""
+    for wrapper in (conv1d_forward, conv1d_input_grad, conv1d_weight_grad):
+        wrapper.launches = 0
+        wrapper.launches_by_mode = dict.fromkeys(ROUTES, 0)
 
 
 def _geometry(name: str, n: int, cin: int, cout: int, w: torch.Tensor, groups: int):
@@ -123,14 +188,17 @@ def _ptr(t: Optional[torch.Tensor]):
 
 def conv1d_forward(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
                    *, stride: int = 1, padding: int = 0, groups: int = 1,
-                   dilation: int = 1, slope: Optional[float] = None) -> torch.Tensor:
-    """x (N, C_in, T) -> leaky_relu(conv1d(x, w) + b) (N, C_out, T_out); w
-    (C_out, C_in / groups, K). The kernel on a CUDA tensor, the plain version
-    on a CPU tensor."""
+                   dilation: int = 1, slope: Optional[float] = None,
+                   precision: str = 'highest') -> torch.Tensor:
+    """x (N, C_in, T) -> leaky_relu(conv1d(x, w) + b) (N, C_out, T_out) in
+    x's dtype; w (C_out, C_in / groups, K). The kernel on a CUDA tensor, the
+    plain version of ``precision`` on a CPU tensor."""
+    check_precision(precision)
     if x.device.type == 'cpu':
         return grouped_conv1d_reference(x, w, b, stride=stride, padding=padding,
-                                        groups=groups, dilation=dilation, slope=slope)
-    _check('conv1d_forward', x, w, b)
+                                        groups=groups, dilation=dilation, slope=slope,
+                                        precision=precision)
+    bf16 = _check('conv1d_forward', (x, w), b)
     n, cin, t_in = x.shape
     cout, _, k = w.shape
     _geometry('conv1d_forward', n, cin, cout, w, groups)
@@ -138,32 +206,36 @@ def conv1d_forward(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] =
     if t_out < 1:
         raise ValueError('conv1d_forward: input of %d samples is shorter than the kernel'
                          % t_in)
-    y = torch.empty((n, cout, t_out), dtype=torch.float32, device=x.device)
+    y = torch.empty((n, cout, t_out), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         code = _build.library().grouped_conv_forward(
             x.data_ptr(), w.data_ptr(), _ptr(b), y.data_ptr(), n, cin, t_in, cout,
             t_out, k, stride, padding, dilation, groups, slope is not None,
-            slope or 0.0, torch.cuda.current_stream().cuda_stream)
+            slope or 0.0, PRECISIONS.index(precision), bf16,
+            torch.cuda.current_stream().cuda_stream)
     _build.check(code, 'grouped_conv_forward')
-    conv1d_forward.launches += 1
+    _count(conv1d_forward, precision, bf16)
     return y
-
-
-conv1d_forward.launches = 0
 
 
 def conv1d_input_grad(gy: torch.Tensor, w: torch.Tensor, t_in: int,
                       b: Optional[torch.Tensor] = None, *, stride: int = 1,
                       padding: int = 0, groups: int = 1, dilation: int = 1,
-                      slope: Optional[float] = None) -> torch.Tensor:
+                      slope: Optional[float] = None, precision: str = 'highest'
+                      ) -> torch.Tensor:
     """Input gradient (N, C_in, t_in) of the conv from gy (N, C_out, T_out),
-    then ``+ b`` (C_in,) and leaky_relu when given. With groups 1 and
-    dilation 1 this is ConvTranspose1d of gy with weight w (C_out, C_in, K)."""
+    then ``+ b`` (C_in,) and leaky_relu when given, in gy's dtype. With
+    groups 1 and dilation 1 this is ConvTranspose1d of gy with weight w
+    (C_out, C_in, K)."""
+    check_precision(precision)
     if gy.device.type == 'cpu':
-        dx = conv1d_input_grad_reference(gy, w, t_in, stride=stride, padding=padding,
-                                         groups=groups, dilation=dilation)
-        return _epilogue(dx, b, slope)
-    _check('conv1d_input_grad', gy, w, b)
+        # bf16 widened first: the bias and slope apply before the one rounding
+        go, wo = (t.float() if t.dtype == torch.bfloat16 else t for t in (gy, w))
+        dx = conv1d_input_grad_reference(go, wo, t_in, stride=stride, padding=padding,
+                                         groups=groups, dilation=dilation,
+                                         precision=precision)
+        return _epilogue(dx, b, slope, gy.dtype)
+    bf16 = _check('conv1d_input_grad', (gy, w), b)
     n, cout, t_out = gy.shape
     _, cg, k = w.shape
     cin = cg * groups
@@ -171,18 +243,16 @@ def conv1d_input_grad(gy: torch.Tensor, w: torch.Tensor, t_in: int,
     if t_in < 1 or conv_out_len(t_in, k, stride, padding, dilation) != t_out:
         raise ValueError('conv1d_input_grad: %d input samples do not give %d outputs'
                          % (t_in, t_out))
-    dx = torch.empty((n, cin, t_in), dtype=torch.float32, device=gy.device)
+    dx = torch.empty((n, cin, t_in), dtype=gy.dtype, device=gy.device)
     with torch.cuda.device(gy.device):
         code = _build.library().grouped_conv_input_grad(
             gy.data_ptr(), w.data_ptr(), _ptr(b), dx.data_ptr(), n, cin, t_in, cout,
             t_out, k, stride, padding, dilation, groups, slope is not None,
-            slope or 0.0, torch.cuda.current_stream().cuda_stream)
+            slope or 0.0, PRECISIONS.index(precision), bf16,
+            torch.cuda.current_stream().cuda_stream)
     _build.check(code, 'grouped_conv_input_grad')
-    conv1d_input_grad.launches += 1
+    _count(conv1d_input_grad, precision, bf16)
     return dx
-
-
-conv1d_input_grad.launches = 0
 
 
 def dw_kernel(rows: int) -> str:
@@ -293,15 +363,18 @@ def dw_tile(rows: int):
 
 
 def dw_scratch(cout: int, cg: int, k: int, groups: int, n: int, t_out: int, splits: int,
-               gy_aligned: bool) -> int:
+               gy_aligned: bool, bf16: bool = False) -> int:
     """Floats of scratch the weight-gradient entry point takes: the splits'
-    partial sums when ``splits`` > 1 (rounded up to a multiple of 4), then,
-    on the tensor-core kernel when gy's rows are not whole 16-byte pieces
-    (``t_out % 4`` or a misaligned gy), gy with its rows zero-padded to a
-    multiple of 4 (``grouped_conv_weight_grad`` in the CUDA source)."""
-    partials = -(-splits * cout * cg * k // 4) * 4 if splits > 1 else 0
+    fp32 partial sums when ``splits`` > 1 or the tensors are bfloat16
+    (rounded up to a multiple of 4), then, on the tensor-core kernel when
+    gy's rows are not whole pieces of 4 (``t_out % 4``, or gy not aligned to
+    16 bytes, bfloat16 8: ``gy_aligned``), gy with its rows zero-padded to a
+    multiple of 4, in gy's dtype (``grouped_conv_weight_grad`` in the CUDA
+    source)."""
+    partials = -(-splits * cout * cg * k // 4) * 4 if splits > 1 or bf16 else 0
     padded = dw_kernel(cout // groups) == 'conv_dw_kernel' and (t_out % 4 or not gy_aligned)
-    return partials + (n * cout * -(-t_out // 4) * 4 if padded else 0)
+    elems = n * cout * -(-t_out // 4) * 4 if padded else 0
+    return partials + (-(-elems // 2) if bf16 else elems)
 
 
 def dw_splits(cout: int, cg: int, k: int, groups: int, positions: int, sms: int) -> int:
@@ -316,16 +389,17 @@ def dw_splits(cout: int, cg: int, k: int, groups: int, positions: int, sms: int)
 
 def conv1d_weight_grad(x: torch.Tensor, gy: torch.Tensor, w_shape: Sequence[int], *,
                        stride: int = 1, padding: int = 0, groups: int = 1,
-                       dilation: int = 1) -> torch.Tensor:
+                       dilation: int = 1, precision: str = 'highest') -> torch.Tensor:
     """Weight gradient (C_out, C_in / groups, K) of the conv from its input x
-    (N, C_in, T) and cotangent gy (N, C_out, T_out). The kernel sums the
-    (item, time) reduction in fixed chunks and a fixed order: a rerun is
-    bit-identical."""
+    (N, C_in, T) and cotangent gy (N, C_out, T_out), in their dtype (the
+    weight's). The kernel sums the (item, time) reduction in fp32, in fixed
+    chunks and a fixed order: a rerun is bit-identical."""
+    check_precision(precision)
     if x.device.type == 'cpu':
         return conv1d_weight_grad_reference(x, gy, w_shape, stride=stride,
                                             padding=padding, groups=groups,
-                                            dilation=dilation)
-    _check('conv1d_weight_grad', x, gy)
+                                            dilation=dilation, precision=precision)
+    bf16 = _check('conv1d_weight_grad', (x, gy))
     n, cin, t_in = x.shape
     cout, cg, k = (int(s) for s in w_shape)
     if cin != cg * groups or cout % groups or gy.shape[:2] != (n, cout) or \
@@ -334,20 +408,21 @@ def conv1d_weight_grad(x: torch.Tensor, gy: torch.Tensor, w_shape: Sequence[int]
                          % (tuple(x.shape), tuple(gy.shape), tuple(w_shape)))
     splits = dw_splits(cout, cg, k, groups, n * gy.shape[2],
                        torch.cuda.get_device_properties(x.device).multi_processor_count)
-    dw = torch.empty((cout, cg, k), dtype=torch.float32, device=x.device)
-    floats = dw_scratch(cout, cg, k, groups, n, gy.shape[2], splits, gy.data_ptr() % 16 == 0)
+    dw = torch.empty((cout, cg, k), dtype=x.dtype, device=x.device)
+    floats = dw_scratch(cout, cg, k, groups, n, gy.shape[2], splits,
+                        gy.data_ptr() % (8 if bf16 else 16) == 0, bf16)
     scratch = torch.empty(floats, dtype=torch.float32, device=x.device) if floats else None
     with torch.cuda.device(x.device):
         code = _build.library().grouped_conv_weight_grad(
             x.data_ptr(), gy.data_ptr(), dw.data_ptr(), _ptr(scratch), n, cin, t_in,
             cout, gy.shape[2], k, stride, padding, dilation, groups, splits,
-            torch.cuda.current_stream().cuda_stream)
+            PRECISIONS.index(precision), bf16, torch.cuda.current_stream().cuda_stream)
     _build.check(code, 'grouped_conv_weight_grad')
-    conv1d_weight_grad.launches += 1
+    _count(conv1d_weight_grad, precision, bf16)
     return dw
 
 
-conv1d_weight_grad.launches = 0
+reset_launches()
 
 
 def _slope_mask(g: torch.Tensor, out: Optional[torch.Tensor],
@@ -361,15 +436,16 @@ def _slope_mask(g: torch.Tensor, out: Optional[torch.Tensor],
 class _GroupedConv1d(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, x, w, b, stride, padding, groups, dilation, slope):
+    def forward(ctx, x, w, b, stride, padding, groups, dilation, slope, precision):
         x, w = x.contiguous(), w.contiguous()
         b = None if b is None else b.contiguous()
         out = conv1d_forward(x, w, b, stride=stride, padding=padding, groups=groups,
-                             dilation=dilation, slope=slope)
+                             dilation=dilation, slope=slope, precision=precision)
         need_x, need_w = ctx.needs_input_grad[:2]
         ctx.save_for_backward(x if need_w else None, w if need_x else None,
                               out if slope is not None else None)
-        ctx.conf = dict(stride=stride, padding=padding, groups=groups, dilation=dilation)
+        ctx.conf = dict(stride=stride, padding=padding, groups=groups, dilation=dilation,
+                        precision=precision)
         ctx.slope, ctx.x_shape, ctx.w_shape = slope, x.shape, w.shape
         return out
 
@@ -383,59 +459,65 @@ class _GroupedConv1d(torch.autograd.Function):
         if ctx.needs_input_grad[1]:
             dw = conv1d_weight_grad(x, g, ctx.w_shape, **ctx.conf)
         if ctx.needs_input_grad[2]:
-            db = g.sum(dim=(0, 2))
-        return dx, dw, db, None, None, None, None, None
+            db = g.sum(dim=(0, 2), dtype=torch.float32)
+        return dx, dw, db, None, None, None, None, None, None
 
 
 def grouped_conv1d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
                    *, stride: int = 1, padding: int = 0, groups: int = 1,
-                   dilation: int = 1, slope: Optional[float] = None) -> torch.Tensor:
+                   dilation: int = 1, slope: Optional[float] = None,
+                   precision: str = 'highest') -> torch.Tensor:
     """Differentiable grouped conv1d with fused bias + leaky_relu on NCT:
     x (N, C_in, T), w (C_out, C_in / groups, K), b (C_out,) or None ->
-    (N, C_out, T_out). Forward, dx and dw each run their kernel on the card
+    (N, C_out, T_out) in x's dtype (x and w float32, or both bfloat16).
+    Forward, dx and dw each run their kernel in ``precision`` on the card
     (:func:`conv1d_forward`, :func:`conv1d_input_grad`,
     :func:`conv1d_weight_grad`), skipping dx or dw when no gradient is asked
-    of it; the plain versions on the CPU. JAX: ``grouped_conv1d_ntc``."""
-    return _GroupedConv1d.apply(x, w, b, stride, padding, groups, dilation, slope)
+    of it; the plain versions of the mode on the CPU. JAX:
+    ``grouped_conv1d_ntc``."""
+    check_precision(precision)
+    return _GroupedConv1d.apply(x, w, b, stride, padding, groups, dilation, slope, precision)
 
 
 class _ConvTranspose1d(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, x, w, b, stride, padding, slope):
+    def forward(ctx, x, w, b, stride, padding, slope, precision):
         x, w = x.contiguous(), w.contiguous()
         b = None if b is None else b.contiguous()
         t_out = (x.shape[2] - 1) * stride + w.shape[2] - 2 * padding
         out = conv1d_input_grad(x, w, t_out, b, stride=stride, padding=padding,
-                                slope=slope)
+                                slope=slope, precision=precision)
         need_x, need_w = ctx.needs_input_grad[:2]
         ctx.save_for_backward(x if need_w else None, w if need_x else None,
                               out if slope is not None else None)
-        ctx.stride, ctx.padding, ctx.slope, ctx.w_shape = stride, padding, slope, w.shape
+        ctx.conf = dict(stride=stride, padding=padding, precision=precision)
+        ctx.slope, ctx.w_shape = slope, w.shape
         return out
 
     @staticmethod
     def backward(ctx, g):
         x, w, out = ctx.saved_tensors
         g = _slope_mask(g, out, ctx.slope)
-        conf = dict(stride=ctx.stride, padding=ctx.padding)
         dx = dw = db = None
         if ctx.needs_input_grad[0]:      # the mirror conv's forward
-            dx = conv1d_forward(g, w, **conf)
+            dx = conv1d_forward(g, w, **ctx.conf)
         if ctx.needs_input_grad[1]:      # its dw, input and cotangent swapped
-            dw = conv1d_weight_grad(g, x, ctx.w_shape, **conf)
+            dw = conv1d_weight_grad(g, x, ctx.w_shape, **ctx.conf)
         if ctx.needs_input_grad[2]:
-            db = g.sum(dim=(0, 2))
-        return dx, dw, db, None, None, None
+            db = g.sum(dim=(0, 2), dtype=torch.float32)
+        return dx, dw, db, None, None, None, None
 
 
 def conv_transpose1d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
                      *, stride: int = 1, padding: int = 0,
-                     slope: Optional[float] = None) -> torch.Tensor:
+                     slope: Optional[float] = None, precision: str = 'highest'
+                     ) -> torch.Tensor:
     """Differentiable ConvTranspose1d on NCT: x (N, C_in, T), w (C_in, C_out,
     K) -> (N, C_out, (T - 1) * stride + K - 2 * padding), then + b and
     leaky_relu when given. Its forward is the input-gradient kernel of the
     mirror conv, its backward the forward kernel (dx) and the weight-gradient
-    kernel with input and cotangent swapped (dw). JAX:
+    kernel with input and cotangent swapped (dw), all in ``precision``. JAX:
     ``conv_transpose1d_ntc``."""
-    return _ConvTranspose1d.apply(x, w, b, stride, padding, slope)
+    check_precision(precision)
+    return _ConvTranspose1d.apply(x, w, b, stride, padding, slope, precision)

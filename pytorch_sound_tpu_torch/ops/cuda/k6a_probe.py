@@ -26,7 +26,7 @@ import sys
 from pytorch_sound_tpu_torch.ops.cuda import _build
 
 _MMA = 'for (int i = 0; i < MI; ++i) mma_3xtf32(part[i * NJ + j], ah[i], al[i], bh, bl);'
-_KLOOP = '    for (int kk = 0; kk < BK; kk += 8) {\n      const int o0'
+_KLOOP = '      for (int kk = 0; kk < BK; kk += 8) {\n        const int o0'
 _WINDOW = 'for (int e = tid; e < ent; e += NTH) {\n      const int u = tab_u[e];'
 _A_COPY = '        cp_async16(As + row * LDA + q, ok ?'
 _TILE128 = 'if (rows >= 128) PSTT_TAP(128, 64, 2, 2)'
@@ -119,9 +119,10 @@ def build(names):
         os.makedirs(d, exist_ok=True)
         with open(os.path.join(d, 'grouped_conv.cu'), 'w') as f:
             f.write(variant_source(name))
-        with open(os.path.join(_build.CSRC, 'tf32_mma.cuh')) as f, \
-                open(os.path.join(d, 'tf32_mma.cuh'), 'w') as g:
-            g.write(f.read())
+        for header in ('tf32_mma.cuh', 'bf16_mma.cuh'):
+            with open(os.path.join(_build.CSRC, header)) as f, \
+                    open(os.path.join(d, header), 'w') as g:
+                g.write(f.read())
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, '-shared', '-Xptxas', '-v', '-o',
                os.path.join(d, 'lib.so'), os.path.join(d, 'grouped_conv.cu')]
         procs.append((name, subprocess.Popen(cmd, stdout=subprocess.PIPE,

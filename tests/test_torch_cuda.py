@@ -11,6 +11,8 @@ machine with one:
 machine needs no JAX.)
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -501,6 +503,132 @@ def test_conv_transpose_kernel_matches_plain(card):
     for got, ref in zip(*outs):
         assert got.shape == ref.shape
         assert float((got - ref).abs().max() / ref.abs().max()) <= GC_GRAD_TOL
+
+
+def _bf16_ulp(scale):
+    """One bf16 ulp at the binade of ``scale`` (7 stored mantissa bits)."""
+    return 2.0 ** (math.floor(math.log2(scale)) - 7)
+
+
+def _hold_mode(got, ref, highest, tol):
+    """A K6 kernel in precision 'default' (float32 tensors) or on bfloat16
+    tensors against the plain version of its mode: within ``tol`` of the
+    plain version's max abs (the same rounded operands, exact products: only
+    the sums' order differs), plus one bf16 ulp of that scale for a bf16
+    output (both round once, and may round apart); and nearer it than the
+    plain 'highest' of the float32 operands by RMS (_ran_mode)."""
+    assert got.dtype == ref.dtype and got.shape == ref.shape, (got.dtype, ref.dtype)
+    bf16 = got.dtype == torch.bfloat16
+    got, ref = got.float(), ref.float()
+    scale = float(ref.abs().max())
+    limit = tol * scale + (_bf16_ulp(scale) if bf16 else 0.0)
+    err = float((got - ref).abs().max())
+    assert err <= limit, (err, limit)
+    _ran_mode(got, ref, highest.float())
+
+
+@pytest.mark.parametrize('route', ['default', 'bf16'])
+@pytest.mark.parametrize('n,ci,co,k,s,g,dil,p,t,misaligned', [
+    (4, 1, 128, 15, 1, 1, 1, 7, 2048, False),       # MSD L0: fwd / dx on the CUDA cores
+    (4, 128, 128, 41, 2, 4, 1, 20, 2048, False),    # MSD L1
+    (4, 256, 512, 41, 4, 8, 1, 20, 2049, False),    # MSD L3 at scale 2, odd length
+    (4, 1024, 1024, 41, 1, 8, 1, 20, 33, False),    # MSD L5 at scale 2: t_out 33, gy padded
+    (4, 1024, 1, 3, 1, 1, 1, 1, 129, False),        # conv_post: one output channel
+    (44, 1, 32, 5, 3, 1, 1, 2, 745, False),         # MPD L0 at period 11
+    (352, 512, 1024, 5, 3, 1, 1, 2, 28, False),     # MPD L3 at period 11: t_out 10
+    (2, 17, 17, 5, 1, 1, 1, 2, 1001, False),        # 17 rows: ragged tiles
+    (2, 8, 8, 5, 1, 1, 1, 2, 1000, False),          # 8 rows: every entry on the CUDA cores
+    (2, 7, 17, 5, 1, 1, 1, 2, 301, False),          # cg k = 35: w packed
+    (3, 32, 64, 7, 2, 2, 3, 9, 500, False),         # stride 2, dilation 3
+    (2, 64, 64, 41, 2, 4, 1, 20, 1000, True),       # every tensor one element off alignment
+])
+def test_grouped_conv_modes_match_plain(card, route, n, ci, co, k, s, g, dil, p, t,
+                                        misaligned):
+    """The three K6 entry points in precision 'default' on float32 tensors
+    and on bfloat16 tensors (the bf16 route) against the plain version of
+    the mode: forward with bias and slope, dx plain and with bias and slope,
+    dw; each launch counted under its route; dw rerun bit-identical."""
+    from pytorch_sound_tpu_torch.ops.cuda import grouped_conv as gc
+    rng = np.random.default_rng(n * ci + co + k + t + s)
+    dtype = torch.bfloat16 if route == 'bf16' else torch.float32
+
+    def arr(*shape, scale=1.0):
+        a = torch.from_numpy((rng.standard_normal(shape) * scale)
+                             .astype(np.float32)).to(card)
+        return a, aligned_off(a.to(dtype))
+
+    def aligned_off(a):
+        if misaligned:          # a contiguous view one element into its storage
+            a = torch.cat([a.new_zeros(1), a.reshape(-1)])[1:].view(a.shape)
+            assert a.data_ptr() % 8 != 0
+        return a
+
+    conf = dict(stride=s, padding=p, groups=g, dilation=dil)
+    t_out = gc.conv_out_len(t, k, s, p, dil)
+    (x32, x), (w32, w) = arr(n, ci, t), arr(co, ci // g, k, scale=(ci // g * k) ** -0.5)
+    (gy32, gy) = arr(n, co, t_out)
+    b_out, b_in = arr(co)[0], arr(ci)[0]
+    counters = (gc.conv1d_forward, gc.conv1d_input_grad, gc.conv1d_weight_grad)
+    before = [dict(c.launches_by_mode) for c in counters]
+    kw = dict(conf, precision='default')
+    y = gc.conv1d_forward(x, w, b_out, slope=0.1, **kw)
+    dx = gc.conv1d_input_grad(gy, w, t, **kw)
+    dxb = gc.conv1d_input_grad(gy, w, t, b_in, slope=0.2, **kw)
+    dw = gc.conv1d_weight_grad(x, gy, w.shape, **kw)
+    assert torch.equal(dw, gc.conv1d_weight_grad(x, gy, w.shape, **kw))
+    for c, b, calls in zip(counters, before, (1, 2, 2)):
+        assert c.launches_by_mode == dict(b, **{route: b[route] + calls}), c.__name__
+    y_ref = gc.grouped_conv1d_reference(x, w, b_out, slope=0.1, **kw)
+    dx_ref = gc.conv1d_input_grad_reference(gy, w, t, **kw)
+    dxb_ref = F.leaky_relu(gc.conv1d_input_grad_reference(gy.float(), w.float(), t, **kw)
+                           + b_in[None, :, None], 0.2).to(dtype)
+    dw_ref = gc.conv1d_weight_grad_reference(x, gy, w.shape, **kw)
+    y_hi = gc.grouped_conv1d_reference(x32, w32, b_out, slope=0.1, **conf)
+    dx_hi = gc.conv1d_input_grad_reference(gy32, w32, t, **conf)
+    dxb_hi = F.leaky_relu(dx_hi + b_in[None, :, None], 0.2)
+    dw_hi = gc.conv1d_weight_grad_reference(x32, gy32, w.shape, **conf)
+    for got, ref, hi, tol in ((y, y_ref, y_hi, GC_FWD_TOL), (dx, dx_ref, dx_hi, GC_GRAD_TOL),
+                              (dxb, dxb_ref, dxb_hi, GC_GRAD_TOL),
+                              (dw, dw_ref, dw_hi, GC_GRAD_TOL)):
+        _hold_mode(got, ref, hi, tol)
+
+
+def test_grouped_conv_bf16_autograd(card):
+    """grouped_conv1d on bfloat16 activations and a bf16 copy of an fp32
+    master weight (the critics' compute_dtype='bf16'): bf16 output and input
+    gradient, fp32 weight and bias gradients, each equal to the plain
+    version's chain of the same rounded operands."""
+    from pytorch_sound_tpu_torch.ops.cuda import grouped_conv as gc
+    rng = np.random.default_rng(31)
+
+    def arr(*shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).to(card)
+
+    conf = dict(stride=2, padding=20, groups=4)
+    x = arr(4, 128, 2048).to(torch.bfloat16).requires_grad_(True)
+    w32 = arr(128, 32, 41, scale=(32 * 41) ** -0.5).requires_grad_(True)
+    b = arr(128).requires_grad_(True)
+    r = arr(4, 128, 1024)
+    y = gc.grouped_conv1d(x, w32.to(torch.bfloat16), b, slope=0.1, precision='highest', **conf)
+    assert y.dtype == torch.bfloat16
+    (y.float() * r).sum().backward()
+    assert x.grad.dtype == torch.bfloat16 and w32.grad.dtype == b.grad.dtype == torch.float32
+    with torch.no_grad():
+        w = w32.to(torch.bfloat16)
+        g = r.to(torch.bfloat16)
+        g = torch.where(y > 0, g, g * 0.1)
+        kw = dict(conf, precision='default')
+        y_ref = gc.grouped_conv1d_reference(x, w, b, slope=0.1, **kw)
+        dx_ref = gc.conv1d_input_grad_reference(g, w, 2048, **kw)
+        dw_ref = gc.conv1d_weight_grad_reference(x, g, w.shape, **kw).float()
+        db_ref = g.float().sum(dim=(0, 2))
+    _hold_mode(y, y_ref, gc.grouped_conv1d_reference(x.float(), w32, b, slope=0.1, **conf),
+               GC_FWD_TOL)
+    _hold_mode(x.grad, dx_ref, gc.conv1d_input_grad_reference(r, w32, 2048, **conf),
+               GC_GRAD_TOL)
+    assert float((w32.grad - dw_ref).abs().max()) <= \
+        GC_GRAD_TOL * float(dw_ref.abs().max()) + _bf16_ulp(float(dw_ref.abs().max()))
+    assert float((b.grad - db_ref).abs().max()) <= 1e-5 * float(db_ref.abs().max())
 
 
 FLASH_FWD_TOL = 1e-5    # max abs error over the plain version's max abs

@@ -6,6 +6,8 @@ The port keeps feature maps channels-first: a period discriminator's are
 where JAX's are (N, T, C). They are mapped before they are compared.
 """
 
+import functools
+
 import jax
 
 jax.config.update('jax_platforms', 'cpu')
@@ -79,12 +81,35 @@ ROUTE_CASES = [pytest.param(arch, shape, route,
                for route in ('cudnn', 'cuda') for i, (arch, shape) in enumerate(CASES)]
 
 
-@pytest.mark.parametrize('arch,shape,route', ROUTE_CASES)
-def test_critic_matches_jax(arch, shape, route):
+@functools.lru_cache(maxsize=None)
+def jax_forward(arch, shape):
+    """(x, params, the JAX critic's outputs), computed once per (arch, shape)
+    for both routes' cases."""
     x = wav(len(arch), shape)
     jmod = jax_build_model(arch)
     params = jax_params(jmod, jnp.asarray(x), seed=len(arch) + 1)
-    ref = jax.jit(jmod.apply)(params, jnp.asarray(x))
+    return x, params, jax.jit(jmod.apply)(params, jnp.asarray(x))
+
+
+@functools.lru_cache(maxsize=None)
+def jax_loss_grads(arch, shape):
+    """(x1, x2, params, loss, flat grads) of LSGAN + feature matching between
+    two inputs, computed once per (arch, shape) for both routes' cases."""
+    x1, x2 = wav(1, shape), wav(2, shape)
+    jmod = jax_build_model(arch)
+    params = jax_params(jmod, jnp.asarray(x1), seed=3)
+
+    def jax_loss(p):
+        a, b = jmod.apply(p, jnp.asarray(x1)), jmod.apply(p, jnp.asarray(x2))
+        return jax_gan.discriminator_loss(a, b) + jax_gan.feature_matching_loss(a, b)
+
+    ref_loss, ref_grads = jax.jit(jax.value_and_grad(jax_loss))(params)
+    return x1, x2, params, float(ref_loss), flat(ref_grads['params'])
+
+
+@pytest.mark.parametrize('arch,shape,route', ROUTE_CASES)
+def test_critic_matches_jax(arch, shape, route):
+    x, params, ref = jax_forward(arch, shape)
     model = port_model(arch, params, route)
     with torch.no_grad():
         got = model(torch.from_numpy(x))
@@ -102,21 +127,12 @@ def test_critic_matches_jax(arch, shape, route):
 @pytest.mark.parametrize('arch,shape,route', ROUTE_CASES)
 def test_critic_grads_match_jax(arch, shape, route):
     """d/d(every g, v, bias) of LSGAN + feature matching between two inputs."""
-    x1, x2 = wav(1, shape), wav(2, shape)
-    jmod = jax_build_model(arch)
-    params = jax_params(jmod, jnp.asarray(x1), seed=3)
-
-    def jax_loss(p):
-        a, b = jmod.apply(p, jnp.asarray(x1)), jmod.apply(p, jnp.asarray(x2))
-        return jax_gan.discriminator_loss(a, b) + jax_gan.feature_matching_loss(a, b)
-
-    ref_loss, ref_grads = jax.jit(jax.value_and_grad(jax_loss))(params)
-    ref_grads = flat(ref_grads['params'])
+    x1, x2, params, ref_loss, ref_grads = jax_loss_grads(arch, shape)
     model = port_model(arch, params, route)
     a, b = model(torch.from_numpy(x1)), model(torch.from_numpy(x2))
     loss = gan_ops.discriminator_loss(a, b) + gan_ops.feature_matching_loss(a, b)
     loss.backward()
-    np.testing.assert_allclose(loss.item(), float(ref_loss), rtol=1e-5)
+    np.testing.assert_allclose(loss.item(), ref_loss, rtol=1e-5)
     grads = {k: p.grad.numpy() for k, p in model.named_parameters()}
     assert grads.keys() == ref_grads.keys()
     for key, ref in ref_grads.items():

@@ -176,6 +176,13 @@ def test_weight_grad_split_plan():
     assert gc.dw_scratch(17, 3, 5, 1, 2, 301, 2, True) == 512 + 2 * 17 * 304
     assert gc.dw_scratch(64, 64, 41, 4, 2, 500, 1, False) == 2 * 64 * 500
     assert gc.dw_scratch(1, 1024, 3, 1, 32, 129, 8, False) == 8 * 3072   # CUDA cores: no pad
+    # bfloat16 tensors: the fp32 sums always staged (one split too), gy
+    # padded in bf16 (two to a float) where t_out % 4 or its 8-byte address asks
+    assert gc.dw_scratch(1024, 1024, 5, 1, 64, 51, 1, True, True) == \
+        1024 * 1024 * 5 + 64 * 1024 * 52 // 2
+    assert gc.dw_scratch(17, 3, 5, 1, 1, 301, 1, True, True) == 256 + 17 * 304 // 2
+    assert gc.dw_scratch(64, 64, 41, 4, 2, 500, 1, True, True) == 64 * 64 * 41
+    assert gc.dw_scratch(1, 1024, 3, 1, 32, 129, 8, False, True) == 8 * 3072
 
 
 def test_weight_grad_route_follows_the_kernel_source():
@@ -185,9 +192,11 @@ def test_weight_grad_route_follows_the_kernel_source():
     src = open(os.path.join(os.path.dirname(__file__), '..', gc.SOURCE)).read()
     assert 'constexpr int kDwMinRows = %d;' % gc.DW_TC_MIN_ROWS in src
     assert 'const bool tc = cout / groups >= kDwMinRows;' in src
+    assert 'const int piece = bf16 ? 8 : 16;  // bytes of gy\'s row copies (4 elements)' in src
     assert ('const bool padded = tc && (t_out % 4 != 0 || '
-            'reinterpret_cast<uintptr_t>(gy) % 16 != 0);') in src
-    assert 'float* gyp = scratch + (splits > 1 ? (splits * count + 3) / 4 * 4 : 0);' in src
+            'reinterpret_cast<uintptr_t>(gy) % piece != 0);') in src
+    assert 'const bool staged = splits > 1 || bf16;' in src
+    assert 'float* gyp = scratch + (staged ? (splits * count + 3) / 4 * 4 : 0);' in src
     assert 'if (padded) ga.t_out = (t_out + 3) / 4 * 4;' in src
     body = src[src.index('int dispatch_dw('):]
     rules = re.findall(r'if \(rows >= (\d+)\) return launch_dw<(\d+), (\d+),', body[:800])

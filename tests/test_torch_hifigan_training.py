@@ -13,7 +13,6 @@ jax.config.update('jax_platforms', 'cpu')
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 import optax  # noqa: E402
-import pytest  # noqa: E402
 import torch  # noqa: E402
 
 from pytorch_sound_tpu.examples.hifi_gan import HiFiGANTrainer as JaxHiFiGANTrainer  # noqa: E402
@@ -277,8 +276,8 @@ def _recipe_on_a_vctk_tree(tmp_path, monkeypatch):
     VCTKMeta(str(tmp_path / 'meta')).make_meta(str(root))
     monkeypatch.setattr(recipe, 'build_model', lambda arch: build_model(
         TINY_GEN[0], extra_kwargs=TINY_GEN[1]))
-    monkeypatch.setattr(recipe, 'build_critics', lambda msd_kernel, mpd_kernel: tuple(
-        build_model(a) for a in ('hifi_gan_mpd_small', 'hifi_gan_msd_small')))
+    monkeypatch.setattr(recipe, 'build_critics', lambda msd_kernel, mpd_kernel, **mode: tuple(
+        build_model(a, extra_kwargs=mode) for a in ('hifi_gan_mpd_small', 'hifi_gan_msd_small')))
     return recipe, str(tmp_path / 'meta')
 
 
@@ -291,10 +290,18 @@ def test_main_trains_from_a_meta_dir(tmp_path, monkeypatch):
     loaders at batch 2 and fix_len 2048, two steps, one validation batch,
     checkpoints at the JAX layout holding the loaders' positions (tiny
     models; the recipe at full width runs on the card in
-    ``chip_smoke.py``)."""
+    ``chip_smoke.py``); and two steps with the critics' fast modes, the
+    MSD folded and the critics on bf16 activations in precision 'default'."""
     recipe, meta = _recipe_on_a_vctk_tree(tmp_path, monkeypatch)
-    with pytest.raises(NotImplementedError, match='section 2'):
-        recipe.main('vctk', meta, str(tmp_path / 'save'), disc_bf16=True)
+    np.random.seed(0)
+    torch.manual_seed(0)
+    best = recipe.main('vctk', meta, str(tmp_path / 'fast'), max_step=2, save_interval=2,
+                       msd_folded=True, disc_bf16=True, disc_precision='default', **RECIPE)
+    assert np.isfinite(best)
+    state = torch.load(tmp_path / 'fast' / 'models' / 'hifi_gan' / 'Generator' /
+                       'step_000002.chkpt', weights_only=True)
+    assert all(v.dtype == torch.float32 and bool(torch.isfinite(v).all())
+               for key in ('mpd', 'msd') for v in state['model'][key].values())
     np.random.seed(0)
     torch.manual_seed(0)
     best = recipe.main('vctk', meta, str(tmp_path / 'save'), max_step=2, save_interval=2,

@@ -8,6 +8,7 @@ path, the separation and transcription recipes and the multi-rank layer
 also load none of pandas, tqdm or joblib (nor, on the TTS path, matplotlib,
 nor, on the separation and transcription recipes, PyYAML)."""
 
+import functools
 import os
 import subprocess
 import sys
@@ -45,18 +46,32 @@ from pytorch_sound_tpu_torch.models import build_model
 from pytorch_sound_tpu_torch.models.vocoders import discriminators  # noqa: F401
 from pytorch_sound_tpu_torch.ops.cuda import _build, grouped_conv
 from pytorch_sound_tpu_torch.trainer import Trainer, adamw  # noqa: F401
-route = sys.argv[1]          # 'cudnn', or 'cuda': the grouped-conv functions
-gen = build_model('hifi_gan_v3', extra_kwargs={'upsample_initial_channel': 16,
-                                               'ups_backend': route})
-mpd, msd = (build_model(arch, extra_kwargs={'backends': (route,) * 8})
-            for arch in ('hifi_gan_mpd_small', 'hifi_gan_msd_small'))
 wav = (np.random.default_rng(0).standard_normal((2, 2048)) * 0.1).astype(np.float32)
-with tempfile.TemporaryDirectory() as tmp:
-    t = HiFiGANTrainer(gen, mpd, msd, adamw(gen.parameters(), 2e-4, 0.8, 0.99),
-                       adamw(itertools.chain(mpd.parameters(), msd.parameters()), 2e-4),
-                       [[wav]], [[wav]], max_step=1, valid_max_step=1, save_interval=1,
-                       log_interval=1, save_dir=tmp, seed=1, device='cpu')
-    assert np.isfinite(t.run()) and t.step == 1
+
+
+def step(route, critics, **kw):
+    # one step and a validation of tiny models on the CPU: route 'cudnn', or
+    # 'cuda' (the critics' convs and the upsamples on the grouped-conv
+    # functions); critics: the critics' extra keywords
+    gen = build_model('hifi_gan_v3', extra_kwargs={'upsample_initial_channel': 16,
+                                                   'ups_backend': route})
+    mpd, msd = (build_model(arch, extra_kwargs=dict(critics, backends=(route,) * 8))
+                for arch in ('hifi_gan_mpd_small', 'hifi_gan_msd_small'))
+    with tempfile.TemporaryDirectory() as tmp:
+        t = HiFiGANTrainer(gen, mpd, msd, adamw(gen.parameters(), 2e-4, 0.8, 0.99),
+                           adamw(itertools.chain(mpd.parameters(), msd.parameters()), 2e-4),
+                           [[wav]], [[wav]], max_step=1, valid_max_step=1, save_interval=1,
+                           log_interval=1, save_dir=tmp, seed=1, device='cpu', **kw)
+        assert np.isfinite(t.run()) and t.step == 1
+    print('STEP', route, sorted(critics), flush=True)
+
+
+for route in sys.argv[1:]:
+    step(route, {})
+    if route == 'cuda':
+        # the critics' fast modes: bf16 activations, precision 'default', the
+        # MSD folded (discriminators.msd_apply_folded)
+        step(route, {'precision': 'default', 'compute_dtype': 'bf16'}, msd_folded=True)
 assert _build._lib is None, 'the kernel library must not load on the CPU path'
 assert (grouped_conv.conv1d_forward.launches, grouped_conv.conv1d_input_grad.launches,
         grouped_conv.conv1d_weight_grad.launches) == (0, 0, 0)
@@ -419,6 +434,15 @@ def _run(script, *args):
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert 'LOADED []' in proc.stdout
+    return proc.stdout
+
+
+@functools.lru_cache(maxsize=None)
+def _training_run():
+    """The training path on both routes in one fresh interpreter, shared by
+    the two cases below (most of each one's time was the interpreter's
+    start and imports); its output."""
+    return _run(TRAIN_SCRIPT, 'cudnn', 'cuda')
 
 
 def test_port_loads_neither_jax_nor_the_jax_package():
@@ -435,14 +459,16 @@ def test_v1_serving_loads_neither_jax_nor_the_jax_package():
 def test_training_path_loads_neither_jax_nor_the_jax_package():
     """The trainer, the critics and HiFiGANTrainer: one CPU step with tiny
     models, a validation and a checkpoint."""
-    _run(TRAIN_SCRIPT, 'cudnn')
+    assert 'STEP cudnn []' in _training_run()
 
 
 def test_kernel_route_loads_neither_jax_nor_the_jax_package():
     """The same step with the critics' convs and the generator's upsamples
     on the grouped-conv functions: their module loads without JAX, and on
-    the CPU they build no kernel and count no launch."""
-    _run(TRAIN_SCRIPT, 'cuda')
+    the CPU they build no kernel and count no launch; then a step with the
+    critics' fast modes (bf16, 'default', the MSD folded)."""
+    out = _training_run()
+    assert 'STEP cuda []' in out and "STEP cuda ['compute_dtype', 'precision']" in out
 
 
 def test_attention_path_loads_neither_jax_nor_the_jax_package():

@@ -4,8 +4,9 @@ training recipe from wav files on disk, the DSP layer with the VoiceBank
 enhancement recipe, feature extraction from a wav tree, the text-to-speech
 recipe with synthesis and its decode, the separation and transcription
 recipes, the multi-GPU layer's data-parallel step, the serving path's bf16
-fast modes, and the critics' fast modes (K6 in 'default' and on bf16
-tensors, the folded MSD), once on one GPU.
+fast modes, the critics' fast modes (K6 in 'default' and on bf16 tensors,
+the folded MSD), and the generator's modes with the recipe in the JAX
+recipe's precision, once on one GPU.
 
     python3 chip_smoke.py
 
@@ -204,7 +205,26 @@ Phases, one line each; any failure raises and the script exits non-zero:
    (``launches_by_mode``: the upsamples at 'highest', the critics in their
    mode; the folded MSD 8 convs a pass instead of 24), one step card vs CPU
    (MODE_STEP_RTOL, MODE_STEP_GRAD_TOL), and the step time and peak memory
-   of each in turns with the critics at 'highest'.
+   of each in turns with the critics at 'highest'. Each critic conv also
+   runs the cuDNN route in 'default' (``hifi_gan.rounded_conv``: cuDNN's
+   fp32 conv of the bf16-rounded operands, its backward rounding the
+   cotangent, cuDNN's TF32 off) against the same plain version;
+19. the generator's modes: every conv of v2's generator at 16 x 8192 on its
+   real inputs and v1's distinct resblock geometries (C 256 / 128, k 3 / 7 /
+   11, dilations 1 / 3 / 5): K6 in 'default' and the cuDNN route in
+   'default' against the plain version of the mode at
+   GC_FWD_TOL / GC_GRAD_TOL and MODE_RMS_RATIO, per-layer times of K6 and
+   cuDNN in both modes; ``WNConv2d`` in 'default'; the generator's forward
+   + backward per route and mode with K6's launches per mode; the recipe in
+   JAX's modes (``Generator(precision='default')``, the critics in
+   'default', K2 / K4 in 'bf16x3') on the K6 route (every generator and
+   critic conv) and on cuDNN for 3 steps and a validation batch: exact K6
+   and K2 / K4 counts per mode, one step card vs CPU (the losses and the
+   critics' gradients at MODE_STEP_RTOL / MODE_STEP_GRAD_TOL, the
+   generator's worst and median at GEN_MODE_GRAD_TOL / GEN_MODE_GRAD_MEDIAN_TOL,
+   which a card generator left at 'highest' must exceed) beside the same
+   step on the card's two routes, the step times in turns with 'highest'; K4 in each mode at 16 x
+   8192 against fp64.
 
 The line before the last is a JSON object with one entry per kernel, each
 with its time, its plain version's, the least time the card could take for
@@ -216,7 +236,11 @@ FFT path, the direct DFT's beside them as ``dft_bound_ms`` and
 for K6's 'default' and bf16 entries every product at the bf16 tensor-core
 peak and the bytes at the tensors' dtype, their ``ms`` the sums over the
 critics' convs, ``highest_ms`` K6 'highest' and ``folded_ms`` the folded
-MSD's convs in the same run, ``library_ms`` cuDNN's bf16 calls;
+MSD's convs in the same run, ``library_ms`` the cuDNN route's 'default'
+(the same function) on float32 tensors and cuDNN's bf16 calls on bf16 ones;
+for K6 on the generator in 'default' the sums over v2's 78 convs, its
+``launches`` those of phase 19's K6-route recipe run (generator and
+critics);
 for K5 from the valid keys only, the count of the keys each kernel processes
 beside it as ``implemented_bound_ms``, and for the kernels that run 3xTF32
 on the tensor cores, K5's three and K6's dw, the same FLOPs three times at
@@ -511,20 +535,26 @@ class ToneStream:
             yield [tones(np.random, self.batch, self.samples)]
 
 
-def build_gan(device, seed, kernel=False, precision='highest', compute_dtype=None):
+def build_gan(device, seed, kernel=False, precision='highest', compute_dtype=None,
+              gen_precision='highest', gen_convs=False):
     """HiFi-GAN v2 with weight norm, MPD base and MSD base, initialised from
     ``seed`` with the JAX init, on ``device``. ``kernel=True`` builds the K6
     route: every critic conv (``build_critics(msd_kernel=8, mpd_kernel=True)``)
     and the generator's upsamples (``ups_backend='cuda'``) on the grouped-conv
-    kernels; the parameters are the same as the cuDNN route's. The critics
-    run in ``precision`` and ``compute_dtype``, the generator in 'highest'."""
+    kernels, with ``gen_convs`` the generator's other convs too
+    (``backend='cuda'``); the parameters are the same as the cuDNN route's.
+    The critics run in ``precision`` and ``compute_dtype``, the generator in
+    ``gen_precision``."""
     import torch
     from pytorch_sound_tpu_torch.examples.hifi_gan import build_critics
     from pytorch_sound_tpu_torch.models import build_model
     from pytorch_sound_tpu_torch.models.vocoders.hifi_gan import init_params
     gen = torch.Generator().manual_seed(seed)
     route = 'cuda' if kernel else 'cudnn'
-    models = [build_model('hifi_gan_v2', extra_kwargs={'ups_backend': route}),
+    gen_kw = {'ups_backend': route, 'precision': gen_precision}
+    if kernel and gen_convs:
+        gen_kw['backend'] = 'cuda'
+    models = [build_model('hifi_gan_v2', extra_kwargs=gen_kw),
               *build_critics(msd_kernel=8 if kernel else -1, mpd_kernel=kernel,
                              precision=precision, compute_dtype=compute_dtype)]
     return [init_params(m, gen).to(device) for m in models]
@@ -554,22 +584,26 @@ def make_trainer(models, device, save_dir, **kw):
     return trainer
 
 
-def split_step_pair(specs, msd_folded=False, **mode):
+def split_step_pair(specs, msd_folded=False, mel_precision='highest', detail=False, **mode):
     """One split step for each ``(device, kernel_route)`` of ``specs`` from the
-    same parameters and a 2 x 8192 batch, held against the first, the critics
-    in ``mode`` (``build_gan``'s precision and compute_dtype) and the MSD
-    folded with ``msd_folded``. Both
+    same parameters and a 2 x 8192 batch, held against the first, the models
+    in ``mode`` (``build_gan``'s precision, compute_dtype, gen_precision and
+    gen_convs; a spec's optional third item overrides it for that side),
+    the MSD folded with ``msd_folded`` and the log-mels in
+    ``mel_precision``. Both
     generator phases start from the first trainer's updated critics: Adam's
     first update moves every entry by about +-lr whatever its gradient's size,
     so entries with near-zero gradients may step apart between two correct
     runs. Returns (worst loss rel diff, (worst grad rel diff, its name), the
-    losses, the parameter count)."""
+    losses, the parameter count); with ``detail`` also each parameter's
+    gradient difference."""
     trainers = []
-    for device, kernel in specs:
-        t = make_trainer(build_gan(device, 1, kernel, **mode), device,
+    for device, kernel, *extra in specs:
+        models = build_gan(device, 1, kernel, **dict(mode, **(extra[0] if extra else {})))
+        t = make_trainer(models, device,
                          tempfile.mkdtemp(prefix='chip_smoke_step_'),
                          max_step=1, valid_max_step=1, save_interval=1, log_interval=1,
-                         msd_folded=msd_folded)
+                         msd_folded=msd_folded, mel_precision=mel_precision)
         shutil.rmtree(t.save_dir, ignore_errors=True)
         trainers.append(t)
     real = [t.to_device([tones(np.random.default_rng(5), 2, SEG)])[0][:, None, :]
@@ -590,7 +624,8 @@ def split_step_pair(specs, msd_folded=False, **mode):
     grad_rel = {k: float((got_grads[k] - g).norm() / g.norm()) for k, g in ref_grads.items()}
     worst = max(grad_rel, key=grad_rel.get)
     shown = ' '.join('%s=%.6f/%.6f' % (k, got_loss[k], ref_loss[k]) for k in LOSSES)
-    return loss_rel, (grad_rel[worst], worst), shown, len(grad_rel)
+    out = loss_rel, (grad_rel[worst], worst), shown, len(grad_rel)
+    return out + (grad_rel,) if detail else out
 
 
 def time_train_steps(trainer, real, n_timed):
@@ -832,6 +867,20 @@ def ups_gc_launches(gen, steps, valid_batches):
     ups = sum(getattr(gen, 'ups_%d' % i).backend == 'cuda'
               for i in range(len(gen.upsample_rates)))
     return steps * ups, (2 * steps + valid_batches) * ups, steps * ups
+
+
+def gen_gc_launches(gen, steps, valid_batches):
+    """Launches of the grouped-conv entry points (forward, dx, dw) by every
+    generator conv on the kernels: a conv layer runs the forward kernel in
+    both phases' generator passes and each validation batch, and in its
+    backward dw and, but for conv_pre (the mel carries no gradient), dx; the
+    upsamples as :func:`ups_gc_launches`."""
+    from pytorch_sound_tpu_torch.models.vocoders.hifi_gan import WNConv1d
+    convs = [m for m in gen.modules() if isinstance(m, WNConv1d) and m.backend == 'cuda']
+    grads = len(convs) - int(gen.conv_pre.backend == 'cuda')
+    ups = ups_gc_launches(gen, steps, valid_batches)
+    return ((2 * steps + valid_batches) * len(convs) + ups[0], steps * grads + ups[1],
+            steps * len(convs) + ups[2])
 
 
 def expected_gc_launches(gen, mpd, msd, steps, valid_batches, msd_folded=False):
@@ -3996,6 +4045,40 @@ def folded_layers(msd, x):
     return layers
 
 
+def cudnn_routes(x, w, b, gy, conf, slope=None, transposed=False, precision='default'):
+    """cuDNN's conv of one layer as the port's cuDNN route runs it: {entry:
+    a function}. In 'default' the repaired route (``hifi_gan.rounded_conv``:
+    the fp32 conv of the bf16-rounded operands, its backward rounding the
+    cotangent); the forward takes the slope after it, dx and dw go through
+    the route's autograd function with only their operand asking for a
+    gradient. At 'highest' ``aten.convolution`` and its
+    ``convolution_backward`` in fp32. ``conf``: stride, padding, dilation,
+    groups (a transposed conv: stride and padding)."""
+    import torch
+    import torch.nn.functional as F
+    from pytorch_sound_tpu_torch.models.vocoders.hifi_gan import rounded_conv
+    conf = dict(dict(dilation=1, groups=1), **conf)
+    if precision == 'highest':
+        args = ([conf['stride']], [conf['padding']], [conf['dilation']], transposed, [0],
+                conf['groups'])
+
+        def back(i):
+            mask = [i == 0, i == 1, False]
+            return lambda: torch.ops.aten.convolution_backward(gy, x, w, None, *args, mask)[i]
+        return {'fwd': lambda: torch.ops.aten.convolution(x, w, b, *args),
+                'dx': back(0), 'dw': back(1)}
+    kw = dict(conf, transposed=transposed)
+
+    def fwd():
+        y = rounded_conv(x, w, b, **kw)
+        return y if slope is None else F.leaky_relu(y, slope)
+    xg, wg = x.detach().requires_grad_(True), w.detach().requires_grad_(True)
+    y_dx, y_dw = rounded_conv(xg, w, b, **kw), rounded_conv(x, wg, b, **kw)
+    return {'fwd': fwd,
+            'dx': lambda: torch.autograd.grad(y_dx, xg, gy, retain_graph=True)[0],
+            'dw': lambda: torch.autograd.grad(y_dw, wg, gy, retain_graph=True)[0]}
+
+
 def critic_modes_path(dev, card, cudnn_step):
     """Phase 18: the critics' fast modes on K6. Returns the JSON entries of
     the three grouped-conv entry points in 'default' (float32 tensors) and
@@ -4003,6 +4086,7 @@ def critic_modes_path(dev, card, cudnn_step):
     import torch
     import torch.nn.functional as F
     from pytorch_sound_tpu_torch.models.vocoders import discriminators as disc
+    from pytorch_sound_tpu_torch.models.vocoders import hifi_gan as hg
     from pytorch_sound_tpu_torch.models.vocoders.hifi_gan import WNConv1d
     from pytorch_sound_tpu_torch.ops.cuda import grouped_conv as gc
     from pytorch_sound_tpu_torch.ops.cuda import logmel as lm
@@ -4029,7 +4113,11 @@ def critic_modes_path(dev, card, cudnn_step):
     entries = ('fwd', 'dx', 'dw')
     errs = {(e, r): 0.0 for e in entries for r in CRITIC_MODES}
     ratios = {(e, r): 0.0 for e in entries for r in CRITIC_MODES}
-    keys = ('default', 'plain', 'bf16', 'plain_bf16', 'highest', 'cudnn_bf16')
+    keys = ('default', 'plain', 'bf16', 'plain_bf16', 'highest', 'cudnn_bf16', 'cudnn_default')
+    # the repaired cuDNN route in 'default' against the same plain version of
+    # the mode at the same bounds
+    cudnn_errs = dict.fromkeys(entries, 0.0)
+    cudnn_ratios = dict(cudnn_errs)
     # every critic conv, the unfolded MSD's alone, the folded MSD's
     sums = {part: {e: dict.fromkeys(keys, 0.0) for e in entries}
             for part in ('critics', 'msd', 'folded')}
@@ -4074,6 +4162,7 @@ def critic_modes_path(dev, card, cudnn_step):
                  'dx': gy.numel() + w.numel() + x.numel(),
                  'dw': x.numel() + gy.numel() + w.numel()}
         line = {}
+        cudnn = cudnn_routes(x, w, b, gy, conf, slope)
         for e in entries:
             highest = plain(e, x, w, gy, **conf)
             for r, (x_, w_, gy_) in (('default', (x, w, gy)), ('bf16', (xb, wb, gyb))):
@@ -4096,6 +4185,20 @@ def critic_modes_path(dev, card, cudnn_step):
             ms['plain_bf16'] = cuda_ms(lambda: plain(e, xb, wb, gyb, **d), 3)
             ms['highest'] = cuda_ms(lambda: run(e, x, w, gy, **conf), 3)
             ms['cudnn_bf16'] = cuda_ms(lambda: cudnn_bf16(e), 3)
+            ref = plain(e, x, w, gy, **d)
+            scale = float(ref.abs().max())
+            got = cudnn[e]()
+            torch.cuda.synchronize()
+            err = max_err(got, ref)
+            ratio = rms(got - ref) / max(rms(got - highest), 1e-300)
+            cudnn_errs[e] = max(cudnn_errs[e], err / scale)
+            cudnn_ratios[e] = max(cudnn_ratios[e], ratio)
+            line['%s_cudnn' % e] = '%.3g/%.3g' % (err / scale, ratio)
+            assert got.shape == ref.shape, (name, e)
+            assert err <= (GC_FWD_TOL if e == 'fwd' else GC_GRAD_TOL) * scale, (
+                name, e, err / scale)
+            assert ratio <= MODE_RMS_RATIO, (name, e, ratio)
+            ms['cudnn_default'] = cuda_ms(cudnn[e], 3)
             for part in parts:
                 for key_ in keys:
                     sums[part][e][key_] += ms[key_]
@@ -4122,6 +4225,9 @@ def critic_modes_path(dev, card, cudnn_step):
                                            for e in entries for r in CRITIC_MODES),
         worst_rms_ratio=' '.join('%s_%s=%.3g' % (e, r, ratios[e, r])
                                  for e in entries for r in CRITIC_MODES))
+    log('cudnn_default', what='critics',
+        worst_rel_err=' '.join('%s=%.3g' % (e, cudnn_errs[e]) for e in entries),
+        worst_rms_ratio=' '.join('%s=%.3g' % (e, cudnn_ratios[e]) for e in entries))
 
     # 18b the folded MSD against the unfolded one on both routes, fp32
     #     'highest': every score and map, and every parameter's gradient of a
@@ -4230,8 +4336,437 @@ def critic_modes_path(dev, card, cudnn_step):
              'tc_bound_ms': bounds['critics', e, r][0],
              'highest_ms': sums['critics'][e]['highest'],
              'folded_ms': sums['folded'][e][r],
-             'library_ms': sums['critics'][e]['cudnn_bf16']}
+             'cudnn_bf16_ms': sums['critics'][e]['cudnn_bf16'],
+             # the same function in one library call: on float32 tensors the
+             # repaired cuDNN route, on bfloat16 ones cuDNN's bf16 conv
+             'library_ms': sums['critics'][e][
+                 'cudnn_default' if r == 'default' else 'cudnn_bf16']}
             for i, e in enumerate(entries) for r in CRITIC_MODES]
+
+# phase 19: JAX's recipe modes, the generator in 'default' (K6 or the
+# repaired cuDNN route), the critics in 'default', K2 / K4 in 'bf16x3'
+GEN_MODES = {'highest': dict(precision='highest', gen_precision='highest',
+                             mel_precision='highest'),
+             'jax': dict(precision='default', gen_precision='default',
+                         mel_precision='bf16x3')}
+V1_RESBLOCKS = ((256, 256), (128, 2048))   # v1's resblock channels and samples at 16 x 8192
+# The recipe's step in JAX's modes, card vs CPU: the losses and the critics'
+# gradients at phase 18's bounds (MODE_STEP_RTOL, MODE_STEP_GRAD_TOL); the
+# generator's gradients, whose cotangents take a bf16 rounding at each of its
+# 78 convs after the critics' 54, by their worst and their median leaf. On an
+# NVIDIA H100 80GB HBM3 at 700 W: at most 0.060 (a resblock bias) and 0.030;
+# the control, the card's generator left at 'highest', 0.131 and 0.068. Each
+# bound sits about 1.5x from both readings, and the control must exceed both
+GEN_MODE_GRAD_TOL = 0.09
+GEN_MODE_GRAD_MEDIAN_TOL = 0.045
+
+
+def gen_layers(gen, mel):
+    """Every conv of ``gen`` with its input on ``mel``: [(name, transposed,
+    input, weight, bias, conv keywords, slope)]."""
+    import torch
+    from pytorch_sound_tpu_torch.models.vocoders.hifi_gan import (WNConv1d,
+                                                                  WNConvTranspose1d)
+    layers, hooks = [], []
+    for name, m in gen.named_modules():
+        if isinstance(m, (WNConv1d, WNConvTranspose1d)):
+            hooks.append(m.register_forward_pre_hook(
+                lambda mod, inp, _n=name: layers.append((_n, mod, inp[0].contiguous()))))
+    with torch.no_grad():
+        gen(mel)
+    for h in hooks:
+        h.remove()
+    out = []
+    for name, m, x in layers:
+        convt = isinstance(m, WNConvTranspose1d)
+        conf = dict(stride=m.stride, padding=m.padding) if convt else dict(
+            stride=m.stride, padding=m.padding, groups=m.groups, dilation=m.dilation)
+        out.append((name, convt, x, m.folded_weight().detach(), m.bias.detach(), conf,
+                    None if convt else m.fused_slope))
+    return out
+
+
+def v1_layers(dev, rng):
+    """v1's distinct resblock geometries at the recipe's 16 x 8192 output:
+    C = 256 (256 samples) and 128 (2048), k 3 / 7 / 11, dilations 1 / 3 / 5,
+    the mid-block slope fused, on seeded inputs and weights."""
+    import torch
+    out = []
+    for c, t in V1_RESBLOCKS:
+        for k in (3, 7, 11):
+            for d in (1, 3, 5):
+                x = torch.randn((BATCH, c, t), generator=rng, device=dev) * 0.5
+                w = torch.randn((c, c, k), generator=rng, device=dev) * (c * k) ** -0.5
+                b = torch.randn((c,), generator=rng, device=dev) * 0.05
+                out.append(('v1.C%d.k%d.d%d' % (c, k, d), False, x, w, b,
+                            dict(stride=1, padding=d * (k - 1) // 2, groups=1, dilation=d),
+                            0.1))
+    return out
+
+
+def gen_modes_path(dev, card):
+    """Phase 19: the generator's modes and the recipe in JAX's. Returns the
+    JSON entries of the three grouped-conv entry points on the generator in
+    'default' and of K4 in its modes."""
+    import torch
+    import torch.nn.functional as F
+    from pytorch_sound_tpu_torch.models.vocoders import discriminators as disc
+    from pytorch_sound_tpu_torch.models.vocoders import hifi_gan as hg
+    from pytorch_sound_tpu_torch.ops import mel as mel_ops
+    from pytorch_sound_tpu_torch.ops.cuda import grouped_conv as gc
+    from pytorch_sound_tpu_torch.ops.cuda import logmel as lm
+
+    t_start = time.perf_counter()
+    # 19a every conv of v2's generator on its real inputs at the recipe's 16 x
+    #     8192 and v1's distinct resblock geometries: K6 in 'default' and the
+    #     repaired cuDNN route against the plain version of
+    #     the mode, forward / dx / dw at GC_FWD_TOL / GC_GRAD_TOL and nearer
+    #     it than 'highest' by RMS; per-layer ms of K6 and cuDNN in both modes
+    real = torch.from_numpy(tones(np.random.default_rng(19), BATCH, SEG)).to(dev)
+    with torch.no_grad():
+        mel = lm.fused_hifigan_mel(real)
+    gen = build_gan(dev, 0, kernel=True, gen_convs=True)[0]
+    layers = gen_layers(gen, mel) + v1_layers(dev, torch.Generator(device=dev).manual_seed(9))
+    del gen
+    rng = torch.Generator(device=dev).manual_seed(19)
+    entries = ('fwd', 'dx', 'dw')
+    routes = ('k6', 'cudnn')
+    errs = {(e, r): 0.0 for e in entries for r in routes}
+    ratios = dict(errs)
+    keys = ('k6_default', 'k6_highest', 'cudnn_default', 'cudnn_highest', 'plain')
+    sums = {part: {e: dict.fromkeys(keys, 0.0) for e in entries} for part in ('v2', 'v1')}
+    work = {e: [0.0, 0.0] for e in entries}         # v2's FLOPs and elements
+    for name, convt, x, w, b, conf, slope in layers:
+        part = 'v1' if name.startswith('v1.') else 'v2'
+        t = x.shape[2]
+        if convt:
+            y32 = gc.conv_transpose1d_reference(x, w, b, **conf)
+        else:
+            y32 = gc.grouped_conv1d_reference(x, w, b, slope=slope, **conf)
+        gy = torch.randn(y32.shape, generator=rng, device=dev)
+
+        def k6(entry, precision):
+            kw = dict(conf, precision=precision)
+            if convt:
+                return {'fwd': lambda: gc.conv1d_input_grad(x, w, y32.shape[2], b, **kw),
+                        'dx': lambda: gc.conv1d_forward(gy, w, **kw),
+                        'dw': lambda: gc.conv1d_weight_grad(gy, x, w.shape, **kw)}[entry]
+            return {'fwd': lambda: gc.conv1d_forward(x, w, b, slope=slope, **kw),
+                    'dx': lambda: gc.conv1d_input_grad(gy, w, t, **kw),
+                    'dw': lambda: gc.conv1d_weight_grad(x, gy, w.shape, **kw)}[entry]
+
+        def plain(entry, precision):
+            kw = dict(conf, precision=precision)
+            if convt:
+                return {'fwd': lambda: gc.conv_transpose1d_reference(x, w, b, **kw),
+                        'dx': lambda: gc.grouped_conv1d_reference(gy, w, **kw),
+                        'dw': lambda: gc.conv1d_weight_grad_reference(gy, x, w.shape, **kw)
+                        }[entry]
+            return {'fwd': lambda: gc.grouped_conv1d_reference(x, w, b, slope=slope, **kw),
+                    'dx': lambda: gc.conv1d_input_grad_reference(gy, w, t, **kw),
+                    'dw': lambda: gc.conv1d_weight_grad_reference(x, gy, w.shape, **kw)
+                    }[entry]
+
+        cudnn = cudnn_routes(x, w, b, gy, conf, slope, convt)
+        cudnn_hi = cudnn_routes(x, w, b, gy, conf, None, convt, precision='highest')
+        if convt:       # the mirror conv's products: x is its cotangent
+            macs = conv_macs(BATCH, x.shape[1], w.shape[1], w.shape[2], conf['stride'],
+                             conf['padding'], 1, y32.shape[2], t)
+        else:
+            macs = conv_macs(BATCH, w.shape[0], w.shape[1], w.shape[2], conf['stride'],
+                             conf['padding'], conf['dilation'], t, y32.shape[2])
+        moved = {'fwd': x.numel() + w.numel() + y32.numel(),
+                 'dx': gy.numel() + w.numel() + x.numel(),
+                 'dw': x.numel() + gy.numel() + w.numel()}
+        line = {}
+        for e in entries:
+            ref, highest = plain(e, 'default')(), plain(e, 'highest')()
+            scale = float(ref.abs().max())
+            tol = (GC_FWD_TOL if e == 'fwd' else GC_GRAD_TOL) * scale
+            for r, fn in (('k6', k6(e, 'default')), ('cudnn', cudnn[e])):
+                got = fn()
+                torch.cuda.synchronize()
+                err = max_err(got, ref)
+                ratio = rms(got - ref) / max(rms(got - highest), 1e-300)
+                errs[e, r] = max(errs[e, r], err / scale)
+                ratios[e, r] = max(ratios[e, r], ratio)
+                line['%s_%s' % (e, r)] = '%.3g/%.3g' % (err / scale, ratio)
+                assert got.shape == ref.shape and err <= tol, (name, e, r, err, tol)
+                assert ratio <= MODE_RMS_RATIO, (name, e, r, ratio)
+            ms = {'k6_default': cuda_ms(k6(e, 'default'), 3),
+                  'plain': cuda_ms(plain(e, 'default'), 3),
+                  'k6_highest': cuda_ms(k6(e, 'highest'), 3)}
+            ms['cudnn_highest'] = cuda_ms(cudnn_hi[e], 3)
+            ms['cudnn_default'] = cuda_ms(cudnn[e], 3)
+            for key_ in keys:
+                sums[part][e][key_] += ms[key_]
+            if part == 'v2':
+                work[e][0] += 2.0 * macs
+                work[e][1] += moved[e]
+            line[e + '_ms'] = '/'.join('%.3f' % ms[key_] for key_ in keys)
+        log('gen_modes', layer=name, seconds='%.1f' % (time.perf_counter() - t_start),
+            geometry='%d->%d k%d s%d d%d T%d' % (
+            x.shape[1], y32.shape[1], w.shape[2], conf['stride'], conf.get('dilation', 1), t),
+            **line)
+    del layers, cudnn, cudnn_hi
+    bounds = {e: bf16_bound(work[e][0], 4 * work[e][1], 1) for e in entries}
+    for part in sums:
+        log('time', card=repr(card), what='gen_layers_%s_one_call_each' % part,
+            order='/'.join(keys),
+            **{'%s_ms' % e: '/'.join('%.3f' % sums[part][e][key_] for key_ in keys)
+               for e in entries},
+            **({'%s_bound_ms' % e: '%.4f(%s)' % bounds[e] for e in entries}
+               if part == 'v2' else {}))
+    log('gen_modes',
+        worst_rel_err=' '.join('%s_%s=%.3g' % (e, r, errs[e, r]) for e in entries
+                               for r in routes),
+        worst_rms_ratio=' '.join('%s_%s=%.3g' % (e, r, ratios[e, r]) for e in entries
+                                 for r in routes))
+
+    #     WNConv2d in 'default' (the repaired route, 2-D) against the plain
+    #     version of the mode, forward / dx / dw
+    x2 = torch.randn((8, 32, 1024, 7), generator=rng, device=dev)
+    conv2 = disc.WNConv2d(32, 64, (5, 1), stride=(3, 1), padding=(2, 0),
+                          precision='default').to(dev)
+    w2 = conv2.folded_weight().detach()
+    y2 = conv2(x2)
+    g2 = torch.randn(y2.shape, generator=rng, device=dev)
+    dx2, dw2 = torch.autograd.grad(hg.rounded_conv(x2.requires_grad_(True), w2.requires_grad_(
+        True), conv2.bias.detach(), stride=(3, 1), padding=(2, 0)), (x2, w2), g2)
+    xo, wo, go = gc._operands('default', x2.detach(), w2.detach(), g2)
+    xh, wh = x2.detach(), w2.detach()
+    for e, got, ref, hi in (
+            ('fwd', y2, F.conv2d(xo, wo, conv2.bias, stride=(3, 1), padding=(2, 0)),
+             F.conv2d(xh, wh, conv2.bias, stride=(3, 1), padding=(2, 0))),
+            ('dx', dx2, torch.nn.grad.conv2d_input(xh.shape, wo, go, (3, 1), (2, 0)),
+             torch.nn.grad.conv2d_input(xh.shape, wh, g2, (3, 1), (2, 0))),
+            ('dw', dw2, torch.nn.grad.conv2d_weight(xo, wh.shape, go, (3, 1), (2, 0)),
+             torch.nn.grad.conv2d_weight(xh, wh.shape, g2, (3, 1), (2, 0)))):
+        scale = float(ref.abs().max())
+        err, ratio = max_err(got.detach(), ref) / scale, rms(got.detach() - ref) / rms(
+            got.detach() - hi)
+        log('wnconv2d_default', entry=e, rel_err='%.3g' % err, rms_ratio='%.3g' % ratio)
+        assert err <= (GC_FWD_TOL if e == 'fwd' else GC_GRAD_TOL) and \
+            ratio <= MODE_RMS_RATIO, (e, err, ratio)
+    del x2, y2, g2, dx2, dw2, conv2
+    log('gen_modes', what='19a', seconds='%.1f' % (time.perf_counter() - t_start))
+
+    # 19b the generator's forward + backward at 16 x 8192 per route and mode,
+    #     in turns, with its K6 launches per mode
+    gen_ms = {}
+    gr = torch.randn((BATCH, 1, SEG), generator=rng, device=dev)
+    for route in ('cudnn', 'k6'):
+        gens = {m: build_gan(dev, 0, kernel=route == 'k6', gen_convs=True,
+                             gen_precision=m)[0] for m in ('highest', 'default')}
+
+        def fwd_bwd(m):
+            return lambda: gens[m](mel).backward(gr)
+        for m in ('highest', 'default'):
+            gc.reset_launches()
+            fwd_bwd(m)()
+            torch.cuda.synchronize()
+            counts = {r: '%d/%d/%d' % tuple(c.launches_by_mode[r] for c in (
+                gc.conv1d_forward, gc.conv1d_input_grad, gc.conv1d_weight_grad))
+                for r in ('highest', 'default')}
+            log('counts', what='gen_fwd_bwd_%s_%s' % (route, m), **counts)
+            if route == 'k6':
+                assert counts[m] != '0/0/0' and counts[
+                    ({'highest', 'default'} - {m}).pop()] == '0/0/0', counts
+        k_d, k_h = paired_ms(fwd_bwd('highest'), fwd_bwd('default'), 5)[:2]
+        gen_ms[route] = (k_h, k_d)
+        log('time', card=repr(card), what='gen_fwd_bwd_16x8192_%s' % route,
+            highest_ms='%.2f' % k_h, default_ms='%.2f' % k_d)
+        del gens
+
+    # 19c the recipe in JAX's modes (generator and critics 'default', K2 / K4
+    #     'bf16x3') for 3 steps and a validation batch on each route, launch
+    #     counts from zero per mode; one step card vs CPU at phase 18's bounds
+    k4_counts = {m: 0 for m in lm.PRECISIONS}
+    k6_counts = [0, 0, 0]
+    jax_step = dict(mel_precision='bf16x3', precision='default', gen_precision='default',
+                    gen_convs=True)
+
+    def family_worst(rels):
+        """{'gen' / 'critics': (name, worst gradient difference, median)}."""
+        out = {}
+        for fam, keep in (('gen', lambda k: k.startswith('gen.')),
+                          ('critics', lambda k: not k.startswith('gen.'))):
+            name = max((k for k in rels if keep(k)), key=rels.get)
+            out[fam] = (name, rels[name], float(np.median([v for k, v in rels.items()
+                                                            if keep(k)])))
+        return out
+
+    def shown_worst(worst):
+        return {'worst_%s_grad' % f: '%.3g(%s)' % worst[f][1::-1] for f in worst} | {
+            'median_%s_grad' % f: '%.3g' % worst[f][2] for f in worst}
+    for route in ('k6', 'cudnn'):
+        mode = GEN_MODES['jax']
+        work_dir = tempfile.mkdtemp(prefix='chip_smoke_gen_modes_')
+        try:
+            models = build_gan(dev, 0, kernel=route == 'k6', precision=mode['precision'],
+                               gen_precision=mode['gen_precision'], gen_convs=True)
+            gc.reset_launches()
+            for fn in (lm.fused_log_mel, lm.fused_hifigan_mel_trainable):
+                fn.launches_by_mode = dict.fromkeys(lm.PRECISIONS, 0)
+            bwd0 = lm.fused_hifigan_mel_trainable.bwd_launches
+            run = make_trainer(models, dev, work_dir, train=ToneStream(3), valid=ToneStream(1),
+                               max_step=3, valid_max_step=1, save_interval=3, log_interval=1,
+                               mel_precision=mode['mel_precision'])
+            best = run.run()
+            torch.cuda.synchronize()
+            got = {r: tuple(c.launches_by_mode[r] for c in (
+                gc.conv1d_forward, gc.conv1d_input_grad, gc.conv1d_weight_grad))
+                for r in gc.ROUTES}
+            mels = (dict(lm.fused_log_mel.launches_by_mode),
+                    dict(lm.fused_hifigan_mel_trainable.launches_by_mode),
+                    lm.fused_hifigan_mel_trainable.bwd_launches - bwd0)
+            train = {s_: m for tag, s_, m in run.logged if tag == 'train'}
+            assert sorted(train) == [1, 2, 3], sorted(train)
+            assert all(np.isfinite(m[k_]) for m in train.values() for k_ in LOSSES), train
+            assert np.isfinite(best), best
+            gen_, mpd_, msd_ = models
+            k6_want = tuple(g + 3 * c for g, c in zip(gen_gc_launches(gen_, 3, 1),
+                                                     critic_gc_launches(mpd_, msd_)))
+            want = {'highest': (0, 0, 0), 'bf16': (0, 0, 0),
+                    'default': k6_want if route == 'k6' else (0, 0, 0)}
+        finally:
+            shutil.rmtree(work_dir, ignore_errors=True)
+        for s_ in sorted(train):
+            log('train', route=route + '_jax_modes', step=s_,
+                **{k_: '%.6f' % train[s_][k_] for k_ in LOSSES})
+        log('counts', route=route + '_jax_modes', **{r: '%d/%d/%d' % got[r] for r in got},
+            expected=' '.join('%s=%d/%d/%d' % ((r,) + want[r]) for r in got),
+            k2_by_mode=mels[0], k4_by_mode=mels[1], k4_bwd=mels[2],
+            best_valid_mel_l1='%.6f' % best)
+        # K2: the real mel of each step and of the validation batch, and K4's
+        # forward of each fake (3 steps, 1 validation batch); K4's backward
+        # once a step; every forward in 'bf16x3'
+        assert got == want, (route, got, want)
+        assert mels == ({'highest': 0, 'bf16x3': 8, 'default': 0},
+                        {'highest': 0, 'bf16x3': 4, 'default': 0}, 3), mels
+        for m in lm.PRECISIONS:
+            k4_counts[m] += mels[1][m]
+        if route == 'k6':
+            k6_counts = list(got['default'])
+        del run, models
+
+        loss_rel, _, shown, n_params, rels = split_step_pair(
+            [('cpu', route == 'k6'), (dev, route == 'k6')], detail=True, **jax_step)
+        worst = family_worst(rels)
+        log('card_cpu', route=route + '_jax_modes', losses=shown,
+            worst_loss_rel='%.3g' % loss_rel, params=n_params, **shown_worst(worst),
+            gen_grads_above_critic_bound=sum(v > MODE_STEP_GRAD_TOL for k, v in rels.items()
+                                             if k.startswith('gen.')))
+        assert loss_rel <= MODE_STEP_RTOL, (route, loss_rel)
+        assert worst['critics'][1] <= MODE_STEP_GRAD_TOL, (route, worst)
+        assert worst['gen'][1] <= GEN_MODE_GRAD_TOL, (route, worst)
+        assert worst['gen'][2] <= GEN_MODE_GRAD_MEDIAN_TOL, (route, worst)
+    # the spread between two right answers on the card: the same step on the
+    # K6 route against the cuDNN route (the same mode, other sum orders)
+    loss_rel, _, shown, _, rels = split_step_pair([(dev, False), (dev, True)], detail=True,
+                                                  **jax_step)
+    worst = family_worst(rels)
+    log('card_routes', what='k6_vs_cudnn_jax_modes', worst_loss_rel='%.3g' % loss_rel,
+        **shown_worst(worst))
+
+    # controls: the CPU in JAX's modes against a card step that leaves a
+    # rounding of the generator's mode out. Its convs at 'highest' must read
+    # above both generator bounds. The cuDNN route's backward not rounding
+    # the cotangent on the card is logged only: the step reads it as a right
+    # answer (0.055 / 0.029 on an H100), and 19a's dx / dw checks hold it
+    rounded = hg._RoundedConv
+
+    class CardCotangentUnrounded(rounded):
+        @staticmethod
+        def backward(ctx, g):
+            if not g.is_cuda:
+                return rounded.backward(ctx, g)
+            xb, wb = ctx.saved_tensors
+            need_x, need_w = ctx.needs_input_grad[:2]
+            x = xb.float() if need_w else g.new_empty(ctx.shapes[0])
+            w = wb.float() if need_x else g.new_empty(ctx.shapes[1])
+            dx, dw, _ = torch.ops.aten.convolution_backward(
+                g.contiguous(), x, w, None, *ctx.conf, [need_x, need_w, False])
+            db = g.sum(dim=[d for d in range(g.ndim) if d != 1])
+            return dx, dw, db, None
+    controls = {}
+    for what, card_mode in (('gen_highest', dict(gen_precision='highest')),
+                            ('cotangent_unrounded', {})):
+        hg._RoundedConv = CardCotangentUnrounded if what == 'cotangent_unrounded' else rounded
+        try:
+            loss_rel, _, shown, _, rels = split_step_pair(
+                [('cpu', False), (dev, False, card_mode)], detail=True, **jax_step)
+        finally:
+            hg._RoundedConv = rounded
+        controls[what] = family_worst(rels)
+        log('card_cpu', control=what, route='cudnn_jax_modes', losses=shown,
+            worst_loss_rel='%.3g' % loss_rel, **shown_worst(controls[what]))
+    assert controls['gen_highest']['gen'][1] > GEN_MODE_GRAD_TOL and \
+        controls['gen_highest']['gen'][2] > GEN_MODE_GRAD_MEDIAN_TOL, controls
+    log('gen_modes', what='19c', seconds='%.1f' % (time.perf_counter() - t_start))
+
+    # 19d the step time and peak memory in JAX's modes against 'highest', in
+    #     turns, on each route
+    step = {}
+    for route, name in (('k6', 'highest'), ('k6', 'jax'), ('cudnn', 'jax'), ('cudnn', 'highest')):
+        mode = GEN_MODES[name]
+        trainer = make_trainer(build_gan(dev, 0, kernel=route == 'k6', gen_convs=True,
+                                         precision=mode['precision'],
+                                         gen_precision=mode['gen_precision']), dev,
+                               tempfile.mkdtemp(prefix='chip_smoke_t_'), max_step=1,
+                               valid_max_step=1, save_interval=1, log_interval=1,
+                               mel_precision=mode['mel_precision'])
+        shutil.rmtree(trainer.save_dir, ignore_errors=True)
+        steps_s, step_ms, disc_ms, gen_ph, peak_gb = time_train_steps(
+            trainer, real[:, None, :], 5)
+        del trainer
+        step[route, name] = step_ms
+        log('time', card=repr(card), what='train_step_16x8192_%s_%s' % (route, name),
+            step_ms='%.2f' % step_ms, steps_per_s='%.3f' % steps_s,
+            disc_phase_ms='/'.join('%.2f' % v for v in disc_ms),
+            gen_phase_ms='/'.join('%.2f' % v for v in gen_ph), peak_memory_gb='%.2f' % peak_gb)
+
+    # K4 in each mode at the recipe's 16 x 8192: the same fp64 kernel (bit for
+    # bit 'highest'), against the plain version in fp64, timed
+    k4_err, k4_ms = {}, {}
+    fake = real * 0.5
+    ref64 = mel_ops.hifigan_mel_spectrogram(fake.double())
+    hi = lm.fused_hifigan_mel_trainable(fake, 'highest')
+    for m in lm.PRECISIONS:
+        out = lm.fused_hifigan_mel_trainable(fake, m)
+        torch.cuda.synchronize()
+        k4_err[m] = max_err(out.double(), ref64)
+        assert torch.equal(out, hi) and k4_err[m] <= MEL_TOL, (m, k4_err[m])
+        k4_ms[m] = cuda_ms(lambda m=m: lm.fused_hifigan_mel_trainable(fake, m), 10)
+    k4_plain = cuda_ms(lambda: mel_ops.hifigan_mel_spectrogram(fake), 10)
+    consts = lm._constants(SR, 1024, 1024, 80, 0.0, 8000.0, str(dev))
+    k4_bound = bound(*logmel_work(*fake.shape, consts.mel_w.shape[1],
+                                  int((consts.mel_w != 0).sum())),
+                     fp64_peak=PEAK_FP64_CUDA_CORES)
+    log('time', card=repr(card), what='k4_modes_16x8192',
+        **{'%s_ms' % m: '%.4f' % k4_ms[m] for m in lm.PRECISIONS},
+        plain_ms='%.4f' % k4_plain, **{'%s_vs_fp64' % m: '%.3g' % k4_err[m]
+                                       for m in lm.PRECISIONS})
+    log('gen_modes', seconds='%.1f' % (time.perf_counter() - t_start))
+    replaces = {'fwd': 'pytorch_sound_tpu/ops/pallas/grouped_conv.py:414',
+                'dx': 'pytorch_sound_tpu/ops/pallas/grouped_conv.py:414',
+                'dw': 'pytorch_sound_tpu/ops/pallas/grouped_conv.py:763'}
+    out = [{'name': 'grouped_conv_%s_gen_default' % e, 'route': 'cuda', 'source': gc.SOURCE,
+            'replaces': replaces[e], 'precision': 'default',
+            'launches': k6_counts[i], 'launches_scope': 'generator and critics',
+            'max_abs_err': errs[e, 'k6'], 'ms': sums['v2'][e]['k6_default'],
+            'plain_ms': sums['v2'][e]['plain'], 'bound_ms': bounds[e][0],
+            'bound_by': bounds[e][1], 'highest_ms': sums['v2'][e]['k6_highest'],
+            'v1_ms': sums['v1'][e]['k6_default'], 'library_ms': sums['v2'][e]['cudnn_default'],
+            'gen_fwd_bwd_ms': gen_ms['k6'][1],
+            'step_ms': step['k6', 'jax'], 'step_highest_ms': step['k6', 'highest']}
+           for i, e in enumerate(entries)]
+    out.append({'name': 'fused_hifigan_mel_trainable_bf16x3', 'route': 'cuda',
+                'source': lm.SOURCE, 'replaces': 'pytorch_sound_tpu/ops/pallas/logmel.py:275',
+                'precision': 'bf16x3', 'launches': k4_counts['bf16x3'],
+                'max_abs_err': k4_err['bf16x3'], 'ms': k4_ms['bf16x3'], 'plain_ms': k4_plain,
+                'bound_ms': k4_bound[0], 'bound_by': k4_bound[1], 'library_ms': None})
+    return out
 
 
 def main():
@@ -4617,6 +5152,11 @@ def main():
     #     folded MSD, the recipe's steps with msd_folded and disc_bf16
     critic_entries = critic_modes_path(dev, card, cudnn_step)
 
+    # 19. the generator's modes: K6 and the repaired cuDNN route in 'default'
+    #     on v2's and v1's generator convs, the recipe in JAX's modes
+    #     (generator and critics 'default', K2 / K4 'bf16x3') on both routes
+    gen_mode_entries = gen_modes_path(dev, card)
+
     print(json.dumps({'kernels': [
         {'name': 'gen_stage', 'route': 'cuda', 'source': gs.SOURCE,
          'replaces': 'pytorch_sound_tpu/ops/pallas/gen_stage.py:282',
@@ -4639,6 +5179,7 @@ def main():
         *k5_entries,
         *fast_entries,
         *critic_entries,
+        *gen_mode_entries,
     ]}), flush=True)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': name,
                                              'count': torch.cuda.device_count()}}),

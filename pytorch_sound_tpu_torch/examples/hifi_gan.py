@@ -22,7 +22,10 @@ grouped-conv kernels (K6) on request, in the critics' precision
 (``main(disc_precision=...)``: 'highest', the port's default, or 'default',
 the JAX recipe's) and, with ``main(disc_bf16=True)``, on bfloat16
 activations. ``main(msd_folded=True)`` applies the MSD as one block-diagonal
-grouped stack over its scales (``discriminators.msd_apply_folded``).
+grouped stack over its scales (``discriminators.msd_apply_folded``). The
+generator takes its precision and conv route from ``main(gen_precision=...,
+gen_kernel=...)``, the log-mels theirs from ``main(mel_precision=...)``
+(``HiFiGANTrainer(mel_precision=...)``).
 """
 
 import importlib
@@ -36,7 +39,7 @@ from pytorch_sound_tpu_torch.models.vocoders import discriminators
 from pytorch_sound_tpu_torch.models.vocoders.discriminators import msd_apply_folded
 from pytorch_sound_tpu_torch.models.vocoders.hifi_gan import load_jax_params
 from pytorch_sound_tpu_torch.ops import gan as gan_ops
-from pytorch_sound_tpu_torch.ops.cuda.logmel import (fused_hifigan_mel,
+from pytorch_sound_tpu_torch.ops.cuda.logmel import (PRECISIONS, fused_hifigan_mel,
                                                      fused_hifigan_mel_trainable)
 from pytorch_sound_tpu_torch.trainer import LogType, Trainer, adamw, clip_grads
 from pytorch_sound_tpu_torch.utils.checkpoint import load_msgpack
@@ -87,6 +90,11 @@ class HiFiGANTrainer(Trainer):
     (one block-diagonal grouped stack over the scales; the same function and
     parameters), as JAX's ``_apply_disc`` does.
 
+    ``mel_precision``: the precision of the real mel (K2,
+    :func:`~pytorch_sound_tpu_torch.ops.cuda.logmel.fused_hifigan_mel`) and
+    of the fake's (K4), 'highest' (the port's default), 'bf16x3' (the JAX
+    split step's K4 default) or 'default'; the kernels compute each in fp64.
+
     ``mesh`` (the base trainer's, as JAX's constructor takes it; ``main``
     takes none, as JAX's does not): each phase takes its loss and its
     gradient as means over the ranks, weighted by rows, before its optimizer
@@ -99,7 +107,8 @@ class HiFiGANTrainer(Trainer):
     def __init__(self, generator: torch.nn.Module, mpd: torch.nn.Module,
                  msd: torch.nn.Module, gen_optimizer: torch.optim.Optimizer,
                  disc_optimizer: torch.optim.Optimizer, *args,
-                 generator_warm_start: str = None, msd_folded: bool = False, **kwargs):
+                 generator_warm_start: str = None, msd_folded: bool = False,
+                 mel_precision: str = 'highest', **kwargs):
         super().__init__(generator, gen_optimizer, *args, **kwargs)
         self.generator = self.model
         self.mpd = mpd.to(self.device)
@@ -108,6 +117,9 @@ class HiFiGANTrainer(Trainer):
         self.disc_optimizer = disc_optimizer
         self.generator_warm_start = generator_warm_start
         self.msd_folded = msd_folded
+        if mel_precision not in PRECISIONS:
+            raise ValueError('mel_precision is one of %s, got %r' % (PRECISIONS, mel_precision))
+        self.mel_precision = mel_precision
 
     def replicated_modules(self):
         return [self.generator, self.mpd, self.msd]
@@ -171,7 +183,7 @@ class HiFiGANTrainer(Trainer):
         """(loss, [adv, fm, mel_l1, fake]); the real audio's critic passes
         carry no gradient (feature-matching targets only)."""
         fake = self.generator(mel_real)
-        mel_fake = fused_hifigan_mel_trainable(fake[:, 0])
+        mel_fake = fused_hifigan_mel_trainable(fake[:, 0], self.mel_precision)
         mel_l1 = torch.mean(torch.abs(mel_fake - mel_real))
         with torch.no_grad():
             mpd_real = self.mpd(real)
@@ -191,7 +203,7 @@ class HiFiGANTrainer(Trainer):
         (d_loss, mel_real). A non-finite loss leaves the critics and their
         optimizer state as they were."""
         with torch.no_grad():
-            mel_real = fused_hifigan_mel(real[:, 0])
+            mel_real = fused_hifigan_mel(real[:, 0], precision=self.mel_precision)
             fake = self.generator(mel_real)
         self.disc_optimizer.zero_grad(set_to_none=True)
         d_loss = self.disc_loss(real, fake)
@@ -245,9 +257,10 @@ class HiFiGANTrainer(Trainer):
     @torch.no_grad()
     def _eval_step(self, batch):
         real = batch[0][:, None, :]
-        mel_real = fused_hifigan_mel(real[:, 0])
+        mel_real = fused_hifigan_mel(real[:, 0], precision=self.mel_precision)
         fake = self.generator(mel_real)
-        mel_l1 = torch.mean(torch.abs(fused_hifigan_mel_trainable(fake[:, 0]) - mel_real))
+        mel_l1 = torch.mean(torch.abs(
+            fused_hifigan_mel_trainable(fake[:, 0], self.mel_precision) - mel_real))
         return mel_l1, {'loss': (mel_l1, LogType.SCALAR),
                         'mel_l1': (mel_l1, LogType.SCALAR)}
 
@@ -258,7 +271,8 @@ def main(dataset: str, meta_dir: str, save_dir: str, batch_size: int = 16,
          log_interval: int = 100, lr: float = 2e-4, arch: str = 'hifi_gan_v2',
          msd_pallas: int = -1, mpd_pallas: bool = False,
          msd_folded: bool = False, disc_bf16: bool = False,
-         disc_precision: str = 'highest', device: str = 'cuda'):
+         disc_precision: str = 'highest', gen_precision: str = 'highest',
+         gen_kernel: bool = False, mel_precision: str = 'highest', device: str = 'cuda'):
     """Train a HiFi-GAN on a wave-first dataset (vctk, ljspeech, libri_tts)
     from its meta directory, as the JAX recipe's ``main`` does: crops of
     ``fix_len`` samples (shorter clips zero-padded to it), AdamW 2e-4 with
@@ -274,8 +288,17 @@ def main(dataset: str, meta_dir: str, save_dir: str, batch_size: int = 16,
     critics on bfloat16 activations and weights (``compute_dtype='bf16'``;
     fp32 master parameters), as JAX's ``main``. ``disc_precision``: the
     critics' precision, 'highest' (the port's default) or 'default' (the
-    JAX critics' default: bf16 products, fp32 sums). ``device``: 'cuda' (the
-    default; raises without a card) or 'cpu'.
+    JAX critics' default: bf16 products, fp32 sums). ``gen_precision``: the
+    generator's, 'highest' or 'default' (every conv's operands rounded to
+    bf16, fp32 sums). ``gen_kernel``: every generator conv (conv_pre, the
+    upsamples, the resblock convs, conv_post) on the grouped-conv kernels
+    (K6) instead of cuDNN. ``mel_precision``: K2's and K4's, 'highest',
+    'bf16x3' or 'default' (``HiFiGANTrainer(mel_precision=)``). JAX's recipe
+    on a TPU runs the generator in 'default' (its NTC generator at
+    ``precision='auto'``), the critics in 'default' and K4 in 'bf16x3':
+    ``gen_precision='default', disc_precision='default',
+    mel_precision='bf16x3'``. The port's defaults are 'highest' throughout.
+    ``device``: 'cuda' (the default; raises without a card) or 'cpu'.
     """
     data_mod = importlib.import_module('pytorch_sound_tpu_torch.data.meta.' + dataset)
     train_loader, valid_loader = data_mod.get_datasets(
@@ -285,7 +308,8 @@ def main(dataset: str, meta_dir: str, save_dir: str, batch_size: int = 16,
     mpd, msd = build_critics(msd_kernel=msd_pallas, mpd_kernel=mpd_pallas,
                              precision=disc_precision,
                              compute_dtype='bf16' if disc_bf16 else None)
-    generator = build_model(arch)
+    route = {'backend': 'cuda', 'ups_backend': 'cuda'} if gen_kernel else {}
+    generator = build_model(arch, extra_kwargs=dict(route, precision=gen_precision))
     gen_opt = adamw(generator.parameters(), lr, 0.8, 0.99)
     disc_opt = adamw(itertools.chain(mpd.parameters(), msd.parameters()), lr, 0.8, 0.99)
 
@@ -295,7 +319,7 @@ def main(dataset: str, meta_dir: str, save_dir: str, batch_size: int = 16,
         max_step=max_step, valid_max_step=valid_max_step,
         save_interval=save_interval, log_interval=log_interval,
         save_dir=save_dir, save_prefix='hifi_gan', grad_norm=0.0, device=device,
-        msd_folded=msd_folded)
+        msd_folded=msd_folded, mel_precision=mel_precision)
     return trainer.run()
 
 

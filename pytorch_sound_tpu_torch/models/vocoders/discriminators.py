@@ -21,7 +21,8 @@ into the forward (JAX ``'pallas'``).
 Precision: every critic conv takes ``precision`` and ``compute_dtype``
 (:func:`~pytorch_sound_tpu_torch.models.vocoders.hifi_gan.conv1d_route`).
 The JAX critics default to ``precision='default'`` (each operand rounded to
-bf16, fp32 sums: K6's bf16 tensor-core products, cuDNN's bf16 convolution);
+bf16, fp32 sums: K6's bf16 tensor-core products, cuDNN's fp32 convolution
+of the rounded operands);
 the port defaults to ``'highest'`` (fp32-accurate) and runs 'default' on
 request. ``compute_dtype='bf16'`` runs the critics on bfloat16 activations
 and bf16 copies of the fp32 weights; the gradients reach the fp32 parameters.
@@ -40,7 +41,7 @@ from torch import nn
 from pytorch_sound_tpu_torch.models import register_model, register_model_architecture
 from pytorch_sound_tpu_torch.models.vocoders.hifi_gan import (_WNConv, WNConv1d,
                                                               check_compute_dtype,
-                                                              conv1d_route)
+                                                              conv1d_route, rounded_conv)
 from pytorch_sound_tpu_torch.ops.cuda.grouped_conv import check_precision
 
 SLOPE = 0.1
@@ -53,9 +54,11 @@ class WNConv2d(_WNConv):
     """Conv2d with torch-style weight normalization (dim 0), NCHW; weight
     (C_out, C_in, kh, kw) (JAX ``WNConv2d``: ``v`` in the same OIHW layout,
     so ``load_jax_params`` takes it as it stands). ``F.conv2d`` in fp32 at
-    ``precision='highest'``; cuDNN's bf16 convolution in 'default' or with
-    ``compute_dtype='bf16'`` (which returns bfloat16), the bias added in
-    fp32 to its output, as :func:`conv1d_route`'s cuDNN route."""
+    ``precision='highest'``; in 'default' the fp32 conv of the bf16-rounded
+    operands (:func:`~pytorch_sound_tpu_torch.models.vocoders.hifi_gan.
+    rounded_conv`); with ``compute_dtype='bf16'`` cuDNN's bf16 convolution
+    (which returns bfloat16), the bias added in fp32 to its output, as
+    :func:`conv1d_route`'s cuDNN route."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: Tuple[int, int],
                  stride: Tuple[int, int] = (1, 1), padding: Tuple[int, int] = (0, 0),
@@ -68,14 +71,13 @@ class WNConv2d(_WNConv):
         self.compute_dtype = check_compute_dtype(compute_dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w = self.folded_weight()
-        bf16 = self.compute_dtype == 'bf16'
-        if not bf16 and self.precision == 'highest':
-            return F.conv2d(x, w, self.bias, stride=self.stride, padding=self.padding)
-        out = F.conv2d(x.to(torch.bfloat16), w.to(torch.bfloat16), None, stride=self.stride,
-                       padding=self.padding)
-        out = out.float() + self.bias[None, :, None, None]
-        return out.to(torch.bfloat16) if bf16 else out
+        w, conf = self.folded_weight(), dict(stride=self.stride, padding=self.padding)
+        if self.compute_dtype == 'bf16':
+            out = F.conv2d(x.to(torch.bfloat16), w.to(torch.bfloat16), None, **conf)
+            return (out.float() + self.bias[None, :, None, None]).to(torch.bfloat16)
+        if self.precision == 'default':
+            return rounded_conv(x, w, self.bias, **conf)
+        return F.conv2d(x, w, self.bias, **conf)
 
 
 def _layer_backends(backends: Sequence[str], n: int) -> Tuple[str, ...]:

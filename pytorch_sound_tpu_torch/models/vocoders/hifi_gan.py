@@ -12,9 +12,11 @@ flax checkpoint (folded) and the JAX trainer's (g, v) trees load through
 Two forward paths, split as the JAX package splits them:
 
 - :meth:`Generator.forward` runs layer by layer (cuDNN ``F.conv1d`` /
-  ``F.conv_transpose1d`` on the card, or the upsample layers on the
-  grouped-conv kernels with ``ups_backend='cuda'``) and is differentiable:
-  the training path, as JAX ``Generator.__call__`` leaves every conv to XLA.
+  ``F.conv_transpose1d`` on the card, or the grouped-conv kernels with
+  ``backend='cuda'`` / ``ups_backend='cuda'``), in ``precision`` 'highest'
+  or 'default', and is differentiable: the training path, as JAX
+  ``Generator.__call__`` (whose NTC layout, the JAX recipe's, runs every
+  conv in 'default').
 - :func:`generator_apply_fused` is the inference path of the interface: with
   ResBlock1 (v1, v2) every upsample stage runs as one
   :func:`~pytorch_sound_tpu_torch.ops.cuda.gen_stage.generator_stage` call,
@@ -25,6 +27,7 @@ Two forward paths, split as the JAX package splits them:
   :func:`~pytorch_sound_tpu_torch.ops.cuda.gen_stage.resblock_stage`.
 """
 
+import contextlib
 from collections import OrderedDict
 from typing import Any, Dict, Optional, Sequence, Tuple
 
@@ -65,6 +68,80 @@ def check_compute_dtype(compute_dtype: Optional[str]) -> Optional[str]:
     return compute_dtype
 
 
+@contextlib.contextmanager
+def _cudnn_tf32_off():
+    """cuDNN's TF32 off for the calls inside, then restored. A bf16 value is
+    exact in TF32, but with TF32 allowed cuDNN's forward missed the mode on
+    the critics' convs (1.74e-5 of the max against a bound of 1e-5, on an
+    NVIDIA H100 80GB HBM3 at 700 W) and ran no faster on the generator."""
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+
+
+class _RoundedConv(torch.autograd.Function):
+    """cuDNN's convolution (``aten.convolution``: conv1d, conv2d or a
+    transposed conv) in precision 'default' on float32 tensors: the fp32
+    convolution of the bf16-rounded x and weight, the fp32 bias added in the
+    call, cuDNN's TF32 off. Its backward rounds the cotangent too, as the JAX
+    kernel's VJP and K6's dx / dw do: dx and dw are cuDNN's
+    ``convolution_backward`` of the rounded operands (each saved in bf16 only
+    where the other's gradient needs it, and widened again); db sums the
+    cotangent as it comes."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, conf):
+        xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
+        with _cudnn_tf32_off():
+            out = torch.ops.aten.convolution(xb.to(x.dtype), wb.to(w.dtype), b, *conf)
+        need_x, need_w = ctx.needs_input_grad[:2]
+        ctx.save_for_backward(xb if need_w else None, wb if need_x else None)
+        ctx.conf = conf
+        ctx.shapes = x.shape, w.shape
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        xb, wb = ctx.saved_tensors
+        need_x, need_w, need_b = ctx.needs_input_grad[:3]
+        dx = dw = db = None
+        if need_x or need_w:
+            gr = g.contiguous().to(torch.bfloat16).to(g.dtype)
+            # an operand whose own gradient is not asked for gives only its
+            # shape, as in torch.nn.grad.conv1d_input, but contiguous: with a
+            # stride-0 one, cuDNN's dx / dw on the generator's convs ran 1.2x
+            # slower against its 'highest' (chip_smoke.py phase 19, an H100)
+            x = xb.to(g.dtype) if need_w else gr.new_empty(ctx.shapes[0])
+            w = wb.to(g.dtype) if need_x else gr.new_empty(ctx.shapes[1])
+            with _cudnn_tf32_off():
+                dx, dw, _ = torch.ops.aten.convolution_backward(
+                    gr, x, w, None, *ctx.conf, [need_x, need_w, False])
+        if need_b:
+            db = g.sum(dim=[d for d in range(g.ndim) if d != 1])
+        return dx, dw, db, None
+
+
+def rounded_conv(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor], *,
+                 stride=1, padding=0, dilation=1, groups: int = 1,
+                 transposed: bool = False) -> torch.Tensor:
+    """cuDNN's conv1d / conv2d (weight (C_out, C_in / groups, *K)) or
+    ConvTranspose1d (``transposed``; weight (C_in, C_out, K)) in precision
+    'default' on float32 tensors (:class:`_RoundedConv`): the plain version
+    of the mode (``grouped_conv1d_reference(..., precision='default')``)
+    computed by cuDNN, with the mode's backward. ``stride``, ``padding``
+    and ``dilation`` as ints or per-axis tuples."""
+    dims = x.ndim - 2
+
+    def per_axis(v):
+        return list(v) if isinstance(v, (tuple, list)) else [v] * dims
+    conf = (per_axis(stride), per_axis(padding), per_axis(dilation), transposed,
+            [0] * dims, groups)
+    return _RoundedConv.apply(x, weight, bias, conf)
+
+
 def conv1d_route(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, *,
                  backend: str, precision: str = 'highest',
                  compute_dtype: Optional[str] = None, stride: int = 1, padding: int = 0,
@@ -80,10 +157,12 @@ def conv1d_route(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, *,
     tape, so an fp32 weight gets its gradient in fp32. ``'cuda'`` runs
     :func:`~pytorch_sound_tpu_torch.ops.cuda.grouped_conv.grouped_conv1d` in
     ``precision`` (K6; bf16 tensors round the output once, after bias and
-    slope). ``'cudnn'`` runs ``F.conv1d``: in fp32 at 'highest', and in
-    'default' or on bf16 tensors cuDNN's bf16 convolution, whose bf16 output
-    then takes the fp32 bias and slope (rounded again for a bf16 output), as
-    the JAX package's XLA route does."""
+    slope). ``'cudnn'`` runs cuDNN: ``F.conv1d`` in fp32 at 'highest';
+    :func:`rounded_conv` in 'default' on float32 tensors (the fp32 sum of
+    the rounded operands' products, as JAX's 'default' and K6 compute it);
+    on bf16 tensors cuDNN's bf16 convolution, whose bf16 output then takes
+    the fp32 bias and slope and is rounded again, as the JAX package's XLA
+    route does."""
     bf16 = check_compute_dtype(compute_dtype) == 'bf16'
     check_precision(precision)
     conf = dict(stride=stride, padding=padding, dilation=dilation, groups=groups)
@@ -91,9 +170,10 @@ def conv1d_route(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, *,
         x, weight = x.to(torch.bfloat16), weight.to(torch.bfloat16)
     if backend == 'cuda':
         return grouped_conv1d(x, weight, bias, slope=slope, precision=precision, **conf)
-    if bf16 or precision == 'default':
-        out = F.conv1d(x.to(torch.bfloat16), weight.to(torch.bfloat16), None, **conf)
-        out = out.float() + bias[None, :, None]
+    if bf16:
+        out = F.conv1d(x, weight, None, **conf).float() + bias[None, :, None]
+    elif precision == 'default':
+        out = rounded_conv(x, weight, bias, **conf)
     else:
         out = F.conv1d(x, weight, bias, **conf)
     out = out if slope is None else F.leaky_relu(out, slope)
@@ -141,9 +221,9 @@ class WNConv1d(_WNConv):
     the grouped-conv kernels (K6) for the forward, dx and dw on the card and
     their plain versions on the CPU, with the slope fused into the forward
     kernel (JAX ``backend='pallas'``). ``precision`` ('highest', the port's
-    default, or 'default', the JAX critics') and ``compute_dtype`` (None or
-    'bf16') as :func:`conv1d_route` takes them; the generator's layers keep
-    'highest' and fp32.
+    default, or 'default', the JAX recipe's for the critics and, through
+    ``Generator(precision=)``, the generator) and ``compute_dtype`` (None or
+    'bf16', the critics only) as :func:`conv1d_route` takes them.
     """
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
@@ -175,43 +255,58 @@ class WNConvTranspose1d(_WNConv):
     """ConvTranspose1d, weight (C_in, C_out, K); ``g`` is per *input* channel
     (dim 0), as torch and the JAX package hold it. ``backend='cuda'`` runs
     :func:`~pytorch_sound_tpu_torch.ops.cuda.grouped_conv.conv_transpose1d`
-    (K6: the input-gradient kernel of the mirror conv forward)."""
+    (K6: the input-gradient kernel of the mirror conv forward), ``'cudnn'``
+    ``F.conv_transpose1d`` at 'highest' and :func:`rounded_conv` in
+    ``precision='default'`` (JAX ``WNConvTranspose1d`` in the NTC layout)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int, padding: int = 0, use_weight_norm: bool = True,
-                 backend: str = 'cudnn'):
+                 backend: str = 'cudnn', precision: str = 'highest'):
         super().__init__((in_channels, out_channels, kernel_size), out_channels,
                          use_weight_norm)
         self.in_channels, self.out_channels = in_channels, out_channels
         self.kernel_size, self.stride, self.padding = kernel_size, stride, padding
         self.backend = _check_backend(backend)
+        self.precision = check_precision(precision)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        conv = conv_transpose1d if self.backend == 'cuda' else F.conv_transpose1d
-        return conv(x, self.folded_weight(), self.bias, stride=self.stride,
-                    padding=self.padding)
+        w, conf = self.folded_weight(), dict(stride=self.stride, padding=self.padding)
+        if self.backend == 'cuda':
+            return conv_transpose1d(x, w, self.bias, precision=self.precision, **conf)
+        if self.precision == 'default':
+            return rounded_conv(x, w, self.bias, transposed=True, **conf)
+        return F.conv_transpose1d(x, w, self.bias, **conf)
 
 
 class ResBlock1(nn.Module):
     """Two 3-conv stacks with dilations: per round
-    x += conv2(lrelu(conv1(lrelu(x)))), slope 0.1."""
+    x += conv2(lrelu(conv1(lrelu(x)))), slope 0.1. Every conv runs on
+    ``backend`` in ``precision`` (:class:`WNConv1d`); on the K6 route the
+    mid-block leaky_relu is fused into ``convs1`` (``fused_slope``), as the
+    JAX package's NTC ResBlock1 fuses it."""
 
     def __init__(self, channels: int, kernel_size: int = 3,
-                 dilation: Sequence[int] = (1, 3, 5), use_weight_norm: bool = True):
+                 dilation: Sequence[int] = (1, 3, 5), use_weight_norm: bool = True,
+                 precision: str = 'highest', backend: str = 'cudnn'):
         super().__init__()
         self.dilation = tuple(dilation)
+        self.fused = _check_backend(backend) == 'cuda'
+        mode = dict(use_weight_norm=use_weight_norm, precision=precision, backend=backend)
         for j, d in enumerate(self.dilation):
             self.add_module('convs1_%d' % j, WNConv1d(
                 channels, channels, kernel_size, dilation=d,
-                padding=get_padding(kernel_size, d), use_weight_norm=use_weight_norm))
+                padding=get_padding(kernel_size, d),
+                fused_slope=0.1 if self.fused else None, **mode))
             self.add_module('convs2_%d' % j, WNConv1d(
                 channels, channels, kernel_size, padding=get_padding(kernel_size, 1),
-                use_weight_norm=use_weight_norm))
+                **mode))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for j in range(len(self.dilation)):
             xt = getattr(self, 'convs1_%d' % j)(F.leaky_relu(x, 0.1))
-            xt = getattr(self, 'convs2_%d' % j)(F.leaky_relu(xt, 0.1))
+            if not self.fused:
+                xt = F.leaky_relu(xt, 0.1)
+            xt = getattr(self, 'convs2_%d' % j)(xt)
             x = xt + x
         return x
 
@@ -227,16 +322,19 @@ class ResBlock1(nn.Module):
 
 
 class ResBlock2(nn.Module):
-    """Single dilated convs: per conv x += conv(lrelu(x))."""
+    """Single dilated convs: per conv x += conv(lrelu(x)), each on
+    ``backend`` in ``precision``."""
 
     def __init__(self, channels: int, kernel_size: int = 3,
-                 dilation: Sequence[int] = (1, 3), use_weight_norm: bool = True):
+                 dilation: Sequence[int] = (1, 3), use_weight_norm: bool = True,
+                 precision: str = 'highest', backend: str = 'cudnn'):
         super().__init__()
         self.dilation = tuple(dilation)
         for j, d in enumerate(self.dilation):
             self.add_module('convs_%d' % j, WNConv1d(
                 channels, channels, kernel_size, dilation=d,
-                padding=get_padding(kernel_size, d), use_weight_norm=use_weight_norm))
+                padding=get_padding(kernel_size, d), use_weight_norm=use_weight_norm,
+                precision=precision, backend=backend))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for j in range(len(self.dilation)):
@@ -248,9 +346,13 @@ class ResBlock2(nn.Module):
 class Generator(nn.Module):
     """mel (N, 80, T) -> wav (N, 1, T * prod(upsample_rates)).
 
-    ``ups_backend='cuda'`` runs the upsample layers (``ups_*``) on the
-    grouped-conv kernels (K6), the port's spelling of the JAX package's
-    ``PSTPU_GC_DENSE_PALLAS=1`` route; the other convs stay on cuDNN."""
+    ``backend`` is the route of conv_pre, the resblock convs and conv_post,
+    ``ups_backend`` that of the upsample layers (``ups_*``): ``'cudnn'`` or
+    ``'cuda'``, the grouped-conv kernels (K6; JAX ``backend='pallas'``, its
+    ``PSTPU_GC_DENSE_PALLAS=1`` route). ``precision`` is every conv's:
+    'highest' (the port's default, fp32) or 'default', what JAX's NTC
+    generator (``data_format='NTC'``, the JAX recipe's) runs at its
+    ``precision='auto'``: each conv's operands rounded to bf16, fp32 sums."""
 
     def __init__(self, resblock: str = '1',
                  upsample_rates: Sequence[int] = (8, 8, 2, 2),
@@ -259,25 +361,25 @@ class Generator(nn.Module):
                  resblock_kernel_sizes: Sequence[int] = (3, 7, 11),
                  resblock_dilation_sizes: Sequence[Sequence[int]] = ((1, 3, 5),) * 3,
                  in_channels: int = 80, use_weight_norm: bool = True,
-                 ups_backend: str = 'cudnn'):
+                 ups_backend: str = 'cudnn', backend: str = 'cudnn',
+                 precision: str = 'highest'):
         super().__init__()
         self.resblock = resblock
         self.upsample_rates = tuple(upsample_rates)
         self.num_kernels = len(resblock_kernel_sizes)
         res_cls = ResBlock1 if resblock == '1' else ResBlock2
         ch = upsample_initial_channel
-        wn = use_weight_norm
-        self.conv_pre = WNConv1d(in_channels, ch, 7, padding=3, use_weight_norm=wn)
+        mode = dict(use_weight_norm=use_weight_norm, precision=precision)
+        self.conv_pre = WNConv1d(in_channels, ch, 7, padding=3, backend=backend, **mode)
         for i, (u, k) in enumerate(zip(upsample_rates, upsample_kernel_sizes)):
             self.add_module('ups_%d' % i, WNConvTranspose1d(
-                ch, ch // 2, k, u, padding=(k - u) // 2, use_weight_norm=wn,
-                backend=ups_backend))
+                ch, ch // 2, k, u, padding=(k - u) // 2, backend=ups_backend, **mode))
             ch //= 2
             for j, (rk, rd) in enumerate(zip(resblock_kernel_sizes,
                                              resblock_dilation_sizes)):
                 self.add_module('resblocks_%d' % (i * self.num_kernels + j),
-                                res_cls(ch, rk, rd, use_weight_norm=wn))
-        self.conv_post = WNConv1d(ch, 1, 7, padding=3, use_weight_norm=wn)
+                                res_cls(ch, rk, rd, backend=backend, **mode))
+        self.conv_post = WNConv1d(ch, 1, 7, padding=3, backend=backend, **mode)
 
     def forward(self, mel: torch.Tensor) -> torch.Tensor:
         """Layer by layer, differentiable (JAX ``Generator.__call__``)."""
@@ -461,6 +563,8 @@ def hifi_gan_v1():
         'resblock_dilation_sizes': ((1, 3, 5), (1, 3, 5), (1, 3, 5)),
         'use_weight_norm': True,
         'ups_backend': 'cudnn',
+        'backend': 'cudnn',
+        'precision': 'highest',
     }
 
 
@@ -475,6 +579,8 @@ def hifi_gan_v2():
         'resblock_dilation_sizes': ((1, 3, 5), (1, 3, 5), (1, 3, 5)),
         'use_weight_norm': True,
         'ups_backend': 'cudnn',
+        'backend': 'cudnn',
+        'precision': 'highest',
     }
 
 
@@ -489,4 +595,6 @@ def hifi_gan_v3():
         'resblock_dilation_sizes': ((1, 2), (2, 6), (3, 12)),
         'use_weight_norm': True,
         'ups_backend': 'cudnn',
+        'backend': 'cudnn',
+        'precision': 'highest',
     }

@@ -132,9 +132,10 @@ def fused_log_mel(wav: torch.Tensor, sample_rate: int = 22050, mel_size: int = 8
 
     ``precision`` takes the JAX kernel's modes, 'highest', 'bf16x3' and
     'default' (:data:`PRECISIONS`), and computes each of them as the fp64
-    kernel (on the CPU the plain version) computes 'highest': the fast modes
-    are not ported, and each result is at least as exact as JAX's in that
-    mode. Any other value raises.
+    kernel (on the CPU the plain version) computes 'highest': no bf16 path
+    is built, and each result is at least as exact as JAX's in that mode.
+    Any other value raises. ``launches_by_mode`` counts the launches by the
+    mode asked for.
 
     ``pad`` defaults to n_fft // 2 (centered); the HiFi-GAN convention is
     :func:`fused_hifigan_mel`. Requires hop | n_fft and n_fft == win_length
@@ -217,12 +218,14 @@ def _log_mel(direct, wav, sample_rate, mel_size, n_fft, win_length, hop_length, 
             torch.cuda.current_stream().cuda_stream)
     _build.check(code, 'logmel_forward')
     fused_log_mel.launches += 1
+    fused_log_mel.launches_by_mode[precision] += 1
     if direct:
         fused_log_mel.direct_launches += 1
     return out
 
 
 fused_log_mel.launches = 0
+fused_log_mel.launches_by_mode = dict.fromkeys(PRECISIONS, 0)   # by the precision asked for
 fused_log_mel.direct_launches = 0     # of launches, those on the direct path
 _LOG_MEL_SIGNATURE = inspect.signature(fused_log_mel)
 
@@ -230,13 +233,16 @@ _LOG_MEL_SIGNATURE = inspect.signature(fused_log_mel)
 def fused_hifigan_mel(wav: torch.Tensor, sampling_rate: int = 22050,
                       n_fft: int = 1024, window_size: int = 1024,
                       hop_size: int = 256, num_mels: int = 80,
-                      fmin: float = 0.0, fmax: Optional[float] = 8000.0) -> torch.Tensor:
+                      fmin: float = 0.0, fmax: Optional[float] = 8000.0,
+                      precision: str = 'highest') -> torch.Tensor:
     """Fused version of ``ops.mel.hifigan_mel_spectrogram``:
-    (n_fft-hop)//2 reflect pad, sqrt(power + 1e-9), log(clamp(mel, 1e-5))."""
+    (n_fft-hop)//2 reflect pad, sqrt(power + 1e-9), log(clamp(mel, 1e-5)).
+    ``precision`` as :func:`fused_log_mel` takes it (JAX passes its keywords
+    through)."""
     return fused_log_mel(
         wav, sampling_rate, num_mels, n_fft, window_size, hop_size,
         mel_min=fmin, mel_max=fmax, pad=(n_fft - hop_size) // 2,
-        power_eps=1e-9, log_floor=1e-5)
+        power_eps=1e-9, log_floor=1e-5, precision=precision)
 
 
 def hifigan_mel_vjp(wav: torch.Tensor, grad: torch.Tensor, sampling_rate: int = 22050,
@@ -329,17 +335,18 @@ class _TrainableMel(torch.autograd.Function):
     the saved waveform) on a CUDA tensor."""
 
     @staticmethod
-    def forward(ctx, wav):
+    def forward(ctx, wav, precision):
         ctx.save_for_backward(wav)
-        out = fused_hifigan_mel(wav)
+        out = fused_hifigan_mel(wav, precision=precision)
         if wav.device.type == 'cuda' and out.numel():
             fused_hifigan_mel_trainable.launches += 1
+            fused_hifigan_mel_trainable.launches_by_mode[precision] += 1
         return out
 
     @staticmethod
     def backward(ctx, grad):
         wav, = ctx.saved_tensors
-        return hifigan_mel_backward(wav, grad)
+        return hifigan_mel_backward(wav, grad), None
 
 
 def fused_hifigan_mel_trainable(wav: torch.Tensor, precision: str = 'highest'
@@ -353,12 +360,21 @@ def fused_hifigan_mel_trainable(wav: torch.Tensor, precision: str = 'highest'
     :func:`hifigan_mel_backward`, recomputed from the saved waveform as the
     JAX package's ``_fhm_bwd`` does: the backward kernel on a CUDA tensor
     (counted in ``bwd_launches``), the VJP of the plain composite on a CPU
-    tensor. Only ``precision='highest'`` exists: the kernels' FFT is fp64.
+    tensor.
+
+    ``precision`` takes the JAX kernel's modes (:data:`PRECISIONS`; JAX's
+    default is 'bf16x3', the port's 'highest') and computes each as
+    :func:`fused_log_mel` does: the fp64 kernel on the card, the fp32 plain
+    version on the CPU, each at least as exact as JAX's mode. Any other
+    value raises. The backward is the composite's VJP in every mode, as JAX's
+    ``_fhm_bwd`` ignores ``precision``. ``launches_by_mode`` counts the
+    forward launches by the mode asked for.
     """
-    if precision != 'highest':
-        raise ValueError("precision must be 'highest', got %r" % (precision,))
-    return _TrainableMel.apply(wav)
+    if precision not in PRECISIONS:
+        raise ValueError('precision is one of %s, got %r' % (PRECISIONS, precision))
+    return _TrainableMel.apply(wav, precision)
 
 
 fused_hifigan_mel_trainable.launches = 0
+fused_hifigan_mel_trainable.launches_by_mode = dict.fromkeys(PRECISIONS, 0)
 fused_hifigan_mel_trainable.bwd_launches = 0

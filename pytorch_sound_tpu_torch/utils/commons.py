@@ -1,11 +1,11 @@
-"""Logging and a worker pool: the port's copies of ``log`` (a formatted,
-non-propagating INFO logger named 'main') and ``go_multiprocess`` from
-``pytorch_sound_tpu/utils/commons.py``."""
+"""Logging, a worker pool and checkpoint keys: the port's copies of ``log``
+(a formatted, non-propagating INFO logger named 'main'), ``go_multiprocess``
+and ``get_loadable_checkpoint`` from ``pytorch_sound_tpu/utils/commons.py``."""
 
 import logging
 import os
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Callable, List, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Sequence, Tuple
 
 
 def get_logger(name: str) -> logging.Logger:
@@ -28,6 +28,13 @@ LOGGER = get_logger('main')
 def log(msg: str):
     """Log through the global logger."""
     LOGGER.info(msg)
+
+
+def get_loadable_checkpoint(checkpoint: Dict[str, Any]) -> Dict[str, Any]:
+    """Strip torch-DataParallel ``module.`` prefixes from a flat state dict
+    (one prefix per key; other keys as they are)."""
+    return {(k[len('module.'):] if k.startswith('module.') else k): v
+            for k, v in checkpoint.items()}
 
 
 def go_multiprocess(worker_func: Callable, inputs: Sequence[Tuple[Any, ...]],

@@ -1,5 +1,5 @@
-"""Tensor helpers: the port's copy of ``pytorch_sound_tpu/utils/tensor.py``'s
-``to_numpy``, and host constants kept on a device."""
+"""Tensor helpers: the port's copies of ``pytorch_sound_tpu/utils/tensor.py``'s
+``to_numpy`` and ``concat_complex``, and host constants kept on a device."""
 
 import collections
 
@@ -10,6 +10,18 @@ import torch
 def to_numpy(tensor: torch.Tensor) -> np.ndarray:
     """Copy a tensor to host numpy (waits for the device)."""
     return tensor.detach().cpu().numpy()
+
+
+def concat_complex(a: torch.Tensor, b: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """Concatenate two channel-packed (real||imag) tensors keeping the packing:
+    [a_real, b_real, a_imag, b_imag] along ``dim`` (each of a and b split in
+    two equal halves there; an odd size raises, as ``jnp.split`` does)."""
+    if a.shape[dim] % 2 or b.shape[dim] % 2:
+        raise ValueError('concat_complex takes even sizes along dim %d, got %s and %s'
+                         % (dim, tuple(a.shape), tuple(b.shape)))
+    a_real, a_imag = torch.chunk(a, 2, dim=dim)
+    b_real, b_imag = torch.chunk(b, 2, dim=dim)
+    return torch.cat([a_real, b_real, a_imag, b_imag], dim=dim)
 
 
 _CONSTANTS = collections.OrderedDict()    # (id, device, dtype) -> (array, tensor), LRU order

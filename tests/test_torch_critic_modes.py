@@ -28,6 +28,7 @@ from pytorch_sound_tpu_torch.models.vocoders import discriminators  # noqa: E402
 from pytorch_sound_tpu_torch.models.vocoders.hifi_gan import load_jax_params  # noqa: E402
 from pytorch_sound_tpu_torch.ops.cuda import grouped_conv as gc  # noqa: E402
 from pytorch_sound_tpu_torch.trainer import adamw  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401  (autouse)
 
 # K6 'default', the port's plain version against JAX's kernel in interpret
 # mode: the same operands rounded the same way and exact products, so only

@@ -912,3 +912,56 @@ def test_tap_kernels_match_plain(card, n, ci, co, k, s, g, dil, p, t, misaligned
                           (dxb, dxb_ref, GC_GRAD_TOL)):
         assert got.shape == ref.shape
         assert float((got - ref).abs().max() / ref.abs().max()) <= tol
+
+
+@pytest.mark.parametrize('kind', ['conv1d', 'conv2d', 'convt', 'gen_k11_d5_c8'])
+def test_cudnn_default_route_matches_plain(card, kind):
+    """The cuDNN route in precision 'default' on float32 tensors
+    (``hifi_gan.rounded_conv``: cuDNN's fp32 conv of the bf16-rounded
+    operands, its backward rounding the cotangent; cuDNN's TF32 off inside
+    it whatever the global flag) against the plain version of the mode:
+    forward, dx and dw within GC_FWD_TOL / GC_GRAD_TOL of the max and
+    nearer it than 'highest' by RMS."""
+    from pytorch_sound_tpu_torch.models.vocoders import hifi_gan as hg
+    from pytorch_sound_tpu_torch.ops.cuda import grouped_conv as gc
+    rng = np.random.default_rng(len(kind))
+
+    def arr(*shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).to(card)
+    transposed = kind == 'convt'
+    if kind == 'conv2d':
+        x, w, conf = arr(8, 32, 1024, 7), arr(64, 32, 5, 1, scale=0.1), dict(stride=(3, 1),
+                                                                              padding=(2, 0))
+    elif transposed:
+        x, w, conf = arr(16, 64, 256), arr(64, 32, 16, scale=0.05), dict(stride=8, padding=4)
+    elif kind == 'conv1d':
+        x, w, conf = arr(16, 128, 2048), arr(256, 16, 41, scale=0.05), dict(
+            stride=4, padding=20, groups=8)
+    else:
+        x, w, conf = arr(16, 8, 8192), arr(8, 8, 11, scale=0.1), dict(padding=25, dilation=5)
+    b = arr(w.shape[1] if transposed else w.shape[0])
+    xg, wg = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    torch.backends.cudnn.allow_tf32 = True          # the route turns it off for itself
+    y = hg.rounded_conv(xg, wg, b, transposed=transposed, **conf)
+    gy = torch.randn(y.shape, generator=torch.Generator(device=card).manual_seed(1),
+                     device=card)
+    dx, dw = torch.autograd.grad(y, (xg, wg), gy)
+    torch.backends.cudnn.allow_tf32 = False
+    dims = x.ndim - 2
+
+    def axis(v):
+        return list(v) if isinstance(v, tuple) else [v] * dims
+    args = (axis(conf.get('stride', 1)), axis(conf.get('padding', 0)),
+            axis(conf.get('dilation', 1)), transposed, [0] * dims, conf.get('groups', 1))
+    plain = {}
+    for mode in ('default', 'highest'):
+        xo, wo, go = gc._operands(mode, x, w, gy)
+        plain[mode] = (torch.ops.aten.convolution(xo, wo, b, *args),) + tuple(
+            torch.ops.aten.convolution_backward(go, xo, wo, None, *args,
+                                                [True, True, False])[:2])
+    for got, ref, hi, tol in zip((y, dx, dw), plain['default'], plain['highest'],
+                                 (GC_FWD_TOL, GC_GRAD_TOL, GC_GRAD_TOL)):
+        got = got.detach()
+        assert got.shape == ref.shape
+        assert float((got - ref).abs().max() / ref.abs().max()) <= tol
+        _ran_mode(got, ref, hi)

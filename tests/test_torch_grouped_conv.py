@@ -28,6 +28,7 @@ from pytorch_sound_tpu.ops.pallas.grouped_conv import (  # noqa: E402
     conv_transpose1d_ntc, grouped_conv1d_ntc)
 from pytorch_sound_tpu_torch.ops.cuda import grouped_conv as gc  # noqa: E402
 from test_torch_flash_backward import _kernel_products  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401  (autouse)
 
 SLOPE = 0.1
 FWD_TOL = 2e-5

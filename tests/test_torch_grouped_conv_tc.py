@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from pytorch_sound_tpu_torch.ops.cuda import grouped_conv as gc
 from pytorch_sound_tpu_torch.ops.cuda.k6a_probe import phase8_geometries
 from test_torch_grouped_conv import GC_GRAD_TOL, _dw_products
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 GC_FWD_TOL = 1e-5       # chip_smoke.py / tests/test_torch_cuda.py: the card's forward vs plain
 SOURCE = os.path.join(os.path.dirname(__file__), '..', gc.SOURCE)

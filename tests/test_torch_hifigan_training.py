@@ -27,6 +27,7 @@ from pytorch_sound_tpu_torch.models.vocoders.hifi_gan import (  # noqa: E402
     load_jax_trainer_params)
 from pytorch_sound_tpu_torch.trainer import adamw  # noqa: E402
 from pytorch_sound_tpu_torch.utils.checkpoint import load_msgpack  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401  (autouse)
 
 LR = 2e-4
 TINY_GEN = ('hifi_gan_v3', {'upsample_initial_channel': 32})
@@ -274,8 +275,8 @@ def _recipe_on_a_vctk_tree(tmp_path, monkeypatch):
             (root / spk / 'txt' / (key + '.txt')).write_text('utterance %d.' % u)
     random.seed(0)
     VCTKMeta(str(tmp_path / 'meta')).make_meta(str(root))
-    monkeypatch.setattr(recipe, 'build_model', lambda arch: build_model(
-        TINY_GEN[0], extra_kwargs=TINY_GEN[1]))
+    monkeypatch.setattr(recipe, 'build_model', lambda arch, extra_kwargs=None: build_model(
+        TINY_GEN[0], extra_kwargs=dict(TINY_GEN[1], **(extra_kwargs or {}))))
     monkeypatch.setattr(recipe, 'build_critics', lambda msd_kernel, mpd_kernel, **mode: tuple(
         build_model(a, extra_kwargs=mode) for a in ('hifi_gan_mpd_small', 'hifi_gan_msd_small')))
     return recipe, str(tmp_path / 'meta')

@@ -24,6 +24,7 @@ from pytorch_sound_tpu_torch.models import build_model  # noqa: E402
 from pytorch_sound_tpu_torch.models.vocoders import hifi_gan as port_hg  # noqa: E402
 from pytorch_sound_tpu_torch.ops.cuda import gen_stage as port_gs  # noqa: E402
 from pytorch_sound_tpu_torch.utils.checkpoint import load_msgpack  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401  (autouse)
 
 
 @pytest.fixture(scope='module')

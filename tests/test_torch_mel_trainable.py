@@ -57,8 +57,13 @@ def test_trainable_mel_grad_is_the_composite_vjp():
 
 
 def test_trainable_mel_precision_guard():
+    """JAX's three modes are taken (tests/test_torch_gen_modes.py holds them
+    against JAX's); anything else raises, naming them."""
+    for mode in lm.PRECISIONS:
+        assert lm.fused_hifigan_mel_trainable(torch.zeros((1, 4096)), precision=mode).shape \
+            == (1, 80, 16)
     with pytest.raises(ValueError, match='highest'):
-        lm.fused_hifigan_mel_trainable(torch.zeros((1, 4096)), precision='bf16x3')
+        lm.fused_hifigan_mel_trainable(torch.zeros((1, 4096)), precision='fp8')
 
 
 @pytest.mark.parametrize('t', [300, 384, 255])

@@ -49,12 +49,13 @@ from pytorch_sound_tpu_torch.trainer import Trainer, adamw  # noqa: F401
 wav = (np.random.default_rng(0).standard_normal((2, 2048)) * 0.1).astype(np.float32)
 
 
-def step(route, critics, **kw):
+def step(route, critics, gen_kw=None, **kw):
     # one step and a validation of tiny models on the CPU: route 'cudnn', or
     # 'cuda' (the critics' convs and the upsamples on the grouped-conv
-    # functions); critics: the critics' extra keywords
-    gen = build_model('hifi_gan_v3', extra_kwargs={'upsample_initial_channel': 16,
-                                                   'ups_backend': route})
+    # functions); critics / gen_kw: the critics' / the generator's extra keywords
+    gen = build_model('hifi_gan_v3', extra_kwargs=dict(gen_kw or {},
+                                                       upsample_initial_channel=16,
+                                                       ups_backend=route))
     mpd, msd = (build_model(arch, extra_kwargs=dict(critics, backends=(route,) * 8))
                 for arch in ('hifi_gan_mpd_small', 'hifi_gan_msd_small'))
     with tempfile.TemporaryDirectory() as tmp:
@@ -69,9 +70,13 @@ def step(route, critics, **kw):
 for route in sys.argv[1:]:
     step(route, {})
     if route == 'cuda':
-        # the critics' fast modes: bf16 activations, precision 'default', the
-        # MSD folded (discriminators.msd_apply_folded)
-        step(route, {'precision': 'default', 'compute_dtype': 'bf16'}, msd_folded=True)
+        # the fast modes: the critics on bf16 activations in precision
+        # 'default', the MSD folded (discriminators.msd_apply_folded), the
+        # generator in 'default' with every conv on the grouped-conv
+        # functions, the log-mels in 'bf16x3'
+        step(route, {'precision': 'default', 'compute_dtype': 'bf16'},
+             {'precision': 'default', 'backend': 'cuda'}, msd_folded=True,
+             mel_precision='bf16x3')
 assert _build._lib is None, 'the kernel library must not load on the CPU path'
 assert (grouped_conv.conv1d_forward.launches, grouped_conv.conv1d_input_grad.launches,
         grouped_conv.conv1d_weight_grad.launches) == (0, 0, 0)
